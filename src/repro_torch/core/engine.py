@@ -1,0 +1,75 @@
+"""The CARMEN vector engine: one entry point for every matmul (port of
+``repro.core.engine``).
+
+Model code calls ``EngineContext.linear`` / ``linear_af``; the backend is
+resolved per call from the prepared leaf (or the context mode). Dispatch to
+a kernel goes by the tensor's device: a CUDA tensor launches the Hopper
+kernel, a CPU tensor runs its plain PyTorch version. There is no ``fused``
+switch: prepared kernel-mode dots always take the fused kernel.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from .backends import prepare_params, resolve
+from .backends.base import PreparedWeight
+from .fxp import FXP8
+from .precision_policy import LayerPrecision, PrecisionPolicy
+
+__all__ = ["EngineContext", "PreparedWeight", "prepare_params"]
+
+ATTN_IMPLS = ("xla", "decode_kernel")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineContext:
+    """Static engine configuration threaded through model code.
+
+    ``attn_impl``: ``"xla"`` runs the plain cache-attention chain (the
+    reference's XLA path, in torch ops); ``"decode_kernel"`` runs the GQA
+    cache-decode kernel (its plain version on CPU tensors).
+    """
+
+    mode: str = "exact"
+    policy: Optional[PrecisionPolicy] = None
+    compute_dtype: torch.dtype = torch.bfloat16
+    attn_impl: str = "xla"
+
+    def __post_init__(self):
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
+
+    def layer_precision(self, name: str) -> LayerPrecision:
+        policy = self.policy or PrecisionPolicy.accurate(FXP8)
+        return policy.for_layer(name)
+
+    def dot(self, x, w, *, name: str = ""):
+        return resolve(w, self.mode).dot(self, x, w, name=name)
+
+    def linear(self, x, w, b=None, *, name: str = ""):
+        out = self.dot(x, w, name=name)
+        if b is not None:
+            out = out + b.to(out.dtype)
+        return out
+
+    def activate(self, x, af: str):
+        """Standalone activation through the multi-AF block."""
+        if af == "identity":
+            return x
+        raise NotImplementedError(
+            f"standalone activation {af!r} needs the af_elementwise kernel, not yet ported"
+        )
+
+    def linear_af(self, x, w, b=None, *, af: str, name: str = ""):
+        """Linear followed by an activation, fused into one kernel pass when
+        the backend offers ``dot_af`` (kernel backend, prepared weights)."""
+        backend = resolve(w, self.mode)
+        dot_af = getattr(backend, "dot_af", None)
+        if b is None and dot_af is not None:
+            out = dot_af(self, x, w, af=af, name=name)
+            if out is not NotImplemented:
+                return out
+        return self.activate(self.linear(x, w, b, name=name), af)

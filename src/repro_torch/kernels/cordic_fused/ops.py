@@ -1,0 +1,147 @@
+"""Wrapper of the fused CORDIC dot+AF kernel (``csrc/cordic_fused.cu``).
+
+Replaces the TPU kernel ``repro/kernels/cordic_fused/kernel.py:fused_kernel``
+(``ops.fused_dot_af``). On an H100 it is bound by the weight bytes at decode
+(M = slots) and by integer multiply-adds at a prefill bucket; the kernel
+splits K across blocks when there are few output tiles so that enough blocks
+stream the weights, and needs no ``FUSE_MAX_K`` limit. See the source's
+header note.
+
+A CPU tensor runs the plain version (:func:`fused_dot_af_ref`); a CUDA tensor
+launches the kernel or raises. ``fused_dot_af.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.core import activations as afs
+from repro_torch.core import cordic
+from repro_torch.core.backends.kernel import POINT_LEN
+from repro_torch.core.fxp import FXP8, FxPFormat
+
+from .. import _build
+from .ref import fused_dot_af_ref
+
+FUSED_AFS = ("identity",) + afs.ELEMENTWISE_AFS
+AF_TAB_LEN = 80
+MAX_HYPERBOLIC_DEPTH = 32
+
+# (BM, BN, BK) of the kernel's three tile configurations, by M
+_CONFIGS = {0: (8, 128, 32), 1: (32, 128, 32), 2: (128, 128, 16)}
+# split-K aims at about two blocks per SM of an H100 (132 SMs)
+_TARGET_BLOCKS = 264
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(m: int, n: int, k: int):
+    """``(config, splits, k_per_split)`` for an (M, K) x (K, N) call."""
+    config = 0 if m <= 8 else (1 if m <= 32 else 2)
+    bm, bn, bk = _CONFIGS[config]
+    k_tiles = max(1, math.ceil(k / bk))
+    tiles = math.ceil(m / bm) * math.ceil(n / bn)
+    splits = max(1, min(k_tiles, math.ceil(_TARGET_BLOCKS / tiles)))
+    per = math.ceil(k_tiles / splits)
+    splits = math.ceil(k_tiles / per)
+    return config, splits, per * bk
+
+
+@functools.lru_cache(maxsize=None)
+def af_table(af_depth: int, af_fmt: FxPFormat) -> tuple:
+    """The int32 table the kernel's AF epilogue reads (layout in the .cu)."""
+    ifmt = afs.internal_fmt(af_fmt)
+    depth = afs.internal_depth(af_depth, af_fmt)
+    if depth > MAX_HYPERBOLIC_DEPTH:
+        raise ValueError(f"AF depth {depth} exceeds the kernel's {MAX_HYPERBOLIC_DEPTH}")
+    seq, atanh, inv_gain, _ = cordic.hyperbolic_tables(depth, ifmt.frac)
+    c = afs.af_constants(ifmt)
+    tab = [0] * AF_TAB_LEN
+    tab[0:10] = [depth, af_fmt.frac, af_fmt.qmin, af_fmt.qmax, ifmt.frac, ifmt.qmin, ifmt.qmax,
+                 inv_gain, cordic.hyperbolic_zmax(depth, ifmt.frac), cordic.ln2_raw(ifmt.frac)]
+    tab[10:15] = [c["gelu_cubic"], c["gelu_c"], c["half"], c["selu_lambda"], c["selu_alpha"]]
+    tab[16:16 + depth] = seq
+    tab[48:48 + depth] = atanh
+    return tuple(tab)
+
+
+_device_tables = {}
+
+
+def _af_table_on(device, af_depth: int, af_fmt: FxPFormat) -> torch.Tensor:
+    key = (str(device), af_depth, af_fmt)
+    if key not in _device_tables:
+        _device_tables[key] = torch.tensor(af_table(af_depth, af_fmt), dtype=torch.int32,
+                                           device=device)
+    return _device_tables[key]
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    lib = _build.library("cordic_fused")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.cordic_fused_launch.argtypes = [p, p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.cordic_fused_launch.restype = i
+    return lib
+
+
+def _launch(x2, w, point, mode: int, af_depth: int, af_fmt: FxPFormat, compute_round: bool):
+    dev = x2.device
+    if w.device != dev or point.device != dev:
+        raise ValueError(f"fused_dot_af: x on {dev}, w on {w.device}, point on {point.device}")
+    if w.dtype not in (torch.int8, torch.int16) or w.ndim != 2 or not w.is_contiguous():
+        raise ValueError(f"fused_dot_af: w must be contiguous 2-D int8/int16, got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    if point.dtype != torch.int32 or point.numel() != POINT_LEN or not point.is_contiguous():
+        raise ValueError("fused_dot_af: point must be a contiguous int32[5]")
+    m, k = x2.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return out
+    config, splits, k_per_split = plan(m, n, k)
+    ws = counts = None
+    if splits > 1:  # uint32 partial sums + per-tile arrival counts, zeroed
+        bm, bn, _ = _CONFIGS[config]
+        scratch = torch.zeros((m * n + math.ceil(m / bm) * math.ceil(n / bn),),
+                              dtype=torch.int32, device=dev)
+        ws, counts = scratch[: m * n], scratch[m * n:]
+    elem = w.element_size()
+    vec = int(n % (16 // elem) == 0 and w.data_ptr() % 16 == 0)
+    tab = _af_table_on(dev, af_depth, af_fmt)
+    with torch.cuda.device(dev):
+        status = _lib().cordic_fused_launch(
+            x2.data_ptr(), w.data_ptr(), elem, point.data_ptr(), tab.data_ptr(),
+            out.data_ptr(), ws.data_ptr() if ws is not None else None,
+            counts.data_ptr() if counts is not None else None,
+            m, n, k, config, splits, k_per_split, mode, int(compute_round), vec,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "cordic_fused_launch")
+    fused_dot_af.launches += 1
+    return out
+
+
+def fused_dot_af(x, w, point, *, af_mode: str = "identity", af_depth: int = 8,
+                 af_fmt: FxPFormat = FXP8, compute_round: bool = False):
+    """Fused prepared dot + activation: float ``(..., K)`` x int ``(K, N)`` -> f32 ``(..., N)``.
+
+    ``w`` holds the signed-digit weight integers (int8 / int16); ``point`` is
+    the int32[5] execution-point vector read by the kernel at run time.
+    """
+    if af_mode not in FUSED_AFS:
+        raise ValueError(f"af_mode must be one of {FUSED_AFS}, got {af_mode!r}")
+    if x.shape[-1] != w.shape[0]:
+        raise ValueError(f"contraction mismatch: x {tuple(x.shape)} vs w {tuple(w.shape)}")
+    if not x.is_cuda:
+        return fused_dot_af_ref(x, w, point, af_mode=af_mode, af_depth=af_depth,
+                                af_fmt=af_fmt, compute_round=compute_round)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous()
+    out = _launch(x2, w, point, FUSED_AFS.index(af_mode), int(af_depth), af_fmt,
+                  compute_round)
+    return out.reshape(*lead, w.shape[1])
+
+
+fused_dot_af.launches = 0

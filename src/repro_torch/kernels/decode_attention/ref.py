@@ -1,0 +1,26 @@
+"""Plain PyTorch version of the GQA cache-decode attention.
+
+It mirrors the reference's XLA cache chain (``repro/models/blocks.py``
+attention with a cache): einsum, mask at -1e30, softmax, cast to the cache
+dtype, einsum. K and V are repeated over the groups here, as the chain does.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def gqa_decode_attention_ref(q, ck, cv, positions, *, scale: float):
+    """q (B, S, H, hd) against caches ck/cv (B, T, KV, hd); positions (B, S).
+    Returns (B, S, H, hd) in the cache dtype."""
+    g = q.shape[2] // ck.shape[2]
+    t = ck.shape[1]
+    k_pos = torch.arange(t, device=q.device)
+    valid = k_pos[None, None, :] <= positions[:, :, None].to(k_pos.dtype)  # (B, S, T)
+    ckr = torch.repeat_interleave(ck, g, dim=2) if g > 1 else ck
+    cvr = torch.repeat_interleave(cv, g, dim=2) if g > 1 else cv
+    scores = torch.einsum("bqhd,bshd->bhqs", q.to(torch.float32), ckr.to(torch.float32))
+    scores = torch.where(valid[:, None], scores * scale, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqs,bshd->bqhd", probs.to(cvr.dtype), cvr)

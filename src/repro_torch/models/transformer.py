@@ -1,0 +1,116 @@
+"""Decoder-only LM, dense family (port of ``repro.models.transformer``).
+
+The reference's ``lax.scan`` over stacked layer parameters becomes a Python
+loop over layer views of the same stacked tensors. The KV cache is updated
+in place: ``decode_step`` writes each layer's rows and index into the cache
+it was given and returns that cache.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.backends.base import PreparedWeight
+from repro_torch.core.engine import EngineContext
+
+from . import blocks
+from .params import ParamSpec, stack_layers
+
+
+def _segments(cfg: ModelConfig):
+    """(kind, layer_count) segments; layer params stack within a segment."""
+    if cfg.family in ("dense", "vlm"):
+        return [("dense", cfg.num_layers)]
+    raise NotImplementedError(f"the {cfg.family!r} family is not yet ported")
+
+
+def _dense_layer_specs(cfg: ModelConfig):
+    return {
+        "attn_norm": blocks.norm_spec(cfg),
+        "attn": blocks.attention_specs(cfg),
+        "mlp_norm": blocks.norm_spec(cfg),
+        "mlp": blocks.mlp_specs(cfg),
+    }
+
+
+def decoder_specs(cfg: ModelConfig):
+    specs: Dict[str, Any] = {
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed")),
+        "final_norm": blocks.norm_spec(cfg),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+    for i, (kind, n) in enumerate(_segments(cfg)):
+        specs[f"seg{i}_{kind}"] = stack_layers(lambda: _dense_layer_specs(cfg), n)
+    return specs
+
+
+def layer_view(tree, i: int):
+    """Layer ``i`` of a stacked parameter tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: layer_view(v, i) for k, v in tree.items()}
+    if isinstance(tree, PreparedWeight):
+        return tree.layer(i)
+    return tree[i]
+
+
+def _dense_layer(p, h, cfg, ctx, positions, cache, name="layer"):
+    x = blocks.apply_norm(p["attn_norm"], h, cfg)
+    out, new_cache = blocks.attention(p["attn"], x, cfg, ctx, positions=positions,
+                                      name=f"{name}.attn", cache=cache)
+    h = h + out
+    x = blocks.apply_norm(p["mlp_norm"], h, cfg)
+    h = h + blocks.mlp(p["mlp"], x, cfg, ctx, name=f"{name}.mlp")
+    return h, new_cache
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, device=None):
+    """Per-segment KV caches stacked over layers: k, v (L, B, T, KV, hd) and
+    the per-row write index (L, B) int32."""
+    out = {}
+    for i, (kind, n) in enumerate(_segments(cfg)):
+        one = blocks.init_attn_cache(cfg, batch, max_len, dtype, device)
+        out[f"seg{i}_{kind}"] = {k: v.unsqueeze(0).repeat((n,) + (1,) * v.ndim)
+                                 for k, v in one.items()}
+    return out
+
+
+def _lm_head(params, h, cfg, ctx):
+    if cfg.tie_embeddings and "lm_head" not in params:
+        w = params["embed"].T
+    else:
+        w = params["lm_head"]
+    return ctx.linear(h, w, name="lm_head").to(torch.float32)
+
+
+def _cache_index(cache) -> torch.Tensor:
+    """Per-row decode positions (B,): layer 0 of the first stacked index."""
+    for seg in cache.values():
+        for v in seg.values():
+            if v.dtype == torch.int32 and v.ndim >= 2:
+                return v[0]
+    raise ValueError("cache carries no write index")
+
+
+def decode_step(params, tokens, cache, cfg: ModelConfig, ctx: EngineContext):
+    """Cached decode: tokens (B, S) + cache -> (logits (B, S, V), cache).
+
+    S = 1 is the one-token decode step; S > 1 writes a whole block (bucketed
+    prefill). The cache is updated in place and returned.
+    """
+    h = params["embed"][tokens].to(cfg.compute_dtype)
+    index = _cache_index(cache)
+    positions = index[:, None] + torch.arange(tokens.shape[1], dtype=torch.int32,
+                                              device=tokens.device)[None, :]
+    for i, (kind, n) in enumerate(_segments(cfg)):
+        key = f"seg{i}_{kind}"
+        seg_p, seg_c = params[key], cache[key]
+        for layer in range(n):
+            p = layer_view(seg_p, layer)
+            c = {"k": seg_c["k"][layer], "v": seg_c["v"][layer], "index": seg_c["index"][layer]}
+            h, new_c = _dense_layer(p, h, cfg, ctx, positions, c)
+            seg_c["index"][layer] = new_c["index"]
+    h = blocks.apply_norm(params["final_norm"], h, cfg)
+    return _lm_head(params, h, cfg, ctx), cache

@@ -1,0 +1,76 @@
+"""The PyTorch port stands alone: it imports no JAX and nothing of ``repro``,
+and its entry points never fall back to the CPU without being asked."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules():
+    return sorted(
+        ".".join(("repro_torch",) + p.relative_to(PORT).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in PORT.rglob("*.py")
+    )
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = _modules()
+    assert "repro_torch.serve.engine" in mods and len(mods) > 20
+    code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+            "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.')) "
+            "for k, v in sys.modules.items() if v is not None)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import_statements(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{path}:{node.lineno} imports {name}"
+
+
+def test_server_without_device_raises_when_no_card(monkeypatch):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import EngineContext
+    from repro_torch.models import get_model
+    from repro_torch.serve import BatchedServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = get_model(reduced(get_config("olmo-1b")))
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedServer(model, EngineContext(mode="kernel"), params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedServer(model, EngineContext(mode="kernel"), params, device="cuda")
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True,
+                         text=True, timeout=120, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout

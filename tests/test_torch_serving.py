@@ -1,0 +1,159 @@
+"""PyTorch port: reduced olmo-1b (2 layers, d_model 128) against the reference,
+prepared kernel mode, ``attn_impl="decode_kernel"``, on the CPU.
+
+Both packages get the same weights, drawn with numpy: layer matrices
+N(0, 0.1^2) so that the layers, not the tied embedding, pick the tokens
+(at the init scale of 0.02 every stream just repeats its last prompt token).
+Logits agree to f32 reduction-order tolerance (norms, RoPE and the attention
+softmax sum in another order); greedy streams must be identical.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as ref_get_config  # noqa: E402
+from repro.configs import reduced as ref_reduced  # noqa: E402
+from repro.core import EngineContext as JCtx, PrecisionPolicy as JPolicy  # noqa: E402
+from repro.core.backends import prepare_params as jax_prepare  # noqa: E402
+from repro.models import blocks as jax_blocks  # noqa: E402
+from repro.models import get_model as ref_get_model  # noqa: E402
+from repro.serve.engine import BatchedServer as JServer, Request as JRequest  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core import EngineContext, PrecisionPolicy  # noqa: E402
+from repro_torch.core.backends import prepare_params  # noqa: E402
+from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models.blocks import cache_row_write  # noqa: E402
+from repro_torch.serve import BatchedServer, Request, cache_positions  # noqa: E402
+
+LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
+PROMPTS = (3, 7, 12, 5)
+MAX_NEW = 8
+
+
+def _numpy_params(tree, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def make(path, leaf):
+        scale = 0.02 if path[0].key == "embed" else 0.1
+        return (rng.standard_normal(leaf.shape) * scale).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(make, tree)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    ref_model = ref_get_model(ref_reduced(ref_get_config("olmo-1b")))
+    np_params = _numpy_params(jax.tree.map(np.asarray, ref_model.init(jax.random.PRNGKey(0))))
+    model = get_model(reduced(get_config("olmo-1b")))
+    jctx = JCtx(mode="kernel", policy=JPolicy.accurate(), compute_dtype=jnp.float32,
+                attn_impl="decode_kernel")
+    ctx = EngineContext(mode="kernel", policy=PrecisionPolicy.accurate(),
+                        compute_dtype=torch.float32, attn_impl="decode_kernel")
+    return ref_model, np_params, model, jctx, ctx
+
+
+def _prompts(lens=PROMPTS, seed=1):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, n).astype(np.int32) for n in lens]
+
+
+@pytest.fixture(scope="module")
+def ref_streams(setup):
+    ref_model, np_params, _, jctx, _ = setup
+    params = jax.tree.map(jnp.asarray, np_params)
+    server = JServer(ref_model, jctx, params, slots=2, max_len=32, burst=8)
+    return server.run([JRequest(i, p, MAX_NEW) for i, p in enumerate(_prompts())])
+
+
+@pytest.mark.parametrize("s", [1, 6], ids=["decode", "block"])
+def test_decode_step_logits_match_reference(setup, s):
+    ref_model, np_params, model, jctx, ctx = setup
+    rng = np.random.default_rng(s)
+    tokens = rng.integers(0, 256, (2, s)).astype(np.int32)
+    index = np.array([0, 5], np.int32)
+
+    jparams = jax_prepare(jax.tree.map(jnp.asarray, np_params), jctx.policy, "kernel",
+                          specs=ref_model.specs())
+    jcache = ref_model.make_cache(2, 16, dtype=jnp.float32)
+    jcache = jax.tree.map(
+        lambda a: jnp.broadcast_to(index, a.shape).astype(a.dtype) if a.dtype == jnp.int32
+        else a, jcache)
+    want, jcache = ref_model.decode_step(jparams, jnp.asarray(tokens), jcache, jctx)
+
+    tparams = prepare_params(model.load_numpy(np_params, "cpu"), ctx.policy, "kernel",
+                             specs=model.specs())
+    cache = model.make_cache(2, 16, device="cpu")
+    cache["seg0_dense"]["index"].copy_(torch.from_numpy(index).expand(2, 2))
+    with torch.no_grad():
+        got, cache = model.decode_step(tparams, torch.from_numpy(tokens), cache, ctx)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+    np.testing.assert_array_equal(got.numpy().argmax(-1), np.asarray(want).argmax(-1))
+    np.testing.assert_allclose(cache["seg0_dense"]["k"].numpy(),
+                               np.asarray(jcache["seg0_dense"]["k"]), **LOGIT_TOL)
+    np.testing.assert_array_equal(cache["seg0_dense"]["index"].numpy(),
+                                  np.asarray(jcache["seg0_dense"]["index"]))
+
+
+@pytest.mark.parametrize("burst", [1, 8])
+def test_greedy_streams_identical_to_reference(setup, ref_streams, burst):
+    _, np_params, model, _, ctx = setup
+    server = BatchedServer(model, ctx, model.load_numpy(np_params, "cpu"), slots=2, max_len=32,
+                           burst=burst, device="cpu")
+    got = server.run([Request(i, p, MAX_NEW) for i, p in enumerate(_prompts())])
+    assert got == ref_streams
+    assert len({tuple(v) for v in got.values()}) == len(PROMPTS)
+    assert any(len(set(v)) > 2 for v in got.values())  # not a repeated-token stream
+    assert server.host_transfers == len(PROMPTS) + server.decode_steps // burst
+
+
+def test_free_slot_index_runs_past_max_len(setup):
+    """Free slots keep decoding every burst; their index passes max_len and
+    the KV write clamps as ``dynamic_update_slice`` does, in both packages."""
+    ref_model, np_params, model, jctx, ctx = setup
+    reqs = [(2, 14), (2, 14), (3, 13)]
+    prompts = _prompts([p for p, _ in reqs], seed=4)
+    want = JServer(ref_model, jctx, jax.tree.map(jnp.asarray, np_params), slots=2, max_len=16,
+                   burst=8).run([JRequest(i, p, n) for i, (p, (_, n)) in
+                                 enumerate(zip(prompts, reqs))])
+    server = BatchedServer(model, ctx, model.load_numpy(np_params, "cpu"), slots=2,
+                           max_len=16, burst=8, device="cpu")
+    got = server.run([Request(i, p, n) for i, (p, (_, n)) in enumerate(zip(prompts, reqs))])
+    assert got == want
+    assert int(cache_positions(server.cache).max()) > server.max_len
+
+
+def test_cache_row_write_clamps_like_dynamic_update_slice():
+    rng = np.random.default_rng(9)
+    c = rng.standard_normal((3, 8, 2, 4)).astype(np.float32)
+    x = rng.standard_normal((3, 3, 2, 4)).astype(np.float32)
+    i = np.array([2, 6, 40], np.int32)
+    want = jax_blocks.cache_row_write(jnp.asarray(c), jnp.asarray(x), jnp.asarray(i))
+    got = cache_row_write(torch.from_numpy(c.copy()), torch.from_numpy(x), torch.from_numpy(i))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_request_validation(setup):
+    _, np_params, model, _, ctx = setup
+    server = BatchedServer(model, ctx, model.load_numpy(np_params, "cpu"), slots=1,
+                           max_len=16, burst=4, device="cpu")
+    with pytest.raises(ValueError, match="empty prompt"):
+        server.run([Request(0, np.zeros((0,), np.int32), 4)])
+    with pytest.raises(ValueError, match="exceeds max_len"):
+        server.run([Request(0, np.ones((10,), np.int32), 8)])
+    with pytest.raises(NotImplementedError, match="sampled"):
+        server.run([Request(0, np.ones((3,), np.int32), 4, temperature=0.7)])
+    with pytest.raises(ValueError, match="burst"):
+        BatchedServer(model, ctx, {}, burst=0, device="cpu")
+
+
+def test_serving_cli_runs_on_cpu(capsys):
+    from repro_torch.launch.serve import main
+
+    out = main(["--reduced", "--requests", "3", "--slots", "2", "--max-new", "4",
+                "--burst", "2", "--device", "cpu"])
+    assert sorted(out) == [0, 1, 2] and all(len(v) == 4 for v in out.values())
+    assert "host round-trips" in capsys.readouterr().out

@@ -3,20 +3,26 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA kernels from the checkout's sources, then:
+Builds every CUDA kernel library from the checkout's sources (the fused
+CORDIC dot+AF, the GQA and MLA cache-decode attentions, the standalone
+multi-AF block), then:
 
 1. prints the device, the toolchain and each kernel's registers and shared
    memory (``nvcc -Xptxas -v``);
 2. holds each kernel against its plain PyTorch version on the card at the
-   serving path's full-width olmo-1b shapes — the fused CORDIC dot+AF must be
-   bitwise equal, the GQA decode attention within its stated tolerance — and
-   times kernel, plain version, a library yardstick and the roofline bound;
+   serving paths' full-width shapes (olmo-1b and deepseek-v3) — the fused
+   CORDIC dot+AF and the multi-AF block must be bitwise equal, the two
+   decode attentions within their stated tolerance — and times kernel,
+   plain version, a library yardstick and the roofline bound;
 3. serves full-width olmo-1b (16 layers, ``dtype="float32"``, seeded random
-   weights) through ``BatchedServer`` in prepared kernel mode, checks both
-   kernels' launch counts against what the shapes imply, and checks that a
-   repeat run and a ``burst=1`` run give identical greedy streams;
+   weights) through ``BatchedServer`` in prepared kernel mode, checks the
+   launch counts of its kernels against what the shapes imply, and checks
+   that a repeat run and a ``burst=1`` run give identical greedy streams;
 4. serves the same widths at 2 layers on the card and on the CPU (plain
-   versions) with the same weights, and checks the streams are identical.
+   versions) with the same weights, and checks the streams are identical;
+5. and 6. do the same for full-width deepseek-v3 (MLA + MoE) cut to 4
+   layers (the 3 dense-prefix layers and 1 MoE layer: the routed experts
+   alone take 45 GB in f32), and for reduced deepseek-v3 card vs CPU.
 
 It imports nothing of JAX. It exits non-zero on any failure, and when no CUDA
 device is present. A full JSON report goes to ``chiprun_out/chip_smoke.json``.
@@ -25,6 +31,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -35,16 +42,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 tensor ops/s,
-# f32 CUDA-core flop/s
+# f32 CUDA-core flop/s. int32 operations/s: 64 int32 lanes per SM (half the
+# 128 f32 lanes, no fused multiply-add) x 132 SMs at the 1.98 GHz that gives
+# the f32 figure.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 F32_FLOPS_PER_S = 67e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 SLOTS, MAX_LEN, BURST, BUCKET = 4, 512, 8, 512
 PROMPT_LENS = (3, 17, 60, 130, 300, 9)
 MAX_NEW = 32
 SEED = 0
-FUSED_SHAPES = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 50304))  # (K, N)
+# (K, N) of every fused dot on the olmo-1b path
+FUSED_SHAPES = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 50304))
+# the deepseek-v3 path's new ones: kv_a (N = 576, not a multiple of the
+# 128-wide tile), o (K = 16384), q_b (N = 24576), dense down (K = 18432),
+# lm_head (N = 129280)
+DEEPSEEK_FUSED_SHAPES = ((7168, 576), (16384, 7168), (1536, 24576), (18432, 7168),
+                         (7168, 129280))
+DEEPSEEK_LAYERS = 4  # the stock 3 dense-prefix layers and 1 MoE layer
 
 
 def log(msg: str) -> None:
@@ -103,9 +120,14 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# name fragments of library matmul / attention kernels, none of which the
-# port's serving path may launch
-LIBRARY_KERNELS = ("gemm", "cublas", "cutlass", "fmha", "flash", "attention_kernel", "sdpa")
+# name fragments of library matmul / attention kernels. No serving path may
+# launch a library attention kernel; library matmuls are allowed only for the
+# plain products the reference leaves to XLA (see serve_full_width).
+GEMM_KERNELS = ("gemm", "cublas", "cutlass")
+ATTENTION_KERNELS = ("fmha", "flash", "attention_kernel", "sdpa")
+# cuBLAS launches per plain product allowed: the GEMM and at most one split-K
+# reduction
+CUBLAS_LAUNCHES_PER_PRODUCT = 2
 
 
 def kernel_breakdown(prof):
@@ -125,9 +147,10 @@ def kernel_breakdown(prof):
     return sorted(rows, reverse=True)
 
 
-def library_kernels(rows) -> list:
-    """The names in a breakdown that belong to library matmul/attention kernels."""
-    return [k for _, k, _ in rows if any(f in k.lower() for f in LIBRARY_KERNELS)]
+def library_kernels(rows, fragments) -> list:
+    """``(name, calls)`` of the kernels in a breakdown whose names hold one of
+    ``fragments`` (``GEMM_KERNELS`` or ``ATTENTION_KERNELS``)."""
+    return [(k, n) for _, k, n in rows if any(f in k.lower() for f in fragments)]
 
 
 def nvidia_smi() -> str:
@@ -166,7 +189,9 @@ def check_fused(device):
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     rows, max_err = [], 0.0
-    for k, n in FUSED_SHAPES:
+    shapes = ([("olmo-1b", kn) for kn in FUSED_SHAPES]
+              + [("deepseek-v3-671b", kn) for kn in DEEPSEEK_FUSED_SHAPES])
+    for model_name, (k, n) in shapes:
         banks = prepared_weight(k, n, FXP8, gen, device,
                                 copies=max(1, min(48, math.ceil(3e8 / (k * n)))))
         for m in (SLOTS, BUCKET):
@@ -198,11 +223,11 @@ def check_fused(device):
                         xq, banks[next(it) % len(banks)].data), iters)
                 b_ms, b_by = bound(m * k * 4 + k * n + m * n * 4 + 20, 2.0 * m * n * k,
                                    INT8_OPS_PER_S)
-                rows.append(dict(M=m, K=k, N=n, af=af, fmt="fxp8", bitwise_equal=True,
-                                 max_abs_err=err, ms=ms, eager_ms=eager_ms,
+                rows.append(dict(model=model_name, M=m, K=k, N=n, af=af, fmt="fxp8",
+                                 bitwise_equal=True, max_abs_err=err, ms=ms, eager_ms=eager_ms,
                                  plain_ms=plain_ms, int_mm_ms=lib_ms, bound_ms=b_ms,
                                  bound_by=b_by))
-                log(f"fused M={m} K={k} N={n} {af}: {ms:.4f} ms (eager {eager_ms:.4f}, "
+                log(f"fused {model_name} M={m} K={k} N={n} {af}: {ms:.4f} ms (eager {eager_ms:.4f}, "
                     f"plain {plain_ms:.3f}, int_mm {lib_ms}, bound {b_ms:.4f} {b_by})")
     # every AF mode, both formats, compute_round, at one shape
     m, k, n = SLOTS, 2048, 2048
@@ -284,6 +309,130 @@ def check_attention(device):
     return rows, max_err
 
 
+def check_mla(device):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (
+        TOLERANCE, mla_decode_attention, mla_decode_attention_ref)
+
+    m = get_config("deepseek-v3-671b").mla
+    h, r, rd = get_config("deepseek-v3-671b").num_heads, m.kv_lora_rank, m.qk_rope_head_dim
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + rd)
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    cases = [(SLOTS, 1, MAX_LEN, h), (1, BUCKET, MAX_LEN, h), (3, 5, 100, 7)]  # (B, S, T, H)
+    rows, max_err = [], 0.0
+    for b, s, t, hh in cases:
+        ql = torch.randn((b, s, hh, r), generator=gen, device=device)
+        qr = torch.randn((b, s, hh, rd), generator=gen, device=device)
+        ck = torch.randn((b, t, r), generator=gen, device=device)
+        kr = torch.randn((b, t, rd), generator=gen, device=device)
+        if s == 1:
+            pos = torch.full((b, 1), t - 1, dtype=torch.int32, device=device)
+        else:
+            start = torch.randint(0, t - s + 1, (b, 1), generator=gen, device=device)
+            pos = (start + torch.arange(s, device=device)[None]).to(torch.int32)
+        args = (ql, qr, ck, kr, pos)
+        got = mla_decode_attention(*args, scale=scale)
+        want = mla_decode_attention_ref(*args, scale=scale)
+        err = (got - want).abs().max().item()
+        if not err <= TOLERANCE:
+            raise AssertionError(f"mla_decode_attention vs plain: max|diff| {err} > {TOLERANCE} "
+                                 f"at B={b} S={s} T={t} H={hh}")
+        max_err = max(max_err, err)
+        call = lambda: mla_decode_attention(*args, scale=scale)  # noqa: E731
+        ms = graph_ms(call, 20 if s > 1 else 100)
+        eager_ms = timed_ms(call, 20)
+        plain_ms = timed_ms(lambda: mla_decode_attention_ref(*args, scale=scale), iters=5)
+        # yardstick: SDPA on the concatenation form, the latent K/V shared by
+        # every head: q_cat = [q_lat, q_rope], k_cat = [c_kv, k_rope], v = c_kv
+        q_cat = torch.cat([ql, qr], -1).transpose(1, 2).contiguous()
+        k_cat = torch.cat([ck, kr], -1)[:, None]
+        v = ck[:, None]
+        mask = (torch.arange(t, device=device)[None, None, :] <= pos[:, :, None])[:, None]
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            q_cat, k_cat, v, attn_mask=mask, scale=scale, enable_gqa=True), 20)
+        # what this run's positions need: each batch row's latent rows up to
+        # its last query position; each query row's keys up to its own
+        rows_needed = (pos.max(dim=1).values + 1).clamp(max=t).sum().item()
+        keys = (pos.long() + 1).clamp(max=t).sum().item()
+        flops = 2.0 * hh * keys * ((r + rd) + r)
+        nbytes = rows_needed * (r + rd) * 4 + (ql.numel() + qr.numel() + got.numel()) * 4
+        b_ms, b_by = bound(nbytes + pos.numel() * 4, flops, F32_FLOPS_PER_S)
+        rows.append(dict(B=b, S=s, T=t, H=hh, R=r, r=rd, tolerance=TOLERANCE, max_abs_err=err,
+                         ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, sdpa_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+        log(f"mla B={b} S={s} T={t} H={hh}: {ms:.4f} ms (eager {eager_ms:.4f}, plain "
+            f"{plain_ms:.3f}, sdpa {lib_ms:.4f}, bound {b_ms:.4f} {b_by}) err {err:.2e}")
+    return rows, max_err
+
+
+def af_int_ops(mode: str, depth: int) -> int:
+    """int32 operations per element of the multi-AF block at internal depth
+    ``depth``, counted from its CORDIC loops: a hyperbolic (exp) iteration is
+    2 shifts, 3 adds and a select, a linear divide iteration 2 shifts, 2 adds
+    and 2 compares, a linear multiply iteration 2 shifts, 2 adds and a
+    compare; the quantize/requantize/dequantize chain and each loop's setup
+    about a dozen more."""
+    exp = 6 * depth + 12
+    div, mul = 6 * depth, 5 * depth
+    chain = 12
+    sigmoid = exp + div + 4
+    per_mode = {
+        "relu": 1,
+        "tanh": exp + div + 6,
+        "sigmoid": sigmoid,
+        "swish": sigmoid + mul + 2,
+        "gelu": 5 * mul + exp + div + 12,
+        "selu": exp + 2 * mul + 4,
+    }
+    return chain + per_mode[mode]
+
+
+def check_af(device):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import FXP8, FXP16
+    from repro_torch.core.activations import internal_depth
+    from repro_torch.core.cordic import full_depth
+    from repro_torch.kernels.cordic_af import ELEMENTWISE_AFS, multi_af, multi_af_ref
+
+    moe = get_config("deepseek-v3-671b").moe
+    e, k, f = moe.num_experts, moe.top_k, moe.d_ff_expert
+    prefill_c = max(k, math.ceil(BUCKET * k / e * moe.capacity_factor))
+    # the routed experts' gate (B, E, C, F): dropless decode has C = top_k
+    shapes = {"decode": (SLOTS, e, k, f), "prefill": (1, e, prefill_c, f)}
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    rows = []
+    for where, shape in shapes.items():
+        x = torch.randn(shape, generator=gen, device=device) * 2.0
+        n = x.numel()
+        for fmt in (FXP8, FXP16):
+            depth = full_depth(fmt)
+            for mode in ELEMENTWISE_AFS:
+                got = multi_af(x, mode, depth=depth, fmt=fmt)
+                want = multi_af_ref(x, mode, depth=depth, fmt=fmt)
+                if not torch.equal(got, want):
+                    bad = (got != want).sum().item()
+                    raise AssertionError(f"af_elementwise != plain: {where} {fmt} {mode}: "
+                                         f"{bad} elements differ")
+                call = lambda: multi_af(x, mode, depth=depth, fmt=fmt)  # noqa: E731
+                ms = graph_ms(call, 20)
+                plain_ms = timed_ms(lambda: multi_af_ref(x, mode, depth=depth, fmt=fmt),
+                                    iters=3, warmup=1)
+                ops = af_int_ops(mode, internal_depth(depth, fmt))
+                b_ms, b_by = bound(8.0 * n, float(ops) * n, INT32_OPS_PER_S)
+                rows.append(dict(where=where, shape=list(shape), fmt=str(fmt), depth=depth,
+                                 mode=mode, bitwise_equal=True, max_abs_err=0.0, ms=ms,
+                                 plain_ms=plain_ms, int_ops_per_element=ops, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=None))
+                log(f"af {where} {shape} {fmt} {mode}: {ms:.4f} ms (plain {plain_ms:.3f}, "
+                    f"bound {b_ms:.4f} {b_by})")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: serving
 # ---------------------------------------------------------------------------
@@ -294,6 +443,18 @@ def olmo(layers=None):
 
     cfg = dataclasses.replace(get_config("olmo-1b"), dtype="float32")
     return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def deepseek():
+    """Full-width deepseek-v3 at 4 layers, f32 (the stock bf16 config does
+    not trace with an f32 context in the reference). At the repo's random
+    init, N(0, 0.02^2), its greedy streams settle on one token, so the
+    serving checks also hold the f32 top-2 logit margins bit for bit, and
+    the reduced card-vs-CPU phase serves varied streams."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("deepseek-v3-671b"), dtype="float32",
+                               num_layers=DEEPSEEK_LAYERS)
 
 
 def kernel_ctx():
@@ -315,111 +476,211 @@ def requests(cfg, lens=None, max_new=None):
                     max_new or MAX_NEW) for i, n in enumerate(lens or PROMPT_LENS)]
 
 
-def serve_full_width(device):
+def margins(reqs) -> list:
+    """Each request's top-2 logit margins, in request order."""
+    return [r.margins for r in reqs]
+
+
+def path_kernels():
+    """name -> wrapper of every kernel a serving path may launch."""
+    from repro_torch.kernels.cordic_af import multi_af
+    from repro_torch.kernels.cordic_fused import fused_dot_af
+    from repro_torch.kernels.decode_attention import gqa_decode_attention, mla_decode_attention
+
+    return {"fused_dot_af": fused_dot_af, "gqa_decode_attention": gqa_decode_attention,
+            "mla_decode_attention": mla_decode_attention, "af_elementwise": multi_af}
+
+
+def launches_per_forward(cfg) -> dict:
+    """Kernel launches one forward of ``cfg`` implies, by kernel."""
+    if cfg.moe is None:  # dense GQA: q k v o up gate down per layer, and lm_head
+        return {"fused_dot_af": 7 * cfg.num_layers + 1,
+                "gqa_decode_attention": cfg.num_layers}
+    dense = cfg.moe.first_dense_layers
+    moe_layers = cfg.num_layers - dense
+    # MLA: q_a q_b kv_a o; dense MLP and shared expert: up gate down
+    fused = 7 * dense + (4 + 3 * bool(cfg.moe.num_shared_experts)) * moe_layers + 1
+    return {"fused_dot_af": fused, "mla_decode_attention": cfg.num_layers,
+            "af_elementwise": moe_layers}
+
+
+def plain_products_per_forward(cfg) -> int:
+    """Products the reference leaves to XLA outside any kernel, which the port
+    leaves to torch.einsum: MLA's wk_b/wv_b absorptions, the MoE router and
+    its three expert einsums."""
+    if cfg.moe is None:
+        return 0
+    return 2 * cfg.num_layers * bool(cfg.mla) + 4 * (cfg.num_layers - cfg.moe.first_dense_layers)
+
+
+def serve_full_width(device, label, cfg):
+    """Serve ``cfg`` at full width on the card: the main path with launch
+    counts, a profiled repeat, and a burst=1 run on the same prepared tree."""
     import torch
 
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.cordic_fused import fused_dot_af
-    from repro_torch.kernels.decode_attention import gqa_decode_attention
     from repro_torch.models import get_model
     from repro_torch.serve.engine import BatchedServer
 
-    cfg = olmo()
     model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
     params = model.init(torch.Generator(device=device).manual_seed(SEED))
     server = BatchedServer(model, kernel_ctx(), params, slots=SLOTS, max_len=MAX_LEN,
                            burst=BURST, device=device)
+    del params  # the raw banks the prepared tree replaced
     torch.cuda.synchronize()
+    setup_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
 
-    # the main path: counts zeroed just before, read just after
-    fused_dot_af.launches = 0
-    gqa_decode_attention.launches = 0
+    per_forward = launches_per_forward(cfg)
+    # the main path: counts zeroed just before, read just after; a kernel of
+    # the path must launch exactly as the shapes imply (so at least once), any
+    # other kernel never
+    for w in path_kernels().values():
+        w.launches = 0
     t0 = time.perf_counter()
-    first = server.run(requests(cfg))
+    first_reqs = requests(cfg)
+    first = server.run(first_reqs)
     wall = time.perf_counter() - t0
-    launches = {"fused_dot_af": fused_dot_af.launches,
-                "gqa_decode_attention": gqa_decode_attention.launches}
+    launches = {name: w.launches for name, w in path_kernels().items()}
     forwards = server.prefill_calls + server.decode_steps
-    per_forward = {"fused_dot_af": 7 * cfg.num_layers + 1, "gqa_decode_attention": cfg.num_layers}
     for name, count in launches.items():
-        want = per_forward[name] * forwards
-        if count == 0 or count != want:
-            raise AssertionError(f"{name}: {count} launches on the main path, shapes imply {want}")
+        want = per_forward.get(name, 0) * forwards
+        if count != want:
+            raise AssertionError(f"{label}: {name}: {count} launches on the main path, "
+                                 f"shapes imply {want}")
     tokens = sum(len(v) for v in first.values())
     report = dict(
-        config="olmo-1b full width, 16 layers, dtype float32, kernel mode, FxP8 accurate, "
-               "attn_impl=decode_kernel",
+        config=f"{label} full width, {cfg.num_layers} layers, dtype float32, kernel mode, "
+               "FxP8 accurate, attn_impl=decode_kernel",
         slots=SLOTS, max_len=MAX_LEN, burst=BURST, prompt_lens=list(PROMPT_LENS),
         max_new=MAX_NEW, tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
         prefill_s=server.prefill_seconds, decode_s=server.decode_seconds,
         prefill_calls=server.prefill_calls, decode_steps=server.decode_steps,
         decode_ms_per_step=server.decode_seconds / max(server.decode_steps, 1) * 1e3,
         host_transfers=server.host_transfers,
+        setup_peak_mem_gib=setup_peak / 2**30,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-        launches=launches, launches_per_forward=per_forward,
+        launches={name: launches[name] for name in per_forward},
+        launches_per_forward=per_forward,
     )
     for name, tok in first.items():
         if len(tok) != MAX_NEW:
-            raise AssertionError(f"request {name} produced {len(tok)} tokens")
+            raise AssertionError(f"{label}: request {name} produced {len(tok)} tokens")
     # the repeat run, under the profiler: what ran on the card
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        again = server.run(requests(cfg))
+        again_reqs = requests(cfg)
+        again = server.run(again_reqs)
         torch.cuda.synchronize()
         profiled_wall = time.perf_counter() - t0
-    if again != first:
-        raise AssertionError("full-width greedy streams differ between two runs")
+    if again != first or margins(again_reqs) != margins(first_reqs):
+        raise AssertionError(f"{label}: full-width greedy streams or their top-2 logit "
+                             "margins differ between two runs")
     rows = kernel_breakdown(prof)
-    foreign = library_kernels(rows)
-    if foreign:
-        raise AssertionError(f"library matmul/attention kernels ran on the main path: {foreign}")
+    attention = library_kernels(rows, ATTENTION_KERNELS)
+    if attention:
+        raise AssertionError(f"{label}: library attention kernels ran on the main path: "
+                             f"{attention}")
+    gemm = library_kernels(rows, GEMM_KERNELS)
+    gemm_calls = sum(n for _, n in gemm)
+    allowed = CUBLAS_LAUNCHES_PER_PRODUCT * plain_products_per_forward(cfg) * forwards
+    if gemm_calls > allowed:
+        raise AssertionError(f"{label}: {gemm_calls} library matmul launches, the plain "
+                             f"products allow {allowed}: {gemm}")
     busy_ms = sum(r[0] for r in rows) / 1e3
     report["profiled_repeat"] = dict(
         wall_ms=profiled_wall * 1e3, device_busy_ms=busy_ms,
         device_busy_share=busy_ms / (profiled_wall * 1e3),
         device_launches_per_forward=sum(r[2] for r in rows) / forwards,
-        library_kernels=foreign,
+        library_matmul_launches_per_forward=gemm_calls / forwards,
+        library_matmul_launches_allowed_per_forward=allowed / forwards,
+        library_kernels=[dict(name=k[:100], calls=n) for k, n in gemm],
         top_kernels=[dict(name=k[:100], device_ms=us / 1e3, calls=n)
                      for us, k, n in rows[:12]])
-    one = BatchedServer(model, kernel_ctx(), params, slots=SLOTS, max_len=MAX_LEN, burst=1,
-                        device=device).run(requests(cfg))
-    if one != first:
-        raise AssertionError("full-width greedy streams differ between burst=8 and burst=1")
-    report["repeat_identical"] = True
+    # burst=1 on the same prepared tree
+    one_reqs = requests(cfg)
+    one = BatchedServer(model, kernel_ctx(), server.params, slots=SLOTS, max_len=MAX_LEN,
+                        burst=1, device=device).run(one_reqs)
+    if one != first or margins(one_reqs) != margins(first_reqs):
+        raise AssertionError(f"{label}: full-width greedy streams or their top-2 logit "
+                             "margins differ between burst=8 and burst=1")
+    report["repeat_identical"] = True  # tokens and f32 margins, bit for bit
     report["burst1_identical"] = True
+    report["distinct_tokens"] = len({t for toks in first.values() for t in toks})
     report["streams_head"] = {rid: toks[:8] for rid, toks in first.items()}
+    report["margins_head"] = {r.rid: r.margins[:4] for r in first_reqs}
     return report
 
 
-def card_vs_cpu(device):
+def card_vs_cpu(device, label, cfg, params, lens, max_len):
+    """The same weights served on the card (kernels) and the CPU (plain
+    versions); the greedy streams must be identical."""
     import torch
 
     from repro_torch.models import get_model
     from repro_torch.serve.engine import BatchedServer
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = olmo(layers=2)
     model = get_model(cfg)
-    params = model.init(torch.Generator(device="cpu").manual_seed(SEED))
-    reqs = lambda: requests(cfg, lens=(5, 11), max_new=8)  # noqa: E731
+    reqs = lambda: requests(cfg, lens=lens, max_new=8)  # noqa: E731
     out, logits = {}, {}
     for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
-        server = BatchedServer(model, kernel_ctx(), params, slots=2, max_len=64, burst=4,
+        server = BatchedServer(model, kernel_ctx(), params, slots=2, max_len=max_len, burst=4,
                                device=dev)
         out[where] = server.run(reqs())
         prompt = torch.as_tensor(reqs()[1].prompt[None], device=dev)
-        row = model.make_cache(1, 64, device=dev)
+        row = model.make_cache(1, max_len, device=dev)
         with torch.no_grad():
             lg, _ = model.decode_step(server.params, prompt, row, server.ctx)
         logits[where] = lg.cpu()
     if out["card"] != out["cpu"]:
-        raise AssertionError(f"2-layer streams differ card vs CPU: {out}")
+        raise AssertionError(f"{label}: streams differ card vs CPU: {out}")
     diff = (logits["card"] - logits["cpu"]).abs().max().item()
-    return dict(layers=2, streams_identical=True, prefill_logits_max_abs_diff=diff,
-                streams=out["card"])
+    return dict(config=label, layers=cfg.num_layers, d_model=cfg.d_model, prompt_lens=list(lens),
+                streams_identical=True, prefill_logits_max_abs_diff=diff, streams=out["card"])
+
+
+def olmo_card_vs_cpu(device):
+    import torch
+
+    from repro_torch.models import get_model
+
+    cfg = olmo(layers=2)
+    params = get_model(cfg).init(torch.Generator(device="cpu").manual_seed(SEED))
+    return card_vs_cpu(device, "olmo-1b full width, 2 layers", cfg, params, (5, 11), 64)
+
+
+def deepseek_card_vs_cpu(device):
+    """Reduced deepseek-v3 (4 layers: 1 dense prefix, 3 MoE; d_model 128, 4
+    experts): a full-width MoE layer is 45 GB and ~722 GFLOP per step on the
+    host. Layer weights are scaled to N(0, 0.1^2), as in the CPU parity tests,
+    so that the routing is not degenerate. The 70-token prompt's 96-row
+    bucket is past the dropless widening (s > 64)."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+    from repro_torch.models.params import spec_leaves
+
+    cfg = reduced(get_config("deepseek-v3-671b"), layers=4)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device="cpu").manual_seed(SEED))
+    for path, spec in spec_leaves(model.specs()):
+        if spec.init == "normal" and path[0] != "embed":
+            leaf = params
+            for key in path:
+                leaf = leaf[key]
+            leaf.mul_(0.1 / spec.scale)
+    return card_vs_cpu(device, "deepseek-v3-671b reduced, 4 layers", cfg, params,
+                       (5, 11, 70), 96)
+
+
+def free_card():
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -446,36 +707,55 @@ def main() -> int:
 
     fused_rows, fused_err = check_fused(device)
     attn_rows, attn_err = check_attention(device)
-    emit({"kernel_checks": {"fused_dot_af": fused_rows, "gqa_decode_attention": attn_rows}})
+    mla_rows, mla_err = check_mla(device)
+    af_rows = check_af(device)
+    checks = {"fused_dot_af": fused_rows, "gqa_decode_attention": attn_rows,
+              "mla_decode_attention": mla_rows, "af_elementwise": af_rows}
+    emit({"kernel_checks": checks})
+    free_card()
 
-    serving = serve_full_width(device)
-    emit({"serving": serving})
-    parity = card_vs_cpu(device)
-    emit({"card_vs_cpu": parity})
+    serving = {"olmo-1b": serve_full_width(device, "olmo-1b", olmo())}
+    emit({"serving": serving["olmo-1b"]})
+    free_card()
+    parity = {"olmo-1b": olmo_card_vs_cpu(device)}
+    emit({"card_vs_cpu": parity["olmo-1b"]})
+    free_card()
+    serving["deepseek-v3-671b"] = serve_full_width(device, "deepseek-v3-671b", deepseek())
+    emit({"serving": serving["deepseek-v3-671b"]})
+    free_card()
+    parity["deepseek-v3-671b"] = deepseek_card_vs_cpu(device)
+    emit({"card_vs_cpu": parity["deepseek-v3-671b"]})
+
+    def launches(name):
+        by_path = {label: rep["launches"][name] for label, rep in serving.items()
+                   if name in rep["launches"]}
+        return sum(by_path.values()), by_path
 
     rep_f = next(r for r in fused_rows if (r["M"], r["K"], r["N"], r["af"]) ==
                  (SLOTS, 2048, 8192, "identity"))
-    rep_a = attn_rows[0]
-    kernels = [
-        dict(name="fused_dot_af", route="cuda",
-             source="src/repro_torch/kernels/cordic_fused/csrc/cordic_fused.cu",
-             replaces="src/repro/kernels/cordic_fused/kernel.py:104",
-             launches=serving["launches"]["fused_dot_af"], max_abs_err=fused_err,
-             ms=rep_f["ms"], plain_ms=rep_f["plain_ms"], bound_ms=rep_f["bound_ms"],
-             bound_by=rep_f["bound_by"], library_ms=None),
-        dict(name="gqa_decode_attention", route="cuda",
-             source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
-             replaces="src/repro/kernels/decode_attention/kernel.py:40",
-             launches=serving["launches"]["gqa_decode_attention"], max_abs_err=attn_err,
-             ms=rep_a["ms"], plain_ms=rep_a["plain_ms"], bound_ms=rep_a["bound_ms"],
-             bound_by=rep_a["bound_by"], library_ms=rep_a["sdpa_ms"]),
-    ]
+    rep_af = next(r for r in af_rows if (r["where"], r["fmt"], r["mode"]) ==
+                  ("decode", "Q1.6", "swish"))
+    kernels = []
+    for name, file, replaces, err, rep, lib in (
+            ("fused_dot_af", "cordic_fused/csrc/cordic_fused.cu", "cordic_fused/kernel.py:104",
+             fused_err, rep_f, None),
+            ("gqa_decode_attention", "decode_attention/csrc/decode_attention.cu",
+             "decode_attention/kernel.py:40", attn_err, attn_rows[0], attn_rows[0]["sdpa_ms"]),
+            ("mla_decode_attention", "decode_attention/csrc/mla_decode.cu",
+             "decode_attention/kernel.py:79", mla_err, mla_rows[0], mla_rows[0]["sdpa_ms"]),
+            ("af_elementwise", "cordic_af/csrc/cordic_af.cu", "cordic_af/kernel.py:40", 0.0,
+             rep_af, None)):
+        total, by_path = launches(name)
+        kernels.append(dict(name=name, route="cuda", source=f"src/repro_torch/kernels/{file}",
+                            replaces=f"src/repro/kernels/{replaces}", launches=total,
+                            launches_by_path=by_path, max_abs_err=err, ms=rep["ms"],
+                            plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+                            bound_by=rep["bound_by"], library_ms=lib))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        device=device_line, kernel_checks={"fused_dot_af": fused_rows,
-                                           "gqa_decode_attention": attn_rows},
-        serving=serving, card_vs_cpu=parity, kernels=kernels), indent=1))
+        device=device_line, kernel_checks=checks, serving=serving, card_vs_cpu=parity,
+        kernels=kernels), indent=1))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,11 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Only olmo-1b is registered so far; the other architectures arrive with their
-model families.
+Registered so far: olmo-1b (dense) and deepseek-v3-671b (MLA + MoE); the
+other architectures arrive with their model families.
 """
 from __future__ import annotations
 
-from . import olmo_1b
+from . import deepseek_v3_671b, olmo_1b
 from .base import (
     TORCH_DTYPES,
     EncDecConfig,
@@ -19,6 +19,7 @@ from .base import (
 
 ARCHS = {
     "olmo-1b": olmo_1b.CONFIG,
+    "deepseek-v3-671b": deepseek_v3_671b.CONFIG,
 }
 
 

@@ -18,6 +18,9 @@ from .base import Backend, PreparedWeight, unit_fmt
 __all__ = ["KernelBackend", "make_point"]
 
 POINT_LEN = 5
+# elements per step of the elementwise weight rounding: bounds its int32
+# temporaries (a full-width lm_head is 0.9 G elements)
+_PREPARE_CHUNK = 1 << 24
 
 
 def make_point(depth: int, x_fmt, w_fmt, device=None) -> torch.Tensor:
@@ -26,13 +29,23 @@ def make_point(depth: int, x_fmt, w_fmt, device=None) -> torch.Tensor:
                         dtype=torch.int32, device=device)
 
 
+def _signed_digit_storage(w, depth: int, fmt) -> torch.Tensor:
+    """``cordic.signed_digit_ints`` in the storage dtype, contiguous, computed
+    in chunks of the flat tensor (the rounding is elementwise)."""
+    flat = torch.as_tensor(w).reshape(-1)
+    out = torch.empty(flat.shape, dtype=fmt.storage_dtype, device=flat.device)
+    for i in range(0, flat.numel(), _PREPARE_CHUNK):
+        part = flat[i:i + _PREPARE_CHUNK]
+        out[i:i + _PREPARE_CHUNK] = cordic.signed_digit_ints(part, depth, fmt).to(out.dtype)
+    return out.reshape(w.shape)
+
+
 class KernelBackend(Backend):
     name = "kernel"
 
     def prepare(self, w, lp, *, stacked_axes: int = 0, in_axes=None):
         fmt = unit_fmt(lp.fmt)
-        ints = cordic.signed_digit_ints(w, int(lp.depth), fmt)
-        data = ints.to(fmt.storage_dtype).contiguous()
+        data = _signed_digit_storage(w, int(lp.depth), fmt)
         point = make_point(int(lp.depth), lp.fmt, fmt, device=w.device)
         if stacked_axes:
             point = point.expand(tuple(w.shape[:stacked_axes]) + (POINT_LEN,)).contiguous()

@@ -56,11 +56,18 @@ class EngineContext:
         return out
 
     def activate(self, x, af: str):
-        """Standalone activation through the multi-AF block."""
+        """Standalone activation through the multi-AF block: in kernel mode the
+        elementwise AF kernel (its plain version on CPU tensors) at the
+        policy's ``af`` depth and format. The other modes are not yet ported."""
         if af == "identity":
             return x
+        if self.mode == "kernel":
+            from repro_torch.kernels.cordic_af import multi_af
+
+            lp = self.layer_precision("af")
+            return multi_af(x, af, depth=int(lp.depth), fmt=lp.fmt).to(x.dtype)
         raise NotImplementedError(
-            f"standalone activation {af!r} needs the af_elementwise kernel, not yet ported"
+            f"standalone activation in engine mode {self.mode!r} is not yet ported"
         )
 
     def linear_af(self, x, w, b=None, *, af: str, name: str = ""):

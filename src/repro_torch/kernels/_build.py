@@ -5,8 +5,11 @@ Every ``kernels/<name>/csrc/*.cu`` directory is compiled by ``nvcc`` for
 process per kernel, all started together. The libraries land in
 ``build/kernels/<hash>/`` at the repository root, keyed by a hash of the
 sources and flags, so an unchanged tree reuses them and a changed one
-rebuilds. Nothing is compiled at import: the first launch builds. A failed
-build raises; no caller falls back to a plain version on a CUDA tensor.
+rebuilds. Headers shared by several kernels live in ``kernels/include/``:
+every build gets it with ``-I`` and every library's hash covers it, so an
+edit there rebuilds them all. Nothing is compiled at import: the first
+launch builds. A failed build raises; no caller falls back to a plain version
+on a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from pathlib import Path
 from typing import Dict
 
 KERNELS_DIR = Path(__file__).resolve().parent
+INCLUDE_DIR = KERNELS_DIR / "include"
 REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_ROOT = REPO_ROOT / "build" / "kernels"
 NVCC_FLAGS = (
@@ -60,6 +64,9 @@ def _nvcc() -> str:
 
 def _digest(sources: Dict[str, list]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for hdr in sorted(INCLUDE_DIR.glob("*.cuh")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     for name, files in sources.items():
         h.update(name.encode())
         for f in files:
@@ -85,7 +92,8 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             if lib.exists():
                 continue
             tmp = out_dir / f".lib{name}.{os.getpid()}.so"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, files)]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp),
+                   *map(str, files)]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True), tmp, lib)
         failed = []

@@ -19,16 +19,14 @@ import math
 import torch
 
 from repro_torch.core import activations as afs
-from repro_torch.core import cordic
 from repro_torch.core.backends.kernel import POINT_LEN
 from repro_torch.core.fxp import FXP8, FxPFormat
 
 from .. import _build
+from ..af_table import af_table_on
 from .ref import fused_dot_af_ref
 
 FUSED_AFS = ("identity",) + afs.ELEMENTWISE_AFS
-AF_TAB_LEN = 80
-MAX_HYPERBOLIC_DEPTH = 32
 
 # (BM, BN, BK) of the kernel's three tile configurations, by M
 _CONFIGS = {0: (8, 128, 32), 1: (32, 128, 32), 2: (128, 128, 16)}
@@ -47,35 +45,6 @@ def plan(m: int, n: int, k: int):
     per = math.ceil(k_tiles / splits)
     splits = math.ceil(k_tiles / per)
     return config, splits, per * bk
-
-
-@functools.lru_cache(maxsize=None)
-def af_table(af_depth: int, af_fmt: FxPFormat) -> tuple:
-    """The int32 table the kernel's AF epilogue reads (layout in the .cu)."""
-    ifmt = afs.internal_fmt(af_fmt)
-    depth = afs.internal_depth(af_depth, af_fmt)
-    if depth > MAX_HYPERBOLIC_DEPTH:
-        raise ValueError(f"AF depth {depth} exceeds the kernel's {MAX_HYPERBOLIC_DEPTH}")
-    seq, atanh, inv_gain, _ = cordic.hyperbolic_tables(depth, ifmt.frac)
-    c = afs.af_constants(ifmt)
-    tab = [0] * AF_TAB_LEN
-    tab[0:10] = [depth, af_fmt.frac, af_fmt.qmin, af_fmt.qmax, ifmt.frac, ifmt.qmin, ifmt.qmax,
-                 inv_gain, cordic.hyperbolic_zmax(depth, ifmt.frac), cordic.ln2_raw(ifmt.frac)]
-    tab[10:15] = [c["gelu_cubic"], c["gelu_c"], c["half"], c["selu_lambda"], c["selu_alpha"]]
-    tab[16:16 + depth] = seq
-    tab[48:48 + depth] = atanh
-    return tuple(tab)
-
-
-_device_tables = {}
-
-
-def _af_table_on(device, af_depth: int, af_fmt: FxPFormat) -> torch.Tensor:
-    key = (str(device), af_depth, af_fmt)
-    if key not in _device_tables:
-        _device_tables[key] = torch.tensor(af_table(af_depth, af_fmt), dtype=torch.int32,
-                                           device=device)
-    return _device_tables[key]
 
 
 @functools.lru_cache(maxsize=1)
@@ -110,7 +79,7 @@ def _launch(x2, w, point, mode: int, af_depth: int, af_fmt: FxPFormat, compute_r
         ws, counts = scratch[: m * n], scratch[m * n:]
     elem = w.element_size()
     vec = int(n % (16 // elem) == 0 and w.data_ptr() % 16 == 0)
-    tab = _af_table_on(dev, af_depth, af_fmt)
+    tab = af_table_on(dev, af_depth, af_fmt)
     with torch.cuda.device(dev):
         status = _lib().cordic_fused_launch(
             x2.data_ptr(), w.data_ptr(), elem, point.data_ptr(), tab.data_ptr(),

@@ -1,15 +1,23 @@
-"""Wrapper of the GQA cache-decode attention kernel (``csrc/decode_attention.cu``).
+"""Wrappers of the cache-decode attention kernels.
 
-Replaces the TPU kernel ``repro/kernels/decode_attention/kernel.py:
-_gqa_decode_kernel`` (``gqa_decode``). On an H100 it is bound by the bytes of
-the K and V cache, read once; the kernel streams T in shared-memory tiles
-with an online softmax and skips tiles past the block's last query position.
+* ``gqa_decode_attention`` (``csrc/decode_attention.cu``) replaces the TPU
+  kernel ``repro/kernels/decode_attention/kernel.py:_gqa_decode_kernel``
+  (``gqa_decode``). On an H100 it is bound by the bytes of the K and V
+  cache, read once; the kernel streams T in shared-memory tiles with an
+  online softmax and skips tiles past the block's last query position.
+* ``mla_decode_attention`` (``csrc/mla_decode.cu``) replaces
+  ``_mla_decode_kernel`` (``mla_decode``), the absorbed-form MLA decode. At
+  full width it is bound by its f32 multiply-adds; one block serves a group
+  of heads from each shared-memory tile of the latent cache, where the
+  Pallas grid re-read the cache once per head, and splits the keys across
+  blocks when there are too few (query, head group) blocks to fill the card
+  (:func:`mla_splits`).
 
-A CPU tensor runs the plain version (:func:`gqa_decode_attention_ref`); a
-CUDA tensor launches the kernel or raises. ``gqa_decode_attention.launches``
-counts launches. Against the plain version the outputs agree to f32
-reduction-order tolerance (:data:`TOLERANCE`): the kernel sums scores and
-P·V in another order and rescales per tile.
+A CPU tensor runs the plain version (``*_ref``); a CUDA tensor launches the
+kernel or raises. Each wrapper's ``launches`` counts its launches. Against
+the plain versions the outputs agree to f32 reduction-order tolerance
+(:data:`TOLERANCE`): the kernels sum scores and P·V in another order and
+rescale per tile.
 """
 from __future__ import annotations
 
@@ -19,7 +27,7 @@ import functools
 import torch
 
 from .. import _build
-from .ref import gqa_decode_attention_ref
+from .ref import gqa_decode_attention_ref, mla_decode_attention_ref
 
 HEAD_DIMS = (32, 64, 128)
 # max |kernel - plain| allowed on unit-scale f32 inputs: a few ulps of
@@ -33,6 +41,9 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gqa_decode_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
     lib.gqa_decode_launch.restype = i
+    f = ctypes.c_float
+    lib.mla_decode_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p]
+    lib.mla_decode_launch.restype = i
     return lib
 
 
@@ -72,3 +83,76 @@ def gqa_decode_attention(q, ck, cv, positions, *, scale: float):
 
 
 gqa_decode_attention.launches = 0
+
+
+# the kernel keeps R latent dims per output row in registers, 16 per lane
+MAX_LATENT_DIM = 512
+# MLA kernel geometry (csrc/mla_decode.cu): heads per block, keys per tile
+_MLA_HEADS_PER_BLOCK, _MLA_TILE = 32, 32
+# its shared memory holds two key tiles of R + r + 4 floats and 32 query rows
+# of R + r: at most 227 KB on an H100, so R + r <= 576
+_MLA_MAX_ROW = 576
+# split the keys across blocks until about two blocks per SM of an H100
+_TARGET_BLOCKS = 264
+
+
+def mla_splits(b: int, s: int, h: int, t: int) -> int:
+    """Blocks the MLA kernel splits each (query, head group)'s keys over."""
+    blocks = b * s * -(-h // _MLA_HEADS_PER_BLOCK)
+    if blocks >= _TARGET_BLOCKS // 2:
+        return 1
+    return max(1, min(-(-_TARGET_BLOCKS // blocks), -(-t // _MLA_TILE)))
+
+
+def _mla_launch(q_lat, q_rope, c_kv, k_rope, positions, scale: float):
+    dev = q_lat.device
+    for name, t in (("q_rope", q_rope), ("c_kv", c_kv), ("k_rope", k_rope),
+                    ("positions", positions)):
+        if t.device != dev:
+            raise ValueError(f"mla_decode_attention: q_lat on {dev}, {name} on {t.device}")
+    b, s, h, r = q_lat.shape
+    rd = q_rope.shape[-1]
+    t_len = c_kv.shape[1]
+    if (q_rope.shape[:3] != (b, s, h) or c_kv.shape != (b, t_len, r)
+            or k_rope.shape != (b, t_len, rd)):
+        raise ValueError(f"mla_decode_attention: q_lat {tuple(q_lat.shape)}, q_rope "
+                         f"{tuple(q_rope.shape)}, c_kv {tuple(c_kv.shape)}, k_rope "
+                         f"{tuple(k_rope.shape)}")
+    if not 0 < r <= MAX_LATENT_DIM or r % 4 or rd % 4 or r + rd > _MLA_MAX_ROW:
+        raise ValueError(f"mla_decode_attention: latent dim {r} and rope dim {rd} must be "
+                         f"multiples of 4, the latent dim in 4..{MAX_LATENT_DIM}, their sum "
+                         f"at most {_MLA_MAX_ROW}")
+    if any(t.dtype != torch.float32 for t in (q_lat, q_rope, c_kv, k_rope)):
+        raise ValueError("mla_decode_attention: the kernel takes f32 queries and caches")
+    if positions.shape != (b, s) or positions.dtype != torch.int32:
+        raise ValueError("mla_decode_attention: positions must be int32 (B, S)")
+    q_lat, q_rope, c_kv, k_rope, positions = (
+        t.contiguous() for t in (q_lat, q_rope, c_kv, k_rope, positions))
+    if c_kv.data_ptr() % 16 or k_rope.data_ptr() % 16:
+        raise ValueError("mla_decode_attention: the kernel copies the caches in 16-byte "
+                         "pieces; c_kv and k_rope must be 16-byte aligned")
+    out = torch.empty_like(q_lat)
+    splits = mla_splits(b, s, h, t_len)
+    ws = (torch.empty((b * s * h * splits * (r + 4),), dtype=torch.float32, device=dev)
+          if splits > 1 else None)
+    with torch.cuda.device(dev):
+        status = _lib().mla_decode_launch(
+            q_lat.data_ptr(), q_rope.data_ptr(), c_kv.data_ptr(), k_rope.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), ws.data_ptr() if ws is not None else None,
+            b, s, h, t_len, r, rd, splits, float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "mla_decode_launch")
+    mla_decode_attention.launches += 1
+    return out
+
+
+def mla_decode_attention(q_lat, q_rope, c_kv, k_rope, positions, *, scale: float):
+    """Absorbed-form MLA cache attention: q_lat (B, S, H, R) and q_rope
+    (B, S, H, r) against the latent cache c_kv (B, T, R) and k_rope (B, T, r)
+    with per-query positions (B, S). Returns the latent output (B, S, H, R) f32."""
+    if not q_lat.is_cuda:
+        return mla_decode_attention_ref(q_lat, q_rope, c_kv, k_rope, positions, scale=scale)
+    return _mla_launch(q_lat, q_rope, c_kv, k_rope, positions, scale)
+
+
+mla_decode_attention.launches = 0

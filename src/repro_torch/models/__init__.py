@@ -1,4 +1,4 @@
-"""Unified model API (port of ``repro.models``); dense family so far."""
+"""Unified model API (port of ``repro.models``); dense and MoE (MLA) families so far."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,7 +8,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import EngineContext
 
-from . import blocks, params as P, transformer
+from . import blocks, mla, params as P, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,4 +38,4 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     return ModelApi(cfg)
 
 
-__all__ = ["ModelApi", "get_model", "blocks", "transformer"]
+__all__ = ["ModelApi", "get_model", "blocks", "mla", "transformer"]

@@ -1,15 +1,17 @@
 """Transformer building blocks (port of ``repro.models.blocks``): RoPE, norms,
-GQA attention on the KV-cache path, and the gated MLP.
+GQA attention on the KV-cache path, the gated MLP and the token-choice MoE.
 
-Every matmul goes through ``EngineContext``. The cache path writes the KV
+Every projection goes through ``EngineContext``. The cache path writes the KV
 cache in place (the reference returns a new one); the attention itself is
 the GQA cache-decode kernel (``attn_impl="decode_kernel"``) or the plain
-chain (``"xla"``).
+chain (``"xla"``). The MoE's router and expert products are plain f32
+einsums, as in the reference; its gate activation is the engine's
+standalone multi-AF block.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -153,3 +155,138 @@ def mlp(p, x, cfg: ModelConfig, ctx: EngineContext, *, name):
     else:
         h = ctx.linear_af(x, p["up"], af=cfg.act, name=f"{name}.up")
     return ctx.linear(h, p["down"], name=f"{name}.down")
+
+
+# ---------------------------------------------------------------------------
+# MoE (token-choice top-k, capacity-based, sort/gather dispatch)
+# ---------------------------------------------------------------------------
+
+
+def moe_specs(cfg: ModelConfig):
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.d_ff_expert, m.num_experts
+    specs = {
+        "router": ParamSpec((d, e), ("embed", "experts"), scale=0.02),
+        "up": ParamSpec((e, d, f), ("experts", "embed", "mlp")),
+        "gate": ParamSpec((e, d, f), ("experts", "embed", "mlp")),
+        "down": ParamSpec((e, f, d), ("experts", "mlp", "embed")),
+    }
+    if m.num_shared_experts:
+        fs = m.d_ff_shared * m.num_shared_experts
+        specs["shared"] = {
+            "up": ParamSpec((d, fs), ("embed", "mlp")),
+            "gate": ParamSpec((d, fs), ("embed", "mlp")),
+            "down": ParamSpec((fs, d), ("mlp", "embed")),
+        }
+    return specs
+
+
+def top_k_stable(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest values along the last axis and their indices, ties
+    to the lower index, as ``lax.top_k`` breaks them (``torch.topk`` promises
+    no order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _dispatch_indices(expert_idx: torch.Tensor, num_experts: int, capacity: int):
+    """Per-row sort/gather dispatch plan.
+
+    ``expert_idx``: (B, S, K) chosen experts of S tokens in each of B rows.
+    Returns int32 ``gather_idx`` (B, E, C) into each row's S*K flat choices,
+    bool ``valid`` (B, E, C) and int32 ``rank`` (B, S, K), each choice's
+    position in its expert's queue; row by row, bitwise the reference's plan
+    (stable sort, a running max for ``associative_scan(max)``).
+    """
+    b, s, k = expert_idx.shape
+    n, dev = s * k, expert_idx.device
+    flat = expert_idx.reshape(b, n).to(torch.int64)
+    order = torch.sort(flat, dim=1, stable=True).indices
+    sorted_e = torch.gather(flat, 1, order)
+    pos = torch.arange(n, device=dev).expand(b, n)
+    is_start = torch.ones((b, n), dtype=torch.bool, device=dev)
+    is_start[:, 1:] = sorted_e[:, 1:] != sorted_e[:, :-1]
+    seg_start = torch.cummax(torch.where(is_start, pos, -1), dim=1).values
+    rank = torch.empty_like(order).scatter_(1, order, pos - seg_start)
+    counts = torch.zeros((b, num_experts), dtype=torch.int64, device=dev)
+    counts.scatter_add_(1, flat, torch.ones_like(flat))
+    starts = torch.cumsum(counts, dim=1) - counts
+    slot = torch.arange(capacity, device=dev)
+    gather_pos = starts[:, :, None] + slot  # (B, E, C) index into the sorted order
+    valid = slot < torch.clamp(counts, max=capacity)[:, :, None]
+    gather_idx = torch.gather(order, 1, gather_pos.clamp(0, n - 1).reshape(b, -1))
+    return (gather_idx.reshape(b, num_experts, capacity).to(torch.int32), valid,
+            rank.reshape(b, s, k).to(torch.int32))
+
+
+def _combine(y, top_i, rank, kept, capacity: int):
+    """Each token's weighted sum of its kept expert-slot outputs.
+
+    The reference scatter-adds the (E, C) slot outputs into a zero (B, S, D)
+    buffer; a token's slots are visited in ascending expert order. Here each
+    token gathers its K slots and sums them from zero in that same order, so
+    the sums are the same and, unlike a scatter-add through atomics,
+    deterministic on the card.
+    """
+    b, e, c, d = y.shape
+    s, k = top_i.shape[1:]
+    by_expert = torch.argsort(top_i, dim=-1)  # a token's K experts are distinct
+    e_k = torch.gather(top_i, -1, by_expert).to(torch.int64)
+    r_k = torch.gather(rank, -1, by_expert).to(torch.int64)
+    w_k = torch.gather(kept, -1, by_expert)
+    keep = r_k < capacity
+    slot = e_k * capacity + torch.clamp(r_k, max=capacity - 1)
+    g = torch.gather(y.reshape(b, e * c, d), 1, slot.reshape(b, s * k, 1).expand(-1, -1, d))
+    g = g.reshape(b, s, k, d) * w_k[..., None].to(y.dtype)
+    out = torch.zeros((b, s, d), dtype=y.dtype, device=y.device)
+    for j in range(k):
+        out = torch.where(keep[..., j, None], out + g[:, :, j], out)
+    return out
+
+
+def moe_ffn(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, dropless: bool = False):
+    """Batched-per-row MoE, single device. ``dropless`` (the cached-decode
+    path) widens short blocks' capacity so no routed token is dropped.
+    Returns (out, aux) with aux's load-balancing loss (zero when dropless)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    e, k = m.num_experts, m.top_k
+    capacity = max(k, int(math.ceil(s * k / e * m.capacity_factor)))
+    if dropless and s <= 64:
+        # a token's top-k experts are distinct, so per-expert load is at most s
+        capacity = max(capacity, s)
+
+    router_logits = torch.einsum("bsd,de->bse", x.to(torch.float32),
+                                 p["router"].to(torch.float32))
+    probs = torch.softmax(router_logits, dim=-1)
+    top_p, top_i = top_k_stable(probs, k)  # (B, S, K)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    gather_idx, valid, rank = _dispatch_indices(top_i, e, capacity)
+    token_of_choice = (gather_idx // k).to(torch.int64)  # (B, E, C) source token
+    x_disp = torch.gather(x, 1, token_of_choice.reshape(b, e * capacity, 1).expand(-1, -1, d))
+    x_disp = x_disp.reshape(b, e, capacity, d) * valid[..., None].to(x.dtype)
+
+    cd = cfg.compute_dtype
+
+    def expert_mm(hh, w):
+        return torch.einsum("becd,edf->becf", hh.to(cd), w.to(cd))
+
+    up = expert_mm(x_disp, p["up"])
+    gate = expert_mm(x_disp, p["gate"])
+    hidden = ctx.activate(gate, cfg.act) * up
+    y = torch.einsum("becf,efd->becd", hidden.to(cd), p["down"].to(cd))
+
+    kept = (rank < capacity).to(torch.float32) * top_p  # (B, S, K); drops -> 0
+    out = _combine(y.to(cd), top_i, rank, kept, capacity).to(x.dtype)
+
+    if m.num_shared_experts:
+        out = out + mlp(p["shared"], x, cfg, ctx, name=f"{name}.shared")
+
+    if dropless:
+        aux = {"lb_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
+    else:
+        me = torch.mean(probs, dim=(0, 1))
+        counts = torch.bincount(top_i.reshape(-1), minlength=e).to(torch.float32)
+        aux = {"lb_loss": e * torch.sum(me * counts / (b * s * k))}
+    return out, aux

@@ -1,0 +1,105 @@
+"""Multi-head Latent Attention, cache path (port of ``repro.models.mla``;
+DeepSeek-V3, arXiv:2412.19437 §2.1).
+
+Queries go through a low-rank down/up projection (``q_lora_rank``); keys and
+values through a compressed latent ``c_kv`` (``kv_lora_rank``) plus a
+decoupled RoPE key of ``qk_rope_head_dim`` shared across heads. The decode
+cache stores only ``(c_kv, k_rope)``. Attention runs in the absorbed form:
+``q_nope`` is mapped into latent space once (``q_lat = q_nope · wk_b``), the
+scores contract over the latent rank, and the latent output is up-projected
+by ``wv_b``. ``wk_b`` and ``wv_b`` are plain f32 einsums, not engine dots, as
+in the reference. The cache rows are written in place.
+
+Only the cache path is ported; the cache-free path (MLA flash, training)
+waits for the ``mla_flash`` kernel.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.engine import EngineContext
+from repro_torch.core.normalization import rmsnorm
+from repro_torch.kernels.decode_attention import mla_decode_attention, mla_decode_attention_ref
+
+from .blocks import cache_row_write, rope
+from .params import ParamSpec
+
+
+def mla_specs(cfg: ModelConfig):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": ParamSpec((d, m.q_lora_rank), ("embed", "q_lora")),
+        "q_a_norm": ParamSpec((m.q_lora_rank,), ("q_lora",), "ones"),
+        "wq_b": ParamSpec((m.q_lora_rank, h, qk_head), ("q_lora", "heads", "head_dim")),
+        "wkv_a": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", "kv_lora")),
+        "kv_a_norm": ParamSpec((m.kv_lora_rank,), ("kv_lora",), "ones"),
+        "wk_b": ParamSpec((m.kv_lora_rank, h, m.qk_nope_head_dim),
+                          ("kv_lora", "heads", "head_dim")),
+        "wv_b": ParamSpec((m.kv_lora_rank, h, m.v_head_dim), ("kv_lora", "heads", "head_dim")),
+        "wo": ParamSpec((h, m.v_head_dim, d), ("heads", "head_dim", "embed")),
+    }
+
+
+def _q_proj(p, x, cfg, ctx, name):
+    m = cfg.mla
+    q_lat = ctx.linear(x, p["wq_a"], name=f"{name}.q_a")
+    q_lat = rmsnorm(q_lat, p["q_a_norm"])
+    q = ctx.linear(q_lat, p["wq_b"].reshape(m.q_lora_rank, -1), name=f"{name}.q_b")
+    return q.reshape(*x.shape[:-1], cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+
+def _kv_latent(p, x, cfg, ctx, name):
+    m = cfg.mla
+    kv_a = ctx.linear(x, p["wkv_a"], name=f"{name}.kv_a")
+    c_kv, k_rope = kv_a[..., : m.kv_lora_rank], kv_a[..., m.kv_lora_rank:]
+    return rmsnorm(c_kv, p["kv_a_norm"]), k_rope
+
+
+def mla_attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name, cache=None):
+    """Returns (out, new_cache); ``cache`` = dict(c_kv, k_rope, index) of one
+    layer. The latent rows are written in place; the new index is returned."""
+    if cache is None:
+        raise NotImplementedError("the cache-free MLA path (mla_flash, training) "
+                                  "is not yet ported")
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    nope, rdim, vdim = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+
+    q = _q_proj(p, x, cfg, ctx, name)  # (B, S, H, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+
+    c_kv, k_rope = _kv_latent(p, x, cfg, ctx, name)  # (B, S, R), (B, S, rdim)
+    k_rope = rope(k_rope[..., None, :], positions, cfg.rope_theta)[..., 0, :]
+
+    idx = cache["index"]
+    c_kv = cache_row_write(cache["c_kv"], c_kv, idx)
+    k_rope = cache_row_write(cache["k_rope"], k_rope, idx)
+    new_cache = {"c_kv": c_kv, "k_rope": k_rope, "index": idx + s}
+
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope.to(torch.float32),
+                         p["wk_b"].to(torch.float32))
+    scale = 1.0 / math.sqrt(nope + rdim)
+    attend = mla_decode_attention if ctx.attn_impl == "decode_kernel" else \
+        mla_decode_attention_ref
+    o_lat = attend(q_lat, q_rope.to(torch.float32), c_kv, k_rope, positions, scale=scale)
+
+    out = torch.einsum("bshr,rhv->bshv", o_lat, p["wv_b"].to(torch.float32)).to(x.dtype)
+    wo = p["wo"].reshape(h * vdim, cfg.d_model)
+    return ctx.linear(out.reshape(b, s, h * vdim), wo, name=f"{name}.o"), new_cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
+                   device=None):
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim), dtype=dtype, device=device),
+        "index": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }

@@ -1,13 +1,15 @@
-"""Decoder-only LM, dense family (port of ``repro.models.transformer``).
+"""Decoder-only LM, dense and MoE families (port of ``repro.models.transformer``).
 
 The reference's ``lax.scan`` over stacked layer parameters becomes a Python
-loop over layer views of the same stacked tensors. The KV cache is updated
-in place: ``decode_step`` writes each layer's rows and index into the cache
-it was given and returns that cache.
+loop over layer views of the same stacked tensors, segment by segment (a
+deepseek-style MoE model is a dense prefix and an MoE segment). Attention is
+GQA, or MLA when the config carries one. The KV cache is updated in place:
+``decode_step`` writes each layer's rows and index into the cache it was
+given and returns that cache.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -15,7 +17,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backends.base import PreparedWeight
 from repro_torch.core.engine import EngineContext
 
-from . import blocks
+from . import blocks, mla
 from .params import ParamSpec, stack_layers
 
 
@@ -23,15 +25,38 @@ def _segments(cfg: ModelConfig):
     """(kind, layer_count) segments; layer params stack within a segment."""
     if cfg.family in ("dense", "vlm"):
         return [("dense", cfg.num_layers)]
+    if cfg.family == "moe":
+        m = cfg.moe
+        segs = []
+        if m.first_dense_layers:
+            segs.append(("dense_prefix", m.first_dense_layers))
+        if m.moe_every != 1:
+            raise NotImplementedError("interleaved dense/MoE ('pair') segments are not yet "
+                                      "ported")
+        segs.append(("moe", cfg.num_layers - m.first_dense_layers))
+        return segs
     raise NotImplementedError(f"the {cfg.family!r} family is not yet ported")
 
 
-def _dense_layer_specs(cfg: ModelConfig):
+def _attn_specs(cfg: ModelConfig):
+    return mla.mla_specs(cfg) if cfg.mla else blocks.attention_specs(cfg)
+
+
+def _dense_layer_specs(cfg: ModelConfig, d_ff: Optional[int] = None):
     return {
         "attn_norm": blocks.norm_spec(cfg),
-        "attn": blocks.attention_specs(cfg),
+        "attn": _attn_specs(cfg),
         "mlp_norm": blocks.norm_spec(cfg),
-        "mlp": blocks.mlp_specs(cfg),
+        "mlp": blocks.mlp_specs(cfg, d_ff),
+    }
+
+
+def _moe_layer_specs(cfg: ModelConfig):
+    return {
+        "attn_norm": blocks.norm_spec(cfg),
+        "attn": _attn_specs(cfg),
+        "mlp_norm": blocks.norm_spec(cfg),
+        "moe": blocks.moe_specs(cfg),
     }
 
 
@@ -43,7 +68,13 @@ def decoder_specs(cfg: ModelConfig):
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
     for i, (kind, n) in enumerate(_segments(cfg)):
-        specs[f"seg{i}_{kind}"] = stack_layers(lambda: _dense_layer_specs(cfg), n)
+        if kind == "dense":
+            layer = lambda: _dense_layer_specs(cfg)  # noqa: E731
+        elif kind == "dense_prefix":
+            layer = lambda: _dense_layer_specs(cfg, cfg.moe.d_ff_dense)  # noqa: E731
+        else:
+            layer = lambda: _moe_layer_specs(cfg)  # noqa: E731
+        specs[f"seg{i}_{kind}"] = stack_layers(layer, n)
     return specs
 
 
@@ -56,22 +87,37 @@ def layer_view(tree, i: int):
     return tree[i]
 
 
-def _dense_layer(p, h, cfg, ctx, positions, cache, name="layer"):
+def _attn_block(p, h, cfg, ctx, positions, cache, name):
     x = blocks.apply_norm(p["attn_norm"], h, cfg)
-    out, new_cache = blocks.attention(p["attn"], x, cfg, ctx, positions=positions,
-                                      name=f"{name}.attn", cache=cache)
-    h = h + out
+    attend = mla.mla_attention if cfg.mla else blocks.attention
+    out, new_cache = attend(p["attn"], x, cfg, ctx, positions=positions, name=name, cache=cache)
+    return h + out, new_cache
+
+
+def _dense_layer(p, h, cfg, ctx, positions, cache, name="layer"):
+    h, new_cache = _attn_block(p, h, cfg, ctx, positions, cache, f"{name}.attn")
     x = blocks.apply_norm(p["mlp_norm"], h, cfg)
     h = h + blocks.mlp(p["mlp"], x, cfg, ctx, name=f"{name}.mlp")
     return h, new_cache
 
 
+def _moe_layer(p, h, cfg, ctx, positions, cache, name="layer"):
+    h, new_cache = _attn_block(p, h, cfg, ctx, positions, cache, f"{name}.attn")
+    x = blocks.apply_norm(p["mlp_norm"], h, cfg)
+    # cached decode gets the dropless short-block capacity
+    out, _ = blocks.moe_ffn(p["moe"], x, cfg, ctx, name=f"{name}.moe",
+                            dropless=cache is not None)
+    return h + out, new_cache
+
+
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, device=None):
-    """Per-segment KV caches stacked over layers: k, v (L, B, T, KV, hd) and
-    the per-row write index (L, B) int32."""
+    """Per-segment KV caches stacked over layers: k, v (L, B, T, KV, hd), or
+    MLA's c_kv (L, B, T, R) and k_rope (L, B, T, r), and the per-row write
+    index (L, B) int32."""
+    init = mla.init_mla_cache if cfg.mla else blocks.init_attn_cache
     out = {}
     for i, (kind, n) in enumerate(_segments(cfg)):
-        one = blocks.init_attn_cache(cfg, batch, max_len, dtype, device)
+        one = init(cfg, batch, max_len, dtype, device)
         out[f"seg{i}_{kind}"] = {k: v.unsqueeze(0).repeat((n,) + (1,) * v.ndim)
                                  for k, v in one.items()}
     return out
@@ -107,10 +153,11 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, ctx: EngineContext):
     for i, (kind, n) in enumerate(_segments(cfg)):
         key = f"seg{i}_{kind}"
         seg_p, seg_c = params[key], cache[key]
+        layer_fn = _moe_layer if kind == "moe" else _dense_layer
         for layer in range(n):
             p = layer_view(seg_p, layer)
-            c = {"k": seg_c["k"][layer], "v": seg_c["v"][layer], "index": seg_c["index"][layer]}
-            h, new_c = _dense_layer(p, h, cfg, ctx, positions, c)
+            c = {name: v[layer] for name, v in seg_c.items()}
+            h, new_c = layer_fn(p, h, cfg, ctx, positions, c)
             seg_c["index"][layer] = new_c["index"]
     h = blocks.apply_norm(params["final_norm"], h, cfg)
     return _lm_head(params, h, cfg, ctx), cache

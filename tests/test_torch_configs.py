@@ -1,4 +1,5 @@
-"""PyTorch port: the olmo-1b config equals the reference's, field for field."""
+"""PyTorch port: the ported configs (olmo-1b, deepseek-v3-671b) equal the
+reference's, field for field, stock and reduced."""
 import dataclasses
 
 import pytest
@@ -10,15 +11,30 @@ from repro.configs import reduced as ref_reduced  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, reduced  # noqa: E402
 
 
+def _variant(port, ref, variant):
+    if variant == "reduced":
+        return reduced(port), ref_reduced(ref)
+    if variant == "reduced_3x64":
+        return reduced(port, layers=3, d_model=64), ref_reduced(ref, layers=3, d_model=64)
+    if variant == "reduced_4_layers":
+        return reduced(port, layers=4), ref_reduced(ref, layers=4)
+    return port, ref
+
+
 @pytest.mark.parametrize("variant", ["stock", "reduced", "reduced_3x64"])
 def test_olmo_config_matches_reference(variant):
-    port, ref = get_config("olmo-1b"), ref_get_config("olmo-1b")
-    if variant == "reduced":
-        port, ref = reduced(port), ref_reduced(ref)
-    elif variant == "reduced_3x64":
-        port, ref = reduced(port, layers=3, d_model=64), ref_reduced(ref, layers=3, d_model=64)
+    port, ref = _variant(get_config("olmo-1b"), ref_get_config("olmo-1b"), variant)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     assert port.kv_groups == ref.kv_groups
+
+
+@pytest.mark.parametrize("variant", ["stock", "reduced", "reduced_3x64", "reduced_4_layers"])
+def test_deepseek_config_matches_reference(variant):
+    port, ref = _variant(get_config("deepseek-v3-671b"), ref_get_config("deepseek-v3-671b"),
+                         variant)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.kv_groups == ref.kv_groups
+    assert port.family == "moe" and port.mla is not None
 
 
 def test_dtype_map():
@@ -29,6 +45,6 @@ def test_dtype_map():
 
 
 def test_registry_holds_only_ported_archs():
-    assert sorted(ARCHS) == ["olmo-1b"]
+    assert sorted(ARCHS) == ["deepseek-v3-671b", "olmo-1b"]
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("qwen3-8b")

@@ -29,6 +29,9 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.serve.engine" in mods and len(mods) > 20
+    assert {"repro_torch.configs.deepseek_v3_671b", "repro_torch.kernels.af_table",
+            "repro_torch.kernels.cordic_af.ops", "repro_torch.kernels.cordic_af.ref",
+            "repro_torch.models.mla"} <= set(mods)
     code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"

@@ -75,18 +75,27 @@ def test_prepare_matches_reference(trees, policy):
         tpol = PrecisionPolicy.from_json(jpol.to_json())
     ref = jax_prepare(raw, jpol, "kernel", specs=ref_model.specs())
     got = prepare_params(params, tpol, "kernel", specs=model.specs())
+    port_flat = _assert_prepared_like_reference(ref, got)
+    assert ("lm_head",) in port_flat
+    # wq wk wv wo up gate down + the tied lm_head
+    assert sum(isinstance(v, PreparedWeight) for v in port_flat.values()) == 8
+    embed = port_flat[("embed",)]
+    assert embed.dtype == torch.float32  # the lookup table stays float
+
+
+def _assert_prepared_like_reference(ref, got):
+    """Same paths; prepared leaves hold round(grid * 2**w_frac) and the same
+    point; the rest equal. Returns the port's flat tree."""
     ref_flat = {tuple(str(k.key) for k in p): v for p, v in
                 jax.tree_util.tree_flatten_with_path(ref, is_leaf=lambda x: isinstance(x, JPW))[0]}
     port_flat = dict(_flat(got))
     assert set(ref_flat) == set(port_flat)
-    assert ("lm_head",) in port_flat
-    n_prepared = 0
     for path, leaf in ref_flat.items():
         mine = port_flat[path]
         if not isinstance(leaf, JPW):
+            assert not isinstance(mine, PreparedWeight), path
             np.testing.assert_array_equal(mine.numpy(), np.asarray(leaf))
             continue
-        n_prepared += 1
         assert isinstance(mine, PreparedWeight) and mine.backend == "kernel"
         point = np.asarray(leaf.point)
         np.testing.assert_array_equal(mine.point.numpy(), point)
@@ -94,9 +103,40 @@ def test_prepare_matches_reference(trees, policy):
         assert mine.data.dtype == (torch.int8 if w_frac == 6 else torch.int16)
         np.testing.assert_array_equal(mine.data.numpy().astype(np.float64),
                                       np.round(np.asarray(leaf.data, np.float64) * 2.0**w_frac))
-    assert n_prepared == 8  # wq wk wv wo up gate down + the tied lm_head
-    embed = port_flat[("embed",)]
-    assert embed.dtype == torch.float32  # the lookup table stays float
+    return port_flat
+
+
+def test_prepare_deepseek_matches_reference():
+    """MLA and MoE trees: the engine's projections are prepared (shared expert
+    included); the routed experts, router, wk_b/wv_b and norms stay float."""
+    ref_model = ref_get_model(ref_reduced(ref_get_config("deepseek-v3-671b"), layers=4))
+    raw = ref_model.init(jax.random.PRNGKey(5))
+    model = get_model(reduced(get_config("deepseek-v3-671b"), layers=4))
+    params = model.load_numpy(jax.tree.map(np.asarray, raw), "cpu")
+    ref = jax_prepare(raw, JPolicy.accurate(J8), "kernel", specs=ref_model.specs())
+    got = prepare_params(params, PrecisionPolicy.accurate(FXP8), "kernel", specs=model.specs())
+    port_flat = _assert_prepared_like_reference(ref, got)
+    prepared = {p for p, v in port_flat.items() if isinstance(v, PreparedWeight)}
+    assert ("seg1_moe", "moe", "shared", "gate") in prepared
+    assert ("seg0_dense_prefix", "attn", "wkv_a") in prepared
+    for raw_path in [("seg1_moe", "moe", "up"), ("seg1_moe", "moe", "router"),
+                     ("seg1_moe", "attn", "wk_b"), ("seg0_dense_prefix", "attn", "wv_b")]:
+        assert raw_path not in prepared
+    assert port_flat[("seg1_moe", "attn", "wo")].point.shape == (3, 5)
+
+
+def test_chunked_weight_rounding_equals_whole(monkeypatch):
+    from repro_torch.core import cordic, fxp
+    from repro_torch.core.backends import kernel
+
+    monkeypatch.setattr(kernel, "_PREPARE_CHUNK", 37)
+    w = torch.from_numpy(np.random.default_rng(2).standard_normal((3, 50, 41)).astype(
+        np.float32)).transpose(1, 2)  # not contiguous
+    for unit in (fxp.FXP8_UNIT, fxp.FXP16_UNIT):
+        got = kernel._signed_digit_storage(w, 6, unit)
+        want = cordic.signed_digit_ints(w, 6, unit).to(unit.storage_dtype)
+        assert got.is_contiguous() and got.dtype == unit.storage_dtype
+        assert torch.equal(got, want)
 
 
 def test_other_modes_are_not_yet_ported(trees):

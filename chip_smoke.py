@@ -4,23 +4,32 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel library from the checkout's sources (the fused
-CORDIC dot+AF, the GQA and MLA cache-decode attentions, the standalone
-multi-AF block), then:
+CORDIC dot+AF, the MAC-array matmul, the GQA and MLA cache-decode
+attentions, the standalone multi-AF block and its row softmax), then:
 
 1. prints the device, the toolchain and each kernel's registers and shared
    memory (``nvcc -Xptxas -v``);
 2. holds each kernel against its plain PyTorch version on the card at the
    serving paths' full-width shapes (olmo-1b and deepseek-v3) — the fused
-   CORDIC dot+AF and the multi-AF block must be bitwise equal, the two
-   decode attentions within their stated tolerance — and times kernel,
-   plain version, a library yardstick and the roofline bound;
+   CORDIC dot+AF, the MAC-array matmul, the multi-AF block and the softmax
+   must be bitwise equal, the two decode attentions within their stated
+   tolerance — and times kernel, plain version, a library yardstick and the
+   roofline bound; then drives the softmax through its entry point,
+   ``EngineContext.activate(x, "softmax")``, on lm_head-wide rows;
 3. serves full-width olmo-1b (16 layers, ``dtype="float32"``, seeded random
    weights) through ``BatchedServer`` in prepared kernel mode, checks the
    launch counts of its kernels against what the shapes imply, and checks
    that a repeat run and a ``burst=1`` run give identical greedy streams;
-4. serves the same widths at 2 layers on the card and on the CPU (plain
+4. serves the same model and weights per call (``prepare_weights=False``:
+   every dot re-rounds its raw weight and runs the MAC-array kernel, the
+   gate its activation through the multi-AF kernel), and checks its streams
+   and top-2 margins against the prepared run's, bit for bit, at burst 8
+   and burst 1, with its own launch counts; times the per-call weight
+   rounding;
+5. serves olmo-1b widths at 2 layers on the card and on the CPU (plain
    versions) with the same weights, and checks the streams are identical;
-5. and 6. do the same for full-width deepseek-v3 (MLA + MoE) cut to 4
+   the same per call, at reduced width;
+6. and 7. do the same for full-width deepseek-v3 (MLA + MoE) cut to 4
    layers (the 3 dense-prefix layers and 1 MoE layer: the routed experts
    alone take 45 GB in f32), and for reduced deepseek-v3 card vs CPU.
 
@@ -128,6 +137,10 @@ ATTENTION_KERNELS = ("fmha", "flash", "attention_kernel", "sdpa")
 # cuBLAS launches per plain product allowed: the GEMM and at most one split-K
 # reduction
 CUBLAS_LAUNCHES_PER_PRODUCT = 2
+# the __global__ names of the port's kernels, as the profiler reports them
+PORT_KERNELS = ("fused_dot_af_kernel", "mac_matmul_kernel", "gqa_decode_kernel",
+                "mla_decode_kernel", "mla_merge_kernel", "af_elementwise_kernel",
+                "af_softmax_kernel")
 
 
 def kernel_breakdown(prof):
@@ -433,6 +446,162 @@ def check_af(device):
     return rows
 
 
+def mac_banks(m: int, k: int, n: int, gen, device, copies: int = 1):
+    """The per-call path's operands of one random (M, K) x (K, N) dot at FxP8
+    accurate: x quantized, ``copies`` signed-digit weight banks, the scales."""
+    import torch
+
+    from repro_torch.core import FXP8, FXP8_UNIT
+    from repro_torch.kernels.cordic_mac import quantize_activations, quantize_weights
+
+    x_q, xs = quantize_activations(torch.randn((m, k), generator=gen, device=device), FXP8)
+    banks = [quantize_weights(torch.randn((k, n), generator=gen, device=device) * 0.3,
+                              FXP8_UNIT.frac + 1, FXP8_UNIT) for _ in range(copies)]
+    x_scale = torch.full((m, 1), xs, device=device)
+    w_scale = torch.full((1, n), banks[0][1], device=device)
+    return x_q, [w_q for w_q, _ in banks], x_scale, w_scale
+
+
+def check_mac(device):
+    """The MAC-array matmul against its plain version, bitwise: the per-call
+    olmo-1b shapes (each of the kernel's three tile configs), an odd shape,
+    the fused ReLU, and FxP16 int16 operands whose int32 accumulator
+    overflows."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    # decode (SLOTS rows), the 16- and 32-row prefill buckets (prompts 9 and
+    # 17; the kernel's M <= 32 tile) and the largest bucket
+    cases = [(m, k, n, False) for k, n in FUSED_SHAPES for m in (SLOTS, 16, 32, BUCKET)]
+    cases += [(3, 1000, 300, False), (SLOTS, 2048, 2048, True)]
+    rows = []
+    for m, k, n, relu in cases:
+        x_q, banks, x_scale, w_scale = mac_banks(
+            m, k, n, gen, device, copies=max(1, min(48, math.ceil(3e8 / (k * n)))))
+        rows.append(time_mac(f"fxp8{' relu' if relu else ''}", x_q, banks, x_scale, w_scale,
+                             relu))
+    # FxP16: Q3.12 activations near +8 against Q1.14 weights near +2 sum past 2^31
+    m, k, n = SLOTS, 8192, 2048
+    x_q = torch.randint(30000, 32768, (m, k), generator=gen, device=device).to(torch.int16)
+    banks = [torch.randint(24000, 32768, (k, n), generator=gen, device=device).to(torch.int16)
+             for _ in range(18)]  # 18 x 33.6 MB: cold weights, as the other shapes
+    exact = x_q[:1].double() @ banks[0][:, :8].double()
+    if not (exact.abs() >= 2**31).all():
+        raise AssertionError("the FxP16 case does not overflow the int32 accumulator")
+    rows.append(time_mac("fxp16 int16, int32 overflow", x_q, banks,
+                         torch.full((m, 1), 2.0**-12, device=device),
+                         torch.full((1, n), 2.0**-14, device=device), False))
+    torch.cuda.synchronize()
+    return rows
+
+
+def time_mac(label, x_q, banks, x_scale, w_scale, relu):
+    """One bitwise check and the timings of one MAC-array shape."""
+    import torch
+
+    from repro_torch.kernels.cordic_mac import mac_matmul, mac_matmul_ref
+
+    m, k = x_q.shape
+    n = banks[0].shape[1]
+    got = mac_matmul(x_q, banks[0], x_scale, w_scale, fuse_relu=relu)
+    want = mac_matmul_ref(x_q, banks[0], x_scale, w_scale, fuse_relu=relu)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = (got != want).sum().item()
+        raise AssertionError(f"cordic_mac != plain at M={m} K={k} N={n} {label}: "
+                             f"{bad} elements differ")
+    it = iter(range(1 << 30))
+    call = lambda: mac_matmul(x_q, banks[next(it) % len(banks)], x_scale, w_scale,  # noqa: E731
+                              fuse_relu=relu)
+    iters = 60 if m <= 32 else 20
+    ms = graph_ms(call, iters)
+    eager_ms = timed_ms(call, iters)
+    plain_ms = timed_ms(lambda: mac_matmul_ref(x_q, banks[0], x_scale, w_scale, fuse_relu=relu),
+                        iters=5, warmup=1)
+    lib_ms = None
+    if m > 16 and k % 8 == 0 and n % 8 == 0 and x_q.dtype == torch.int8 and not relu:
+        lib_ms = graph_ms(lambda: torch._int_mm(x_q, banks[next(it) % len(banks)]), iters)
+    elem = x_q.element_size()
+    b_ms, b_by = bound(m * k * elem + k * n * elem + (m + n) * 4 + m * n * 4, 2.0 * m * n * k,
+                       INT8_OPS_PER_S)
+    log(f"mac {label} M={m} K={k} N={n}: {ms:.4f} ms (eager {eager_ms:.4f}, plain "
+        f"{plain_ms:.3f}, int_mm {lib_ms}, bound {b_ms:.4f} {b_by})")
+    return dict(M=m, K=k, N=n, case=label, bitwise_equal=True, max_abs_err=0.0, ms=ms,
+                eager_ms=eager_ms, plain_ms=plain_ms, int_mm_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def softmax_int_ops(depth: int) -> int:
+    """int32 operations per element of the row softmax at internal depth
+    ``depth``, counted as the function needs them (once per element, as
+    ``af_int_ops`` counts them): the quantize/requantize/dequantize chain,
+    the CORDIC exp and divide loops, the shift, the two reductions' adds and
+    compares. The kernel quantizes each input twice (max pass, exp pass);
+    that second chain is its own cost, not the function's."""
+    return 12 + (6 * depth + 12) + 6 * depth + 8
+
+
+def check_softmax(device):
+    """The row softmax against its plain version, bitwise."""
+    import torch
+
+    from repro_torch.core import FXP8, FXP16
+    from repro_torch.core.activations import internal_depth, internal_fmt, softmax_shift
+    from repro_torch.core.cordic import full_depth
+    from repro_torch.kernels.cordic_af import af_softmax, af_softmax_ref
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    cases = [((64, 512), FXP8), ((64, 512), FXP16), ((5, 300), FXP8),
+             ((SLOTS, 50304), FXP8), ((SLOTS, 50304), FXP16)]
+    rows = []
+    for shape, fmt in cases:
+        x = torch.randn(shape, generator=gen, device=device) * 3.0
+        depth = full_depth(fmt)
+        got = af_softmax(x, depth=depth, fmt=fmt)
+        want = af_softmax_ref(x, depth=depth, fmt=fmt)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = (got != want).sum().item()
+            raise AssertionError(f"af_softmax != plain at {shape} {fmt}: {bad} elements differ")
+        ms = graph_ms(lambda: af_softmax(x, depth=depth, fmt=fmt), 20)
+        plain_ms = timed_ms(lambda: af_softmax_ref(x, depth=depth, fmt=fmt), iters=3, warmup=1)
+        ops = softmax_int_ops(internal_depth(depth, fmt))
+        b_ms, b_by = bound(8.0 * x.numel(), float(ops) * x.numel(), INT32_OPS_PER_S)
+        shift = softmax_shift(shape[1], internal_fmt(fmt).frac)
+        rows.append(dict(shape=list(shape), fmt=str(fmt), depth=depth, pre_shift=shift,
+                         bitwise_equal=True, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         int_ops_per_element=ops, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None))
+        log(f"softmax {shape} {fmt} shift {shift}: {ms:.4f} ms (plain {plain_ms:.3f}, "
+            f"bound {b_ms:.4f} {b_by})")
+    return rows
+
+
+def softmax_path(device):
+    """The softmax's entry point: ``EngineContext.activate(x, "softmax")`` in
+    kernel mode on lm_head-wide logits rows, with the launch count of its
+    kernel read just after, held against the plain version."""
+    import torch
+
+    from repro_torch.kernels.cordic_af import af_softmax_ref
+
+    ctx = kernel_ctx()
+    x = torch.randn((SLOTS, 50304), generator=torch.Generator(device=device).manual_seed(SEED),
+                    device=device) * 3.0
+    kernels = path_kernels()
+    for w in kernels.values():
+        w.launches = 0
+    got = ctx.activate(x, "softmax")
+    launches = {name: w.launches for name, w in kernels.items()}
+    if launches != {**{name: 0 for name in kernels}, "af_softmax": 1}:
+        raise AssertionError(f"activate(x, 'softmax') launched {launches}")
+    lp = ctx.layer_precision("af")
+    if not torch.equal(got, af_softmax_ref(x, depth=int(lp.depth), fmt=lp.fmt)):
+        raise AssertionError("activate(x, 'softmax') != the plain version")
+    return dict(entry="EngineContext(mode='kernel').activate(x, 'softmax')",
+                shape=list(x.shape), launches=launches, bitwise_equal=True)
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: serving
 # ---------------------------------------------------------------------------
@@ -482,17 +651,27 @@ def margins(reqs) -> list:
 
 
 def path_kernels():
-    """name -> wrapper of every kernel a serving path may launch."""
-    from repro_torch.kernels.cordic_af import multi_af
+    """name -> wrapper of every kernel a path may launch."""
+    from repro_torch.kernels.cordic_af import af_softmax, multi_af
     from repro_torch.kernels.cordic_fused import fused_dot_af
+    from repro_torch.kernels.cordic_mac import mac_matmul
     from repro_torch.kernels.decode_attention import gqa_decode_attention, mla_decode_attention
 
-    return {"fused_dot_af": fused_dot_af, "gqa_decode_attention": gqa_decode_attention,
-            "mla_decode_attention": mla_decode_attention, "af_elementwise": multi_af}
+    return {"fused_dot_af": fused_dot_af, "cordic_mac": mac_matmul,
+            "gqa_decode_attention": gqa_decode_attention,
+            "mla_decode_attention": mla_decode_attention, "af_elementwise": multi_af,
+            "af_softmax": af_softmax}
 
 
-def launches_per_forward(cfg) -> dict:
-    """Kernel launches one forward of ``cfg`` implies, by kernel."""
+def launches_per_forward(cfg, per_call: bool = False) -> dict:
+    """Kernel launches one forward of ``cfg`` implies, by kernel. Per call,
+    every dot is a MAC-array launch and the gate's activation its own
+    multi-AF launch."""
+    if cfg.moe is None and per_call:
+        return {"cordic_mac": 7 * cfg.num_layers + 1, "af_elementwise": cfg.num_layers,
+                "gqa_decode_attention": cfg.num_layers}
+    if per_call:
+        raise NotImplementedError("per-call serving is driven for the dense family only")
     if cfg.moe is None:  # dense GQA: q k v o up gate down per layer, and lm_head
         return {"fused_dot_af": 7 * cfg.num_layers + 1,
                 "gqa_decode_attention": cfg.num_layers}
@@ -513,9 +692,14 @@ def plain_products_per_forward(cfg) -> int:
     return 2 * cfg.num_layers * bool(cfg.mla) + 4 * (cfg.num_layers - cfg.moe.first_dense_layers)
 
 
-def serve_full_width(device, label, cfg):
+def serve_full_width(device, label, cfg, prepared_run=None):
     """Serve ``cfg`` at full width on the card: the main path with launch
-    counts, a profiled repeat, and a burst=1 run on the same prepared tree."""
+    counts, a profiled repeat, and a burst=1 run on the same weights.
+
+    With ``prepared_run`` (the ``(streams, margins)`` that a prepared run of
+    the same weights returned) the server runs per call, and every stream
+    and top-2 margin must equal the prepared run's bit for bit. Returns
+    ``(report, streams, margins)``."""
     import torch
 
     from torch.profiler import ProfilerActivity, profile
@@ -523,17 +707,18 @@ def serve_full_width(device, label, cfg):
     from repro_torch.models import get_model
     from repro_torch.serve.engine import BatchedServer
 
+    per_call = prepared_run is not None
     model = get_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     params = model.init(torch.Generator(device=device).manual_seed(SEED))
     server = BatchedServer(model, kernel_ctx(), params, slots=SLOTS, max_len=MAX_LEN,
-                           burst=BURST, device=device)
-    del params  # the raw banks the prepared tree replaced
+                           burst=BURST, device=device, prepare_weights=not per_call)
+    del params  # prepared: the raw banks the prepared tree replaced
     torch.cuda.synchronize()
     setup_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
 
-    per_forward = launches_per_forward(cfg)
+    per_forward = launches_per_forward(cfg, per_call)
     # the main path: counts zeroed just before, read just after; a kernel of
     # the path must launch exactly as the shapes imply (so at least once), any
     # other kernel never
@@ -552,8 +737,9 @@ def serve_full_width(device, label, cfg):
                                  f"shapes imply {want}")
     tokens = sum(len(v) for v in first.values())
     report = dict(
-        config=f"{label} full width, {cfg.num_layers} layers, dtype float32, kernel mode, "
-               "FxP8 accurate, attn_impl=decode_kernel",
+        config=f"{label} full width, {cfg.num_layers} layers, dtype float32, kernel mode "
+               f"({'per-call' if per_call else 'prepared'} weights), FxP8 accurate, "
+               "attn_impl=decode_kernel",
         slots=SLOTS, max_len=MAX_LEN, burst=BURST, prompt_lens=list(PROMPT_LENS),
         max_new=MAX_NEW, tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
         prefill_s=server.prefill_seconds, decode_s=server.decode_seconds,
@@ -568,14 +754,23 @@ def serve_full_width(device, label, cfg):
     for name, tok in first.items():
         if len(tok) != MAX_NEW:
             raise AssertionError(f"{label}: request {name} produced {len(tok)} tokens")
-    # the repeat run, under the profiler: what ran on the card
+    if per_call and (first != prepared_run[0] or margins(first_reqs) != prepared_run[1]):
+        raise AssertionError(f"{label}: per-call greedy streams or their top-2 logit margins "
+                             "differ from the prepared run's")
+    # what ran on the card, under the profiler: prepared, a repeat of the
+    # whole run; per call (~8,000 launches a forward), every request for 9
+    # tokens (a prefill in each of the run's buckets, then decode bursts),
+    # which must repeat their streams' heads
+    head = 9 if per_call else MAX_NEW
+    again_reqs = requests(cfg, max_new=head)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        again_reqs = requests(cfg)
         again = server.run(again_reqs)
         torch.cuda.synchronize()
         profiled_wall = time.perf_counter() - t0
-    if again != first or margins(again_reqs) != margins(first_reqs):
+    profiled_forwards = server.prefill_calls + server.decode_steps
+    if again != {rid: toks[:head] for rid, toks in first.items()} \
+            or margins(again_reqs) != [m[:head] for m in margins(first_reqs)]:
         raise AssertionError(f"{label}: full-width greedy streams or their top-2 logit "
                              "margins differ between two runs")
     rows = kernel_breakdown(prof)
@@ -585,36 +780,76 @@ def serve_full_width(device, label, cfg):
                              f"{attention}")
     gemm = library_kernels(rows, GEMM_KERNELS)
     gemm_calls = sum(n for _, n in gemm)
-    allowed = CUBLAS_LAUNCHES_PER_PRODUCT * plain_products_per_forward(cfg) * forwards
+    allowed = CUBLAS_LAUNCHES_PER_PRODUCT * plain_products_per_forward(cfg) * profiled_forwards
     if gemm_calls > allowed:
         raise AssertionError(f"{label}: {gemm_calls} library matmul launches, the plain "
                              f"products allow {allowed}: {gemm}")
     busy_ms = sum(r[0] for r in rows) / 1e3
+    port_ms = {}  # device ms of the port's own kernels, by kernel
+    for us, k, n in rows:
+        name = next((f for f in PORT_KERNELS if f in k), None)
+        if name:
+            ms, calls = port_ms.get(name, (0.0, 0))
+            port_ms[name] = (ms + us / 1e3, calls + n)
     report["profiled_repeat"] = dict(
+        requests=len(again_reqs), forwards=profiled_forwards,
         wall_ms=profiled_wall * 1e3, device_busy_ms=busy_ms,
         device_busy_share=busy_ms / (profiled_wall * 1e3),
-        device_launches_per_forward=sum(r[2] for r in rows) / forwards,
-        library_matmul_launches_per_forward=gemm_calls / forwards,
-        library_matmul_launches_allowed_per_forward=allowed / forwards,
+        device_launches_per_forward=sum(r[2] for r in rows) / profiled_forwards,
+        library_matmul_launches_per_forward=gemm_calls / profiled_forwards,
+        library_matmul_launches_allowed_per_forward=allowed / profiled_forwards,
         library_kernels=[dict(name=k[:100], calls=n) for k, n in gemm],
+        port_kernels={k: dict(device_ms=ms, calls=n) for k, (ms, n) in port_ms.items()},
         top_kernels=[dict(name=k[:100], device_ms=us / 1e3, calls=n)
                      for us, k, n in rows[:12]])
-    # burst=1 on the same prepared tree
+    if per_call:
+        report["weight_rounding"] = weight_rounding_ms(server.params, cfg)
+    # burst=1 on the same weights
     one_reqs = requests(cfg)
     one = BatchedServer(model, kernel_ctx(), server.params, slots=SLOTS, max_len=MAX_LEN,
-                        burst=1, device=device).run(one_reqs)
+                        burst=1, device=device, prepare_weights=not per_call).run(one_reqs)
     if one != first or margins(one_reqs) != margins(first_reqs):
         raise AssertionError(f"{label}: full-width greedy streams or their top-2 logit "
                              "margins differ between burst=8 and burst=1")
-    report["repeat_identical"] = True  # tokens and f32 margins, bit for bit
+    report["repeat_identical"] = True  # tokens (and prepared: f32 margins), bit for bit
     report["burst1_identical"] = True
+    if per_call:
+        report["prepared_identical"] = True  # tokens and f32 margins, bit for bit
     report["distinct_tokens"] = len({t for toks in first.values() for t in toks})
     report["streams_head"] = {rid: toks[:8] for rid, toks in first.items()}
     report["margins_head"] = {r.rid: r.margins[:4] for r in first_reqs}
-    return report
+    return report, first, margins(first_reqs)
 
 
-def card_vs_cpu(device, label, cfg, params, lens, max_len):
+def weight_rounding_ms(params, cfg) -> dict:
+    """Device ms of one forward's per-call weight rounding: ``quantize_weights``
+    on every dot weight of every layer and the tied lm_head, CUDA events
+    around the whole sequence (each rounding is ~40 eager kernels over
+    millions of elements, so the card, not the host, sets the pace)."""
+    import torch
+
+    from repro_torch.core import FXP8_UNIT
+    from repro_torch.kernels.cordic_mac import quantize_weights
+
+    weights = []
+    for seg in (v for k, v in params.items() if k.startswith("seg")):
+        layer_leaves = [seg["attn"][n] for n in ("wq", "wk", "wv", "wo")]
+        layer_leaves += [seg["mlp"][n] for n in ("up", "gate", "down")]
+        weights += [leaf[i] for i in range(cfg.num_layers) for leaf in layer_leaves]
+    weights.append(params["embed"].T)
+    depth = FXP8_UNIT.frac + 1
+
+    def round_all():
+        for w in weights:
+            quantize_weights(w, depth, FXP8_UNIT)
+
+    ms = timed_ms(round_all, iters=2, warmup=1)
+    elements = sum(w.numel() for w in weights)
+    return dict(weights_per_forward=len(weights), elements=elements, ms_per_forward=ms,
+                f32_gb_read_once=elements * 4 / 1e9)
+
+
+def card_vs_cpu(device, label, cfg, params, lens, max_len, prepare_weights=True):
     """The same weights served on the card (kernels) and the CPU (plain
     versions); the greedy streams must be identical."""
     import torch
@@ -627,7 +862,7 @@ def card_vs_cpu(device, label, cfg, params, lens, max_len):
     out, logits = {}, {}
     for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
         server = BatchedServer(model, kernel_ctx(), params, slots=2, max_len=max_len, burst=4,
-                               device=dev)
+                               device=dev, prepare_weights=prepare_weights)
         out[where] = server.run(reqs())
         prompt = torch.as_tensor(reqs()[1].prompt[None], device=dev)
         row = model.make_cache(1, max_len, device=dev)
@@ -638,7 +873,8 @@ def card_vs_cpu(device, label, cfg, params, lens, max_len):
         raise AssertionError(f"{label}: streams differ card vs CPU: {out}")
     diff = (logits["card"] - logits["cpu"]).abs().max().item()
     return dict(config=label, layers=cfg.num_layers, d_model=cfg.d_model, prompt_lens=list(lens),
-                streams_identical=True, prefill_logits_max_abs_diff=diff, streams=out["card"])
+                weights="prepared" if prepare_weights else "per-call", streams_identical=True,
+                prefill_logits_max_abs_diff=diff, streams=out["card"])
 
 
 def olmo_card_vs_cpu(device):
@@ -651,29 +887,47 @@ def olmo_card_vs_cpu(device):
     return card_vs_cpu(device, "olmo-1b full width, 2 layers", cfg, params, (5, 11), 64)
 
 
-def deepseek_card_vs_cpu(device):
-    """Reduced deepseek-v3 (4 layers: 1 dense prefix, 3 MoE; d_model 128, 4
-    experts): a full-width MoE layer is 45 GB and ~722 GFLOP per step on the
-    host. Layer weights are scaled to N(0, 0.1^2), as in the CPU parity tests,
-    so that the routing is not degenerate. The 70-token prompt's 96-row
-    bucket is past the dropless widening (s > 64)."""
+def scaled_init(model, scale: float = 0.1):
+    """``model.init`` on the CPU from ``SEED``, with the layer matrices scaled
+    to N(0, scale^2), as in the CPU parity tests, so that the layers and not
+    the tied embedding pick the tokens."""
     import torch
 
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.models import get_model
     from repro_torch.models.params import spec_leaves
 
-    cfg = reduced(get_config("deepseek-v3-671b"), layers=4)
-    model = get_model(cfg)
     params = model.init(torch.Generator(device="cpu").manual_seed(SEED))
     for path, spec in spec_leaves(model.specs()):
         if spec.init == "normal" and path[0] != "embed":
             leaf = params
             for key in path:
                 leaf = leaf[key]
-            leaf.mul_(0.1 / spec.scale)
-    return card_vs_cpu(device, "deepseek-v3-671b reduced, 4 layers", cfg, params,
-                       (5, 11, 70), 96)
+            leaf.mul_(scale / spec.scale)
+    return params
+
+
+def olmo_per_call_card_vs_cpu(device):
+    """Per-call olmo-1b, reduced (2 layers, d_model 128: the CPU's plain
+    versions re-round every weight at every dot), card vs CPU."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+
+    cfg = reduced(get_config("olmo-1b"))
+    return card_vs_cpu(device, "olmo-1b reduced, 2 layers, per-call", cfg,
+                       scaled_init(get_model(cfg)), (5, 11, 40), 64, prepare_weights=False)
+
+
+def deepseek_card_vs_cpu(device):
+    """Reduced deepseek-v3 (4 layers: 1 dense prefix, 3 MoE; d_model 128, 4
+    experts): a full-width MoE layer is 45 GB and ~722 GFLOP per step on the
+    host. Layer weights are scaled to N(0, 0.1^2), as in the CPU parity tests,
+    so that the routing is not degenerate. The 70-token prompt's 96-row
+    bucket is past the dropless widening (s > 64)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+
+    cfg = reduced(get_config("deepseek-v3-671b"), layers=4)
+    return card_vs_cpu(device, "deepseek-v3-671b reduced, 4 layers", cfg,
+                       scaled_init(get_model(cfg)), (5, 11, 70), 96)
 
 
 def free_card():
@@ -709,43 +963,65 @@ def main() -> int:
     attn_rows, attn_err = check_attention(device)
     mla_rows, mla_err = check_mla(device)
     af_rows = check_af(device)
-    checks = {"fused_dot_af": fused_rows, "gqa_decode_attention": attn_rows,
-              "mla_decode_attention": mla_rows, "af_elementwise": af_rows}
+    mac_rows = check_mac(device)
+    softmax_rows = check_softmax(device)
+    checks = {"fused_dot_af": fused_rows, "cordic_mac": mac_rows,
+              "gqa_decode_attention": attn_rows, "mla_decode_attention": mla_rows,
+              "af_elementwise": af_rows, "af_softmax": softmax_rows}
     emit({"kernel_checks": checks})
     free_card()
+    paths = {"softmax activate": softmax_path(device)}
+    emit({"softmax_path": paths["softmax activate"]})
 
-    serving = {"olmo-1b": serve_full_width(device, "olmo-1b", olmo())}
+    serving, parity = {}, {}
+    serving["olmo-1b"], *prepared_run = serve_full_width(device, "olmo-1b", olmo())
     emit({"serving": serving["olmo-1b"]})
     free_card()
-    parity = {"olmo-1b": olmo_card_vs_cpu(device)}
-    emit({"card_vs_cpu": parity["olmo-1b"]})
+    serving["olmo-1b per-call"], *_ = serve_full_width(device, "olmo-1b", olmo(),
+                                                       prepared_run=prepared_run)
+    emit({"serving": serving["olmo-1b per-call"]})
     free_card()
-    serving["deepseek-v3-671b"] = serve_full_width(device, "deepseek-v3-671b", deepseek())
+    parity["olmo-1b"] = olmo_card_vs_cpu(device)
+    emit({"card_vs_cpu": parity["olmo-1b"]})
+    parity["olmo-1b per-call"] = olmo_per_call_card_vs_cpu(device)
+    emit({"card_vs_cpu": parity["olmo-1b per-call"]})
+    free_card()
+    serving["deepseek-v3-671b"], *_ = serve_full_width(device, "deepseek-v3-671b", deepseek())
     emit({"serving": serving["deepseek-v3-671b"]})
     free_card()
     parity["deepseek-v3-671b"] = deepseek_card_vs_cpu(device)
     emit({"card_vs_cpu": parity["deepseek-v3-671b"]})
+    paths.update(serving)
 
     def launches(name):
-        by_path = {label: rep["launches"][name] for label, rep in serving.items()
-                   if name in rep["launches"]}
+        by_path = {label: rep["launches"][name] for label, rep in paths.items()
+                   if rep["launches"].get(name)}
         return sum(by_path.values()), by_path
 
     rep_f = next(r for r in fused_rows if (r["M"], r["K"], r["N"], r["af"]) ==
                  (SLOTS, 2048, 8192, "identity"))
+    rep_mac = next(r for r in mac_rows if (r["M"], r["K"], r["N"], r["case"]) ==
+                   (SLOTS, 2048, 8192, "fxp8"))
     rep_af = next(r for r in af_rows if (r["where"], r["fmt"], r["mode"]) ==
                   ("decode", "Q1.6", "swish"))
+    rep_sm = next(r for r in softmax_rows if (r["shape"], r["fmt"]) == ([SLOTS, 50304], "Q1.6"))
     kernels = []
     for name, file, replaces, err, rep, lib in (
             ("fused_dot_af", "cordic_fused/csrc/cordic_fused.cu", "cordic_fused/kernel.py:104",
              fused_err, rep_f, None),
+            ("cordic_mac", "cordic_mac/csrc/cordic_mac.cu", "cordic_mac/kernel.py:36", 0.0,
+             rep_mac, None),
             ("gqa_decode_attention", "decode_attention/csrc/decode_attention.cu",
              "decode_attention/kernel.py:40", attn_err, attn_rows[0], attn_rows[0]["sdpa_ms"]),
             ("mla_decode_attention", "decode_attention/csrc/mla_decode.cu",
              "decode_attention/kernel.py:79", mla_err, mla_rows[0], mla_rows[0]["sdpa_ms"]),
             ("af_elementwise", "cordic_af/csrc/cordic_af.cu", "cordic_af/kernel.py:40", 0.0,
-             rep_af, None)):
+             rep_af, None),
+            ("af_softmax", "cordic_af/csrc/af_softmax.cu", "cordic_af/kernel.py:54", 0.0,
+             rep_sm, None)):
         total, by_path = launches(name)
+        if not total:
+            raise AssertionError(f"{name}: no launch on any driven path")
         kernels.append(dict(name=name, route="cuda", source=f"src/repro_torch/kernels/{file}",
                             replaces=f"src/repro/kernels/{replaces}", launches=total,
                             launches_by_path=by_path, max_abs_err=err, ms=rep["ms"],
@@ -754,8 +1030,8 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        device=device_line, kernel_checks=checks, serving=serving, card_vs_cpu=parity,
-        kernels=kernels), indent=1))
+        device=device_line, kernel_checks=checks, softmax_path=paths["softmax activate"],
+        serving=serving, card_vs_cpu=parity, kernels=kernels), indent=1))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

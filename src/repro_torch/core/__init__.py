@@ -9,7 +9,8 @@ from .cordic import (
     full_depth,
     signed_digit_round,
 )
-from .activations import AF_INDEX, AF_NAMES, af_ref, multi_af, multi_af_float
+from .activations import AF_INDEX, AF_NAMES, af_ref, cordic_softmax, multi_af, multi_af_float
+from .mac import carmen_matmul_fast, cordic_dot, cordic_matmul, mac_cycles
 from .engine import EngineContext, PreparedWeight, prepare_params
 from .precision_policy import LayerPrecision, PrecisionPolicy
 from .normalization import layernorm, nonparametric_ln, rmsnorm
@@ -18,7 +19,8 @@ __all__ = [
     "FXP8", "FXP8_UNIT", "FXP16", "FXP16_UNIT", "FxPFormat", "dequantize", "quantize",
     "approx_depth", "cordic_div", "cordic_exp", "cordic_mul", "full_depth",
     "signed_digit_round",
-    "AF_INDEX", "AF_NAMES", "af_ref", "multi_af", "multi_af_float",
+    "AF_INDEX", "AF_NAMES", "af_ref", "cordic_softmax", "multi_af", "multi_af_float",
+    "carmen_matmul_fast", "cordic_dot", "cordic_matmul", "mac_cycles",
     "EngineContext", "PreparedWeight", "prepare_params",
     "LayerPrecision", "PrecisionPolicy",
     "layernorm", "nonparametric_ln", "rmsnorm",

@@ -3,7 +3,8 @@
 The six elementwise activation functions — ReLU, GELU, Tanh, Sigmoid, Swish,
 SELU — are compositions of the shared CORDIC sub-units (hyperbolic exp,
 linear-vectoring divide, linear-rotation multiply), on raw int32 tensors,
-bit for bit as in the reference. Softmax waits for the ``af_softmax`` kernel.
+bit for bit as in the reference. Softmax, the seventh, is the shared exp, an
+int32 row sum and the shared divide (:func:`cordic_softmax`).
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ __all__ = [
     "ELEMENTWISE_AFS",
     "multi_af",
     "multi_af_float",
+    "cordic_softmax",
+    "softmax_shift",
     "internal_fmt",
     "af_constants",
     "af_ref",
@@ -136,10 +139,31 @@ _FX_AFS = {
 
 
 def multi_af(x_raw, mode: str, depth: int, fmt: FxPFormat) -> torch.Tensor:
-    """Fixed-point multi-AF block: raw int32 in ``fmt`` -> raw int32 in ``fmt``."""
+    """Fixed-point multi-AF block: raw int32 in ``fmt`` -> raw int32 in ``fmt``.
+    ``softmax`` reduces over the last axis."""
     if mode == "softmax":
-        raise NotImplementedError("cordic_softmax is not yet ported (af_softmax kernel)")
+        return cordic_softmax(x_raw, depth, fmt)
     return _FX_AFS[mode](_i32(x_raw), depth, fmt)
+
+
+def softmax_shift(n: int, frac: int) -> int:
+    """Right shift of the exponentials before a row sum of ``n`` lanes, so the
+    int32 accumulator cannot overflow (the reference's Python arithmetic)."""
+    headroom = int(math.ceil(math.log2(max(n, 2)))) + frac + 1
+    return max(0, headroom - 31)
+
+
+def cordic_softmax(x_raw, depth: int, fmt: FxPFormat, axis: int = -1) -> torch.Tensor:
+    """Softmax = shared exp + int32 accumulate + shared divide, raw int32 in
+    ``fmt``. The exponentials are pre-shifted by :func:`softmax_shift` when
+    the lane count could overflow the accumulator; the quotient is shift
+    invariant."""
+    x = _i32(x_raw)
+    m = torch.amax(x, dim=axis, keepdim=True)
+    e = _exp_neg(x - m, depth, fmt)  # every argument <= 0: values in (0, 1]
+    e_s = e >> softmax_shift(x.shape[axis], fmt.frac)
+    s = torch.sum(e_s, dim=axis, keepdim=True, dtype=torch.int32)
+    return cordic.cordic_div(e_s, torch.clamp(s, min=1), depth, fmt)
 
 
 def internal_fmt(fmt: FxPFormat) -> FxPFormat:

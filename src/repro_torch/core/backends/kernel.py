@@ -1,12 +1,22 @@
-"""kernel backend: prepared CORDIC dots through the fused dot+AF kernel
-(port of ``repro.core.backends.kernel``).
+"""kernel backend: CORDIC dots through the Hopper kernels (port of
+``repro.core.backends.kernel``).
 
-``prepare`` rounds each weight once to its depth-d signed-digit integers and
-attaches the execution point's int32 ``point`` vector. ``dot`` / ``dot_af``
-run :func:`repro_torch.kernels.cordic_fused.fused_dot_af`, which launches the
-Hopper kernel on a CUDA tensor and runs the plain version on a CPU tensor.
-The kernel tiles the contraction, so there is no ``FUSE_MAX_K`` fallback and
-no ``fused`` switch: every prepared dot goes through it.
+Prepared path: ``prepare`` rounds each weight once to its depth-d
+signed-digit integers and attaches the execution point's int32 ``point``
+vector; ``dot`` / ``dot_af`` run
+:func:`repro_torch.kernels.cordic_fused.fused_dot_af`. The kernel tiles the
+contraction, so there is no ``FUSE_MAX_K`` fallback and no ``fused`` switch:
+every prepared dot goes through it.
+
+Per-call path: a raw float weight is re-rounded on every call and the dot
+runs the MAC-array kernel (:func:`repro_torch.kernels.cordic_mac.cordic_mac`)
+at the policy's static formats; ``dot_af`` declines it, so the caller runs
+the activation as its own multi-AF pass. The reference's third branch, a
+legacy prepared leaf that carried its formats in ``meta``, is not ported:
+its ``prepare`` always sets ``point``, so nothing builds such a leaf.
+
+Each kernel launches on a CUDA tensor and its plain version runs on a CPU
+tensor.
 """
 from __future__ import annotations
 
@@ -65,12 +75,14 @@ class KernelBackend(Backend):
         return out.to(ctx.compute_dtype)
 
     def dot(self, ctx, x, w, *, name: str = ""):
-        if isinstance(w, PreparedWeight) and w.point is not None:
+        if isinstance(w, PreparedWeight):
             return self._fused(ctx, x, w, "identity")
-        raise NotImplementedError(
-            "the per-call kernel dot (cordic_mac kernel) is not yet ported; "
-            "prepare the weights with prepare_params"
-        )
+        from repro_torch.kernels.cordic_mac import cordic_mac
+
+        lp = ctx.layer_precision(name)
+        out = cordic_mac(x.reshape(-1, x.shape[-1]), w, depth=int(lp.depth), x_fmt=lp.fmt,
+                         w_fmt=unit_fmt(lp.fmt))
+        return out.reshape(*x.shape[:-1], w.shape[-1]).to(ctx.compute_dtype)
 
     def dot_af(self, ctx, x, w, *, af: str, name: str = ""):
         """Fused dot + activation epilogue; NotImplemented -> caller unfuses."""

@@ -57,8 +57,9 @@ class EngineContext:
 
     def activate(self, x, af: str):
         """Standalone activation through the multi-AF block: in kernel mode the
-        elementwise AF kernel (its plain version on CPU tensors) at the
-        policy's ``af`` depth and format. The other modes are not yet ported."""
+        elementwise AF kernel, or for ``"softmax"`` the row-softmax kernel over
+        the last axis (their plain versions on CPU tensors), at the policy's
+        ``af`` depth and format. The other modes are not yet ported."""
         if af == "identity":
             return x
         if self.mode == "kernel":

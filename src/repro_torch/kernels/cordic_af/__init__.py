@@ -1,7 +1,8 @@
-"""The standalone multi-AF block: Hopper kernel and plain version."""
+"""The standalone multi-AF block: Hopper kernels and plain versions."""
 from repro_torch.core.activations import ELEMENTWISE_AFS
 
-from .ops import multi_af
-from .ref import multi_af_ref
+from .ops import af_index, af_softmax, multi_af
+from .ref import af_softmax_ref, multi_af_ref
 
-__all__ = ["ELEMENTWISE_AFS", "multi_af", "multi_af_ref"]
+__all__ = ["ELEMENTWISE_AFS", "af_index", "af_softmax", "af_softmax_ref", "multi_af",
+           "multi_af_ref"]

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 
@@ -24,27 +23,10 @@ from repro_torch.core.fxp import FXP8, FxPFormat
 
 from .. import _build
 from ..af_table import af_table_on
+from ..int_dot import plan, ptr, splitk_scratch, vector_loads
 from .ref import fused_dot_af_ref
 
 FUSED_AFS = ("identity",) + afs.ELEMENTWISE_AFS
-
-# (BM, BN, BK) of the kernel's three tile configurations, by M
-_CONFIGS = {0: (8, 128, 32), 1: (32, 128, 32), 2: (128, 128, 16)}
-# split-K aims at about two blocks per SM of an H100 (132 SMs)
-_TARGET_BLOCKS = 264
-
-
-@functools.lru_cache(maxsize=1024)
-def plan(m: int, n: int, k: int):
-    """``(config, splits, k_per_split)`` for an (M, K) x (K, N) call."""
-    config = 0 if m <= 8 else (1 if m <= 32 else 2)
-    bm, bn, bk = _CONFIGS[config]
-    k_tiles = max(1, math.ceil(k / bk))
-    tiles = math.ceil(m / bm) * math.ceil(n / bn)
-    splits = max(1, min(k_tiles, math.ceil(_TARGET_BLOCKS / tiles)))
-    per = math.ceil(k_tiles / splits)
-    splits = math.ceil(k_tiles / per)
-    return config, splits, per * bk
 
 
 @functools.lru_cache(maxsize=1)
@@ -71,22 +53,13 @@ def _launch(x2, w, point, mode: int, af_depth: int, af_fmt: FxPFormat, compute_r
     if m == 0 or n == 0:
         return out
     config, splits, k_per_split = plan(m, n, k)
-    ws = counts = None
-    if splits > 1:  # uint32 partial sums + per-tile arrival counts, zeroed
-        bm, bn, _ = _CONFIGS[config]
-        scratch = torch.zeros((m * n + math.ceil(m / bm) * math.ceil(n / bn),),
-                              dtype=torch.int32, device=dev)
-        ws, counts = scratch[: m * n], scratch[m * n:]
-    elem = w.element_size()
-    vec = int(n % (16 // elem) == 0 and w.data_ptr() % 16 == 0)
+    ws, counts = splitk_scratch(m, n, config, splits, dev)
     tab = af_table_on(dev, af_depth, af_fmt)
     with torch.cuda.device(dev):
         status = _lib().cordic_fused_launch(
-            x2.data_ptr(), w.data_ptr(), elem, point.data_ptr(), tab.data_ptr(),
-            out.data_ptr(), ws.data_ptr() if ws is not None else None,
-            counts.data_ptr() if counts is not None else None,
-            m, n, k, config, splits, k_per_split, mode, int(compute_round), vec,
-            torch.cuda.current_stream(dev).cuda_stream)
+            x2.data_ptr(), w.data_ptr(), w.element_size(), point.data_ptr(), tab.data_ptr(),
+            out.data_ptr(), ptr(ws), ptr(counts), m, n, k, config, splits, k_per_split, mode,
+            int(compute_round), vector_loads(w), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "cordic_fused_launch")
     fused_dot_af.launches += 1
     return out

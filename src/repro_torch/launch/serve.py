@@ -5,10 +5,12 @@
         --requests 4 --slots 2 --max-new 8 --device cpu
 
 Runs on the card by default (``--device cuda``) through the Hopper kernels;
-``--device cpu`` runs their plain versions. Prepared ``kernel``-mode weights,
-uniform accurate FxP8 policy, greedy decoding. Weights are random, drawn from
-seed 0. The full-width config is served at ``dtype="float32"`` to match
-the f32 engine context.
+``--device cpu`` runs their plain versions. ``kernel``-mode weights, prepared
+once (the fused dot+AF kernel) or, with ``--per-call``, re-rounded at every
+dot (the MAC-array kernel and the standalone multi-AF); uniform accurate
+FxP8 policy, greedy decoding. Weights are random, drawn from seed 0. The
+full-width config is served at ``dtype="float32"`` to match the f32 engine
+context.
 """
 from __future__ import annotations
 
@@ -31,7 +33,10 @@ def main(argv=None):
     ap.add_argument("--arch", choices=sorted(ARCHS), default="olmo-1b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--mode", choices=["kernel"], default="kernel",
-                    help="engine mode (only the prepared kernel backend is ported)")
+                    help="engine mode (only the kernel backend is ported)")
+    ap.add_argument("--per-call", action="store_true",
+                    help="skip prepare_params: re-quantize weights every step "
+                         "(the seed behaviour; for A/B benchmarking)")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
@@ -54,7 +59,7 @@ def main(argv=None):
                         attn_impl="decode_kernel")
     max_len = args.max_len or args.prompt_len + args.max_new + 2
     server = BatchedServer(model, ctx, params, slots=args.slots, max_len=max_len,
-                           burst=args.burst, device=device)
+                           burst=args.burst, device=device, prepare_weights=not args.per_call)
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32),
                     args.max_new) for i in range(args.requests)]
@@ -64,7 +69,8 @@ def main(argv=None):
     total = sum(len(v) for v in results.values())
     print(f"served {len(results)} requests, {total} tokens in {dt:.2f}s "
           f"({total / max(dt, 1e-9):.1f} tok/s, device={device}, burst={args.burst}, "
-          f"{server.host_transfers} host round-trips, prepared kernel weights)")
+          f"{server.host_transfers} host round-trips, "
+          f"{'per-call' if args.per_call else 'prepared'} {args.mode} weights)")
     for rid in sorted(results):
         print(f"  req {rid}: {results[rid][:8]}...")
     return results

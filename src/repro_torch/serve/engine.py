@@ -66,22 +66,27 @@ class BatchedServer:
     """Continuous batching over ``slots`` concurrent sequences.
 
     ``device`` defaults to ``cuda`` (and raises without a card); pass
-    ``"cpu"`` to serve with the kernels' plain versions. The weights are
-    prepared once, at construction. ``host_transfers`` counts device-to-host
+    ``"cpu"`` to serve with the kernels' plain versions.
+    ``prepare_weights=True`` (default) prepares the weight bank once, at
+    construction; ``False`` serves the raw tree through the per-call path,
+    which re-rounds every weight at every dot (the reference's A/B against
+    the prepared path). ``host_transfers`` counts device-to-host
     round trips in the last ``run``; ``prefill_calls`` and ``decode_steps``
     count model forwards, and ``prefill_seconds`` / ``decode_seconds`` their
     wall time.
     """
 
     def __init__(self, model: ModelApi, ctx: EngineContext, params, slots: int = 4,
-                 max_len: int = 256, burst: int = 8, device=None):
+                 max_len: int = 256, burst: int = 8, device=None, prepare_weights: bool = True):
         if burst < 1:
             raise ValueError(f"burst must be >= 1, got {burst}")
         self.model, self.ctx = model, ctx
         self.slots, self.max_len, self.burst = slots, max_len, burst
         self.device = resolve_device(device)
         params = _to_device(params, self.device)
-        self.params = prepare_params(params, ctx.policy, ctx.mode, specs=model.specs())
+        if prepare_weights:
+            params = prepare_params(params, ctx.policy, ctx.mode, specs=model.specs())
+        self.params = params
         self.cache = model.make_cache(slots, max_len, dtype=torch.float32, device=self.device)
         self._state = {
             "tok": torch.zeros((slots, 1), dtype=torch.int32, device=self.device),

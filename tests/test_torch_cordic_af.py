@@ -3,8 +3,10 @@ the reference's ``multi_af_pallas`` (Pallas in interpret mode on the CPU).
 
 Fixed-point paths agree bitwise: every elementwise AF, FxP8 and FxP16, at
 depths 2, 4 and full, over 1-D, 3-D and ragged shapes, with out-of-range and
-non-finite inputs. The Hopper kernel is held against the plain version on
-the card in ``test_torch_kernels_gpu.py``.
+non-finite inputs; and the row softmax (``cordic_softmax``), raw and through
+the float block, including rows wide enough for the accumulator pre-shift.
+The Hopper kernels are held against the plain versions on the card in
+``test_torch_kernels_gpu.py``.
 """
 import numpy as np
 import pytest
@@ -15,10 +17,20 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import EngineContext as JCtx  # noqa: E402
 from repro.core import PrecisionPolicy as JPolicy  # noqa: E402
+from repro.core import activations as jafs  # noqa: E402
 from repro.core.fxp import FXP8 as J8, FXP16 as J16  # noqa: E402
+from repro.core.fxp import FxPFormat as JFormat  # noqa: E402
 from repro.kernels.cordic_af.ops import multi_af_pallas  # noqa: E402
-from repro_torch.core import FXP8, FXP16, EngineContext, PrecisionPolicy, cordic  # noqa: E402
-from repro_torch.kernels.cordic_af import ELEMENTWISE_AFS, multi_af, multi_af_ref  # noqa: E402
+from repro_torch.core import FXP8, FXP16, EngineContext, FxPFormat, PrecisionPolicy  # noqa: E402
+from repro_torch.core import activations as afs, cordic  # noqa: E402
+from repro_torch.kernels.cordic_af import (  # noqa: E402
+    ELEMENTWISE_AFS,
+    af_index,
+    af_softmax,
+    af_softmax_ref,
+    multi_af,
+    multi_af_ref,
+)
 
 FMTS = {"fxp8": (FXP8, J8), "fxp16": (FXP16, J16)}
 
@@ -68,9 +80,14 @@ def test_mode_by_index_and_name_agree():
 
 
 def test_softmax_and_unknown_modes_raise():
+    """Softmax has no elementwise index: it must be named, as in the
+    reference's ``af_index``; unknown names and indices raise."""
     x = torch.zeros((2, 8))
-    with pytest.raises(NotImplementedError, match="af_softmax"):
-        multi_af(x, "softmax", depth=7, fmt=FXP8)
+    with pytest.raises(ValueError, match="softmax routes to the reduction kernel"):
+        af_index("softmax")
+    assert af_index("swish") == ELEMENTWISE_AFS.index("swish")
+    with pytest.raises(ValueError, match="rows"):
+        af_softmax(torch.zeros(8), depth=7, fmt=FXP8)
     with pytest.raises(ValueError, match="mode"):
         multi_af(x, "mish", depth=7, fmt=FXP8)
     with pytest.raises(ValueError, match="out of range"):
@@ -96,3 +113,76 @@ def test_engine_activate_kernel_mode_matches_reference(name, af):
 def test_engine_activate_other_modes_not_yet_ported():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         EngineContext(mode="carmen").activate(torch.zeros(4), "swish")
+
+
+# ---------------------------------------------------------------------------
+# softmax, the seventh AF
+# ---------------------------------------------------------------------------
+
+RAW_FMTS = {"fxp8": (FXP8, J8), "fxp16": (FXP16, J16),
+            "q7.16": (FxPFormat(24, 16), JFormat(24, 16))}  # FxP16's internal format
+
+
+def _softmax_raw_cases():
+    for name, (fmt, _) in sorted(RAW_FMTS.items()):
+        for depth in range(2, cordic.full_depth(fmt) + 1, 1 if name == "fxp8" else 3):
+            yield name, depth
+
+
+@pytest.mark.parametrize("name,depth", list(_softmax_raw_cases()))
+def test_cordic_softmax_raw_bitwise(name, depth):
+    fmt, jfmt = RAW_FMTS[name]
+    rng = np.random.default_rng(depth)
+    x = rng.integers(fmt.qmin, fmt.qmax, (6, 40), endpoint=True).astype(np.int32)
+    x[0] = fmt.qmax  # a flat row
+    x[1, :3] = [fmt.qmin, fmt.qmax, 0]
+    want = np.asarray(jafs.cordic_softmax(jnp.asarray(x), depth, jfmt))
+    got = afs.cordic_softmax(torch.from_numpy(x), depth, fmt)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    routed = afs.multi_af(torch.from_numpy(x), "softmax", depth, fmt)
+    np.testing.assert_array_equal(routed.numpy(), want)
+
+
+def test_cordic_softmax_pre_shift_on_a_wide_row():
+    """A 20000-lane row at FxP16's internal Q7.16 format needs the pre-shift
+    (ceil(log2 20000) + 16 + 1 - 31 = 1); the lm_head row at FxP16 needs 2."""
+    fmt, jfmt = RAW_FMTS["q7.16"]
+    assert afs.softmax_shift(20000, fmt.frac) == 1
+    assert afs.softmax_shift(50304, fmt.frac) == 2
+    assert afs.softmax_shift(50304, afs.internal_fmt(FXP8).frac) == 0
+    rng = np.random.default_rng(20000)
+    x = (rng.standard_normal((2, 20000)) * 0.3 * fmt.one).astype(np.int32)
+    for depth in (9, 17):
+        want = np.asarray(jafs.cordic_softmax(jnp.asarray(x), depth, jfmt))
+        got = afs.cordic_softmax(torch.from_numpy(x), depth, fmt)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert bool((got >= 0).all()) and bool((got > 0).any())
+
+
+@pytest.mark.parametrize("shape", [(16, 128), (5, 300), (2, 3, 40), (1, 20000)],
+                         ids=["row_block_8", "no_row_block", "3d", "pre_shift"])
+@pytest.mark.parametrize("name", sorted(FMTS))
+def test_multi_af_softmax_bitwise_equal_to_pallas(shape, name):
+    fmt, jfmt = FMTS[name]
+    x = _inputs(shape, seed=shape[-1], spread=6.0)
+    depth = cordic.full_depth(fmt)
+    want = np.asarray(multi_af_pallas(x, "softmax", depth=depth, fmt=jfmt))
+    got = multi_af(torch.from_numpy(x), "softmax", depth=depth, fmt=fmt)
+    assert tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    rows = torch.from_numpy(x).reshape(-1, shape[-1])
+    assert torch.equal(af_softmax(rows, depth=depth, fmt=fmt), got.reshape(rows.shape))
+    assert torch.equal(af_softmax_ref(rows, depth=depth, fmt=fmt), got.reshape(rows.shape))
+
+
+@pytest.mark.parametrize("name", sorted(FMTS))
+def test_engine_activate_softmax_matches_reference(name):
+    fmt, jfmt = FMTS[name]
+    x = _inputs((2, 3, 64), seed=13, spread=4.0)
+    jctx = JCtx(mode="kernel", policy=JPolicy.accurate(jfmt), compute_dtype=jnp.float32)
+    ctx = EngineContext(mode="kernel", policy=PrecisionPolicy.accurate(fmt),
+                        compute_dtype=torch.float32)
+    want = np.asarray(jctx.activate(jnp.asarray(x), "softmax"))
+    got = ctx.activate(torch.from_numpy(x), "softmax")
+    np.testing.assert_array_equal(got.numpy(), want)

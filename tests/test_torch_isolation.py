@@ -31,7 +31,9 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.serve.engine" in mods and len(mods) > 20
     assert {"repro_torch.configs.deepseek_v3_671b", "repro_torch.kernels.af_table",
             "repro_torch.kernels.cordic_af.ops", "repro_torch.kernels.cordic_af.ref",
-            "repro_torch.models.mla"} <= set(mods)
+            "repro_torch.models.mla", "repro_torch.core.mac", "repro_torch.kernels.int_dot",
+            "repro_torch.kernels.cordic_mac", "repro_torch.kernels.cordic_mac.ops",
+            "repro_torch.kernels.cordic_mac.ref"} <= set(mods)
     code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"

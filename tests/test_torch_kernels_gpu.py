@@ -5,9 +5,10 @@ imports only torch and the port, so it also runs on a host without JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-The fused dot+AF and the standalone multi-AF must be bitwise equal to their
-plain versions; the GQA and MLA decode attentions within
-``decode_attention.TOLERANCE`` (f32 reduction order).
+The fused dot+AF, the MAC-array matmul, the standalone multi-AF and its row
+softmax must be bitwise equal to their plain versions; the GQA and MLA
+decode attentions within ``decode_attention.TOLERANCE`` (f32 reduction
+order).
 """
 import math
 
@@ -15,10 +16,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import cordic, fxp  # noqa: E402
+from repro_torch.core import EngineContext, PrecisionPolicy, cordic, fxp  # noqa: E402
 from repro_torch.core.backends.kernel import make_point  # noqa: E402
 from repro_torch.core.cordic import signed_digit_ints  # noqa: E402
-from repro_torch.kernels.cordic_af import ELEMENTWISE_AFS, multi_af, multi_af_ref  # noqa: E402
+from repro_torch.kernels.cordic_af import (  # noqa: E402
+    ELEMENTWISE_AFS,
+    af_softmax,
+    af_softmax_ref,
+    multi_af,
+    multi_af_ref,
+)
+from repro_torch.kernels.cordic_mac import mac_matmul, mac_matmul_ref  # noqa: E402
 from repro_torch.kernels.cordic_fused import FUSED_AFS, fused_dot_af, fused_dot_af_ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     TOLERANCE,
@@ -126,11 +134,82 @@ def test_af_kernel_bitwise_equal_to_plain_version(cuda, name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 2048), (3, 1000, 300), (17, 2048, 300),
+                                   (32, 512, 2048), (40, 4100, 130), (512, 2048, 512),
+                                   (1, 16, 1)])
+@pytest.mark.parametrize("x_type,w_type", [(torch.int8, torch.int8), (torch.int16, torch.int16),
+                                           (torch.int8, torch.int16)],
+                         ids=["i8", "i16", "i8xi16"])
+def test_mac_kernel_bitwise_equal_to_plain_version(cuda, m, k, n, x_type, w_type):
+    gen = torch.Generator(device=cuda).manual_seed(m * k + n)
+
+    def ints(shape, dtype):
+        info = torch.iinfo(dtype)
+        return torch.randint(info.min, info.max + 1, shape, generator=gen, device=cuda,
+                             dtype=torch.int32).to(dtype)
+
+    x_q, w_q = ints((m, k), x_type), ints((k, n), w_type)
+    x_scale = torch.rand((m, 1), generator=gen, device=cuda) * 2 - 1
+    w_scale = torch.full((1, n), 2.0**-14, device=cuda)
+    for relu in (False, True):
+        before = mac_matmul.launches
+        got = mac_matmul(x_q, w_q, x_scale, w_scale, fuse_relu=relu)
+        assert mac_matmul.launches == before + 1
+        assert torch.equal(got, mac_matmul_ref(x_q, w_q, x_scale, w_scale, fuse_relu=relu))
+
+
+@pytest.mark.gpu
+def test_mac_kernel_wraps_int32_overflow(cuda):
+    x_q = torch.full((4, 8192), 32000, dtype=torch.int16, device=cuda)
+    w_q = torch.full((8192, 256), 30000, dtype=torch.int16, device=cuda)
+    xs, ws = torch.full((4, 1), 2.0**-12, device=cuda), torch.full((1, 256), 2.0**-14, device=cuda)
+    got = mac_matmul(x_q, w_q, xs, ws)
+    assert torch.equal(got, mac_matmul_ref(x_q, w_q, xs, ws))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(FORMATS))
+def test_per_call_dot_launches_the_mac_kernel(cuda, name):
+    fmt, _ = FORMATS[name]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((2, 3, 512), generator=gen, device=cuda)
+    w = torch.randn((512, 300), generator=gen, device=cuda) * 0.4
+    ctx = EngineContext(mode="kernel", policy=PrecisionPolicy.accurate(fmt),
+                        compute_dtype=torch.float32)
+    before = mac_matmul.launches
+    got = ctx.dot(x, w, name="layer.mlp.up")
+    assert mac_matmul.launches == before + 1
+    want = ctx.dot(x.cpu(), w.cpu(), name="layer.mlp.up")
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n", [(64, 512), (5, 300), (4, 50304), (3, 1)])
+@pytest.mark.parametrize("name", sorted(FORMATS))
+def test_softmax_kernel_bitwise_equal_to_plain_version(cuda, m, n, name):
+    fmt, _ = FORMATS[name]
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    x = torch.randn((m, n), generator=gen, device=cuda) * 3
+    x.view(-1)[:3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    for depth in (2, cordic.full_depth(fmt)):
+        before = af_softmax.launches
+        got = multi_af(x, "softmax", depth=depth, fmt=fmt)
+        assert af_softmax.launches == before + 1
+        assert torch.equal(got, af_softmax_ref(x, depth=depth, fmt=fmt)), depth
+
+
+@pytest.mark.gpu
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.randn((4, 64), device=cuda)
     point = make_point(7, fxp.FXP8, fxp.FXP8_UNIT, device=cuda)
     with pytest.raises(ValueError, match="int8/int16"):
         fused_dot_af(x, torch.zeros((64, 8), device=cuda), point)
+    scales = torch.ones((4, 1), device=cuda), torch.ones((1, 8), device=cuda)
+    with pytest.raises(ValueError, match="int8/int16"):
+        mac_matmul(x, torch.zeros((64, 8), dtype=torch.int8, device=cuda), *scales)
+    with pytest.raises(ValueError, match="scales"):
+        mac_matmul(x.to(torch.int8), torch.zeros((64, 8), dtype=torch.int8, device=cuda),
+                   scales[1], scales[0])
     q = torch.randn((1, 1, 2, 48), device=cuda)
     kv = torch.randn((1, 8, 2, 48), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):

@@ -1,13 +1,16 @@
 """PyTorch port: reduced olmo-1b (2 layers, d_model 128) and reduced
 deepseek-v3 (4 layers: one dense-prefix layer and three MoE layers, MLA
-attention) against the reference, prepared kernel mode,
-``attn_impl="decode_kernel"``, on the CPU.
+attention) against the reference, kernel mode, ``attn_impl="decode_kernel"``,
+on the CPU: prepared weights, and for olmo-1b also the per-call path
+(``prepare_weights=False``: every dot re-rounds its raw weight and runs the
+MAC-array matmul, the gate its activation as a separate multi-AF pass).
 
 Both packages get the same weights, drawn with numpy: layer matrices
 N(0, 0.1^2) so that the layers, not the tied embedding, pick the tokens
 (at the init scale of 0.02 every stream just repeats its last prompt token).
 Logits agree to f32 reduction-order tolerance (norms, RoPE and the attention
-softmax sum in another order); greedy streams must be identical.
+softmax sum in another order); greedy streams must be identical. Per-call
+and prepared logits are the same arithmetic and agree bitwise.
 """
 import dataclasses
 
@@ -27,7 +30,7 @@ from repro.models import blocks as jax_blocks  # noqa: E402
 from repro.models import get_model as ref_get_model  # noqa: E402
 from repro.serve.engine import BatchedServer as JServer, Request as JRequest  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
-from repro_torch.core import EngineContext, PrecisionPolicy  # noqa: E402
+from repro_torch.core import FXP8, FXP16, EngineContext, PrecisionPolicy  # noqa: E402
 from repro_torch.core.backends import prepare_params  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.blocks import cache_row_write  # noqa: E402
@@ -161,6 +164,63 @@ def test_serving_cli_runs_on_cpu(capsys):
                 "--burst", "2", "--device", "cpu"])
     assert sorted(out) == [0, 1, 2] and all(len(v) == 4 for v in out.values())
     assert "host round-trips" in capsys.readouterr().out
+
+
+def test_serving_cli_per_call_runs_on_cpu(capsys):
+    from repro_torch.launch.serve import main
+
+    args = ["--reduced", "--requests", "3", "--slots", "2", "--max-new", "4", "--burst", "2",
+            "--device", "cpu"]
+    prepared = main(args)
+    assert "prepared kernel weights" in capsys.readouterr().out
+    out = main(args + ["--per-call"])
+    assert "per-call kernel weights" in capsys.readouterr().out
+    assert out == prepared
+
+
+# ---------------------------------------------------------------------------
+# per-call kernel mode (prepare_weights=False)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ref_per_call_streams(setup):
+    ref_model, np_params, _, jctx, _ = setup
+    server = JServer(ref_model, jctx, jax.tree.map(jnp.asarray, np_params), slots=2, max_len=32,
+                     burst=8, prepare_weights=False)
+    return server.run([JRequest(i, p, MAX_NEW) for i, p in enumerate(_prompts())])
+
+
+@pytest.mark.parametrize("burst", [1, 8])
+def test_per_call_streams_identical_to_reference_and_prepared(setup, ref_streams,
+                                                              ref_per_call_streams, burst):
+    _, np_params, model, _, ctx = setup
+    server = BatchedServer(model, ctx, model.load_numpy(np_params, "cpu"), slots=2, max_len=32,
+                           burst=burst, device="cpu", prepare_weights=False)
+    assert isinstance(server.params["seg0_dense"]["mlp"]["up"], torch.Tensor)  # raw, unprepared
+    got = server.run([Request(i, p, MAX_NEW) for i, p in enumerate(_prompts())])
+    assert got == ref_per_call_streams
+    assert got == ref_streams  # the prepared streams, which the port's prepared path equals
+
+
+@pytest.mark.parametrize("name", ["fxp8", "fxp16"])
+def test_per_call_decode_step_logits_bitwise_equal_to_prepared(setup, name):
+    _, np_params, model, _, _ = setup
+    policy = PrecisionPolicy.accurate(FXP8 if name == "fxp8" else FXP16)
+    ctx = EngineContext(mode="kernel", policy=policy, compute_dtype=torch.float32,
+                        attn_impl="decode_kernel")
+    raw = model.load_numpy(np_params, "cpu")
+    trees = {"per_call": raw,
+             "prepared": prepare_params(raw, policy, "kernel", specs=model.specs())}
+    rng = np.random.default_rng(3)
+    steps = [torch.from_numpy(rng.integers(0, 256, (2, s)).astype(np.int32)) for s in (5, 1, 1)]
+    logits = {}
+    for label, params in trees.items():
+        cache = model.make_cache(2, 16, device="cpu")
+        with torch.no_grad():
+            logits[label] = [model.decode_step(params, t, cache, ctx)[0] for t in steps]
+    for got, want in zip(logits["per_call"], logits["prepared"]):
+        assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@
 
 Builds every CUDA kernel library from the checkout's sources (the fused
 CORDIC dot+AF, the MAC-array matmul, the GQA and MLA cache-decode
-attentions, the standalone multi-AF block and its row softmax), then:
+attentions, the standalone multi-AF block and its row softmax, the
+cache-free flash and MLA flash attentions), then:
 
 1. prints the device, the toolchain and each kernel's registers and shared
    memory (``nvcc -Xptxas -v``);
@@ -13,25 +14,39 @@ attentions, the standalone multi-AF block and its row softmax), then:
    serving paths' full-width shapes (olmo-1b and deepseek-v3) — the fused
    CORDIC dot+AF, the MAC-array matmul, the multi-AF block and the softmax
    must be bitwise equal, the two decode attentions within their stated
-   tolerance — and times kernel, plain version, a library yardstick and the
-   roofline bound; then drives the softmax through its entry point,
-   ``EngineContext.activate(x, "softmax")``, on lm_head-wide rows;
+   tolerance, the two flash attentions within it — and times kernel, plain
+   version, a library yardstick and the roofline bound; then drives the
+   softmax through its entry point, ``EngineContext.activate(x, "softmax")``,
+   on lm_head-wide rows;
 3. serves full-width olmo-1b (16 layers, ``dtype="float32"``, seeded random
    weights) through ``BatchedServer`` in prepared kernel mode, checks the
    launch counts of its kernels against what the shapes imply, and checks
    that a repeat run and a ``burst=1`` run give identical greedy streams;
+   then runs the cache-free ``forward`` on the same weights at batch
+   (2, 512) under ``attn_impl="flash"`` (the flash kernel) and ``"xla"``,
+   with launch counts, a profiled repeat and the logits of the two compared;
 4. serves the same model and weights per call (``prepare_weights=False``:
    every dot re-rounds its raw weight and runs the MAC-array kernel, the
    gate its activation through the multi-AF kernel), and checks its streams
    and top-2 margins against the prepared run's, bit for bit, at burst 8
    and burst 1, with its own launch counts; times the per-call weight
    rounding;
-5. serves olmo-1b widths at 2 layers on the card and on the CPU (plain
+5. runs the startup calibration scan (``calibration_scan``: per call,
+   ``"flash"``, batch (2, 512), one forward per engine-dot group) on
+   full-width olmo-1b, turns it into a policy with ``assign_depths``, and
+   serves the request set prepared under it (mixed-depth points), repeat and
+   ``burst=1`` streams identical;
+6. serves olmo-1b widths at 2 layers on the card and on the CPU (plain
    versions) with the same weights, and checks the streams are identical;
-   the same per call, at reduced width;
-6. and 7. do the same for full-width deepseek-v3 (MLA + MoE) cut to 4
+   the same per call, at reduced width; and runs the 2-layer ``forward``
+   on the card and the CPU: the flash kernel on the forward's own inputs
+   must equal the plain version within its tolerance, and the logits'
+   agreement is reported under ``"flash"`` and ``"xla"``;
+7. and 8. do the same for full-width deepseek-v3 (MLA + MoE) cut to 4
    layers (the 3 dense-prefix layers and 1 MoE layer: the routed experts
-   alone take 45 GB in f32), and for reduced deepseek-v3 card vs CPU.
+   alone take 45 GB in f32), its ``forward`` at (1, 512) on the serving
+   weights (the MLA flash kernel), and for reduced deepseek-v3 card vs CPU,
+   served and through ``forward`` (the MLA flash kernel held as above).
 
 It imports nothing of JAX. It exits non-zero on any failure, and when no CUDA
 device is present. A full JSON report goes to ``chiprun_out/chip_smoke.json``.
@@ -71,6 +86,11 @@ FUSED_SHAPES = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 50304))
 DEEPSEEK_FUSED_SHAPES = ((7168, 576), (16384, 7168), (1536, 24576), (18432, 7168),
                          (7168, 129280))
 DEEPSEEK_LAYERS = 4  # the stock 3 dense-prefix layers and 1 MoE layer
+# the serving CLI's --cycle-reduction default, for the calibrated policy
+CYCLE_REDUCTION = 0.33
+# the yardstick the card vs CPU logits of the cache-free forward are reported
+# against (test_torch_serving's LOGIT_TOL)
+LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def log(msg: str) -> None:
@@ -140,7 +160,7 @@ CUBLAS_LAUNCHES_PER_PRODUCT = 2
 # the __global__ names of the port's kernels, as the profiler reports them
 PORT_KERNELS = ("fused_dot_af_kernel", "mac_matmul_kernel", "gqa_decode_kernel",
                 "mla_decode_kernel", "mla_merge_kernel", "af_elementwise_kernel",
-                "af_softmax_kernel")
+                "af_softmax_kernel", "flash_attention_kernel", "mla_flash_kernel")
 
 
 def kernel_breakdown(prof):
@@ -162,8 +182,21 @@ def kernel_breakdown(prof):
 
 def library_kernels(rows, fragments) -> list:
     """``(name, calls)`` of the kernels in a breakdown whose names hold one of
-    ``fragments`` (``GEMM_KERNELS`` or ``ATTENTION_KERNELS``)."""
-    return [(k, n) for _, k, n in rows if any(f in k.lower() for f in fragments)]
+    ``fragments`` (``GEMM_KERNELS`` or ``ATTENTION_KERNELS``). The port's own
+    kernels (``PORT_KERNELS``) are dropped first, whatever their names hold."""
+    return [(k, n) for _, k, n in rows
+            if not any(p in k for p in PORT_KERNELS) and any(f in k.lower() for f in fragments)]
+
+
+def port_kernel_ms(rows) -> dict:
+    """Device ms and calls of the port's own kernels in a breakdown, by kernel."""
+    out = {}
+    for us, k, n in rows:
+        name = next((f for f in PORT_KERNELS if f in k), None)
+        if name:
+            ms, calls = out.get(name, (0.0, 0))
+            out[name] = (ms + us / 1e3, calls + n)
+    return {k: dict(device_ms=ms, calls=n) for k, (ms, n) in out.items()}
 
 
 def nvidia_smi() -> str:
@@ -381,6 +414,123 @@ def check_mla(device):
     return rows, max_err
 
 
+def causal_pairs(b: int, sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs a causal (or full) attention of one head scores."""
+    if not causal:
+        return b * sq * sk
+    return b * sum(min(i + 1, sk) for i in range(sq))
+
+
+def check_flash(device):
+    """The cache-free flash attention against its plain version: olmo-1b
+    widths (H 16, D 128) at the forward phase's B2 S512 and at B1 S2048,
+    GQA (KV 4), a ragged S, and bf16 in and out (both round an f32 result
+    that agrees within TOLERANCE: at most one bf16 step apart, 2^-7 of the
+    value)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (TOLERANCE, flash_attention,
+                                                     flash_attention_ref)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    cases = [  # (B, S, H, KV, D, dtype)
+        (2, BUCKET, 16, 16, 128, torch.float32),
+        (1, 2048, 16, 16, 128, torch.float32),
+        (2, BUCKET, 16, 4, 128, torch.float32),
+        (2, 70, 16, 16, 128, torch.float32),
+        (2, BUCKET, 16, 16, 128, torch.bfloat16),
+    ]
+    rows, max_err = [], 0.0
+    for b, s, h, kv, d, dtype in cases:
+        q = torch.randn((b, s, h, d), generator=gen, device=device).to(dtype)
+        k = torch.randn((b, s, kv, d), generator=gen, device=device).to(dtype)
+        v = torch.randn((b, s, kv, d), generator=gen, device=device).to(dtype)
+        got = flash_attention(q, k, v)
+        want = flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        if dtype == torch.float32:
+            tol = f"{TOLERANCE} absolute"
+            if not err <= TOLERANCE:
+                raise AssertionError(f"flash_attention vs plain: max|diff| {err} > {TOLERANCE} "
+                                     f"at B={b} S={s} H={h} KV={kv} D={d}")
+            max_err = max(max_err, err)
+        else:
+            tol = f"one bf16 step (2^-7 of the value) + {TOLERANCE}"
+            if not (diff <= want.float().abs() * 2.0**-7 + TOLERANCE).all():
+                raise AssertionError(f"flash_attention bf16 vs plain: max|diff| {err} past one "
+                                     f"rounding step at B={b} S={s}")
+        ms = graph_ms(lambda: flash_attention(q, k, v), 20)
+        plain_ms = timed_ms(lambda: flash_attention_ref(q, k, v), iters=3, warmup=1)
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        if kv != h:
+            kt, vt = kt.repeat_interleave(h // kv, 1), vt.repeat_interleave(h // kv, 1)
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20)
+        elem = q.element_size()
+        pairs = h * causal_pairs(b, s, s, True)
+        b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * elem, 4.0 * d * pairs,
+                           F32_FLOPS_PER_S)
+        rows.append(dict(B=b, S=s, H=h, KV=kv, D=d, dtype=str(dtype).removeprefix("torch."),
+                         causal=True, tolerance=tol, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         sdpa_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"flash B={b} S={s} H={h} KV={kv} D={d} {dtype}: {ms:.4f} ms (plain {plain_ms:.3f}, "
+            f"sdpa {lib_ms:.4f}, bound {b_ms:.4f} {b_by}) err {err:.2e}")
+    return rows, max_err
+
+
+def check_mla_flash(device):
+    """The cache-free MLA flash attention against its plain version:
+    deepseek-v3 widths (H 128, R 512, r 64) at the forward phase's B1 S512,
+    a ragged S, and the reduced config's (H 4, R 16, r 8)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.mla_flash import (TOLERANCE, mla_flash_attention,
+                                               mla_flash_attention_ref)
+
+    full, small = get_config("deepseek-v3-671b"), reduced(get_config("deepseek-v3-671b"))
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    rows, max_err = [], 0.0
+    for cfg, b, s in ((full, 1, BUCKET), (full, 2, 70), (small, 2, 70)):
+        m, h = cfg.mla, cfg.num_heads
+        r, rd = m.kv_lora_rank, m.qk_rope_head_dim
+        scale = 1.0 / math.sqrt(m.qk_nope_head_dim + rd)
+        ql = torch.randn((b, s, h, r), generator=gen, device=device)
+        qr = torch.randn((b, s, h, rd), generator=gen, device=device)
+        ck = torch.randn((b, s, r), generator=gen, device=device)
+        kr = torch.randn((b, s, rd), generator=gen, device=device)
+        args = (ql, qr, ck, kr)
+        got = mla_flash_attention(*args, scale=scale)
+        want = mla_flash_attention_ref(*args, scale=scale)
+        err = (got - want).abs().max().item()
+        if not err <= TOLERANCE:
+            raise AssertionError(f"mla_flash_attention vs plain: max|diff| {err} > {TOLERANCE} "
+                                 f"at B={b} S={s} H={h} R={r}")
+        max_err = max(max_err, err)
+        ms = graph_ms(lambda: mla_flash_attention(*args, scale=scale), 10)
+        plain_ms = timed_ms(lambda: mla_flash_attention_ref(*args, scale=scale), iters=3,
+                            warmup=1)
+        # yardstick: SDPA on the concatenation form, the latent K/V shared by
+        # every head: q_cat = [q_lat, q_rope], k_cat = [c_kv, k_rope], v = c_kv
+        q_cat = torch.cat([ql, qr], -1).transpose(1, 2).contiguous()
+        k_cat = torch.cat([ck, kr], -1)[:, None]
+        v = ck[:, None]
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            q_cat, k_cat, v, is_causal=True, scale=scale, enable_gqa=True), 10)
+        pairs = h * causal_pairs(b, s, s, True)
+        nbytes = (ql.numel() + qr.numel() + ck.numel() + kr.numel() + got.numel()) * 4
+        b_ms, b_by = bound(nbytes, 2.0 * pairs * (r + rd + r), F32_FLOPS_PER_S)
+        rows.append(dict(B=b, S=s, H=h, R=r, r=rd, causal=True, tolerance=TOLERANCE,
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms, sdpa_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+        log(f"mla_flash B={b} S={s} H={h} R={r}: {ms:.4f} ms (plain {plain_ms:.3f}, sdpa "
+            f"{lib_ms:.4f}, bound {b_ms:.4f} {b_by}) err {err:.2e}")
+    return rows, max_err
+
+
 def af_int_ops(mode: str, depth: int) -> int:
     """int32 operations per element of the multi-AF block at internal depth
     ``depth``, counted from its CORDIC loops: a hyperbolic (exp) iteration is
@@ -588,9 +738,7 @@ def softmax_path(device):
     ctx = kernel_ctx()
     x = torch.randn((SLOTS, 50304), generator=torch.Generator(device=device).manual_seed(SEED),
                     device=device) * 3.0
-    kernels = path_kernels()
-    for w in kernels.values():
-        w.launches = 0
+    kernels = zero_launches()
     got = ctx.activate(x, "softmax")
     launches = {name: w.launches for name, w in kernels.items()}
     if launches != {**{name: 0 for name in kernels}, "af_softmax": 1}:
@@ -626,13 +774,13 @@ def deepseek():
                                num_layers=DEEPSEEK_LAYERS)
 
 
-def kernel_ctx():
+def kernel_ctx(attn_impl: str = "decode_kernel", policy=None):
     import torch
 
     from repro_torch.core import FXP8, EngineContext, PrecisionPolicy
 
-    return EngineContext(mode="kernel", policy=PrecisionPolicy.accurate(FXP8),
-                         compute_dtype=torch.float32, attn_impl="decode_kernel")
+    return EngineContext(mode="kernel", policy=policy or PrecisionPolicy.accurate(FXP8),
+                         compute_dtype=torch.float32, attn_impl=attn_impl)
 
 
 def requests(cfg, lens=None, max_new=None):
@@ -656,11 +804,32 @@ def path_kernels():
     from repro_torch.kernels.cordic_fused import fused_dot_af
     from repro_torch.kernels.cordic_mac import mac_matmul
     from repro_torch.kernels.decode_attention import gqa_decode_attention, mla_decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mla_flash import mla_flash_attention
 
     return {"fused_dot_af": fused_dot_af, "cordic_mac": mac_matmul,
             "gqa_decode_attention": gqa_decode_attention,
             "mla_decode_attention": mla_decode_attention, "af_elementwise": multi_af,
-            "af_softmax": af_softmax}
+            "af_softmax": af_softmax, "flash_attention": flash_attention,
+            "mla_flash_attention": mla_flash_attention}
+
+
+def zero_launches() -> dict:
+    kernels = path_kernels()
+    for w in kernels.values():
+        w.launches = 0
+    return kernels
+
+
+def check_launches(label, kernels, want: dict, times: int = 1) -> dict:
+    """The launch counts since ``zero_launches``: each kernel exactly as the
+    shapes imply, ``times`` forwards, and any other kernel never."""
+    launches = {name: w.launches for name, w in kernels.items()}
+    for name, count in launches.items():
+        if count != want.get(name, 0) * times:
+            raise AssertionError(f"{label}: {name}: {count} launches, the shapes imply "
+                                 f"{want.get(name, 0) * times}")
+    return {name: launches[name] for name in want}
 
 
 def launches_per_forward(cfg, per_call: bool = False) -> dict:
@@ -683,6 +852,19 @@ def launches_per_forward(cfg, per_call: bool = False) -> dict:
             "af_elementwise": moe_layers}
 
 
+def forward_launches(cfg, attn_impl: str, per_call: bool = False) -> dict:
+    """Kernel launches one cache-free ``forward`` implies: the decode step's
+    dots, and under ``"flash"`` one flash (dense) or MLA flash launch per
+    layer in place of the decode attention; ``"xla"`` runs no attention
+    kernel."""
+    want = launches_per_forward(cfg, per_call)
+    want.pop("gqa_decode_attention", None)
+    want.pop("mla_decode_attention", None)
+    if attn_impl == "flash":
+        want["mla_flash_attention" if cfg.mla else "flash_attention"] = cfg.num_layers
+    return want
+
+
 def plain_products_per_forward(cfg) -> int:
     """Products the reference leaves to XLA outside any kernel, which the port
     leaves to torch.einsum: MLA's wk_b/wv_b absorptions, the MoE router and
@@ -692,14 +874,15 @@ def plain_products_per_forward(cfg) -> int:
     return 2 * cfg.num_layers * bool(cfg.mla) + 4 * (cfg.num_layers - cfg.moe.first_dense_layers)
 
 
-def serve_full_width(device, label, cfg, prepared_run=None):
+def serve_full_width(device, label, cfg, prepared_run=None, policy=None):
     """Serve ``cfg`` at full width on the card: the main path with launch
     counts, a profiled repeat, and a burst=1 run on the same weights.
 
     With ``prepared_run`` (the ``(streams, margins)`` that a prepared run of
     the same weights returned) the server runs per call, and every stream
-    and top-2 margin must equal the prepared run's bit for bit. Returns
-    ``(report, streams, margins)``."""
+    and top-2 margin must equal the prepared run's bit for bit. ``policy``
+    (default: accurate FxP8) is the policy the weights are prepared under.
+    Returns ``(report, streams, margins, server weights)``."""
     import torch
 
     from torch.profiler import ProfilerActivity, profile
@@ -711,7 +894,8 @@ def serve_full_width(device, label, cfg, prepared_run=None):
     model = get_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     params = model.init(torch.Generator(device=device).manual_seed(SEED))
-    server = BatchedServer(model, kernel_ctx(), params, slots=SLOTS, max_len=MAX_LEN,
+    ctx = kernel_ctx(policy=policy)
+    server = BatchedServer(model, ctx, params, slots=SLOTS, max_len=MAX_LEN,
                            burst=BURST, device=device, prepare_weights=not per_call)
     del params  # prepared: the raw banks the prepared tree replaced
     torch.cuda.synchronize()
@@ -722,24 +906,18 @@ def serve_full_width(device, label, cfg, prepared_run=None):
     # the main path: counts zeroed just before, read just after; a kernel of
     # the path must launch exactly as the shapes imply (so at least once), any
     # other kernel never
-    for w in path_kernels().values():
-        w.launches = 0
+    kernels = zero_launches()
     t0 = time.perf_counter()
     first_reqs = requests(cfg)
     first = server.run(first_reqs)
     wall = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in path_kernels().items()}
     forwards = server.prefill_calls + server.decode_steps
-    for name, count in launches.items():
-        want = per_forward.get(name, 0) * forwards
-        if count != want:
-            raise AssertionError(f"{label}: {name}: {count} launches on the main path, "
-                                 f"shapes imply {want}")
+    launches = check_launches(label, kernels, per_forward, times=forwards)
     tokens = sum(len(v) for v in first.values())
     report = dict(
         config=f"{label} full width, {cfg.num_layers} layers, dtype float32, kernel mode "
-               f"({'per-call' if per_call else 'prepared'} weights), FxP8 accurate, "
-               "attn_impl=decode_kernel",
+               f"({'per-call' if per_call else 'prepared'} weights), FxP8 "
+               f"{'calibrated' if policy else 'accurate'}, attn_impl=decode_kernel",
         slots=SLOTS, max_len=MAX_LEN, burst=BURST, prompt_lens=list(PROMPT_LENS),
         max_new=MAX_NEW, tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
         prefill_s=server.prefill_seconds, decode_s=server.decode_seconds,
@@ -748,7 +926,7 @@ def serve_full_width(device, label, cfg, prepared_run=None):
         host_transfers=server.host_transfers,
         setup_peak_mem_gib=setup_peak / 2**30,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-        launches={name: launches[name] for name in per_forward},
+        launches=launches,
         launches_per_forward=per_forward,
     )
     for name, tok in first.items():
@@ -785,12 +963,6 @@ def serve_full_width(device, label, cfg, prepared_run=None):
         raise AssertionError(f"{label}: {gemm_calls} library matmul launches, the plain "
                              f"products allow {allowed}: {gemm}")
     busy_ms = sum(r[0] for r in rows) / 1e3
-    port_ms = {}  # device ms of the port's own kernels, by kernel
-    for us, k, n in rows:
-        name = next((f for f in PORT_KERNELS if f in k), None)
-        if name:
-            ms, calls = port_ms.get(name, (0.0, 0))
-            port_ms[name] = (ms + us / 1e3, calls + n)
     report["profiled_repeat"] = dict(
         requests=len(again_reqs), forwards=profiled_forwards,
         wall_ms=profiled_wall * 1e3, device_busy_ms=busy_ms,
@@ -799,14 +971,14 @@ def serve_full_width(device, label, cfg, prepared_run=None):
         library_matmul_launches_per_forward=gemm_calls / profiled_forwards,
         library_matmul_launches_allowed_per_forward=allowed / profiled_forwards,
         library_kernels=[dict(name=k[:100], calls=n) for k, n in gemm],
-        port_kernels={k: dict(device_ms=ms, calls=n) for k, (ms, n) in port_ms.items()},
+        port_kernels=port_kernel_ms(rows),
         top_kernels=[dict(name=k[:100], device_ms=us / 1e3, calls=n)
                      for us, k, n in rows[:12]])
     if per_call:
         report["weight_rounding"] = weight_rounding_ms(server.params, cfg)
     # burst=1 on the same weights
     one_reqs = requests(cfg)
-    one = BatchedServer(model, kernel_ctx(), server.params, slots=SLOTS, max_len=MAX_LEN,
+    one = BatchedServer(model, ctx, server.params, slots=SLOTS, max_len=MAX_LEN,
                         burst=1, device=device, prepare_weights=not per_call).run(one_reqs)
     if one != first or margins(one_reqs) != margins(first_reqs):
         raise AssertionError(f"{label}: full-width greedy streams or their top-2 logit "
@@ -818,7 +990,21 @@ def serve_full_width(device, label, cfg, prepared_run=None):
     report["distinct_tokens"] = len({t for toks in first.values() for t in toks})
     report["streams_head"] = {rid: toks[:8] for rid, toks in first.items()}
     report["margins_head"] = {r.rid: r.margins[:4] for r in first_reqs}
-    return report, first, margins(first_reqs)
+    if policy is not None:  # the execution points the prepared banks carry
+        report["point_depths"] = sorted({
+            int(d) for w in iter_prepared(server.params) for d in w.point[..., 0].unique()})
+    return report, first, margins(first_reqs), server.params
+
+
+def iter_prepared(tree):
+    """Every ``PreparedWeight`` leaf of a parameter tree."""
+    from repro_torch.core.backends.base import PreparedWeight
+
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from iter_prepared(v)
+    elif isinstance(tree, PreparedWeight):
+        yield tree
 
 
 def weight_rounding_ms(params, cfg) -> dict:
@@ -847,6 +1033,216 @@ def weight_rounding_ms(params, cfg) -> dict:
     elements = sum(w.numel() for w in weights)
     return dict(weights_per_forward=len(weights), elements=elements, ms_per_forward=ms,
                 f32_gb_read_once=elements * 4 / 1e9)
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 5-8: the cache-free forward and the calibration scan
+# ---------------------------------------------------------------------------
+
+
+def forward_phase(device, label, cfg, params, batch):
+    """One cache-free ``forward`` of ``cfg`` on prepared ``params`` and seeded
+    tokens of shape ``batch``, under ``attn_impl="flash"`` and ``"xla"``:
+    wall time and launch counts of the main path, a profiled repeat (which
+    must give the same logits), no library attention kernel and, under
+    "flash", library matmuls only for the plain products; then the largest
+    |logit| difference and the share of positions whose argmax agrees
+    between the two (reported, not gated: a reduction-order ulp can move a
+    value across an FxP8 rounding boundary)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import get_model
+
+    model = get_model(cfg)
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab_size, batch),
+                             device=device)
+    runs, logits = {}, {}
+    for impl in ("flash", "xla"):
+        ctx = kernel_ctx(impl)
+        want = forward_launches(cfg, impl)
+        kernels = zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lg, aux = model.forward(params, {"tokens": tokens}, ctx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = check_launches(f"{label} forward ({impl})", kernels, want)
+        if tuple(lg.shape) != (*batch, cfg.vocab_size) or not torch.isfinite(lg).all():
+            raise AssertionError(f"{label} forward ({impl}): logits {tuple(lg.shape)}, "
+                                 f"finite {bool(torch.isfinite(lg).all())}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                again, _ = model.forward(params, {"tokens": tokens}, ctx)
+            torch.cuda.synchronize()
+            profiled_wall = time.perf_counter() - t0
+        if not torch.equal(again, lg):
+            raise AssertionError(f"{label} forward ({impl}): logits differ between two runs")
+        rows = kernel_breakdown(prof)
+        attention = library_kernels(rows, ATTENTION_KERNELS)
+        if attention:
+            raise AssertionError(f"{label} forward ({impl}): library attention kernels: "
+                                 f"{attention}")
+        gemm = library_kernels(rows, GEMM_KERNELS)
+        gemm_calls = sum(n for _, n in gemm)
+        allowed = CUBLAS_LAUNCHES_PER_PRODUCT * plain_products_per_forward(cfg)
+        if impl == "flash" and gemm_calls > allowed:
+            raise AssertionError(f"{label} forward: {gemm_calls} library matmul launches, the "
+                                 f"plain products allow {allowed}: {gemm}")
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        runs[impl] = dict(
+            wall_s=wall, launches=launches, lb_loss=float(aux["lb_loss"]),
+            profiled_repeat=dict(
+                wall_ms=profiled_wall * 1e3, device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / (profiled_wall * 1e3),
+                device_launches=sum(r[2] for r in rows),
+                library_matmul_launches=gemm_calls,
+                library_matmul_launches_allowed=allowed if impl == "flash" else None,
+                library_kernels=[dict(name=k[:100], calls=n) for k, n in gemm],
+                port_kernels=port_kernel_ms(rows),
+                top_kernels=[dict(name=k[:100], device_ms=us / 1e3, calls=n)
+                             for us, k, n in rows[:10]]))
+        logits[impl] = lg
+        log(f"{label} forward {batch} {impl}: {wall:.3f} s, launches {launches}, busy "
+            f"{busy_ms / (profiled_wall * 1e3):.3f}")
+    agree = (logits["flash"].argmax(-1) == logits["xla"].argmax(-1)).float().mean().item()
+    return dict(
+        config=f"{label} full width, {cfg.num_layers} layers, dtype float32, kernel mode "
+               "(prepared weights), FxP8 accurate, cache-free forward",
+        batch=list(batch), runs=runs, launches=runs["flash"]["launches"],
+        launches_per_forward=forward_launches(cfg, "flash"),
+        max_abs_dlogit_flash_vs_xla=(logits["flash"] - logits["xla"]).abs().max().item(),
+        argmax_agreement_flash_vs_xla=agree)
+
+
+def calibrate_full_width(device):
+    """The serving CLI's startup scan on full-width olmo-1b: ``calibration_scan``
+    per call (raw weights: the MAC-array kernel, the gate's multi-AF, the
+    flash kernel), kernel mode, ``attn_impl="flash"``, batch (2, 512), with
+    the launch counts of all its forwards; then ``assign_depths`` at the
+    CLI's default cycle reduction. Returns ``(report, policy)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import FXP8, assign_depths
+    from repro_torch.models import get_model
+    from repro_torch.runtime import calibration_scan
+
+    cfg = olmo()
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    batch = (2, BUCKET)
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab_size, batch),
+                             device=device)
+    kernels = zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sens = calibration_scan(model, params, tokens, fmt=FXP8, mode="kernel", attn_impl="flash")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    forwards = len(sens) + 1  # one at full depth, one per demoted group
+    want = forward_launches(cfg, "flash", per_call=True)
+    launches = check_launches("calibration scan", kernels, want, times=forwards)
+    if len(sens) != 8 or not all(math.isfinite(v) and v > 0 for v in sens.values()):
+        raise AssertionError(f"calibration scan: sensitivities {sens}")
+    policy = assign_depths(sens, fmt=FXP8, cycle_reduction_target=CYCLE_REDUCTION)
+    log(f"calibration: {seconds:.2f} s for {forwards} forwards; {sens}")
+    return dict(
+        config="olmo-1b full width, 16 layers, dtype float32, kernel mode per call (raw "
+               "weights), attn_impl=flash, calibration_scan",
+        batch=list(batch), forwards=forwards, seconds=seconds,
+        seconds_per_forward=seconds / forwards, sensitivities=sens,
+        cycle_reduction=CYCLE_REDUCTION, policy=policy.to_json(), launches=launches,
+        launches_per_forward=want), policy
+
+
+def forward_card_vs_cpu(device, label, cfg, params, batch):
+    """The cache-free ``forward`` on the card and on the CPU, the same
+    prepared weights and tokens, under ``"flash"`` and ``"xla"``.
+
+    Gated: every flash (or MLA flash) launch of the card's ``"flash"``
+    forward, recorded with its inputs, equals the plain version run on the
+    CPU on those same inputs within the kernel's TOLERANCE; and the launch
+    counts. The end-to-end logits are compared under both ``attn_impl`` and
+    reported, not gated (the largest difference, the share of logits past
+    LOGIT_TOL, the argmax agreement): the fused kernel quantizes its input
+    onto the FxP8 grid, so an f32 reduction-order ulp of the glue (norms,
+    RoPE, attention) that lands on a rounding boundary moves a value one
+    FxP8 step, and over 140 tokens such flips occur and cascade through the
+    layers (and through the MoE routing). The ``"xla"`` comparison, which
+    runs no kernel of the cache-free path, shows the same spread, and the
+    first layer's attention inputs (after the norm, the fused projections
+    and RoPE, before any attention) are reported beside it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import prepare_params
+    from repro_torch.kernels import flash_attention as flash_pkg, mla_flash as mla_flash_pkg
+    from repro_torch.models import blocks, get_model, mla
+    from repro_torch.serve.engine import _to_device
+
+    model = get_model(cfg)
+    tokens = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, batch)
+    if cfg.mla:
+        owner, attr, pkg, ref = (mla, "mla_flash_attention", mla_flash_pkg,
+                                 mla_flash_pkg.mla_flash_attention_ref)
+    else:
+        owner, attr, pkg, ref = (blocks, "flash_attention", flash_pkg,
+                                 flash_pkg.flash_attention_ref)
+    kernel, records = getattr(owner, attr), {"card": [], "cpu": []}
+
+    def recorder(where):
+        def recording(*args, **kw):
+            out = kernel(*args, **kw)
+            records[where].append(([a.cpu() for a in args], kw, out.cpu()))
+            return out
+        return recording
+
+    logits, lb = {}, {}
+    for impl in ("flash", "xla"):
+        for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            ctx = kernel_ctx(impl)
+            prepared = prepare_params(_to_device(params, dev), ctx.policy, "kernel",
+                                      specs=model.specs())
+            kernels = zero_launches()
+            setattr(owner, attr, recorder(where) if impl == "flash" else kernel)
+            try:
+                with torch.no_grad():
+                    lg, aux = model.forward(
+                        prepared, {"tokens": torch.as_tensor(tokens, device=dev)}, ctx)
+            finally:
+                setattr(owner, attr, kernel)
+            if where == "card":
+                check_launches(f"{label} forward card ({impl})", kernels,
+                               forward_launches(cfg, impl))
+            logits[impl, where], lb[impl, where] = lg.cpu(), float(aux["lb_loss"])
+    if len(records["card"]) != cfg.num_layers:
+        raise AssertionError(f"{label}: {len(records['card'])} flash launches recorded")
+    kernel_err = 0.0
+    for args, kw, out in records["card"]:
+        kernel_err = max(kernel_err, (out - ref(*args, **kw)).abs().max().item())
+    layer0 = [(a - b).abs().max().item()
+              for a, b in zip(records["card"][0][0], records["cpu"][0][0])]
+    if not kernel_err <= pkg.TOLERANCE:
+        raise AssertionError(f"{label}: the card's {attr} on the forward's inputs vs the plain "
+                             f"version on the CPU: max|diff| {kernel_err} > {pkg.TOLERANCE}")
+    report = dict(config=label, layers=cfg.num_layers, d_model=cfg.d_model, batch=list(batch),
+                  weights="prepared", kernel=attr, kernel_vs_plain_in_forward=kernel_err,
+                  kernel_tolerance=pkg.TOLERANCE, layer0_attention_inputs_max_abs_diff=layer0)
+    for impl in ("flash", "xla"):
+        card, cpu = logits[impl, "card"], logits[impl, "cpu"]
+        beyond = (card - cpu).abs() > LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * cpu.abs()
+        agree = (card.argmax(-1) == cpu.argmax(-1)).float().mean().item()
+        report[impl] = dict(logits_max_abs_diff=(card - cpu).abs().max().item(),
+                            logits_share_beyond_tol=beyond.float().mean().item(),
+                            argmax_agreement=agree, lb_loss_card=lb[impl, "card"],
+                            lb_loss_cpu=lb[impl, "cpu"])
+    log(f"{label}: kernel in forward {kernel_err:.2e}; layer-0 inputs {layer0}; flash "
+        f"{report['flash']}; xla {report['xla']}")
+    return report
 
 
 def card_vs_cpu(device, label, cfg, params, lens, max_len, prepare_weights=True):
@@ -944,7 +1340,9 @@ def main() -> int:
         log("chip_smoke: no CUDA device available")
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config, reduced
     from repro_torch.kernels import _build
+    from repro_torch.models import get_model
 
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -965,33 +1363,65 @@ def main() -> int:
     af_rows = check_af(device)
     mac_rows = check_mac(device)
     softmax_rows = check_softmax(device)
+    flash_rows, flash_err = check_flash(device)
+    mla_flash_rows, mla_flash_err = check_mla_flash(device)
     checks = {"fused_dot_af": fused_rows, "cordic_mac": mac_rows,
               "gqa_decode_attention": attn_rows, "mla_decode_attention": mla_rows,
-              "af_elementwise": af_rows, "af_softmax": softmax_rows}
+              "af_elementwise": af_rows, "af_softmax": softmax_rows,
+              "flash_attention": flash_rows, "mla_flash_attention": mla_flash_rows}
     emit({"kernel_checks": checks})
     free_card()
     paths = {"softmax activate": softmax_path(device)}
     emit({"softmax_path": paths["softmax activate"]})
 
-    serving, parity = {}, {}
-    serving["olmo-1b"], *prepared_run = serve_full_width(device, "olmo-1b", olmo())
+    serving, forward, parity = {}, {}, {}
+    serving["olmo-1b"], streams, olmo_margins, weights = serve_full_width(device, "olmo-1b",
+                                                                          olmo())
     emit({"serving": serving["olmo-1b"]})
+    forward["olmo-1b"] = forward_phase(device, "olmo-1b", olmo(), weights, (2, BUCKET))
+    emit({"forward": forward["olmo-1b"]})
+    del weights
     free_card()
     serving["olmo-1b per-call"], *_ = serve_full_width(device, "olmo-1b", olmo(),
-                                                       prepared_run=prepared_run)
+                                                       prepared_run=(streams, olmo_margins))
     emit({"serving": serving["olmo-1b per-call"]})
+    free_card()
+    calibration, policy = calibrate_full_width(device)
+    emit({"calibration": calibration})
+    free_card()
+    serving["olmo-1b calibrated"], *_ = serve_full_width(device, "olmo-1b calibrated", olmo(),
+                                                         policy=policy)
+    emit({"serving": serving["olmo-1b calibrated"]})
     free_card()
     parity["olmo-1b"] = olmo_card_vs_cpu(device)
     emit({"card_vs_cpu": parity["olmo-1b"]})
     parity["olmo-1b per-call"] = olmo_per_call_card_vs_cpu(device)
     emit({"card_vs_cpu": parity["olmo-1b per-call"]})
+    cfg = olmo(layers=2)
+    parity["olmo-1b forward"] = forward_card_vs_cpu(
+        device, "olmo-1b full width, 2 layers, forward", cfg,
+        get_model(cfg).init(torch.Generator(device="cpu").manual_seed(SEED)), (2, 70))
+    emit({"card_vs_cpu": parity["olmo-1b forward"]})
     free_card()
-    serving["deepseek-v3-671b"], *_ = serve_full_width(device, "deepseek-v3-671b", deepseek())
+    serving["deepseek-v3-671b"], _, _, weights = serve_full_width(device, "deepseek-v3-671b",
+                                                                  deepseek())
     emit({"serving": serving["deepseek-v3-671b"]})
+    # the serving weights: 63 GB of f32 are not built twice
+    forward["deepseek-v3-671b"] = forward_phase(device, "deepseek-v3-671b", deepseek(), weights,
+                                                (1, BUCKET))
+    emit({"forward": forward["deepseek-v3-671b"]})
+    del weights
     free_card()
     parity["deepseek-v3-671b"] = deepseek_card_vs_cpu(device)
     emit({"card_vs_cpu": parity["deepseek-v3-671b"]})
+    cfg = reduced(get_config("deepseek-v3-671b"), layers=4)
+    parity["deepseek-v3-671b forward"] = forward_card_vs_cpu(
+        device, "deepseek-v3-671b reduced, 4 layers, forward", cfg, scaled_init(get_model(cfg)),
+        (2, 70))
+    emit({"card_vs_cpu": parity["deepseek-v3-671b forward"]})
     paths.update(serving)
+    paths.update({f"{label} forward": rep for label, rep in forward.items()})
+    paths["olmo-1b calibration"] = calibration
 
     def launches(name):
         by_path = {label: rep["launches"][name] for label, rep in paths.items()
@@ -1005,6 +1435,7 @@ def main() -> int:
     rep_af = next(r for r in af_rows if (r["where"], r["fmt"], r["mode"]) ==
                   ("decode", "Q1.6", "swish"))
     rep_sm = next(r for r in softmax_rows if (r["shape"], r["fmt"]) == ([SLOTS, 50304], "Q1.6"))
+    rep_fl, rep_mf = flash_rows[0], mla_flash_rows[0]  # the forward phases' shapes
     kernels = []
     for name, file, replaces, err, rep, lib in (
             ("fused_dot_af", "cordic_fused/csrc/cordic_fused.cu", "cordic_fused/kernel.py:104",
@@ -1018,7 +1449,11 @@ def main() -> int:
             ("af_elementwise", "cordic_af/csrc/cordic_af.cu", "cordic_af/kernel.py:40", 0.0,
              rep_af, None),
             ("af_softmax", "cordic_af/csrc/af_softmax.cu", "cordic_af/kernel.py:54", 0.0,
-             rep_sm, None)):
+             rep_sm, None),
+            ("flash_attention", "flash_attention/csrc/flash_attention.cu",
+             "flash_attention/kernel.py:34", flash_err, rep_fl, rep_fl["sdpa_ms"]),
+            ("mla_flash_attention", "mla_flash/csrc/mla_flash.cu", "mla_flash/kernel.py:36",
+             mla_flash_err, rep_mf, rep_mf["sdpa_ms"])):
         total, by_path = launches(name)
         if not total:
             raise AssertionError(f"{name}: no launch on any driven path")
@@ -1031,7 +1466,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=device_line, kernel_checks=checks, softmax_path=paths["softmax activate"],
-        serving=serving, card_vs_cpu=parity, kernels=kernels), indent=1))
+        serving=serving, forward=forward, calibration=calibration, card_vs_cpu=parity,
+        kernels=kernels), indent=1))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -12,7 +12,13 @@ from .cordic import (
 from .activations import AF_INDEX, AF_NAMES, af_ref, cordic_softmax, multi_af, multi_af_float
 from .mac import carmen_matmul_fast, cordic_dot, cordic_matmul, mac_cycles
 from .engine import EngineContext, PreparedWeight, prepare_params
-from .precision_policy import LayerPrecision, PrecisionPolicy
+from .precision_policy import (
+    CRITICAL_KEYWORDS,
+    LayerPrecision,
+    PrecisionPolicy,
+    assign_depths,
+    pin_critical,
+)
 from .normalization import layernorm, nonparametric_ln, rmsnorm
 
 __all__ = [
@@ -22,6 +28,6 @@ __all__ = [
     "AF_INDEX", "AF_NAMES", "af_ref", "cordic_softmax", "multi_af", "multi_af_float",
     "carmen_matmul_fast", "cordic_dot", "cordic_matmul", "mac_cycles",
     "EngineContext", "PreparedWeight", "prepare_params",
-    "LayerPrecision", "PrecisionPolicy",
+    "CRITICAL_KEYWORDS", "LayerPrecision", "PrecisionPolicy", "assign_depths", "pin_critical",
     "layernorm", "nonparametric_ln", "rmsnorm",
 ]

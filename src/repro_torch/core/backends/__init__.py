@@ -19,7 +19,7 @@ from .kernel import KernelBackend
 
 __all__ = [
     "Backend", "PreparedWeight", "get_backend", "register", "resolve",
-    "prepare_params", "unit_fmt",
+    "iter_dot_weights", "prepare_params", "unit_fmt",
 ]
 
 _REGISTRY: Dict[str, Backend] = {}
@@ -119,6 +119,21 @@ def _classify(keys, leaf, spec):
     return _policy_name(keys), stacked, in_axes
 
 
+def iter_dot_weights(params, *, specs=None):
+    """Yield ``(keys, policy_name, leaf, stacked_axes, in_axes)`` for every
+    weight leaf of ``params`` that reaches ``EngineContext.dot``: the leaves
+    ``prepare_params`` formats and the names the calibration scan perturbs.
+    Raw and prepared trees alike (a :class:`PreparedWeight` is one leaf, and
+    a prepared tree's materialized ``lm_head`` is yielded); a tied raw tree
+    has no ``lm_head`` leaf, so callers add that name themselves."""
+    spec_of = dict(_flatten(specs)) if specs is not None else {}
+    for keys, leaf in _flatten(params):
+        info = _classify(keys, leaf, spec_of.get(keys))
+        if info is not None:
+            name, stacked, in_axes = info
+            yield keys, name, leaf, stacked, in_axes
+
+
 def prepare_params(params, policy: Optional[PrecisionPolicy], mode: str, *,
                    specs=None, memo: Optional[Dict] = None):
     """Materialize per-layer prepared weight banks for serving.
@@ -130,16 +145,12 @@ def prepare_params(params, policy: Optional[PrecisionPolicy], mode: str, *,
     """
     backend = get_backend(mode)
     policy = policy or PrecisionPolicy.accurate()
-    spec_of = dict(_flatten(specs)) if specs is not None else {}
     if memo is None:
         memo = {}
-    out = {}
-    for keys, leaf in _flatten(params):
-        info = _classify(keys, leaf, spec_of.get(keys))
-        if isinstance(leaf, PreparedWeight) or info is None:
-            out[keys] = leaf
+    out = dict(_flatten(params))
+    for keys, name, leaf, stacked, in_axes in iter_dot_weights(params, specs=specs):
+        if isinstance(leaf, PreparedWeight):
             continue
-        name, stacked, in_axes = info
         lp = policy.for_layer(name)
         key = (id(leaf), mode, lp, stacked)
         if key not in memo:

@@ -21,16 +21,20 @@ from .precision_policy import LayerPrecision, PrecisionPolicy
 
 __all__ = ["EngineContext", "PreparedWeight", "prepare_params"]
 
-ATTN_IMPLS = ("xla", "decode_kernel")
+ATTN_IMPLS = ("xla", "decode_kernel", "flash")
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineContext:
     """Static engine configuration threaded through model code.
 
-    ``attn_impl``: ``"xla"`` runs the plain cache-attention chain (the
-    reference's XLA path, in torch ops); ``"decode_kernel"`` runs the GQA
-    cache-decode kernel (its plain version on CPU tensors).
+    ``attn_impl``: ``"xla"`` runs the plain attention chains (the
+    reference's XLA paths, in torch ops); ``"decode_kernel"`` runs the GQA
+    and MLA cache-decode kernels on the cache path; ``"flash"`` runs the
+    cache-free flash and MLA flash kernels on the cache-free path
+    (``forward``). Each kernel's plain version runs on CPU tensors. As in
+    the reference, only the cache path reads ``"decode_kernel"`` and only the
+    cache-free path ``"flash"``: elsewhere either behaves like ``"xla"``.
     """
 
     mode: str = "exact"

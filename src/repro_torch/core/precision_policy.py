@@ -1,20 +1,28 @@
 """Layer-wise precision / iteration-depth policy (port of ``repro.core.precision_policy``).
 
 ``PrecisionPolicy`` maps layer names to execution points and round-trips the
-reference's JSON format, so a policy file loads in both packages. The
-sensitivity scan waits for a later slice.
+reference's JSON format, so a policy file loads in both packages.
+``assign_depths`` turns per-layer sensitivities (``repro_torch.runtime``'s
+calibration scan) into a policy that meets a cycle-reduction budget;
+``pin_critical`` keeps the critical layers at full depth. The JVP
+``sensitivity_scan`` is not yet ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 from . import cordic
 from .fxp import FXP8, FxPFormat
 
-__all__ = ["LayerPrecision", "PrecisionPolicy"]
+__all__ = [
+    "CRITICAL_KEYWORDS", "LayerPrecision", "PrecisionPolicy", "assign_depths", "pin_critical",
+]
+
+# layer-name fragments that always run at full depth
+CRITICAL_KEYWORDS = ("router", "gate_logits", "norm", "embed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,3 +96,47 @@ class PrecisionPolicy:
     def load(path: str) -> "PrecisionPolicy":
         with open(path) as f:
             return PrecisionPolicy.from_json(json.load(f))
+
+
+def pin_critical(policy: PrecisionPolicy, *,
+                 critical: Sequence[str] = CRITICAL_KEYWORDS) -> PrecisionPolicy:
+    """Hard accuracy floor: layers whose names hold a critical keyword run at
+    full depth, however the rest of the policy demotes."""
+    pinned = LayerPrecision(policy.default.fmt, cordic.full_depth(policy.default.fmt))
+    # keyword floors first: for_layer's substring scan walks insertion order,
+    # so a non-critical override key that substring-matches a critical layer
+    # name cannot shadow the floor
+    overrides: Dict[str, LayerPrecision] = {key: pinned for key in critical}
+    for name, lp in policy.overrides.items():
+        if any(k in name for k in critical):
+            overrides[name] = LayerPrecision(lp.fmt, cordic.full_depth(lp.fmt))
+        else:
+            overrides[name] = lp
+    return PrecisionPolicy(policy.default, overrides)
+
+
+def assign_depths(sensitivities: Mapping[str, float], *, fmt: FxPFormat = FXP8,
+                  cycle_reduction_target: float = 0.33,
+                  critical: Sequence[str] = CRITICAL_KEYWORDS) -> PrecisionPolicy:
+    """Greedy depth assignment meeting a cycle-reduction budget.
+
+    Every layer moved to approximate depth saves ``1 - approx/full`` of its
+    cycles; with uniform per-layer MAC counts, moving a fraction p of the
+    layers saves p times that. Layers go approximate from the least
+    sensitive up until the budget is met; critical-keyword layers never do.
+    """
+    full = cordic.full_depth(fmt)
+    approx = cordic.approx_depth(fmt)
+    per_layer_saving = 1.0 - approx / full
+    names = sorted(sensitivities, key=lambda n: sensitivities[n])
+    overrides: Dict[str, LayerPrecision] = {}
+    saved = 0.0
+    n = max(len(names), 1)
+    for name in names:
+        if any(k in name for k in critical):
+            continue
+        if saved >= cycle_reduction_target:
+            break
+        overrides[name] = LayerPrecision(fmt, approx)
+        saved += per_layer_saving / n
+    return PrecisionPolicy(LayerPrecision(fmt, full), overrides)

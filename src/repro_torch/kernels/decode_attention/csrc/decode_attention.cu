@@ -19,25 +19,17 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention.cuh"
+
 namespace {
 
 constexpr int TK = 32;       // keys per tile: one per lane
 constexpr int NWARPS = 4;    // warps per block
 constexpr int RPW = 2;       // query rows per warp
 constexpr int QT = NWARPS * RPW;
-constexpr float NEG_INF_MASK = -1e30f;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using attn::NEG_INF_MASK;
+using attn::warp_max;
+using attn::warp_sum;
 
 template <int HD>
 __global__ void __launch_bounds__(NWARPS * 32)

@@ -1,0 +1,84 @@
+"""Wrapper of the cache-free flash attention kernel.
+
+``flash_attention`` (``csrc/flash_attention.cu``) replaces the TPU kernel
+``repro/kernels/flash_attention/kernel.py:_flash_kernel``
+(``flash_attention_bhsd``, model-layout entry ``ops.py:flash_attention``).
+On an H100 it is bound by its f32 multiply-adds on the CUDA cores; a block
+takes 64 query rows of one head, streams 32-key K/V tiles through shared
+memory with an online softmax, resolves the kv head by index (no repeated
+K/V) and skips the tiles above the diagonal.
+
+A CPU tensor runs the plain version (``flash_attention_ref``); a CUDA tensor
+launches the kernel or raises. ``flash_attention.launches`` counts launches.
+Against the plain version the output agrees to f32 reduction-order
+tolerance (:data:`TOLERANCE`): the kernel sums scores and P·V in another
+order and rescales per tile.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from .. import _build
+from .ref import flash_attention_ref
+
+HEAD_DIMS = (16, 32, 64, 128, 256)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# max |kernel - plain| allowed on unit-scale f32 inputs: a few ulps of
+# reduction-order drift, with headroom (the decode kernels' bar)
+TOLERANCE = 2e-5
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    lib = _build.library("flash_attention")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+    lib.flash_attention_launch.restype = i
+    return lib
+
+
+def _launch(q, k, v, causal: bool):
+    dev = q.device
+    for name, t in (("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"flash_attention: q on {dev}, {name} on {t.device}")
+    b, sq, h, d = q.shape
+    _, sk, kv, d2 = k.shape
+    if (v.shape != k.shape or d2 != d or k.shape[0] != b or h % kv or sq == 0
+            or sk == 0):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: the kernel takes q, k, v of one type, f32 or "
+                         f"bf16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the kernel copies in 16-byte pieces; q, k and v "
+                         "must be 16-byte aligned")
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        status = _lib().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, kv, d,
+            DTYPES[q.dtype], int(causal), 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "flash_attention_launch")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Cache-free attention in model layout: q (B, Sq, H, D) against k, v
+    (B, Sk, KV, D), H % KV == 0, causal over the indices (query i sees keys
+    j <= i). Returns (B, Sq, H, D) in q's dtype."""
+    if not q.is_cuda:
+        return flash_attention_ref(q, k, v, causal=causal)
+    return _launch(q, k, v, causal)
+
+
+flash_attention.launches = 0

@@ -7,10 +7,16 @@
 Runs on the card by default (``--device cuda``) through the Hopper kernels;
 ``--device cpu`` runs their plain versions. ``kernel``-mode weights, prepared
 once (the fused dot+AF kernel) or, with ``--per-call``, re-rounded at every
-dot (the MAC-array kernel and the standalone multi-AF); uniform accurate
-FxP8 policy, greedy decoding. Weights are random, drawn from seed 0. The
-full-width config is served at ``dtype="float32"`` to match the f32 engine
-context.
+dot (the MAC-array kernel and the standalone multi-AF); greedy decoding.
+Weights are random, drawn from seed 0. The full-width config is served at
+``dtype="float32"`` to match the f32 engine context.
+
+The FxP8 policy is accurate unless ``--policy-file`` loads one (a file that
+either package saved) or ``--calibrate`` runs the startup sensitivity scan
+(``repro_torch.runtime.calibration_scan``, per call, through the cache-free
+flash kernels) and ``assign_depths`` meets ``--cycle-reduction``;
+``--save-policy`` writes the policy served. A depth-demoted group gets its
+own point vector from ``prepare_params``.
 """
 from __future__ import annotations
 
@@ -23,9 +29,30 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs import ARCHS, get_config, reduced as reduce_cfg
-from repro_torch.core import FXP8, EngineContext, PrecisionPolicy
+from repro_torch.core import FXP8, EngineContext, PrecisionPolicy, assign_depths
 from repro_torch.models import get_model
 from repro_torch.serve.engine import BatchedServer, Request
+
+
+def resolve_policy(args, model, params, fmt, device) -> PrecisionPolicy:
+    """--policy-file > --calibrate (startup sensitivity scan) > accurate."""
+    if args.policy_file:
+        policy = PrecisionPolicy.load(args.policy_file)
+    elif args.calibrate:
+        from repro_torch.runtime import calibration_scan
+
+        rng = np.random.default_rng(0)
+        tokens = rng.integers(0, model.cfg.vocab_size, (2, max(args.prompt_len, 8)))
+        sens = calibration_scan(model, params, torch.as_tensor(tokens, device=device), fmt=fmt,
+                                mode=args.mode, attn_impl="flash")
+        policy = assign_depths(sens, fmt=fmt, cycle_reduction_target=args.cycle_reduction)
+        print("calibration scan:", {k: round(v, 4) for k, v in sorted(sens.items())})
+    else:
+        policy = PrecisionPolicy.accurate(fmt)
+    if args.save_policy:
+        policy.save(args.save_policy)
+        print(f"policy saved to {args.save_policy}")
+    return policy
 
 
 def main(argv=None):
@@ -46,6 +73,14 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=None,
                     help="KV rows per slot (default: prompt-len + max-new + 2)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--policy-file", default=None,
+                    help="JSON precision policy (PrecisionPolicy.save / assign_depths)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="run the sensitivity scan on a calibration batch at startup")
+    ap.add_argument("--save-policy", default=None,
+                    help="write the resolved policy as JSON (round-trips via --policy-file)")
+    ap.add_argument("--cycle-reduction", type=float, default=0.33,
+                    help="assign_depths cycle-reduction budget for --calibrate")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -54,7 +89,7 @@ def main(argv=None):
     model = get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(0)
     params = model.init(gen)
-    policy = PrecisionPolicy.accurate(FXP8)
+    policy = resolve_policy(args, model, params, FXP8, device)
     ctx = EngineContext(mode=args.mode, policy=policy, compute_dtype=torch.float32,
                         attn_impl="decode_kernel")
     max_len = args.max_len or args.prompt_len + args.max_new + 2

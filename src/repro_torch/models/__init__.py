@@ -26,6 +26,10 @@ class ModelApi:
         """The reference's raw parameter tree (numpy leaves) on ``device``."""
         return P.load_numpy_params(tree, device, specs=self.specs())
 
+    def forward(self, prms, batch, ctx: EngineContext, *, remat: bool = False):
+        """Cache-free forward: ``batch["tokens"]`` (B, S) -> (logits, aux)."""
+        return transformer.forward(prms, batch, self.cfg, ctx, remat=remat)
+
     def decode_step(self, prms, tokens, cache, ctx: EngineContext):
         return transformer.decode_step(prms, tokens, cache, self.cfg, ctx)
 

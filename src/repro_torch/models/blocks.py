@@ -1,12 +1,13 @@
 """Transformer building blocks (port of ``repro.models.blocks``): RoPE, norms,
-GQA attention on the KV-cache path, the gated MLP and the token-choice MoE.
+GQA attention, the gated MLP and the token-choice MoE.
 
 Every projection goes through ``EngineContext``. The cache path writes the KV
 cache in place (the reference returns a new one); the attention itself is
 the GQA cache-decode kernel (``attn_impl="decode_kernel"``) or the plain
-chain (``"xla"``). The MoE's router and expert products are plain f32
-einsums, as in the reference; its gate activation is the engine's
-standalone multi-AF block.
+chain (``"xla"``). The cache-free path (``forward``) runs the flash kernel
+(``"flash"``) or the reference's query-chunked chain (``"xla"``). The MoE's
+router and expert products are plain f32 einsums, as in the reference; its
+gate activation is the engine's standalone multi-AF block.
 """
 from __future__ import annotations
 
@@ -19,8 +20,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import EngineContext
 from repro_torch.core.normalization import layernorm, nonparametric_ln, rmsnorm
 from repro_torch.kernels.decode_attention import gqa_decode_attention, gqa_decode_attention_ref
+from repro_torch.kernels.flash_attention import flash_attention
 
 from .params import ParamSpec
+
+Q_CHUNK = 1024  # query block of the cache-free XLA chain
+NEG_INF = -1e30
 
 
 def norm_spec(cfg: ModelConfig, dim: Optional[int] = None):
@@ -94,12 +99,34 @@ def cache_row_write(c: torch.Tensor, x: torch.Tensor, i: torch.Tensor) -> torch.
     return c
 
 
-def attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name, cache=None):
+def _sdpa_chunked(q, k, v, q_positions, k_positions, causal: bool):
+    """The reference's cache-free XLA chain. q (B, Sq, H, hd); k, v
+    (B, Sk, H, hd), KV repeated to H. Queries run in ``Q_CHUNK`` blocks when
+    Sq divides into them (else one block): f32 scores, the causal mask on
+    positions at -1e30, softmax, P cast to v's dtype, P·V."""
+    sq, hd = q.shape[1], q.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+    n_chunks = max(1, sq // Q_CHUNK) if sq % Q_CHUNK == 0 else 1
+    qc = sq // n_chunks
+    outs = []
+    for c in range(n_chunks):
+        q_i, qp_i = q[:, c * qc:(c + 1) * qc], q_positions[c * qc:(c + 1) * qc]
+        scores = torch.einsum("bqhd,bshd->bhqs", q_i.to(torch.float32), k.to(torch.float32))
+        scores = scores * scale
+        if causal:
+            mask = qp_i[:, None] >= k_positions[None, :]
+            scores = torch.where(mask, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        outs.append(torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v))
+    return torch.cat(outs, dim=1)
+
+
+def attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name, cache=None,
+              causal: bool = True):
     """Returns (out, new_cache); ``cache`` = dict(k, v, index) of one layer.
-    The k/v rows are written in place; the new index is returned."""
-    if cache is None:
-        raise NotImplementedError("the cache-free (training/forward) attention path "
-                                  "is not yet ported")
+    The k/v rows are written in place; the new index is returned. Without a
+    cache (``forward``: ``positions`` is ``arange(S)``, so the flash kernel's
+    index mask is the positions' mask) the new cache is None."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     q = _proj(ctx, x, p["wq"], p.get("bq"), f"{name}.q")
@@ -111,15 +138,26 @@ def attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name, ca
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    idx = cache["index"]
-    ck = cache_row_write(cache["k"], k, idx)
-    cv = cache_row_write(cache["v"], v, idx)
-    scale = 1.0 / math.sqrt(hd)
-    if ctx.attn_impl == "decode_kernel":
-        out = gqa_decode_attention(q, ck, cv, positions, scale=scale)
+    if cache is None:
+        if ctx.attn_impl == "flash":
+            # the kernel resolves kv head = h // groups itself: K/V unrepeated
+            out = flash_attention(q, k, v, causal=causal)
+        else:
+            g = cfg.kv_groups
+            kr = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
+            vr = torch.repeat_interleave(v, g, dim=2) if g > 1 else v
+            out = _sdpa_chunked(q, kr, vr, positions, positions, causal)
+        new_cache = None
     else:
-        out = gqa_decode_attention_ref(q, ck, cv, positions, scale=scale)
-    new_cache = {"k": ck, "v": cv, "index": idx + s}
+        idx = cache["index"]
+        ck = cache_row_write(cache["k"], k, idx)
+        cv = cache_row_write(cache["v"], v, idx)
+        scale = 1.0 / math.sqrt(hd)
+        if ctx.attn_impl == "decode_kernel":
+            out = gqa_decode_attention(q, ck, cv, positions, scale=scale)
+        else:
+            out = gqa_decode_attention_ref(q, ck, cv, positions, scale=scale)
+        new_cache = {"k": ck, "v": cv, "index": idx + s}
 
     out = out.reshape(b, s, cfg.num_heads * hd)
     wo = p["wo"].reshape(cfg.num_heads * hd, cfg.d_model)

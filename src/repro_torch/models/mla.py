@@ -1,5 +1,5 @@
-"""Multi-head Latent Attention, cache path (port of ``repro.models.mla``;
-DeepSeek-V3, arXiv:2412.19437 §2.1).
+"""Multi-head Latent Attention (port of ``repro.models.mla``; DeepSeek-V3,
+arXiv:2412.19437 §2.1).
 
 Queries go through a low-rank down/up projection (``q_lora_rank``); keys and
 values through a compressed latent ``c_kv`` (``kv_lora_rank``) plus a
@@ -8,10 +8,10 @@ cache stores only ``(c_kv, k_rope)``. Attention runs in the absorbed form:
 ``q_nope`` is mapped into latent space once (``q_lat = q_nope · wk_b``), the
 scores contract over the latent rank, and the latent output is up-projected
 by ``wv_b``. ``wk_b`` and ``wv_b`` are plain f32 einsums, not engine dots, as
-in the reference. The cache rows are written in place.
-
-Only the cache path is ported; the cache-free path (MLA flash, training)
-waits for the ``mla_flash`` kernel.
+in the reference. The cache rows are written in place. The cache path runs
+the MLA cache-decode kernel (``attn_impl="decode_kernel"``) or the plain
+chain; the cache-free path (``forward``) the MLA flash kernel (``"flash"``)
+or the reference's query-chunked chain (``"xla"``).
 """
 from __future__ import annotations
 
@@ -23,8 +23,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import EngineContext
 from repro_torch.core.normalization import rmsnorm
 from repro_torch.kernels.decode_attention import mla_decode_attention, mla_decode_attention_ref
+from repro_torch.kernels.mla_flash import mla_flash_attention
 
-from .blocks import cache_row_write, rope
+from .blocks import Q_CHUNK, cache_row_write, rope
 from .params import ParamSpec
 
 
@@ -60,12 +61,26 @@ def _kv_latent(p, x, cfg, ctx, name):
     return rmsnorm(c_kv, p["kv_a_norm"]), k_rope
 
 
+def _chunked_block(q_lat, q_rope, c_kv, k_rope, positions, scale):
+    """The reference's cache-free XLA branch: ``_block`` over ``Q_CHUNK``
+    query chunks when S is past and divides into them, else one block. A
+    block is the plain absorbed chain with every key at or before its
+    query's position visible (``positions`` (S,) from ``forward``)."""
+    b, s = q_lat.shape[:2]
+    pos = positions.to(torch.int32).expand(b, s)
+    n = s // Q_CHUNK if s > Q_CHUNK and s % Q_CHUNK == 0 else 1
+    c = s // n
+    return torch.cat([
+        mla_decode_attention_ref(q_lat[:, i * c:(i + 1) * c], q_rope[:, i * c:(i + 1) * c],
+                                 c_kv, k_rope, pos[:, i * c:(i + 1) * c], scale=scale)
+        for i in range(n)], dim=1)
+
+
 def mla_attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name, cache=None):
     """Returns (out, new_cache); ``cache`` = dict(c_kv, k_rope, index) of one
-    layer. The latent rows are written in place; the new index is returned."""
-    if cache is None:
-        raise NotImplementedError("the cache-free MLA path (mla_flash, training) "
-                                  "is not yet ported")
+    layer. The latent rows are written in place; the new index is returned.
+    Without a cache (``forward``: ``positions`` is ``arange(S)``, so the
+    flash kernel's index mask is the positions' mask) the new cache is None."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.num_heads
@@ -78,17 +93,25 @@ def mla_attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name
     c_kv, k_rope = _kv_latent(p, x, cfg, ctx, name)  # (B, S, R), (B, S, rdim)
     k_rope = rope(k_rope[..., None, :], positions, cfg.rope_theta)[..., 0, :]
 
-    idx = cache["index"]
-    c_kv = cache_row_write(cache["c_kv"], c_kv, idx)
-    k_rope = cache_row_write(cache["k_rope"], k_rope, idx)
-    new_cache = {"c_kv": c_kv, "k_rope": k_rope, "index": idx + s}
-
     q_lat = torch.einsum("bshn,rhn->bshr", q_nope.to(torch.float32),
                          p["wk_b"].to(torch.float32))
+    q_rope = q_rope.to(torch.float32)
     scale = 1.0 / math.sqrt(nope + rdim)
-    attend = mla_decode_attention if ctx.attn_impl == "decode_kernel" else \
-        mla_decode_attention_ref
-    o_lat = attend(q_lat, q_rope.to(torch.float32), c_kv, k_rope, positions, scale=scale)
+    if cache is None:
+        new_cache = None
+        c_kv, k_rope = c_kv.to(torch.float32), k_rope.to(torch.float32)
+        if ctx.attn_impl == "flash":
+            o_lat = mla_flash_attention(q_lat, q_rope, c_kv, k_rope, scale=scale)
+        else:
+            o_lat = _chunked_block(q_lat, q_rope, c_kv, k_rope, positions, scale)
+    else:
+        idx = cache["index"]
+        c_kv = cache_row_write(cache["c_kv"], c_kv, idx)
+        k_rope = cache_row_write(cache["k_rope"], k_rope, idx)
+        new_cache = {"c_kv": c_kv, "k_rope": k_rope, "index": idx + s}
+        attend = mla_decode_attention if ctx.attn_impl == "decode_kernel" else \
+            mla_decode_attention_ref
+        o_lat = attend(q_lat, q_rope, c_kv, k_rope, positions, scale=scale)
 
     out = torch.einsum("bshr,rhv->bshv", o_lat, p["wv_b"].to(torch.float32)).to(x.dtype)
     wo = p["wo"].reshape(h * vdim, cfg.d_model)

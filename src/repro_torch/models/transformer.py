@@ -3,9 +3,10 @@
 The reference's ``lax.scan`` over stacked layer parameters becomes a Python
 loop over layer views of the same stacked tensors, segment by segment (a
 deepseek-style MoE model is a dense prefix and an MoE segment). Attention is
-GQA, or MLA when the config carries one. The KV cache is updated in place:
-``decode_step`` writes each layer's rows and index into the cache it was
-given and returns that cache.
+GQA, or MLA when the config carries one. ``forward`` is the cache-free
+pass (training, the calibration scan); ``decode_step`` the cached one. The
+KV cache is updated in place: ``decode_step`` writes each layer's rows and
+index into the cache it was given and returns that cache.
 """
 from __future__ import annotations
 
@@ -98,16 +99,17 @@ def _dense_layer(p, h, cfg, ctx, positions, cache, name="layer"):
     h, new_cache = _attn_block(p, h, cfg, ctx, positions, cache, f"{name}.attn")
     x = blocks.apply_norm(p["mlp_norm"], h, cfg)
     h = h + blocks.mlp(p["mlp"], x, cfg, ctx, name=f"{name}.mlp")
-    return h, new_cache
+    return h, new_cache, {}
 
 
 def _moe_layer(p, h, cfg, ctx, positions, cache, name="layer"):
     h, new_cache = _attn_block(p, h, cfg, ctx, positions, cache, f"{name}.attn")
     x = blocks.apply_norm(p["mlp_norm"], h, cfg)
-    # cached decode gets the dropless short-block capacity
-    out, _ = blocks.moe_ffn(p["moe"], x, cfg, ctx, name=f"{name}.moe",
-                            dropless=cache is not None)
-    return h + out, new_cache
+    # cached decode gets the dropless short-block capacity; the cache-free
+    # forward the capacity-dropping form and its load-balancing loss
+    out, aux = blocks.moe_ffn(p["moe"], x, cfg, ctx, name=f"{name}.moe",
+                              dropless=cache is not None)
+    return h + out, new_cache, aux
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, device=None):
@@ -129,6 +131,35 @@ def _lm_head(params, h, cfg, ctx):
     else:
         w = params["lm_head"]
     return ctx.linear(h, w, name="lm_head").to(torch.float32)
+
+
+def forward(params, batch, cfg: ModelConfig, ctx: EngineContext, *, remat: bool = False):
+    """Cache-free forward: ``batch["tokens"]`` (B, S) -> (logits (B, S, V)
+    f32, ``{"lb_loss": ...}``), the load-balancing loss summed over the MoE
+    layers (zero for a dense model).
+
+    Positions are ``arange(S)``; attention runs causal over the sequence
+    itself (``ctx.attn_impl``: ``"flash"`` the flash kernels, ``"xla"`` the
+    reference's chunked chains). ``remat`` (activation checkpointing) is
+    accepted for the reference's signature; it takes effect only with
+    autograd, which this pass does not record yet.
+    """
+    del remat
+    if cfg.frontend == "vision":
+        raise NotImplementedError("the vision frontend's embeddings are not yet ported")
+    tokens = batch["tokens"]
+    h = params["embed"][tokens].to(cfg.compute_dtype)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
+    lb_loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i, (kind, n) in enumerate(_segments(cfg)):
+        seg_p = params[f"seg{i}_{kind}"]
+        layer_fn = _moe_layer if kind == "moe" else _dense_layer
+        for layer in range(n):
+            h, _, aux = layer_fn(layer_view(seg_p, layer), h, cfg, ctx, positions, None)
+            if "lb_loss" in aux:
+                lb_loss = lb_loss + aux["lb_loss"]
+    h = blocks.apply_norm(params["final_norm"], h, cfg)
+    return _lm_head(params, h, cfg, ctx), {"lb_loss": lb_loss}
 
 
 def _cache_index(cache) -> torch.Tensor:
@@ -157,7 +188,7 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, ctx: EngineContext):
         for layer in range(n):
             p = layer_view(seg_p, layer)
             c = {name: v[layer] for name, v in seg_c.items()}
-            h, new_c = layer_fn(p, h, cfg, ctx, positions, c)
+            h, new_c, _ = layer_fn(p, h, cfg, ctx, positions, c)
             seg_c["index"][layer] = new_c["index"]
     h = blocks.apply_norm(params["final_norm"], h, cfg)
     return _lm_head(params, h, cfg, ctx), cache

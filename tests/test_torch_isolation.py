@@ -33,7 +33,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.cordic_af.ops", "repro_torch.kernels.cordic_af.ref",
             "repro_torch.models.mla", "repro_torch.core.mac", "repro_torch.kernels.int_dot",
             "repro_torch.kernels.cordic_mac", "repro_torch.kernels.cordic_mac.ops",
-            "repro_torch.kernels.cordic_mac.ref"} <= set(mods)
+            "repro_torch.kernels.cordic_mac.ref", "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.mla_flash.ops", "repro_torch.runtime.calibrate"} <= set(mods)
     code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
@@ -79,3 +80,23 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          text=True, timeout=120, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_chip_smoke_library_check_spares_port_kernels():
+    """The port's own kernels are never counted as library kernels, whatever
+    their names hold ("flash", "attention_kernel"); library ones still are."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    port = [f"void (anonymous namespace)::{name}<float, 128>(float const*)"
+            for name in chip_smoke.PORT_KERNELS]
+    library = ["fmha_fwd_f32_aligned_64x128_sm80", "pytorch_flash::flash_fwd_kernel",
+               "void at::native::sdpa_attention_kernel", "ampere_sgemm_128x64_nn",
+               "cutlass_80_tensorop_s1688gemm"]
+    rows = [(1.0, name, 2) for name in port + library]
+    assert chip_smoke.library_kernels(rows, chip_smoke.ATTENTION_KERNELS) == [
+        (name, 2) for name in library[:3]]
+    assert chip_smoke.library_kernels(rows, chip_smoke.GEMM_KERNELS) == [
+        (name, 2) for name in library[3:]]

@@ -7,8 +7,9 @@ imports only torch and the port, so it also runs on a host without JAX:
 
 The fused dot+AF, the MAC-array matmul, the standalone multi-AF and its row
 softmax must be bitwise equal to their plain versions; the GQA and MLA
-decode attentions within ``decode_attention.TOLERANCE`` (f32 reduction
-order).
+decode attentions and the cache-free flash and MLA flash attentions within
+``decode_attention.TOLERANCE`` (f32 reduction order; a bf16 flash output
+within one bf16 rounding step besides).
 """
 import math
 
@@ -35,6 +36,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     mla_decode_attention,
     mla_decode_attention_ref,
 )
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref  # noqa: E402
+from repro_torch.kernels.mla_flash import mla_flash_attention, mla_flash_attention_ref  # noqa: E402
 
 FORMATS = {"fxp8": (fxp.FXP8, fxp.FXP8_UNIT), "fxp16": (fxp.FXP16, fxp.FXP16_UNIT)}
 
@@ -115,6 +118,59 @@ def test_mla_kernel_within_tolerance_of_plain_version(cuda, b, s, h, r, rd, t):
     got = mla_decode_attention(ql, qr, ck, kr, pos, scale=scale)
     assert mla_decode_attention.launches == before + 1
     want = mla_decode_attention_ref(ql, qr, ck, kr, pos, scale=scale)
+    assert (got - want).abs().max().item() <= TOLERANCE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,hd,causal", [
+    (2, 512, 16, 16, 128, True), (1, 70, 16, 4, 128, True), (2, 33, 4, 2, 32, False),
+    (1, 100, 2, 1, 256, True), (3, 17, 4, 4, 16, True), (2, 64, 8, 8, 64, False)])
+def test_flash_kernel_within_tolerance_of_plain_version(cuda, b, s, h, kv, hd, causal):
+    gen = torch.Generator(device=cuda).manual_seed(b * s + hd)
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda)
+    k = torch.randn((b, s, kv, hd), generator=gen, device=cuda)
+    v = torch.randn((b, s, kv, hd), generator=gen, device=cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max().item() <= TOLERANCE
+
+
+@pytest.mark.gpu
+def test_flash_kernel_bf16_within_one_rounding_step(cuda):
+    """bf16 in and out: the kernel and the plain version each round an f32
+    result that agrees within TOLERANCE, so they differ by at most one bf16
+    step where that rounding falls differently: 2^-7 of the value bounds it
+    (8 significant bits)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((2, 300, 16, 128), generator=gen, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    got = flash_attention(q, k, v)
+    want = flash_attention_ref(q, k, v)
+    assert got.dtype == torch.bfloat16
+    diff = (got.float() - want.float()).abs()
+    worst = (diff / (want.float().abs() * 2.0**-7 + TOLERANCE)).max().item()
+    assert worst <= 1.0, worst
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,r,rd,causal", [(1, 512, 128, 512, 64, True),
+                                               (2, 70, 7, 512, 64, True),
+                                               (2, 70, 4, 32, 16, True),
+                                               (2, 40, 4, 16, 8, False)])
+def test_mla_flash_kernel_within_tolerance_of_plain_version(cuda, b, s, h, r, rd, causal):
+    gen = torch.Generator(device=cuda).manual_seed(b * s + r)
+    ql = torch.randn((b, s, h, r), generator=gen, device=cuda)
+    qr = torch.randn((b, s, h, rd), generator=gen, device=cuda)
+    ck = torch.randn((b, s, r), generator=gen, device=cuda)
+    kr = torch.randn((b, s, rd), generator=gen, device=cuda)
+    scale = 1.0 / math.sqrt(r + rd)
+    before = mla_flash_attention.launches
+    got = mla_flash_attention(ql, qr, ck, kr, scale=scale, causal=causal)
+    assert mla_flash_attention.launches == before + 1
+    want = mla_flash_attention_ref(ql, qr, ck, kr, scale=scale, causal=causal)
     assert (got - want).abs().max().item() <= TOLERANCE
 
 
@@ -220,3 +276,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="latent dim"):
         mla_decode_attention(ql, ql[..., :8], lat, lat[..., :8],
                              torch.zeros((1, 1), dtype=torch.int32, device=cuda), scale=0.1)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="one type"):
+        flash_attention(q.to(torch.bfloat16)[..., :32], kv[..., :32], kv[..., :32])
+    with pytest.raises(ValueError, match="latent dim"):
+        mla_flash_attention(ql, ql[..., :8], lat, lat[..., :8], scale=0.1)

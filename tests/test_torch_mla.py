@@ -127,11 +127,25 @@ def test_mla_attention_cache_path_matches_reference(layer, s, attn_impl):
 
 
 def test_cache_free_path_not_yet_ported(layer):
-    _, cfg, _, _, tparams = layer
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        mla.mla_attention(tparams, torch.zeros((1, 2, cfg.d_model)), cfg,
-                          EngineContext(mode="kernel"), positions=torch.zeros((1, 2)),
-                          name="layer.attn")
+    """The cache-free path (``forward``'s) runs: without a cache, under
+    ``"xla"`` and ``"flash"``, the output matches the reference's cache-free
+    path on the same layer and no cache comes back."""
+    jcfg, cfg, _, jparams, tparams = layer
+    s = 6
+    x = np.random.default_rng(7).standard_normal((2, s, cfg.d_model)).astype(np.float32)
+    for attn_impl in ("xla", "flash"):
+        jctx = JCtx(mode="kernel", policy=JPolicy.accurate(), compute_dtype=jnp.float32,
+                    attn_impl=attn_impl)
+        want, jnew = jax_mla.mla_attention(jparams, jnp.asarray(x), jcfg, jctx,
+                                           positions=jnp.arange(s), name="layer.attn")
+        ctx = EngineContext(mode="kernel", policy=PrecisionPolicy.accurate(),
+                            compute_dtype=torch.float32, attn_impl=attn_impl)
+        with torch.no_grad():
+            got, new = mla.mla_attention(tparams, torch.from_numpy(x), cfg, ctx,
+                                         positions=torch.arange(s, dtype=torch.int32),
+                                         name="layer.attn")
+        assert new is None and jnew is None
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **OUT_TOL)
 
 
 def test_key_splits_fill_the_card_only_when_blocks_are_few():

@@ -15,16 +15,20 @@ cache-free flash and MLA flash attentions), then:
    CORDIC dot+AF, the MAC-array matmul, the multi-AF block and the softmax
    must be bitwise equal, the two decode attentions within their stated
    tolerance, the two flash attentions within it — and times kernel, plain
-   version, a library yardstick and the roofline bound; then drives the
-   softmax through its entry point, ``EngineContext.activate(x, "softmax")``,
-   on lm_head-wide rows;
+   version, a library yardstick and the roofline bound; the fused and MAC
+   rows run on K-major banks at decode (the narrow loop) and at 64, 512
+   and 1024 rows (the int8 tensor cores), record the path each took, and
+   time ``torch._int_mm`` on the K-major bank and on an N-major copy; then
+   drives the softmax through its entry point,
+   ``EngineContext.activate(x, "softmax")``, on lm_head-wide rows;
 3. serves full-width olmo-1b (16 layers, ``dtype="float32"``, seeded random
    weights) through ``BatchedServer`` in prepared kernel mode, checks the
    launch counts of its kernels against what the shapes imply, and checks
    that a repeat run and a ``burst=1`` run give identical greedy streams;
    then runs the cache-free ``forward`` on the same weights at batch
    (2, 512) under ``attn_impl="flash"`` (the flash kernel) and ``"xla"``,
-   with launch counts, a profiled repeat and the logits of the two compared;
+   with launch counts, a profiled repeat (every fused launch, M = 1024,
+   on the tensor-core kernel, by name) and the logits of the two compared;
 4. serves the same model and weights per call (``prepare_weights=False``:
    every dot re-rounds its raw weight and runs the MAC-array kernel, the
    gate its activation through the multi-AF kernel), and checks its streams
@@ -35,7 +39,8 @@ cache-free flash and MLA flash attentions), then:
    ``"flash"``, batch (2, 512), one forward per engine-dot group) on
    full-width olmo-1b, turns it into a policy with ``assign_depths``, and
    serves the request set prepared under it (mixed-depth points), repeat and
-   ``burst=1`` streams identical;
+   ``burst=1`` streams identical; one scan forward is profiled again
+   (every MAC launch on the tensor-core kernel, by name);
 6. serves olmo-1b widths at 2 layers on the card and on the CPU (plain
    versions) with the same weights, and checks the streams are identical;
    the same per call, at reduced width; and runs the 2-layer ``forward``
@@ -117,12 +122,20 @@ def timed_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+_SIDE_STREAM = []
+
+
 def graph_ms(fn, iters: int) -> float:
     """Mean device ms per call: ``iters`` calls captured in one CUDA graph and
-    replayed, so the host's time between launches is not counted."""
+    replayed, so the host's time between launches is not counted. Warm-up
+    and capture run on one side stream for the whole script (a library's
+    per-stream workspace, cuBLAS's, would otherwise be kept for each new
+    stream)."""
     import torch
 
-    side = torch.cuda.Stream()
+    if not _SIDE_STREAM:
+        _SIDE_STREAM.append(torch.cuda.Stream())
+    side = _SIDE_STREAM[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -158,9 +171,20 @@ ATTENTION_KERNELS = ("fmha", "flash", "attention_kernel", "sdpa")
 # reduction
 CUBLAS_LAUNCHES_PER_PRODUCT = 2
 # the __global__ names of the port's kernels, as the profiler reports them
-PORT_KERNELS = ("fused_dot_af_kernel", "mac_matmul_kernel", "gqa_decode_kernel",
+PORT_KERNELS = ("fused_dot_af_wgmma_kernel", "fused_dot_af_narrow_kernel",
+                "fused_dot_af_imad_kernel", "fused_quantize_x_kernel", "mac_matmul_wgmma_kernel",
+                "mac_matmul_narrow_kernel", "mac_matmul_imad_kernel", "gqa_decode_kernel",
                 "mla_decode_kernel", "mla_merge_kernel", "af_elementwise_kernel",
                 "af_softmax_kernel", "flash_attention_kernel", "mla_flash_kernel")
+# the int_dot.plan paths, by the names of their kernel instantiations
+PATH_NAMES = ("narrow", "wgmma", "imad")
+
+
+def path_name(p) -> str:
+    """The path of an ``int_dot.plan``, with its tile (wgmma: 128 x width) or
+    its K split (narrow, imad), as the kernel rows record it."""
+    name = PATH_NAMES[p.path]
+    return f"{name} 128x{p.config}" if name == "wgmma" else f"{name}, {p.splits} K splits"
 
 
 def kernel_breakdown(prof):
@@ -199,6 +223,18 @@ def port_kernel_ms(rows) -> dict:
     return {k: dict(device_ms=ms, calls=n) for k, (ms, n) in out.items()}
 
 
+def tensor_core_launches(label, rows, prefix: str) -> dict:
+    """Calls by instantiation of the fused (``prefix="fused_dot_af"``) or MAC
+    (``"mac_matmul"``) kernel in a profile whose dots all have M > 16: every
+    one must be the wgmma instantiation, by kernel name."""
+    calls = {path: sum(n for _, k, n in rows if f"{prefix}_{path}_kernel" in k)
+             for path in PATH_NAMES}
+    if not calls["wgmma"] or calls["narrow"] or calls["imad"]:
+        raise AssertionError(f"{label}: {prefix} launches by instantiation {calls}; at M > 16 "
+                             "every one must run the wgmma kernel")
+    return calls
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -227,21 +263,61 @@ def prepared_weight(k: int, n: int, fmt, gen, device, copies: int = 1):
     return banks
 
 
+def int_mm_ms(x, banks, iters: int) -> dict:
+    """``torch._int_mm`` (the yardstick, int8 x and the dot alone) on the
+    K-major banks and on N-major copies of them (PR 14's yardstick), or None
+    where it does not apply (M <= 16, K or N not a multiple of 8)."""
+    import torch
+
+    m, k = x.shape
+    n = banks[0].shape[1]
+    if m <= 16 or k % 8 or n % 8 or x.dtype != torch.int8:
+        return dict(k_major=None, n_major=None)
+    n_major = [b.contiguous() for b in banks]
+    it = iter(range(1 << 30))
+    out = dict(k_major=graph_ms(lambda: torch._int_mm(x, banks[next(it) % len(banks)]), iters),
+               n_major=graph_ms(lambda: torch._int_mm(x, n_major[next(it) % len(banks)]),
+                                iters))
+    del n_major
+    return out
+
+
+def fused_bound(m: int, k: int, n: int, af: str, af_depth: int, fmt):
+    """The fused dot+AF's least time: the larger of its bytes (x f32, the
+    bank, the point, out f32), its int8 multiply-adds on the tensor cores and,
+    past identity, the CORDIC epilogue's int32 operations on every output."""
+    from repro_torch.core.activations import internal_depth
+
+    t_bytes, _ = bound(m * k * 4 + k * n + m * n * 4 + 20, 0.0, INT8_OPS_PER_S)
+    t_mma = 2.0 * m * n * k / INT8_OPS_PER_S * 1e3
+    t_af = 0.0
+    if af != "identity":
+        t_af = af_int_ops(af, internal_depth(af_depth, fmt)) * m * n / INT32_OPS_PER_S * 1e3
+    return max((t_bytes, "bytes"), (t_mma, "operations"), (t_af, "operations (AF int32)"))
+
+
 def check_fused(device):
     import torch
 
     from repro_torch.core import FXP8, FXP16
     from repro_torch.kernels.cordic_fused import FUSED_AFS, fused_dot_af, fused_dot_af_ref
+    from repro_torch.kernels.int_dot import plan
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     rows, max_err = [], 0.0
-    shapes = ([("olmo-1b", kn) for kn in FUSED_SHAPES]
-              + [("deepseek-v3-671b", kn) for kn in DEEPSEEK_FUSED_SHAPES])
-    for model_name, (k, n) in shapes:
+    # decode, the 16-, 32- and 64-row serving buckets (the narrow loop up to
+    # 16 rows, the tensor cores above), the largest bucket, the forward's M
+    # (2 x 512 tokens)
+    shapes = ([("olmo-1b", kn, (SLOTS, 16, 32, 64, BUCKET, 2 * BUCKET)) for kn in FUSED_SHAPES]
+              + [("deepseek-v3-671b", kn, (SLOTS, BUCKET)) for kn in DEEPSEEK_FUSED_SHAPES])
+    for model_name, (k, n), ms_ in shapes:
         banks = prepared_weight(k, n, FXP8, gen, device,
                                 copies=max(1, min(48, math.ceil(3e8 / (k * n)))))
-        for m in (SLOTS, BUCKET):
+        for m in ms_:
             x = torch.randn((m, k), generator=gen, device=device)
+            xq = torch.clamp(torch.round(x * 64), -128, 127).to(torch.int8)
+            iters = 60 if m <= 32 else 20
+            lib = int_mm_ms(xq, [b.data for b in banks], iters)
             for af in ("identity", "swish"):
                 w = banks[0]
                 kw = dict(af_mode=af, af_depth=FXP8.frac + 1, af_fmt=FXP8)
@@ -257,28 +333,28 @@ def check_fused(device):
                 it = iter(range(1 << 30))
                 call = lambda: fused_dot_af(  # noqa: E731
                     x, banks[next(it) % len(banks)].data, banks[0].point, **kw)
-                iters = 60 if m <= 32 else 20
                 ms = graph_ms(call, iters)
                 eager_ms = timed_ms(call, iters)
                 plain_ms = timed_ms(lambda: fused_dot_af_ref(x, w.data, w.point, **kw),
                                     iters=5, warmup=1)
-                lib_ms = None
-                if af == "identity" and m > 16 and k % 8 == 0 and n % 8 == 0:
-                    xq = torch.clamp(torch.round(x * 64), -128, 127).to(torch.int8)
-                    lib_ms = graph_ms(lambda: torch._int_mm(
-                        xq, banks[next(it) % len(banks)].data), iters)
-                b_ms, b_by = bound(m * k * 4 + k * n + m * n * 4 + 20, 2.0 * m * n * k,
-                                   INT8_OPS_PER_S)
-                rows.append(dict(model=model_name, M=m, K=k, N=n, af=af, fmt="fxp8",
+                b_ms, b_by = fused_bound(m, k, n, af, FXP8.frac + 1, FXP8)
+                path = path_name(plan(m, n, k))
+                lib_ms = lib if af == "identity" else dict(k_major=None, n_major=None)
+                rows.append(dict(model=model_name, M=m, K=k, N=n, af=af, fmt="fxp8", path=path,
                                  bitwise_equal=True, max_abs_err=err, ms=ms, eager_ms=eager_ms,
-                                 plain_ms=plain_ms, int_mm_ms=lib_ms, bound_ms=b_ms,
+                                 plain_ms=plain_ms, int_mm_ms=lib_ms["k_major"],
+                                 int_mm_n_major_ms=lib_ms["n_major"], bound_ms=b_ms,
                                  bound_by=b_by))
-                log(f"fused {model_name} M={m} K={k} N={n} {af}: {ms:.4f} ms (eager {eager_ms:.4f}, "
-                    f"plain {plain_ms:.3f}, int_mm {lib_ms}, bound {b_ms:.4f} {b_by})")
-    # every AF mode, both formats, compute_round, at one shape
-    m, k, n = SLOTS, 2048, 2048
-    x = torch.randn((m, k), generator=gen, device=device) * 2.0
-    for fmt in (FXP8, FXP16):
+                log(f"fused {model_name} M={m} K={k} N={n} {af} [{path}]: {ms:.4f} ms (eager "
+                    f"{eager_ms:.4f}, plain {plain_ms:.3f}, int_mm K-major {lib_ms['k_major']} "
+                    f"N-major {lib_ms['n_major']}, bound {b_ms:.4f} {b_by})")
+        del banks
+    # every AF mode, compute_round, at one shape on each path: FxP8 at decode
+    # (narrow) and a serving bucket (wgmma), FxP16 (the CUDA-core loop)
+    k, n = 2048, 2048
+    for fmt, m in ((FXP8, SLOTS), (FXP8, 64), (FXP16, SLOTS)):
+        x = torch.randn((m, k), generator=gen, device=device) * 2.0
+        x[0, :3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
         w = prepared_weight(k, n, fmt, gen, device)[0]
         for af in FUSED_AFS:
             for compute_round in (False, True):
@@ -287,12 +363,59 @@ def check_fused(device):
                 got = fused_dot_af(x, w.data, w.point, **kw)
                 want = fused_dot_af_ref(x, w.data, w.point, **kw)
                 if not torch.equal(got, want):
-                    raise AssertionError(f"fused_dot_af != plain: {fmt} {af} "
+                    raise AssertionError(f"fused_dot_af != plain: {fmt} M={m} {af} "
                                          f"compute_round={compute_round}")
         rows.append(dict(M=m, K=k, N=n, af="all 7", fmt=str(fmt), compute_round="both",
-                         bitwise_equal=True))
+                         path=path_name(plan(m, n, k, w.data.element_size(),
+                                             w.data.element_size())),
+                         nan_inf_in_x=True, bitwise_equal=True))
     torch.cuda.synchronize()
     return rows, max_err
+
+
+def plan_alternatives(device):
+    """``int_dot.plan``'s choices against the alternatives, on the same inputs
+    (each bitwise equal to the plain version): the narrow loop against wgmma
+    at decode and up to its 16 rows, and 128- against 256-wide wgmma tiles
+    at the largest bucket's and the forward's M."""
+    import torch
+
+    from repro_torch.core import FXP8
+    from repro_torch.kernels import int_dot
+    from repro_torch.kernels.cordic_fused import fused_dot_af, fused_dot_af_ref, ops
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    rows = []
+    for k, n in FUSED_SHAPES + DEEPSEEK_FUSED_SHAPES[-1:]:
+        banks = prepared_weight(k, n, FXP8, gen, device,
+                                copies=max(1, min(48, math.ceil(3e8 / (k * n)))))
+        for m in (SLOTS, 8, int_dot.NARROW_MAX_M, BUCKET, 2 * BUCKET):
+            if m > int_dot.NARROW_MAX_M:
+                plans = {f"wgmma 128x{bn}": int_dot.Plan(int_dot.WGMMA, bn, 1, k,
+                                                         int_dot.WGMMA_BM, bn)
+                         for bn in int_dot.WGMMA_BNS}
+            else:
+                plans = {"narrow": int_dot._narrow_plan(m, n, k),
+                         "wgmma": int_dot._wgmma_plan(m, n, k)}
+            x = torch.randn((m, k), generator=gen, device=device)
+            times = {}
+            for label, p in plans.items():
+                ops.plan = lambda *a, p=p: p  # noqa: E731
+                try:
+                    w = banks[0]
+                    if not torch.equal(fused_dot_af(x, w.data, w.point),
+                                       fused_dot_af_ref(x, w.data, w.point)):
+                        raise AssertionError(f"plan {label} != plain at M={m} K={k} N={n}")
+                    it = iter(range(1 << 30))
+                    times[label] = graph_ms(lambda: fused_dot_af(
+                        x, banks[next(it) % len(banks)].data, w.point), 40)
+                finally:
+                    ops.plan = int_dot.plan
+            chosen = path_name(int_dot.plan(m, n, k))
+            rows.append(dict(M=m, K=k, N=n, chosen=chosen, ms=times))
+            log(f"plan M={m} K={k} N={n}: chosen {chosen}; {times}")
+        del banks
+    return rows
 
 
 def check_attention(device):
@@ -614,26 +737,33 @@ def mac_banks(m: int, k: int, n: int, gen, device, copies: int = 1):
 
 def check_mac(device):
     """The MAC-array matmul against its plain version, bitwise: the per-call
-    olmo-1b shapes (each of the kernel's three tile configs), an odd shape,
-    the fused ReLU, and FxP16 int16 operands whose int32 accumulator
-    overflows."""
+    olmo-1b shapes on each of its paths (decode and the 16-row bucket on the
+    narrow loop; the 32- and 64-row buckets, the largest bucket and the
+    calibration forward's M on the tensor cores), an odd shape, the fused
+    ReLU, and FxP16 int16 operands whose int32 accumulator overflows."""
     import torch
+
+    from repro_torch.kernels.int_dot import to_k_major
 
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     # decode (SLOTS rows), the 16- and 32-row prefill buckets (prompts 9 and
-    # 17; the kernel's M <= 32 tile) and the largest bucket
-    cases = [(m, k, n, False) for k, n in FUSED_SHAPES for m in (SLOTS, 16, 32, BUCKET)]
-    cases += [(3, 1000, 300, False), (SLOTS, 2048, 2048, True)]
+    # 17), a 64-row bucket, the largest bucket and the calibration's 2 x 512
+    cases = [(m, k, n, False) for k, n in FUSED_SHAPES
+             for m in (SLOTS, 16, 32, 64, BUCKET, 2 * BUCKET)]
+    cases += [(3, 1000, 300, False), (100, 1000, 300, False), (SLOTS, 2048, 2048, True),
+              (BUCKET, 2048, 2048, True)]
     rows = []
     for m, k, n, relu in cases:
         x_q, banks, x_scale, w_scale = mac_banks(
             m, k, n, gen, device, copies=max(1, min(48, math.ceil(3e8 / (k * n)))))
         rows.append(time_mac(f"fxp8{' relu' if relu else ''}", x_q, banks, x_scale, w_scale,
                              relu))
+        del banks
     # FxP16: Q3.12 activations near +8 against Q1.14 weights near +2 sum past 2^31
     m, k, n = SLOTS, 8192, 2048
     x_q = torch.randint(30000, 32768, (m, k), generator=gen, device=device).to(torch.int16)
-    banks = [torch.randint(24000, 32768, (k, n), generator=gen, device=device).to(torch.int16)
+    banks = [to_k_major(torch.randint(24000, 32768, (k, n), generator=gen,
+                                      device=device).to(torch.int16))
              for _ in range(18)]  # 18 x 33.6 MB: cold weights, as the other shapes
     exact = x_q[:1].double() @ banks[0][:, :8].double()
     if not (exact.abs() >= 2**31).all():
@@ -650,6 +780,7 @@ def time_mac(label, x_q, banks, x_scale, w_scale, relu):
     import torch
 
     from repro_torch.kernels.cordic_mac import mac_matmul, mac_matmul_ref
+    from repro_torch.kernels.int_dot import plan
 
     m, k = x_q.shape
     n = banks[0].shape[1]
@@ -668,17 +799,17 @@ def time_mac(label, x_q, banks, x_scale, w_scale, relu):
     eager_ms = timed_ms(call, iters)
     plain_ms = timed_ms(lambda: mac_matmul_ref(x_q, banks[0], x_scale, w_scale, fuse_relu=relu),
                         iters=5, warmup=1)
-    lib_ms = None
-    if m > 16 and k % 8 == 0 and n % 8 == 0 and x_q.dtype == torch.int8 and not relu:
-        lib_ms = graph_ms(lambda: torch._int_mm(x_q, banks[next(it) % len(banks)]), iters)
+    lib = int_mm_ms(x_q, banks, iters) if not relu else dict(k_major=None, n_major=None)
     elem = x_q.element_size()
     b_ms, b_by = bound(m * k * elem + k * n * elem + (m + n) * 4 + m * n * 4, 2.0 * m * n * k,
                        INT8_OPS_PER_S)
-    log(f"mac {label} M={m} K={k} N={n}: {ms:.4f} ms (eager {eager_ms:.4f}, plain "
-        f"{plain_ms:.3f}, int_mm {lib_ms}, bound {b_ms:.4f} {b_by})")
-    return dict(M=m, K=k, N=n, case=label, bitwise_equal=True, max_abs_err=0.0, ms=ms,
-                eager_ms=eager_ms, plain_ms=plain_ms, int_mm_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by)
+    path = path_name(plan(m, n, k, elem, banks[0].element_size()))
+    log(f"mac {label} M={m} K={k} N={n} [{path}]: {ms:.4f} ms (eager {eager_ms:.4f}, plain "
+        f"{plain_ms:.3f}, int_mm K-major {lib['k_major']} N-major {lib['n_major']}, bound "
+        f"{b_ms:.4f} {b_by})")
+    return dict(M=m, K=k, N=n, case=label, path=path, bitwise_equal=True, max_abs_err=0.0,
+                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, int_mm_ms=lib["k_major"],
+                int_mm_n_major_ms=lib["n_major"], bound_ms=b_ms, bound_by=b_by)
 
 
 def softmax_int_ops(depth: int) -> int:
@@ -892,6 +1023,7 @@ def serve_full_width(device, label, cfg, prepared_run=None, policy=None):
 
     per_call = prepared_run is not None
     model = get_model(cfg)
+    start_mem = torch.cuda.memory_allocated()  # left over from earlier phases
     torch.cuda.reset_peak_memory_stats()
     params = model.init(torch.Generator(device=device).manual_seed(SEED))
     ctx = kernel_ctx(policy=policy)
@@ -924,6 +1056,7 @@ def serve_full_width(device, label, cfg, prepared_run=None, policy=None):
         prefill_calls=server.prefill_calls, decode_steps=server.decode_steps,
         decode_ms_per_step=server.decode_seconds / max(server.decode_steps, 1) * 1e3,
         host_transfers=server.host_transfers,
+        start_mem_gib=start_mem / 2**30,
         setup_peak_mem_gib=setup_peak / 2**30,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         launches=launches,
@@ -1092,9 +1225,11 @@ def forward_phase(device, label, cfg, params, batch):
         if impl == "flash" and gemm_calls > allowed:
             raise AssertionError(f"{label} forward: {gemm_calls} library matmul launches, the "
                                  f"plain products allow {allowed}: {gemm}")
+        fused_calls = tensor_core_launches(f"{label} forward ({impl})", rows, "fused_dot_af")
         busy_ms = sum(r[0] for r in rows) / 1e3
         runs[impl] = dict(
             wall_s=wall, launches=launches, lb_loss=float(aux["lb_loss"]),
+            fused_launches_by_instantiation=fused_calls,
             profiled_repeat=dict(
                 wall_ms=profiled_wall * 1e3, device_busy_ms=busy_ms,
                 device_busy_share=busy_ms / (profiled_wall * 1e3),
@@ -1150,13 +1285,25 @@ def calibrate_full_width(device):
         raise AssertionError(f"calibration scan: sensitivities {sens}")
     policy = assign_depths(sens, fmt=FXP8, cycle_reduction_target=CYCLE_REDUCTION)
     log(f"calibration: {seconds:.2f} s for {forwards} forwards; {sens}")
+    # one of the scan's per-call forwards again, profiled: every MAC launch
+    # (M = 1024) on the tensor cores
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            model.forward(params, {"tokens": tokens}, kernel_ctx("flash"))
+        torch.cuda.synchronize()
+    rows = kernel_breakdown(prof)
+    mac_calls = tensor_core_launches("calibration forward", rows, "mac_matmul")
     return dict(
         config="olmo-1b full width, 16 layers, dtype float32, kernel mode per call (raw "
                "weights), attn_impl=flash, calibration_scan",
         batch=list(batch), forwards=forwards, seconds=seconds,
         seconds_per_forward=seconds / forwards, sensitivities=sens,
         cycle_reduction=CYCLE_REDUCTION, policy=policy.to_json(), launches=launches,
-        launches_per_forward=want), policy
+        launches_per_forward=want,
+        profiled_forward=dict(mac_launches_by_instantiation=mac_calls,
+                              port_kernels=port_kernel_ms(rows))), policy
 
 
 def forward_card_vs_cpu(device, label, cfg, params, batch):
@@ -1358,6 +1505,7 @@ def main() -> int:
     emit({"device": device_line})
 
     fused_rows, fused_err = check_fused(device)
+    plan_rows = plan_alternatives(device)
     attn_rows, attn_err = check_attention(device)
     mla_rows, mla_err = check_mla(device)
     af_rows = check_af(device)
@@ -1365,7 +1513,7 @@ def main() -> int:
     softmax_rows = check_softmax(device)
     flash_rows, flash_err = check_flash(device)
     mla_flash_rows, mla_flash_err = check_mla_flash(device)
-    checks = {"fused_dot_af": fused_rows, "cordic_mac": mac_rows,
+    checks = {"fused_dot_af": fused_rows, "plan_alternatives": plan_rows, "cordic_mac": mac_rows,
               "gqa_decode_attention": attn_rows, "mla_decode_attention": mla_rows,
               "af_elementwise": af_rows, "af_softmax": softmax_rows,
               "flash_attention": flash_rows, "mla_flash_attention": mla_flash_rows}

@@ -15,12 +15,23 @@ the activation as its own multi-AF pass. The reference's third branch, a
 legacy prepared leaf that carried its formats in ``meta``, is not ported:
 its ``prepare`` always sets ``point``, so nothing builds such a leaf.
 
+Every bank is stored K-major, the only layout Hopper's integer MMAs take:
+its contraction axes innermost in memory (a stacked ``(L, d, H, hd)`` leaf
+as ``(L, H, hd, d)``, a ``wo`` ``(L, H, hd, d)`` as ``(L, d, H, hd)``), K
+padded to whole 16 bytes, and viewed back in the logical shape, so values
+and shapes are the reference's and the models' 2-D reshapes are views with
+``stride == (1, K_pad)``.
+
 Each kernel launches on a CUDA tensor and its plain version runs on a CPU
 tensor.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+from repro_torch.kernels.int_dot import k_major_empty
 
 from .. import cordic
 from .base import Backend, PreparedWeight, unit_fmt
@@ -39,15 +50,38 @@ def make_point(depth: int, x_fmt, w_fmt, device=None) -> torch.Tensor:
                         dtype=torch.int32, device=device)
 
 
-def _signed_digit_storage(w, depth: int, fmt) -> torch.Tensor:
-    """``cordic.signed_digit_ints`` in the storage dtype, contiguous, computed
-    in chunks of the flat tensor (the rounding is elementwise)."""
-    flat = torch.as_tensor(w).reshape(-1)
-    out = torch.empty(flat.shape, dtype=fmt.storage_dtype, device=flat.device)
-    for i in range(0, flat.numel(), _PREPARE_CHUNK):
-        part = flat[i:i + _PREPARE_CHUNK]
-        out[i:i + _PREPARE_CHUNK] = cordic.signed_digit_ints(part, depth, fmt).to(out.dtype)
-    return out.reshape(w.shape)
+def _chunks(shape, limit: int):
+    """Index tuples that cut a tensor of ``shape`` into pieces of at most
+    ``limit`` elements, along its leading axes."""
+    if not shape:
+        yield ()
+        return
+    inner = math.prod(shape[1:])
+    if inner <= limit:
+        step = max(1, limit // max(inner, 1))
+        for i in range(0, shape[0], step):
+            yield (slice(i, i + step),)
+        return
+    for i in range(shape[0]):
+        for rest in _chunks(shape[1:], limit):
+            yield (i, *rest)
+
+
+def _signed_digit_storage(w, depth: int, fmt, stacked_axes: int = 0,
+                          in_axes: int = 1) -> torch.Tensor:
+    """``cordic.signed_digit_ints`` in the storage dtype as a K-major bank in
+    ``w``'s logical shape: the ``in_axes`` contraction axes after the
+    ``stacked_axes`` leading ones are innermost in memory, their product K
+    padded to whole 16 bytes. Computed in chunks of ``w`` (the rounding is
+    elementwise), so nothing larger than a chunk is ever materialized in f32."""
+    w = torch.as_tensor(w)
+    lead = tuple(w.shape[:stacked_axes])
+    k = math.prod(w.shape[stacked_axes:stacked_axes + in_axes])
+    n = math.prod(w.shape[stacked_axes + in_axes:])
+    out = k_major_empty(lead, k, n, fmt.storage_dtype, w.device).reshape(w.shape)
+    for idx in _chunks(tuple(w.shape), _PREPARE_CHUNK):
+        out[idx] = cordic.signed_digit_ints(w[idx], depth, fmt).to(out.dtype)
+    return out
 
 
 class KernelBackend(Backend):
@@ -55,7 +89,8 @@ class KernelBackend(Backend):
 
     def prepare(self, w, lp, *, stacked_axes: int = 0, in_axes=None):
         fmt = unit_fmt(lp.fmt)
-        data = _signed_digit_storage(w, int(lp.depth), fmt)
+        data = _signed_digit_storage(w, int(lp.depth), fmt, stacked_axes,
+                                     1 if in_axes is None else in_axes)
         point = make_point(int(lp.depth), lp.fmt, fmt, device=w.device)
         if stacked_axes:
             point = point.expand(tuple(w.shape[:stacked_axes]) + (POINT_LEN,)).contiguous()

@@ -12,111 +12,175 @@
 //   3. out = max(out, 0) when fuse_relu is set (the multi-AF block's ReLU
 //      bypass), NaN kept as jnp.maximum keeps it.
 //
-// What bounds it on an H100: at decode (M = slots = 4) the int8 weight bytes
-// (a 2048 x 8192 bank is 16.8 MB, >= 5 us at 3.35 TB/s); at a prefill bucket
-// (M = 512) the integer multiply-adds. Design: the split-K output-tile loop of
-// kernels/include/int_dot.cuh on the CUDA cores, the one the fused dot+AF
-// kernel runs; x arrives already quantized, and the epilogue is the scale
-// multiply. The kernel masks the ragged edges itself, so nothing is padded
-// to the TPU's 256-tiles. Tensor cores (mma/wgmma on int8) are later work.
+// Both operands are K-major: x_q (M, K) rows ldx elements apart, the bank
+// w_q (K, N) stored as N rows of K, ldw elements apart; both strides are
+// multiples of 16 bytes. The paths are the fused dot+AF kernel's, chosen by
+// the host's plan (kernels/int_dot.py), with x already quantized:
+//
+// * int8 x int8, M > 16 (the calibration forward, prefill buckets): bound by
+//   the int8 multiply-adds; mac_matmul_wgmma_kernel, the TMA + wgmma loop of
+//   include/int8_wgmma.cuh (128 x 128 or 128 x 256 tiles), reading x_q and
+//   the bank straight through TMA.
+// * int8 x int8, M <= 16 (decode): bound by the weight bytes (a 2048 x 8192
+//   bank is 16.8 MB, >= 5 us at 3.35 TB/s); mac_matmul_narrow_kernel, the
+//   streaming mma.sync loop of include/int_dot.cuh.
+// * any int16 operand (FxP16), any M: mac_matmul_imad_kernel, the int32
+//   CUDA-core loop of include/int_dot.cuh.
+//
+// The epilogue is the scale multiply (+ReLU). The kernels mask the ragged
+// edges themselves, so nothing is padded to the TPU's 256-tiles.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_wgmma.cuh"
 #include "int_dot.cuh"
 
 namespace {
 
-// the quantized activation operand, read straight into the tile
+enum Path { NARROW = 0, WGMMA = 1, IMAD = 2 };
+
+struct MacEpilogue {
+  float* __restrict__ out;
+  const float* __restrict__ x_scale;
+  const float* __restrict__ w_scale;
+  int N, fuse_relu;
+  __device__ __forceinline__ float prepare(int gm, int gn, int acc) const {
+    const float v = (__int2float_rn(acc) * x_scale[gm]) * w_scale[gn];
+    return fuse_relu && v < 0.f ? 0.f : v;
+  }
+  __device__ __forceinline__ void finish(int gm, int gn, float v) const {
+    out[(size_t)gm * N + gn] = v;
+  }
+};
+
+// the quantized activation operand, read straight into a tile
 template <typename XT>
 struct LoadX {
   const XT* __restrict__ x;
-  int K;
+  int ldx;
   __device__ __forceinline__ int operator()(int gm, int gk) const {
-    return (int)x[(size_t)gm * K + gk];
+    return (int)x[(size_t)gm * ldx + gk];
+  }
+  // int8 elements gk..gk+3 as one word (rows are 16-byte aligned, gk % 4 == 0)
+  __device__ __forceinline__ unsigned quad(int gm, int gk) const {
+    return *reinterpret_cast<const unsigned*>(x + (size_t)gm * ldx + gk);
+  }
+};
+
+template <int BN>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+mac_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                        const __grid_constant__ CUtensorMap tb, MacEpilogue epi, int M, int N,
+                        int K) {
+  int8_wgmma_tile<BN>(&ta, &tb, epi, M, N, K);
+}
+
+template <int MT>
+__global__ void __launch_bounds__(NW_THREADS)
+mac_matmul_narrow_kernel(const int8_t* __restrict__ x, int ldx, const int8_t* __restrict__ w,
+                         int ldw, MacEpilogue epi, unsigned* __restrict__ ws,
+                         int* __restrict__ tile_count, int M, int N, int K, int k_per_split) {
+  int8_narrow_tile<MT>(LoadX<int8_t>{x, ldx}, w, ldw, epi, ws, tile_count, M, N, K,
+                       k_per_split);
+}
+
+template <int MT>
+struct NarrowLaunch {
+  static void launch(dim3 grid, int smem, cudaStream_t stream, const void* x, int ldx,
+                     const void* w, int ldw, MacEpilogue epi, unsigned* ws, int* tile_count,
+                     int M, int N, int K, int k_per_split) {
+    mac_matmul_narrow_kernel<MT><<<grid, NW_THREADS, smem, stream>>>(
+        static_cast<const int8_t*>(x), ldx, static_cast<const int8_t*>(w), ldw, epi, ws,
+        tile_count, M, N, K, k_per_split);
   }
 };
 
 template <typename XT, typename WT, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
-mac_matmul_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
-                  const float* __restrict__ x_scale, const float* __restrict__ w_scale,
-                  float* __restrict__ out, unsigned* __restrict__ ws,
-                  int* __restrict__ tile_count, int M, int N, int K, int k_per_split,
-                  int fuse_relu, int vec) {
-  constexpr int TX = BN / TN, TY = BM / TM;
+mac_matmul_imad_kernel(const XT* __restrict__ x, int ldx, const WT* __restrict__ w, int ldw,
+                       MacEpilogue epi, unsigned* __restrict__ ws, int* __restrict__ tile_count,
+                       int M, int N, int K, int k_per_split) {
   unsigned acc[TM][TN];
-  if (!int_dot_tile<WT, BM, BN, BK, TM, TN>(acc, LoadX<XT>{x, K}, w, ws, tile_count, M, N, K,
-                                             k_per_split, vec))
+  if (!int_dot_tile<WT, BM, BN, BK, TM, TN>(acc, LoadX<XT>{x, ldx}, w, ldw, ws, tile_count, M, N,
+                                             K, k_per_split))
     return;
-
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.z * BM;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty + i * TY;
-    if (gm >= M) continue;
-    const float xs = x_scale[gm];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + j * TX;
-      if (gn < N) {
-        float v = (__int2float_rn((int)acc[i][j]) * xs) * w_scale[gn];
-        if (fuse_relu && v < 0.f) v = 0.f;
-        out[(size_t)gm * N + gn] = v;
-      }
-    }
-  }
+  int_dot_store<BM, BN, TM, TN>(acc, epi, M, N);
 }
 
 template <typename XT, typename WT>
-struct MacLaunch {
+struct ImadLaunch {
   template <int BM, int BN, int BK, int TM, int TN>
   struct Tile {
-    static void launch(dim3 grid, dim3 block, cudaStream_t stream, const void* x, const void* w,
-                       const float* x_scale, const float* w_scale, float* out, unsigned* ws,
-                       int* tile_count, int M, int N, int K, int k_per_split, int fuse_relu,
-                       int vec) {
-      mac_matmul_kernel<XT, WT, BM, BN, BK, TM, TN><<<grid, block, 0, stream>>>(
-          static_cast<const XT*>(x), static_cast<const WT*>(w), x_scale, w_scale, out, ws,
-          tile_count, M, N, K, k_per_split, fuse_relu, vec);
+    static void launch(dim3 grid, dim3 block, cudaStream_t stream, const void* x, int ldx,
+                       const void* w, int ldw, MacEpilogue epi, unsigned* ws, int* tile_count,
+                       int M, int N, int K, int k_per_split) {
+      mac_matmul_imad_kernel<XT, WT, BM, BN, BK, TM, TN><<<grid, block, 0, stream>>>(
+          static_cast<const XT*>(x), ldx, static_cast<const WT*>(w), ldw, epi, ws, tile_count,
+          M, N, K, k_per_split);
     }
   };
 };
 
+// the CUDA-core loop for every operand pair with an int16 side (int8 x int8
+// never comes here)
 template <typename XT>
-int dispatch_w(int w_bytes, int config, int splits, cudaStream_t s, const void* x, const void* w,
-               const float* x_scale, const float* w_scale, float* out, unsigned* ws,
-               int* tile_count, int M, int N, int K, int k_per_split, int fuse_relu, int vec) {
-  if (w_bytes == 1) {
-    dispatch_tiles<MacLaunch<XT, int8_t>::template Tile>(config, M, N, splits, s, x, w, x_scale,
-                                                         w_scale, out, ws, tile_count, M, N, K,
-                                                         k_per_split, fuse_relu, vec);
+int dispatch_imad(int w_bytes, int config, int splits, cudaStream_t s, const void* x, int ldx,
+                  const void* w, int ldw, MacEpilogue epi, unsigned* ws, int* tile_count, int M,
+                  int N, int K, int k_per_split) {
+  if (w_bytes == 1 && sizeof(XT) == 2) {
+    dispatch_tiles<ImadLaunch<int16_t, int8_t>::template Tile>(config, M, N, splits, s, x, ldx,
+                                                               w, ldw, epi, ws, tile_count, M, N,
+                                                               K, k_per_split);
   } else if (w_bytes == 2) {
-    dispatch_tiles<MacLaunch<XT, int16_t>::template Tile>(config, M, N, splits, s, x, w,
-                                                          x_scale, w_scale, out, ws, tile_count,
-                                                          M, N, K, k_per_split, fuse_relu, vec);
+    dispatch_tiles<ImadLaunch<XT, int16_t>::template Tile>(config, M, N, splits, s, x, ldx, w,
+                                                           ldw, epi, ws, tile_count, M, N, K,
+                                                           k_per_split);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return 0;
 }
 
 }  // namespace
 
-// x: (M, K) int8/int16 (x_bytes 1/2), w: (K, N) int8/int16 (w_bytes 1/2),
-// x_scale: (M,) f32, w_scale: (N,) f32, out: (M, N) f32. ws and tile_count
-// are the zeroed split-K scratch (null when splits == 1).
-extern "C" int cordic_mac_launch(const void* x, int x_bytes, const void* w, int w_bytes,
-                                 const float* x_scale, const float* w_scale, float* out,
-                                 unsigned* ws, int* tile_count, int M, int N, int K, int config,
-                                 int splits, int k_per_split, int fuse_relu, int vec,
-                                 void* stream) {
+// x: (M, K) int8/int16 (x_bytes 1/2), rows ldx elements apart; w: the
+// K-major (K, N) bank, int8/int16 (w_bytes 1/2), column n at w + n * ldw
+// elements; x_scale: (M,) f32, w_scale: (N,) f32, out: (M, N) f32. ws and
+// tile_count are the split-K partial slices and arrival counters (null when
+// splits == 1; the counters start at zero and the kernel leaves them so).
+// `config` is the path's tile choice (narrow: m-tiles of 8 rows; wgmma: the
+// tile width, 128 or 256; imad: tile configuration); the wgmma path runs the
+// whole of K in each block.
+extern "C" int cordic_mac_launch(int path, int config, int splits, int k_per_split,
+                                 const void* x, int x_bytes, int ldx, const void* w, int w_bytes,
+                                 int ldw, const float* x_scale, const float* w_scale, float* out,
+                                 unsigned* ws, int* tile_count, int M, int N, int K,
+                                 int fuse_relu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bytes == 1)
-    return dispatch_w<int8_t>(w_bytes, config, splits, s, x, w, x_scale, w_scale, out, ws,
-                              tile_count, M, N, K, k_per_split, fuse_relu, vec);
-  if (x_bytes == 2)
-    return dispatch_w<int16_t>(w_bytes, config, splits, s, x, w, x_scale, w_scale, out, ws,
-                               tile_count, M, N, K, k_per_split, fuse_relu, vec);
-  return (int)cudaErrorInvalidValue;
+  const MacEpilogue epi{out, x_scale, w_scale, N, fuse_relu};
+  int err = 0;
+  if (path == WGMMA) {
+    if (x_bytes != 1 || w_bytes != 1) return (int)cudaErrorInvalidValue;
+    err = launch_int8_wgmma(
+        config, x, ldx, w, ldw, M, N, K,
+        [&](auto bn, dim3 grid, int smem, const CUtensorMap& ta, const CUtensorMap& tb) {
+          constexpr int BN = decltype(bn)::value;
+          static unsigned sized = 0;
+          allow_dynamic_smem(mac_matmul_wgmma_kernel<BN>, smem, sized);
+          mac_matmul_wgmma_kernel<BN><<<grid, WG_THREADS, smem, s>>>(ta, tb, epi, M, N, K);
+        });
+  } else if (path == NARROW) {
+    if (x_bytes != 1 || w_bytes != 1) return (int)cudaErrorInvalidValue;
+    err = dispatch_narrow<NarrowLaunch>(config, M, N, splits, k_per_split, s, x, ldx, w, ldw, epi,
+                                        ws, tile_count, M, N, K, k_per_split);
+  } else if (path == IMAD && x_bytes == 1) {
+    err = dispatch_imad<int8_t>(w_bytes, config, splits, s, x, ldx, w, ldw, epi, ws, tile_count,
+                                M, N, K, k_per_split);
+  } else if (path == IMAD && x_bytes == 2) {
+    err = dispatch_imad<int16_t>(w_bytes, config, splits, s, x, ldx, w, ldw, epi, ws, tile_count,
+                                 M, N, K, k_per_split);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return err ? err : (int)cudaGetLastError();
 }

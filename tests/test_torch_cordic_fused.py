@@ -22,6 +22,8 @@ from repro.kernels.cordic_fused import make_point as jax_point  # noqa: E402
 from repro_torch.core import fxp as tf  # noqa: E402
 from repro_torch.core.backends.kernel import make_point  # noqa: E402
 from repro_torch.kernels.cordic_fused import FUSED_AFS, fused_dot_af, plan  # noqa: E402
+from repro_torch.kernels.int_dot import (  # noqa: E402
+    IMAD, NARROW, WGMMA, is_k_major, padded_k, to_k_major)
 
 FMTS = {"fxp8": (jf.FXP8, tf.FXP8), "fxp16": (jf.FXP16, tf.FXP16)}
 UNITS = {"fxp8": (jf.FXP8_UNIT, tf.FXP8_UNIT), "fxp16": (jf.FXP16_UNIT, tf.FXP16_UNIT)}
@@ -115,7 +117,50 @@ def test_leading_axes_and_nan_inputs():
 
 def test_plan_covers_k_without_empty_splits():
     for m, n, k in [(4, 2048, 2048), (4, 2048, 8192), (4, 50304, 2048), (16, 2048, 2048),
-                    (512, 8192, 2048), (3, 33, 4100), (1, 1, 1)]:
-        config, splits, per = plan(m, n, k)
-        assert splits >= 1 and per >= 1
-        assert (splits - 1) * per < k <= splits * per
+                    (512, 8192, 2048), (3, 33, 4100), (1, 1, 1), (40, 130, 4100),
+                    (64, 576, 7168), (1024, 2048, 2048)]:
+        for elem in (1, 2):
+            p = plan(m, n, k, elem, elem)
+            per = p.k_per_split
+            assert p.splits >= 1 and per >= 1
+            assert (p.splits - 1) * per < k <= p.splits * per
+
+
+@pytest.mark.parametrize("m,n,k,elems,want", [
+    # M <= 16, int8: the narrow loop; m-tiles of 8 rows; K split to fill the card
+    (4, 2048, 2048, (1, 1), (NARROW, 1, 8, 256)),
+    (4, 8192, 2048, (1, 1), (NARROW, 1, 4, 512)),
+    (16, 2048, 8192, (1, 1), (NARROW, 2, 16, 512)),
+    (16, 50304, 2048, (1, 1), (NARROW, 2, 1, 2048)),
+    (4, 129280, 7168, (1, 1), (NARROW, 1, 4, 1792)),  # at most 2048 of K a block
+    (4, 7168, 18432, (1, 1), (NARROW, 1, 9, 2048)),
+    # M > 16, int8: the wgmma loop over all of K; 128 x 256 tiles where
+    # 128 x 128 ones take one to four waves
+    (32, 8192, 2048, (1, 1), (WGMMA, 128, 1, 2048)),
+    (1024, 2048, 2048, (1, 1), (WGMMA, 128, 1, 2048)),
+    (512, 2048, 2048, (1, 1), (WGMMA, 128, 1, 2048)),
+    (64, 2048, 2048, (1, 1), (WGMMA, 128, 1, 2048)),
+    (33, 77, 1000, (1, 1), (WGMMA, 128, 1, 1000)),
+    (1024, 8192, 2048, (1, 1), (WGMMA, 256, 1, 2048)),
+    (300, 8200, 1000, (1, 1), (WGMMA, 256, 1, 1000)),
+    (512, 7168, 16384, (1, 1), (WGMMA, 256, 1, 16384)),
+    (512, 129280, 7168, (1, 1), (WGMMA, 128, 1, 7168)),
+    (1024, 50304, 2048, (1, 1), (WGMMA, 128, 1, 2048)),
+    # any int16 operand: the CUDA-core loop at every M
+    (4, 2048, 8192, (2, 2), (IMAD, 0, 16, 512)),
+    (512, 2048, 2048, (2, 2), (IMAD, 2, 5, 416)),
+    (40, 130, 4100, (1, 2), (IMAD, 2, 129, 32)),
+])
+def test_plan_picks_path_tiles_and_splits(m, n, k, elems, want):
+    p = plan(m, n, k, *elems)
+    assert (p.path, p.config, p.splits, p.k_per_split) == want
+    if p.path == WGMMA:
+        assert (p.bm, p.bn) == (128, p.config)
+
+
+def test_k_major_helpers_pad_and_check():
+    w = torch.arange(300 * 5, dtype=torch.int8).reshape(300, 5)
+    bank = to_k_major(w)
+    assert torch.equal(bank, w) and bank.stride() == (1, 304) and is_k_major(bank)
+    assert not is_k_major(w) and not is_k_major(bank[1:])
+    assert padded_k(300, 1) == 304 and padded_k(300, 2) == 304 and padded_k(1000, 2) == 1000

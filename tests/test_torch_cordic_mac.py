@@ -100,7 +100,7 @@ def test_weight_and_activation_banks_match_reference(name):
     jw_q, jws = jmac.quantize_weights(jnp.asarray(w), depth, jw)
     w_q, ws = quantize_weights(torch.from_numpy(w).T.contiguous().T, depth, w_fmt)
     assert w_q.dtype == (torch.int8 if name == "fxp8" else torch.int16)
-    assert w_q.is_contiguous() and ws == float(jws)
+    assert w_q.stride() == (1, 64) and ws == float(jws)  # K-major: columns of K contiguous
     np.testing.assert_array_equal(w_q.numpy(), np.asarray(jw_q))
     jx_q, jxs = jmac.quantize_activations(jnp.asarray(x), jx)
     x_q, xs = quantize_activations(torch.from_numpy(x), x_fmt)
@@ -165,3 +165,23 @@ def test_per_call_dot_equals_prepared_dot(name):
         ctx = EngineContext(mode="kernel", policy=pol, compute_dtype=torch.float32)
         prepared = get_backend("kernel").prepare(w, pol.for_layer("n"))
         assert torch.equal(ctx.dot(x, w, name="n"), ctx.dot(x, prepared, name="n")), depth
+
+
+@pytest.mark.parametrize("name", sorted(FMTS))
+@pytest.mark.parametrize("k", [64, 40, 300])
+def test_banks_are_k_major_with_16_byte_columns(name, k):
+    """The per-call weight bank is K-major (one int8/int16 copy of the
+    rounded weight), its column stride padded to whole 16 bytes; the
+    activation bank's rows are 16-byte aligned too. Values are unchanged."""
+    x_fmt, w_fmt, *_ = FMTS[name]
+    rng = np.random.default_rng(k)
+    w = torch.from_numpy(rng.uniform(-1.5, 1.5, (k, 24)).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(-3, 3, (5, k)).astype(np.float32))
+    elem = w_fmt.storage_dtype.itemsize
+    k_pad = -(-k * elem // 16) * 16 // elem
+    w_q, _ = quantize_weights(w, 5, w_fmt)
+    assert w_q.shape == (k, 24) and w_q.stride() == (1, k_pad)
+    assert torch.equal(w_q, cordic.signed_digit_ints(w, 5, w_fmt).to(w_fmt.storage_dtype))
+    x_q, _ = quantize_activations(x, x_fmt)
+    assert x_q.shape == (5, k) and x_q.stride() == (k_pad, 1)
+    assert torch.equal(x_q, fxp.quantize(x, x_fmt).to(x_fmt.storage_dtype))

@@ -5,8 +5,11 @@ imports only torch and the port, so it also runs on a host without JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-The fused dot+AF, the MAC-array matmul, the standalone multi-AF and its row
-softmax must be bitwise equal to their plain versions; the GQA and MLA
+The fused dot+AF and the MAC-array matmul take K-major weight banks (as
+``prepare_params`` and ``quantize_weights`` store them) and refuse any
+other layout; on every path (the tensor-core prefill loop at M > 16, the
+narrow decode loop, the FxP16 CUDA-core loop) they, the standalone multi-AF
+and its row softmax must be bitwise equal to their plain versions; the GQA and MLA
 decode attentions and the cache-free flash and MLA flash attentions within
 ``decode_attention.TOLERANCE`` (f32 reduction order; a bf16 flash output
 within one bf16 rounding step besides).
@@ -37,6 +40,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     mla_decode_attention_ref,
 )
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref  # noqa: E402
+from repro_torch.kernels.int_dot import IMAD, NARROW, WGMMA, plan, to_k_major  # noqa: E402
 from repro_torch.kernels.mla_flash import mla_flash_attention, mla_flash_attention_ref  # noqa: E402
 
 FORMATS = {"fxp8": (fxp.FXP8, fxp.FXP8_UNIT), "fxp16": (fxp.FXP16, fxp.FXP16_UNIT)}
@@ -49,18 +53,18 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [(4, 2048, 2048), (5, 300, 77), (40, 4100, 130),
-                                   (200, 256, 512)])
-@pytest.mark.parametrize("name", sorted(FORMATS))
-def test_fused_kernel_bitwise_equal_to_plain_version(cuda, m, k, n, name):
+def _fused_case(cuda, m, k, n, name, seed):
+    """x with NaN/±inf, a K-major bank and its point for one fused shape."""
     fmt, unit = FORMATS[name]
-    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn((m, k), generator=gen, device=cuda) * 2
     x[0, :3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
     w = torch.randn((k, n), generator=gen, device=cuda) * 0.4
-    ints = signed_digit_ints(w, unit.frac + 1, unit).to(unit.storage_dtype)
-    point = make_point(unit.frac + 1, fmt, unit, device=cuda)
+    ints = to_k_major(signed_digit_ints(w, unit.frac + 1, unit).to(unit.storage_dtype))
+    return fmt, x, ints, make_point(unit.frac + 1, fmt, unit, device=cuda)
+
+
+def _fused_all_modes(x, ints, point, fmt):
     for af in FUSED_AFS:
         for compute_round in (False, True):
             kw = dict(af_mode=af, af_depth=fmt.frac + 1, af_fmt=fmt,
@@ -73,11 +77,44 @@ def test_fused_kernel_bitwise_equal_to_plain_version(cuda, m, k, n, name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 2048), (5, 300, 77), (40, 4100, 130),
+                                   (200, 256, 512)])
+@pytest.mark.parametrize("name", sorted(FORMATS))
+def test_fused_kernel_bitwise_equal_to_plain_version(cuda, m, k, n, name):
+    fmt, x, ints, point = _fused_case(cuda, m, k, n, name, m + k + n)
+    _fused_all_modes(x, ints, point, fmt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(17, 1000, 77), (33, 1000, 77), (64, 2048, 576),
+                                   (100, 1000, 576), (512, 2048, 2048), (1024, 2048, 77),
+                                   (1024, 1000, 576), (512, 2048, 8192), (300, 1000, 8200)])
+def test_fused_tensor_core_path_bitwise_equal_to_plain_version(cuda, m, k, n):
+    """M > 16 at FxP8: int8 wgmma on 128- and 256-wide tiles, ragged M and
+    N, a padded K stride."""
+    assert plan(m, n, k).path == WGMMA
+    fmt, x, ints, point = _fused_case(cuda, m, k, n, "fxp8", m * k + n)
+    assert k % 16 or ints.stride(1) == k
+    _fused_all_modes(x, ints, point, fmt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1, 2048, 2048), (8, 7168, 576), (16, 1000, 77),
+                                   (12, 18432, 300)])
+def test_fused_narrow_path_bitwise_equal_to_plain_version(cuda, m, k, n):
+    """M <= 16 at FxP8: the streaming mma.sync loop, split K."""
+    assert plan(m, n, k).path == NARROW
+    fmt, x, ints, point = _fused_case(cuda, m, k, n, "fxp8", m * k + n)
+    _fused_all_modes(x, ints, point, fmt)
+
+
+@pytest.mark.gpu
 def test_fused_kernel_wraps_int32_overflow(cuda):
     fmt, unit = FORMATS["fxp16"]
     x = torch.full((2, 4096), 7.99, device=cuda)
-    ints = torch.full((4096, 8), 32767, dtype=torch.int16, device=cuda)
+    ints = to_k_major(torch.full((4096, 8), 32767, dtype=torch.int16, device=cuda))
     point = make_point(15, fmt, unit, device=cuda)
+    assert plan(2, 8, 4096, 2, 2).path == IMAD
     got = fused_dot_af(x, ints, point, af_mode="identity", af_fmt=fmt)
     assert torch.equal(got, fused_dot_af_ref(x, ints, point, af_mode="identity", af_fmt=fmt))
 
@@ -192,7 +229,8 @@ def test_af_kernel_bitwise_equal_to_plain_version(cuda, name):
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [(4, 2048, 2048), (3, 1000, 300), (17, 2048, 300),
                                    (32, 512, 2048), (40, 4100, 130), (512, 2048, 512),
-                                   (1, 16, 1)])
+                                   (1, 16, 1), (33, 1000, 77), (64, 2048, 576),
+                                   (100, 1000, 576), (1024, 2048, 2048), (300, 1000, 8200)])
 @pytest.mark.parametrize("x_type,w_type", [(torch.int8, torch.int8), (torch.int16, torch.int16),
                                            (torch.int8, torch.int16)],
                          ids=["i8", "i16", "i8xi16"])
@@ -204,9 +242,12 @@ def test_mac_kernel_bitwise_equal_to_plain_version(cuda, m, k, n, x_type, w_type
         return torch.randint(info.min, info.max + 1, shape, generator=gen, device=cuda,
                              dtype=torch.int32).to(dtype)
 
-    x_q, w_q = ints((m, k), x_type), ints((k, n), w_type)
+    # x rows and bank columns K-contiguous, padded to 16 bytes
+    x_q, w_q = to_k_major(ints((k, m), x_type)).T, to_k_major(ints((k, n), w_type))
     x_scale = torch.rand((m, 1), generator=gen, device=cuda) * 2 - 1
     w_scale = torch.full((1, n), 2.0**-14, device=cuda)
+    want_path = IMAD if torch.int16 in (x_type, w_type) else (WGMMA if m > 16 else NARROW)
+    assert plan(m, n, k, x_q.element_size(), w_q.element_size()).path == want_path
     for relu in (False, True):
         before = mac_matmul.launches
         got = mac_matmul(x_q, w_q, x_scale, w_scale, fuse_relu=relu)
@@ -217,7 +258,7 @@ def test_mac_kernel_bitwise_equal_to_plain_version(cuda, m, k, n, x_type, w_type
 @pytest.mark.gpu
 def test_mac_kernel_wraps_int32_overflow(cuda):
     x_q = torch.full((4, 8192), 32000, dtype=torch.int16, device=cuda)
-    w_q = torch.full((8192, 256), 30000, dtype=torch.int16, device=cuda)
+    w_q = to_k_major(torch.full((8192, 256), 30000, dtype=torch.int16, device=cuda))
     xs, ws = torch.full((4, 1), 2.0**-12, device=cuda), torch.full((1, 256), 2.0**-14, device=cuda)
     got = mac_matmul(x_q, w_q, xs, ws)
     assert torch.equal(got, mac_matmul_ref(x_q, w_q, xs, ws))
@@ -261,11 +302,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="int8/int16"):
         fused_dot_af(x, torch.zeros((64, 8), device=cuda), point)
     scales = torch.ones((4, 1), device=cuda), torch.ones((1, 8), device=cuda)
+    bank = to_k_major(torch.zeros((64, 8), dtype=torch.int8, device=cuda))
     with pytest.raises(ValueError, match="int8/int16"):
-        mac_matmul(x, torch.zeros((64, 8), dtype=torch.int8, device=cuda), *scales)
+        mac_matmul(x, bank, *scales)
     with pytest.raises(ValueError, match="scales"):
-        mac_matmul(x.to(torch.int8), torch.zeros((64, 8), dtype=torch.int8, device=cuda),
-                   scales[1], scales[0])
+        mac_matmul(x.to(torch.int8), bank, scales[1], scales[0])
+    q = torch.randn((1, 1, 2, 48), device=cuda)
     q = torch.randn((1, 1, 2, 48), device=cuda)
     kv = torch.randn((1, 8, 2, 48), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
@@ -282,3 +324,25 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         flash_attention(q.to(torch.bfloat16)[..., :32], kv[..., :32], kv[..., :32])
     with pytest.raises(ValueError, match="latent dim"):
         mla_flash_attention(ql, ql[..., :8], lat, lat[..., :8], scale=0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 64])
+def test_wrappers_refuse_banks_that_are_not_k_major(cuda, m):
+    """An N-major bank, or a K-major one whose column stride is not a multiple
+    of 16 bytes, is refused on every path, never copied."""
+    point = make_point(7, fxp.FXP8, fxp.FXP8_UNIT, device=cuda)
+    x = torch.randn((m, 64), device=cuda)
+    n_major = torch.zeros((64, 32), dtype=torch.int8, device=cuda)
+    misaligned = torch.zeros((32, 72), dtype=torch.int8, device=cuda)[:, :64].T
+    assert misaligned.stride() == (1, 72)
+    scales = torch.ones((m, 1), device=cuda), torch.ones((1, 32), device=cuda)
+    x_q = to_k_major(torch.zeros((64, m), dtype=torch.int8, device=cuda)).T
+    for bank in (n_major, misaligned):
+        with pytest.raises(ValueError, match="K-major"):
+            fused_dot_af(x, bank, point)
+        with pytest.raises(ValueError, match="K-major"):
+            mac_matmul(x_q, bank, *scales)
+    with pytest.raises(ValueError, match="16-byte-aligned rows"):
+        mac_matmul(torch.zeros((m, 72), dtype=torch.int8, device=cuda)[:, :64],
+                   to_k_major(n_major), *scales)

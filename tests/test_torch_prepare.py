@@ -24,6 +24,7 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import FXP8, FXP16, LayerPrecision, PrecisionPolicy  # noqa: E402
 from repro_torch.core.backends import prepare_params  # noqa: E402
 from repro_torch.core.backends.base import PreparedWeight  # noqa: E402
+from repro_torch.core.backends.base import unit_fmt as fxp_unit  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.params import load_numpy_params  # noqa: E402
 
@@ -135,7 +136,9 @@ def test_chunked_weight_rounding_equals_whole(monkeypatch):
     for unit in (fxp.FXP8_UNIT, fxp.FXP16_UNIT):
         got = kernel._signed_digit_storage(w, 6, unit)
         want = cordic.signed_digit_ints(w, 6, unit).to(unit.storage_dtype)
-        assert got.is_contiguous() and got.dtype == unit.storage_dtype
+        # K = 3 contracted, stored K-major with its stride padded to 16 bytes
+        k_pad = 16 // unit.storage_dtype.itemsize
+        assert got.stride() == (1, 50 * k_pad, k_pad) and got.dtype == unit.storage_dtype
         assert torch.equal(got, want)
 
 
@@ -157,3 +160,111 @@ def test_policy_json_round_trip_across_packages(tmp_path):
     assert jpol.for_layer("lm_head").fmt.bits == 8
     assert PrecisionPolicy.from_json(jpol.to_json()) == pol
     assert dataclasses.asdict(pol.default) == {"fmt": {"bits": 16, "frac": 12}, "depth": 13}
+
+
+def _port_model(arch):
+    cfg = reduced(get_config(arch), layers=4) if arch == "deepseek-v3-671b" else \
+        reduced(get_config(arch))
+    model = get_model(cfg)
+    return cfg, model, model.init(torch.Generator().manual_seed(11))
+
+
+def _k_pad(k, dtype):
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    return -(-k // per) * per
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("fmt", [FXP8, FXP16])
+def test_prepared_banks_are_k_major(arch, fmt):
+    """Every prepared leaf (stacked layers, ``wo``, the tied ``lm_head``) keeps
+    its logical shape and values and is stored K-major: viewed as ``(..., K,
+    N)`` it has strides ``(1, K_pad)``, and each layer's view too."""
+    from repro_torch.core import cordic
+    from repro_torch.core.backends import iter_dot_weights
+
+    _, model, params = _port_model(arch)
+    policy = PrecisionPolicy.accurate(fmt)
+    got = prepare_params(params, policy, "kernel", specs=model.specs())
+    port_flat = dict(_flat(got))
+    seen = 0
+    for keys, name, raw, stacked, in_axes in iter_dot_weights(params, specs=model.specs()):
+        bank = port_flat[keys]
+        lp = policy.for_layer(name)
+        unit = fxp_unit(lp.fmt)
+        assert bank.shape == tuple(raw.shape)
+        assert torch.equal(bank.data, cordic.signed_digit_ints(raw, lp.depth, unit).to(
+            unit.storage_dtype))
+        shape = tuple(raw.shape)
+        k = int(np.prod(shape[stacked:stacked + in_axes]))
+        n = int(np.prod(shape[stacked + in_axes:]))
+        k_pad = _k_pad(k, bank.dtype)
+        mat = bank.data.reshape(*shape[:stacked], k, n)
+        assert mat.data_ptr() == bank.data.data_ptr() and mat.stride()[-2:] == (1, k_pad)
+        if stacked:
+            last = shape[0] - 1
+            layer = bank.layer(last).data.reshape(k, n)
+            assert layer.stride() == (1, k_pad)
+            assert layer.data_ptr() == bank.data[last].data_ptr()
+        seen += 1
+    lm_head = port_flat[("lm_head",)].data
+    d = params["embed"].shape[1]
+    assert lm_head.shape == (d, params["embed"].shape[0]) and lm_head.stride() == (1, d)
+    assert seen >= 7
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "deepseek-v3-671b"])
+def test_model_reshapes_of_banks_are_views(arch, monkeypatch):
+    """The models' 2-D reshapes (``_proj``'s ``w.reshape(d, -1)``, ``wo``'s
+    ``(H*hd, d)``, MLA's ``wq_b`` and ``wo``) and ``PreparedWeight.layer``
+    hand the fused kernel views of the prepared banks with strides
+    ``(1, K_pad)``: no copy."""
+    import repro_torch.kernels.cordic_fused as fused_pkg
+
+    cfg, model, params = _port_model(arch)
+    got = prepare_params(params, PrecisionPolicy.accurate(FXP8), "kernel", specs=model.specs())
+    storages = {v.data.untyped_storage().data_ptr() for v in dict(_flat(got)).values()
+                if isinstance(v, PreparedWeight)}
+    seen, original = [], fused_pkg.fused_dot_af
+
+    def recording(x, w, point, **kw):
+        seen.append(w)
+        return original(x, w, point, **kw)
+
+    monkeypatch.setattr(fused_pkg, "fused_dot_af", recording)
+    from repro_torch.core import EngineContext
+
+    ctx = EngineContext(mode="kernel", policy=PrecisionPolicy.accurate(FXP8),
+                        compute_dtype=torch.float32)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 5)))
+    with torch.no_grad():
+        model.forward(got, {"tokens": tokens}, ctx)
+    assert len(seen) >= 7 * cfg.num_layers // 2
+    for w in seen:
+        assert w.ndim == 2 and w.stride() == (1, _k_pad(w.shape[0], w.dtype)), w.stride()
+        assert w.untyped_storage().data_ptr() in storages
+
+
+@pytest.mark.parametrize("fmt", [FXP8, FXP16])
+def test_k_not_a_multiple_of_16_bytes_gets_a_padded_stride(fmt):
+    """K = 300 (int8 and int16: padded to 304), a stacked K = 1000 (int8:
+    to 1008; int16 rows are whole 16 bytes already) and a ``wo``-like K =
+    3 * 7 = 21 (to 32 / 24): the logical view keeps the values, the storage
+    pads each column."""
+    from repro_torch.core import cordic
+    from repro_torch.core.backends import get_backend
+
+    lp = PrecisionPolicy.accurate(fmt).default
+    unit = fxp_unit(fmt)
+    rng = np.random.default_rng(5)
+    int8 = unit.storage_dtype == torch.int8
+    cases = [((300, 24), 0, 1, 300, 304), ((2, 1000, 3, 5), 1, 1, 1000, 1008 if int8 else 1000),
+             ((2, 3, 7, 40), 1, 2, 21, 32 if int8 else 24)]
+    for shape, stacked, in_axes, k, want_pad in cases:
+        w = torch.from_numpy(rng.uniform(-1.5, 1.5, shape).astype(np.float32))
+        bank = get_backend("kernel").prepare(w, lp, stacked_axes=stacked, in_axes=in_axes)
+        assert bank.shape == shape
+        mat = bank.data.reshape(*shape[:stacked], k, -1)
+        assert mat.stride()[-2:] == (1, want_pad) and mat.data_ptr() == bank.data.data_ptr()
+        assert torch.equal(bank.data, cordic.signed_digit_ints(w, lp.depth, unit).to(
+            unit.storage_dtype))

@@ -18,17 +18,24 @@ cache-free flash and MLA flash attentions), then:
    version, a library yardstick and the roofline bound; the fused and MAC
    rows run on K-major banks at decode (the narrow loop) and at 64, 512
    and 1024 rows (the int8 tensor cores), record the path each took, and
-   time ``torch._int_mm`` on the K-major bank and on an N-major copy; then
-   drives the softmax through its entry point,
+   time ``torch._int_mm`` on the K-major bank and on an N-major copy; the
+   GQA cache attention at decode and at the prefill buckets 16, 64 and 512
+   records its path (split keys below 16 query rows, the 3xTF32
+   tensor-core tile loop from 16) with the f32-FMA and 3xTF32 bounds, and
+   ``gqa_path_alternatives`` times both paths at decode and at the buckets
+   4 to 64; then drives the softmax through its entry point,
    ``EngineContext.activate(x, "softmax")``, on lm_head-wide rows;
 3. serves full-width olmo-1b (16 layers, ``dtype="float32"``, seeded random
    weights) through ``BatchedServer`` in prepared kernel mode, checks the
    launch counts of its kernels against what the shapes imply, and checks
    that a repeat run and a ``burst=1`` run give identical greedy streams;
-   then runs the cache-free ``forward`` on the same weights at batch
-   (2, 512) under ``attn_impl="flash"`` (the flash kernel) and ``"xla"``,
-   with launch counts, a profiled repeat (every fused launch, M = 1024,
-   on the tensor-core kernel, by name) and the logits of the two compared;
+   in the profiled repeat every GQA attention launch of a prefill bucket of
+   16 rows or more ran the tensor-core kernel and every other one the
+   split-key kernel, by name; then runs the cache-free ``forward`` on the
+   same weights at batch (2, 512) under ``attn_impl="flash"`` (the flash
+   kernel) and ``"xla"``, with launch counts, a profiled repeat (every fused
+   launch, M = 1024, and every flash launch on the tensor-core kernel, by
+   name) and the logits of the two compared;
 4. serves the same model and weights per call (``prepare_weights=False``:
    every dot re-rounds its raw weight and runs the MAC-array kernel, the
    gate its activation through the multi-AF kernel), and checks its streams
@@ -40,7 +47,7 @@ cache-free flash and MLA flash attentions), then:
    full-width olmo-1b, turns it into a policy with ``assign_depths``, and
    serves the request set prepared under it (mixed-depth points), repeat and
    ``burst=1`` streams identical; one scan forward is profiled again
-   (every MAC launch on the tensor-core kernel, by name);
+   (every MAC and flash launch on the tensor-core kernels, by name);
 6. serves olmo-1b widths at 2 layers on the card and on the CPU (plain
    versions) with the same weights, and checks the streams are identical;
    the same per call, at reduced width; and runs the 2-layer ``forward``
@@ -77,7 +84,15 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 F32_FLOPS_PER_S = 67e12
+# dense bf16 on the tensor cores (same data sheet): bounds the work of bf16
+# operands, whatever units a kernel runs it on
+BF16_FLOPS_PER_S = 989e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# dense TF32 on the tensor cores (NVIDIA H100 SXM data sheet): the 3xTF32
+# kernels run three TF32 products for every f32 one (fewer where an operand
+# is bf16, whose lo part is 0), so their tensor-core bound is passes x flops
+# at this rate, beside the f32-FMA (or bf16) bound
+TF32_FLOPS_PER_S = 494.7e12
 
 SLOTS, MAX_LEN, BURST, BUCKET = 4, 512, 8, 512
 PROMPT_LENS = (3, 17, 60, 130, 300, 9)
@@ -162,6 +177,13 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bound_tf32(bytes_moved: float, flops: float, passes: float = 3.0) -> float:
+    """The least ms of an attention run on the TF32 tensor cores with
+    ``passes`` TF32 products per multiply-add (3 for f32 operands split into
+    hi + lo): the larger of its bytes and its TF32 flops."""
+    return max(bytes_moved / HBM_BYTES_PER_S, passes * flops / TF32_FLOPS_PER_S) * 1e3
+
+
 # name fragments of library matmul / attention kernels. No serving path may
 # launch a library attention kernel; library matmuls are allowed only for the
 # plain products the reference leaves to XLA (see serve_full_width).
@@ -173,9 +195,10 @@ CUBLAS_LAUNCHES_PER_PRODUCT = 2
 # the __global__ names of the port's kernels, as the profiler reports them
 PORT_KERNELS = ("fused_dot_af_wgmma_kernel", "fused_dot_af_narrow_kernel",
                 "fused_dot_af_imad_kernel", "fused_quantize_x_kernel", "mac_matmul_wgmma_kernel",
-                "mac_matmul_narrow_kernel", "mac_matmul_imad_kernel", "gqa_decode_kernel",
-                "mla_decode_kernel", "mla_merge_kernel", "af_elementwise_kernel",
-                "af_softmax_kernel", "flash_attention_kernel", "mla_flash_kernel")
+                "mac_matmul_narrow_kernel", "mac_matmul_imad_kernel", "gqa_decode_tc_kernel",
+                "gqa_decode_split_kernel", "merge_splits_kernel", "mla_decode_kernel",
+                "af_elementwise_kernel", "af_softmax_kernel",
+                "flash_attention_tc_kernel", "mla_flash_kernel")
 # the int_dot.plan paths, by the names of their kernel instantiations
 PATH_NAMES = ("narrow", "wgmma", "imad")
 
@@ -232,6 +255,20 @@ def tensor_core_launches(label, rows, prefix: str) -> dict:
     if not calls["wgmma"] or calls["narrow"] or calls["imad"]:
         raise AssertionError(f"{label}: {prefix} launches by instantiation {calls}; at M > 16 "
                              "every one must run the wgmma kernel")
+    return calls
+
+
+def attention_launches(label, rows, want: dict) -> dict:
+    """Calls of the dense attention kernels in a profile, by kernel name:
+    ``want`` maps ``gqa_decode_tc_kernel`` (the tensor-core path of the GQA
+    cache attention, S >= 16), ``gqa_decode_split_kernel`` (its split-key
+    path, S < 16) and ``flash_attention_tc_kernel`` to the calls the shapes
+    imply; any other count fails."""
+    names = ("gqa_decode_tc_kernel", "gqa_decode_split_kernel", "flash_attention_tc_kernel")
+    calls = {name: sum(n for _, k, n in rows if name in k) for name in names}
+    if calls != {name: want.get(name, 0) for name in names}:
+        raise AssertionError(f"{label}: dense attention launches by kernel {calls}, the shapes "
+                             f"imply {want}")
     return calls
 
 
@@ -418,30 +455,61 @@ def plan_alternatives(device):
     return rows
 
 
+def attention_case(b, s, t, h, kv, hd, gen, device, start=None):
+    """Seeded q, caches and positions of one GQA cache-attention shape: a
+    decode step at the cache's last row (S = 1), a prefill bucket from row 0
+    (start = 0), or a run from a random row."""
+    import torch
+
+    q = torch.randn((b, s, h, hd), generator=gen, device=device)
+    ck = torch.randn((b, t, kv, hd), generator=gen, device=device)
+    cv = torch.randn((b, t, kv, hd), generator=gen, device=device)
+    if s == 1:
+        pos = torch.full((b, 1), t - 1, dtype=torch.int32, device=device)
+    else:
+        first = (torch.zeros((b, 1), dtype=torch.int64, device=device) if start is not None
+                 else torch.randint(0, t - s + 1, (b, 1), generator=gen, device=device))
+        pos = (first + torch.arange(s, device=device)[None]).to(torch.int32)
+    return q, ck, cv, pos
+
+
+def attention_bounds(q, kv: int, t: int, pos):
+    """(f32-FMA bound ms, by, 3xTF32 bound ms) of one GQA cache-attention
+    call: the keys this run's positions need (each batch row's K/V up to its
+    last query position, each query row's scores up to its own)."""
+    b, s, h, hd = q.shape
+    rows_needed = (pos.max(dim=1).values + 1).clamp(max=t).sum().item()
+    nbytes = rows_needed * kv * hd * 4 * 2 + 2 * q.numel() * 4 + pos.numel() * 4
+    flops = 4.0 * h * hd * (pos.long() + 1).clamp(max=t).sum().item()
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+    return b_ms, b_by, bound_tf32(nbytes, flops)
+
+
 def check_attention(device):
+    """The GQA cache attention against its plain version: decode (B4 S1,
+    split keys), the serving prefill buckets 16, 64 and 512 from row 0 and a
+    burst of 4 (the tensor-core path from S = 16 on, split keys below), with
+    GQA groups; each row records its path and splits, the f32-FMA and
+    3xTF32 bounds and SDPA's time."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import (
         TOLERANCE, gqa_decode_attention, gqa_decode_attention_ref)
+    from repro_torch.kernels.decode_attention.ops import gqa_plan
 
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
-    cases = [  # (B, S, T, H, KV, hd)
-        (SLOTS, 1, MAX_LEN, 16, 16, 128),
-        (1, BUCKET, MAX_LEN, 16, 16, 128),
-        (SLOTS, 1, MAX_LEN, 16, 8, 128),
-        (2, 4, MAX_LEN, 16, 8, 128),
+    cases = [  # (B, S, T, H, KV, hd, start)
+        (SLOTS, 1, MAX_LEN, 16, 16, 128, None),
+        (1, BUCKET, MAX_LEN, 16, 16, 128, None),
+        (SLOTS, 1, MAX_LEN, 16, 8, 128, None),
+        (2, 4, MAX_LEN, 16, 8, 128, None),
+        (1, 16, MAX_LEN, 16, 16, 128, 0),
+        (1, 64, MAX_LEN, 16, 16, 128, 0),
     ]
     rows, max_err = [], 0.0
-    for b, s, t, h, kv, hd in cases:
-        q = torch.randn((b, s, h, hd), generator=gen, device=device)
-        ck = torch.randn((b, t, kv, hd), generator=gen, device=device)
-        cv = torch.randn((b, t, kv, hd), generator=gen, device=device)
-        if s == 1:
-            pos = torch.full((b, 1), t - 1, dtype=torch.int32, device=device)
-        else:
-            start = torch.randint(0, t - s + 1, (b, 1), generator=gen, device=device)
-            pos = (start + torch.arange(s, device=device)[None]).to(torch.int32)
+    for b, s, t, h, kv, hd, start in cases:
+        q, ck, cv, pos = attention_case(b, s, t, h, kv, hd, gen, device, start)
         scale = 1.0 / math.sqrt(hd)
         got = gqa_decode_attention(q, ck, cv, pos, scale=scale)
         want = gqa_decode_attention_ref(q, ck, cv, pos, scale=scale)
@@ -461,21 +529,55 @@ def check_attention(device):
         mask = (torch.arange(t, device=device)[None, None, :] <= pos[:, :, None])[:, None]
         lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                                  scale=scale), 100)
-        # the keys this run's positions need: each batch row's K/V up to its
-        # last query position, each query row's scores up to its own
-        rows_needed = (pos.max(dim=1).values + 1).clamp(max=t).sum().item()
-        kv_bytes = rows_needed * kv * hd * 4 * 2
-        flops = 4.0 * h * hd * (pos.long() + 1).clamp(max=t).sum().item()
-        b_ms, b_by = bound(kv_bytes + 2 * q.numel() * 4 + pos.numel() * 4, flops,
-                           F32_FLOPS_PER_S)
-        rows.append(dict(B=b, S=s, T=t, H=h, KV=kv, hd=hd, tolerance=TOLERANCE,
-                         max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                         sdpa_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by))
-        log(f"attn B={b} S={s} T={t} H={h} KV={kv}: {ms:.4f} ms (eager {eager_ms:.4f}, "
-            f"plain {plain_ms:.3f}, "
-            f"sdpa {lib_ms:.4f}, bound {b_ms:.4f} {b_by}) err {err:.2e}")
+        b_ms, b_by, b3_ms = attention_bounds(q, kv, t, pos)
+        path, splits = gqa_plan(b, s, h, t, kv)
+        rows.append(dict(B=b, S=s, T=t, H=h, KV=kv, hd=hd, positions="from row 0" if start == 0
+                         else "decode" if s == 1 else "run from a random row", path=path,
+                         splits=splits, tolerance=TOLERANCE, max_abs_err=err, ms=ms,
+                         eager_ms=eager_ms, plain_ms=plain_ms, sdpa_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by, bound_tf32_ms=b3_ms, tf32_passes=3))
+        log(f"attn B={b} S={s} T={t} H={h} KV={kv} [{path}, {splits} splits]: {ms:.4f} ms "
+            f"(eager {eager_ms:.4f}, plain {plain_ms:.3f}, sdpa {lib_ms:.4f}, bound "
+            f"{b_ms:.4f} {b_by}, 3xTF32 {b3_ms:.4f}) err {err:.2e}")
     return rows, max_err
+
+
+def gqa_path_alternatives(device):
+    """``gqa_plan``'s threshold against the alternative, on the same inputs
+    (each within TOLERANCE of the plain version): the split-key path and the
+    tensor-core path at decode (B4 S1), at the prefill buckets 4 to 64 from
+    row 0 (few keys), and at bursts of 4, 8 and 16 rows on four slots from a
+    random row (a long key range: what the split path is built for), olmo-1b
+    widths."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import (
+        TOLERANCE, gqa_decode_attention, gqa_decode_attention_ref, ops)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    rows, planned = [], ops.gqa_plan
+    for b, s, start in ((SLOTS, 1, None), (1, 4, 0), (1, 8, 0), (1, 16, 0), (1, 32, 0),
+                        (1, 64, 0), (SLOTS, 4, None), (SLOTS, 8, None), (SLOTS, 16, None)):
+        q, ck, cv, pos = attention_case(b, s, MAX_LEN, 16, 16, 128, gen, device, start)
+        scale = 1.0 / math.sqrt(128)
+        want = gqa_decode_attention_ref(q, ck, cv, pos, scale=scale)
+        times = {}
+        for path in (ops.SPLIT_KEYS, ops.TENSOR_CORES):
+            splits = ops.gqa_splits(b, s, 16, MAX_LEN, 16) if path == ops.SPLIT_KEYS else 1
+            ops.gqa_plan = lambda *a, p=ops.GqaPlan(path, splits): p  # noqa: E731
+            try:
+                err = (gqa_decode_attention(q, ck, cv, pos, scale=scale) - want).abs().max()
+                if not err.item() <= TOLERANCE:
+                    raise AssertionError(f"gqa path {path} vs plain: {err.item()} at S={s}")
+                times[path] = graph_ms(lambda: gqa_decode_attention(q, ck, cv, pos,
+                                                                    scale=scale), 100)
+            finally:
+                ops.gqa_plan = planned
+        chosen = ops.gqa_plan(b, s, 16, MAX_LEN, 16).path
+        positions = "decode" if s == 1 else "from row 0" if start == 0 else "from a random row"
+        rows.append(dict(B=b, S=s, T=MAX_LEN, positions=positions, chosen=chosen, ms=times))
+        log(f"gqa plan B={b} S={s} ({positions}): chosen {chosen}; {times}")
+    return rows
 
 
 def check_mla(device):
@@ -531,7 +633,9 @@ def check_mla(device):
         b_ms, b_by = bound(nbytes + pos.numel() * 4, flops, F32_FLOPS_PER_S)
         rows.append(dict(B=b, S=s, T=t, H=hh, R=r, r=rd, tolerance=TOLERANCE, max_abs_err=err,
                          ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, sdpa_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by))
+                         bound_ms=b_ms, bound_by=b_by,
+                         bound_tf32_ms=bound_tf32(nbytes + pos.numel() * 4, flops),
+                         tf32_passes=3))
         log(f"mla B={b} S={s} T={t} H={hh}: {ms:.4f} ms (eager {eager_ms:.4f}, plain "
             f"{plain_ms:.3f}, sdpa {lib_ms:.4f}, bound {b_ms:.4f} {b_by}) err {err:.2e}")
     return rows, max_err
@@ -549,7 +653,9 @@ def check_flash(device):
     widths (H 16, D 128) at the forward phase's B2 S512 and at B1 S2048,
     GQA (KV 4), a ragged S, and bf16 in and out (both round an f32 result
     that agrees within TOLERANCE: at most one bf16 step apart, 2^-7 of the
-    value)."""
+    value); each row records the f32-FMA bound (bf16: the bf16 tensor-core
+    rate), the TF32 tensor-core bound for the passes the kernel runs (3, or
+    1.5 with bf16 operands) and SDPA's time."""
     import torch
     import torch.nn.functional as F
 
@@ -593,13 +699,21 @@ def check_flash(device):
         lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20)
         elem = q.element_size()
         pairs = h * causal_pairs(b, s, s, True)
-        b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * elem, 4.0 * d * pairs,
-                           F32_FLOPS_PER_S)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * elem
+        # bf16 operands: bounded at the bf16 tensor-core rate; on the TF32
+        # units the kernel runs one pass for Q.K^T (both bf16) and two for
+        # P.V (P is f32 and split, V is bf16)
+        bf16 = dtype == torch.bfloat16
+        b_ms, b_by = bound(nbytes, 4.0 * d * pairs, BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
+        passes = 1.5 if bf16 else 3.0
+        b3_ms = bound_tf32(nbytes, 4.0 * d * pairs, passes)
         rows.append(dict(B=b, S=s, H=h, KV=kv, D=d, dtype=str(dtype).removeprefix("torch."),
                          causal=True, tolerance=tol, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         sdpa_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                         sdpa_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bound_tf32_ms=b3_ms,
+                         tf32_passes=passes))
         log(f"flash B={b} S={s} H={h} KV={kv} D={d} {dtype}: {ms:.4f} ms (plain {plain_ms:.3f}, "
-            f"sdpa {lib_ms:.4f}, bound {b_ms:.4f} {b_by}) err {err:.2e}")
+            f"sdpa {lib_ms:.4f}, bound {b_ms:.4f} {b_by}, TF32 x{passes} {b3_ms:.4f}) "
+            f"err {err:.2e}")
     return rows, max_err
 
 
@@ -648,7 +762,9 @@ def check_mla_flash(device):
         b_ms, b_by = bound(nbytes, 2.0 * pairs * (r + rd + r), F32_FLOPS_PER_S)
         rows.append(dict(B=b, S=s, H=h, R=r, r=rd, causal=True, tolerance=TOLERANCE,
                          max_abs_err=err, ms=ms, plain_ms=plain_ms, sdpa_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by))
+                         bound_ms=b_ms, bound_by=b_by,
+                         bound_tf32_ms=bound_tf32(nbytes, 2.0 * pairs * (r + rd + r)),
+                         tf32_passes=3))
         log(f"mla_flash B={b} S={s} H={h} R={r}: {ms:.4f} ms (plain {plain_ms:.3f}, sdpa "
             f"{lib_ms:.4f}, bound {b_ms:.4f} {b_by}) err {err:.2e}")
     return rows, max_err
@@ -1095,9 +1211,21 @@ def serve_full_width(device, label, cfg, prepared_run=None, policy=None):
     if gemm_calls > allowed:
         raise AssertionError(f"{label}: {gemm_calls} library matmul launches, the plain "
                              f"products allow {allowed}: {gemm}")
+    attention_calls = None
+    if cfg.mla is None:  # every prefill bucket of 16 rows or more on the tensor cores
+        from repro_torch.kernels.decode_attention.ops import TC_MIN_S
+        from repro_torch.serve.kvcache import bucket_length
+
+        buckets = [bucket_length(len(r.prompt), MAX_LEN) for r in again_reqs]
+        tc = sum(b >= TC_MIN_S for b in buckets)
+        attention_calls = attention_launches(label, rows, {
+            "gqa_decode_tc_kernel": tc * cfg.num_layers,
+            "gqa_decode_split_kernel": (server.decode_steps + len(buckets) - tc)
+            * cfg.num_layers})
     busy_ms = sum(r[0] for r in rows) / 1e3
     report["profiled_repeat"] = dict(
         requests=len(again_reqs), forwards=profiled_forwards,
+        attention_launches_by_kernel=attention_calls,
         wall_ms=profiled_wall * 1e3, device_busy_ms=busy_ms,
         device_busy_share=busy_ms / (profiled_wall * 1e3),
         device_launches_per_forward=sum(r[2] for r in rows) / profiled_forwards,
@@ -1226,10 +1354,16 @@ def forward_phase(device, label, cfg, params, batch):
             raise AssertionError(f"{label} forward: {gemm_calls} library matmul launches, the "
                                  f"plain products allow {allowed}: {gemm}")
         fused_calls = tensor_core_launches(f"{label} forward ({impl})", rows, "fused_dot_af")
+        attention_calls = None
+        if cfg.mla is None:  # every flash launch on the tensor-core kernel, by name
+            attention_calls = attention_launches(
+                f"{label} forward ({impl})", rows,
+                {"flash_attention_tc_kernel": cfg.num_layers if impl == "flash" else 0})
         busy_ms = sum(r[0] for r in rows) / 1e3
         runs[impl] = dict(
             wall_s=wall, launches=launches, lb_loss=float(aux["lb_loss"]),
             fused_launches_by_instantiation=fused_calls,
+            attention_launches_by_kernel=attention_calls,
             profiled_repeat=dict(
                 wall_ms=profiled_wall * 1e3, device_busy_ms=busy_ms,
                 device_busy_share=busy_ms / (profiled_wall * 1e3),
@@ -1295,6 +1429,8 @@ def calibrate_full_width(device):
         torch.cuda.synchronize()
     rows = kernel_breakdown(prof)
     mac_calls = tensor_core_launches("calibration forward", rows, "mac_matmul")
+    flash_calls = attention_launches("calibration forward", rows,
+                                     {"flash_attention_tc_kernel": cfg.num_layers})
     return dict(
         config="olmo-1b full width, 16 layers, dtype float32, kernel mode per call (raw "
                "weights), attn_impl=flash, calibration_scan",
@@ -1303,6 +1439,7 @@ def calibrate_full_width(device):
         cycle_reduction=CYCLE_REDUCTION, policy=policy.to_json(), launches=launches,
         launches_per_forward=want,
         profiled_forward=dict(mac_launches_by_instantiation=mac_calls,
+                              attention_launches_by_kernel=flash_calls,
                               port_kernels=port_kernel_ms(rows))), policy
 
 
@@ -1507,6 +1644,7 @@ def main() -> int:
     fused_rows, fused_err = check_fused(device)
     plan_rows = plan_alternatives(device)
     attn_rows, attn_err = check_attention(device)
+    gqa_plan_rows = gqa_path_alternatives(device)
     mla_rows, mla_err = check_mla(device)
     af_rows = check_af(device)
     mac_rows = check_mac(device)
@@ -1514,7 +1652,8 @@ def main() -> int:
     flash_rows, flash_err = check_flash(device)
     mla_flash_rows, mla_flash_err = check_mla_flash(device)
     checks = {"fused_dot_af": fused_rows, "plan_alternatives": plan_rows, "cordic_mac": mac_rows,
-              "gqa_decode_attention": attn_rows, "mla_decode_attention": mla_rows,
+              "gqa_decode_attention": attn_rows, "gqa_path_alternatives": gqa_plan_rows,
+              "mla_decode_attention": mla_rows,
               "af_elementwise": af_rows, "af_softmax": softmax_rows,
               "flash_attention": flash_rows, "mla_flash_attention": mla_flash_rows}
     emit({"kernel_checks": checks})

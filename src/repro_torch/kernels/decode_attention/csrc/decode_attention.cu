@@ -6,64 +6,132 @@
 //   scores_t = (q . k_t) * scale        for t <= pos[b, s], else -1e30
 //   out      = softmax(scores) . V
 // over the whole cache (B, T, KV, hd) in f32. The kv head is h / groups,
-// resolved by index: keys and values are never repeated.
+// resolved by index: keys and values are never repeated. A row with
+// pos < 0 sees every key masked: its softmax is uniform over all T keys.
 //
-// What bounds it on an H100: the bytes of the K and V cache, read once
-// (B * T * KV * hd * 4 * 2 bytes). Design: one block per (query tile, head,
-// batch row); a loop over T in tiles of 32 keys staged in shared memory (the
-// (S, T) score tile of a prefill bucket does not fit in 227 KB), with the
-// online softmax (running max and sum, rescaled per tile), so K and V are
-// read once. Tiles past max(pos) + 1 of the block's query rows are skipped:
-// their weight is exactly 0. Against the plain two-pass softmax the f32
-// reduction order differs, which costs a few ulps.
+// Two paths, chosen by the host (decode_attention/ops.py: gqa_plan):
+//
+// * S >= 16 (a prefill bucket): bound by its multiply-adds (4 * hd per
+//   visible (query, key) pair). gqa_decode_tc_kernel runs the tensor-core
+//   tile loop of include/gqa_tile.cuh (3xTF32 mma.sync, 64 query rows of
+//   one head a block, 32-key K/V tiles double-buffered with cp.async, online
+//   softmax on the accumulators, P kept in registers) with the slot
+//   positions as the mask.
+// * S < 16 (decode, bursts, buckets 4 and 8): bound by the bytes of the K and
+//   V cache, read once. One (batch row, kv head) has too few query rows to
+//   fill the card, so gqa_decode_split_kernel splits the key tiles of each
+//   (batch row, kv head, 16-row group) across `splits` blocks (about two
+//   blocks an SM); every block streams its share in 32-key tiles with 16-byte
+//   cp.async loads, double-buffered, and serves all S * groups query rows of
+//   its kv head from each tile on the CUDA cores (a lane scores one key; the
+//   warp walks the tile's keys for P . V). Each split writes its running max,
+//   sum and unnormalised output to a workspace; attn::merge_splits
+//   (include/attention.cuh, shared with the MLA kernel) merges them. A split
+//   with no keys (max -inf) adds nothing.
+//
+// Tiles past max(pos) + 1 of a block's query rows are skipped: their weight
+// is exactly 0. Against the plain two-pass softmax the f32 reduction order
+// differs, which costs a few ulps.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "attention.cuh"
+#include "gqa_tile.cuh"
 
 namespace {
 
-constexpr int TK = 32;       // keys per tile: one per lane
-constexpr int NWARPS = 4;    // warps per block
-constexpr int RPW = 2;       // query rows per warp
-constexpr int QT = NWARPS * RPW;
 using attn::NEG_INF_MASK;
 using attn::warp_max;
 using attn::warp_sum;
 
 template <int HD>
-__global__ void __launch_bounds__(NWARPS * 32)
-gqa_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const int* __restrict__ pos,
-                  float* __restrict__ out, int S, int H, int T, int KV, int groups,
-                  float scale) {
+__global__ void __launch_bounds__(tile::Config<float, HD>::NT)
+gqa_decode_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const int* __restrict__ pos,
+                     float* __restrict__ out, int S, int H, int T, int KV, int groups,
+                     float scale, tile::Order order) {
+  int bh, rank;
+  order.item(blockIdx.x, bh, rank);
+  const int b = bh / H, h = bh % H;
+  const size_t q_off = ((size_t)b * S * H + h) * HD;
+  const size_t kv_off = ((size_t)b * T * KV + h / groups) * HD;
+  tile::attend<float, HD>(q + q_off, k + kv_off, v + kv_off, out + q_off,
+                                 (size_t)H * HD, (size_t)KV * HD, rank, order.nqb, S, T,
+                                 tile::Positions{pos + (size_t)b * S}, scale);
+}
+
+constexpr int TK = 32;                 // keys per tile: one per lane
+constexpr int NWARPS = 4;              // warps per block
+constexpr int RPW = 4;                 // query rows per warp
+constexpr int RB = NWARPS * RPW;       // query rows per block
+constexpr int NT = NWARPS * 32;
+
+// dynamic shared memory of a split block: two stages of K and V [TK][HD + 4]
+// (16-byte rows; a quarter warp's 16-byte reads of 8 key rows hit distinct
+// banks) and the block's query rows [RB][HD]
+template <int HD>
+constexpr size_t split_smem_bytes() {
+  return ((size_t)4 * TK * (HD + 4) + (size_t)RB * HD) * sizeof(float);
+}
+
+// grid (row_blocks * splits, KV, B); rows r = s * groups + i of kv head kvh
+// are query s of head kvh * groups + i
+template <int HD>
+__global__ void __launch_bounds__(NT)
+gqa_decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const int* __restrict__ pos,
+                        float* __restrict__ out, float* __restrict__ ws, int S, int H, int T,
+                        int KV, int groups, int splits, float scale) {
   constexpr int DPL = HD / 32;  // output dims per lane
-  __shared__ float ks[TK][HD + 1];
-  __shared__ float vs[TK][HD + 1];
-  __shared__ float qs[QT][HD];
-  __shared__ int qpos[QT];
+  constexpr int KS = HD + 4;    // K/V shared row stride
+  extern __shared__ __align__(16) float smem[];
+  float* kvs = smem;                 // [2][K, V][TK][KS]
+  float* qs = smem + 4 * TK * KS;    // [RB][HD]
+  __shared__ int qpos[RB];
   __shared__ int t_end_s;
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QT;
-  const int kvh = h / groups;
-  const int nq = min(QT, S - q0);
+  const int split = blockIdx.x % splits, rb = blockIdx.x / splits;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int R = S * groups, r0 = rb * RB, nr = min(RB, R - r0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  for (int i = tid; i < nq * HD; i += NWARPS * 32) {
-    const int r = i / HD, d = i % HD;
-    qs[r][d] = q[((size_t)(b * S + q0 + r) * H + h) * HD + d];
+  for (int i = tid; i < nr * (HD / 4); i += NT) {
+    const int r = i / (HD / 4), d = (i % (HD / 4)) * 4;
+    const int s = (r0 + r) / groups, hh = kvh * groups + (r0 + r) % groups;
+    *reinterpret_cast<float4*>(qs + r * HD + d) =
+        *reinterpret_cast<const float4*>(q + ((size_t)(b * S + s) * H + hh) * HD + d);
   }
-  if (tid < nq) qpos[tid] = pos[b * S + q0 + tid];
+  if (tid < nr) qpos[tid] = pos[b * S + (r0 + tid) / groups];
   __syncthreads();
   if (tid == 0) {
     int mx = qpos[0];
-    for (int r = 1; r < nq; ++r) mx = max(mx, qpos[r]);
-    // every key is masked for a row with pos < 0: the softmax is then uniform
-    // over all T keys, as in the plain version, so no tile may be skipped
-    t_end_s = mx >= 0 ? min(T, mx + 1) : T;
+    bool neg = false;
+    for (int r = 0; r < nr; ++r) {
+      mx = max(mx, qpos[r]);
+      neg |= qpos[r] < 0;
+    }
+    // a row with pos < 0 needs every key (uniform softmax)
+    t_end_s = (neg || mx >= T) ? T : mx + 1;
   }
   __syncthreads();
-  const int t_end = t_end_s;
+  const int n_tiles = (t_end_s + TK - 1) / TK;
+  const int per = (n_tiles + splits - 1) / splits;
+  const int tile0 = split * per, tile1 = min(n_tiles, tile0 + per);
+
+  const size_t row_stride = (size_t)KV * HD;
+  const float* kb = k + (size_t)b * T * row_stride + (size_t)kvh * HD;
+  const float* vb = v + (size_t)b * T * row_stride + (size_t)kvh * HD;
+  auto stage = [&](int tile, int buf) {
+    float* dst = kvs + buf * 2 * TK * KS;
+    for (int i = tid; i < 2 * TK * (HD / 4); i += NT) {
+      const int which = i / (TK * (HD / 4)), j = i % (TK * (HD / 4));
+      const int r = j / (HD / 4), c = (j % (HD / 4)) * 4;
+      const int t = tile * TK + r;
+      const bool ok = t < T;
+      const float* src = (which ? vb : kb) + (size_t)(ok ? t : 0) * row_stride + c;
+      attn::cp_async16(dst + which * TK * KS + r * KS + c, src, ok);
+    }
+  };
 
   float m_run[RPW], l_run[RPW], acc[RPW][DPL];
 #pragma unroll
@@ -74,37 +142,37 @@ gqa_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int d = 0; d < DPL; ++d) acc[i][d] = 0.f;
   }
 
-  const size_t row_stride = (size_t)KV * HD;
-  const float* kb = k + (size_t)b * T * row_stride + (size_t)kvh * HD;
-  const float* vb = v + (size_t)b * T * row_stride + (size_t)kvh * HD;
-
-  for (int t0 = 0; t0 < t_end; t0 += TK) {
-    for (int i = tid; i < TK * (HD / 4); i += NWARPS * 32) {
-      const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
-      const int t = t0 + r;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (t < T) {
-        kv = *reinterpret_cast<const float4*>(kb + (size_t)t * row_stride + c);
-        vv = *reinterpret_cast<const float4*>(vb + (size_t)t * row_stride + c);
-      }
-      ks[r][c] = kv.x; ks[r][c + 1] = kv.y; ks[r][c + 2] = kv.z; ks[r][c + 3] = kv.w;
-      vs[r][c] = vv.x; vs[r][c + 1] = vv.y; vs[r][c + 2] = vv.z; vs[r][c + 3] = vv.w;
-    }
+  if (tile0 < tile1) stage(tile0, 0);
+  attn::cp_async_commit();
+  for (int tile = tile0; tile < tile1; ++tile) {
+    const int buf = (tile - tile0) & 1;
+    if (tile + 1 < tile1) stage(tile + 1, buf ^ 1);
+    attn::cp_async_commit();
+    attn::cp_async_wait_one();
     __syncthreads();
+    const float* ks = kvs + buf * 2 * TK * KS;
+    const float* vs = ks + TK * KS;
+    const int t = tile * TK + lane;
+    float s[RPW];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) s[i] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < HD; d += 4) {
+      const float4 kf = *reinterpret_cast<const float4*>(ks + lane * KS + d);
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) {
+        const int r = warp + i * NWARPS;
+        if (r < nr) s[i] = attn::dot4(*reinterpret_cast<const float4*>(qs + r * HD + d), kf, s[i]);
+      }
+    }
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const int r = warp + i * NWARPS;
-      if (r >= nq) break;
-      const int t = t0 + lane;
-      float s = -INFINITY;  // keys past the cache end do not exist
-      if (t < T) {
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < HD; ++d) dot = fmaf(qs[r][d], ks[lane][d], dot);
-        s = (t <= qpos[r]) ? dot * scale : NEG_INF_MASK;
-      }
-      const float m_new = fmaxf(m_run[i], warp_max(s));
-      const float p = expf(s - m_new);
+      if (r >= nr) break;
+      // keys past the cache end do not exist
+      const float sc = t >= T ? -INFINITY : t <= qpos[r] ? s[i] * scale : NEG_INF_MASK;
+      const float m_new = fmaxf(m_run[i], warp_max(sc));
+      const float p = expf(sc - m_new);
       const float alpha = expf(m_run[i] - m_new);
       l_run[i] = l_run[i] * alpha + warp_sum(p);
       m_run[i] = m_new;
@@ -114,41 +182,82 @@ gqa_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < TK; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
-        for (int d = 0; d < DPL; ++d) acc[i][d] = fmaf(pj, vs[j][lane + 32 * d], acc[i][d]);
+        for (int d = 0; d < DPL; ++d) acc[i][d] = fmaf(pj, vs[j * KS + lane + 32 * d], acc[i][d]);
       }
     }
-    __syncthreads();
+    __syncthreads();  // the next stage overwrites this buffer
   }
 
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     const int r = warp + i * NWARPS;
-    if (r >= nq) break;
-    float* o = out + ((size_t)(b * S + q0 + r) * H + h) * HD;
+    if (r >= nr) break;
+    const int s = (r0 + r) / groups, hh = kvh * groups + (r0 + r) % groups;
+    const size_t row = (size_t)(b * S + s) * H + hh;
+    if (splits == 1) {
 #pragma unroll
-    for (int d = 0; d < DPL; ++d) o[lane + 32 * d] = acc[i][d] / l_run[i];
+      for (int d = 0; d < DPL; ++d) out[row * HD + lane + 32 * d] = acc[i][d] / l_run[i];
+    } else {
+      float* w = ws + (row * splits + split) * (HD + 4);
+#pragma unroll
+      for (int d = 0; d < DPL; ++d) w[lane + 32 * d] = acc[i][d];
+      if (lane == 0) {
+        w[HD] = m_run[i];
+        w[HD + 1] = l_run[i];
+      }
+    }
   }
 }
 
 template <int HD>
-void launch(const float* q, const float* k, const float* v, const int* pos, float* out, int B,
-            int S, int H, int T, int KV, float scale, cudaStream_t stream) {
-  dim3 grid((S + QT - 1) / QT, H, B);
-  gqa_decode_kernel<HD><<<grid, NWARPS * 32, 0, stream>>>(q, k, v, pos, out, S, H, T, KV,
-                                                          H / KV, scale);
+int launch(const float* q, const float* k, const float* v, const int* pos, float* out, float* ws,
+           int B, int S, int H, int T, int KV, int splits, int tc, float scale,
+           cudaStream_t stream) {
+  const int groups = H / KV;
+  if (tc) {
+    using C = tile::Config<float, HD>;
+    static int sms = 0, resident = 0;  // set once, with the shared-memory opt-in
+    if (!resident) {
+      if (const int e = tile::opt_in(gqa_decode_tc_kernel<HD>, C::SMEM)) return e;
+      if (const int e = tile::residency(gqa_decode_tc_kernel<HD>, C::NT, C::SMEM, sms, resident))
+        return e;
+    }
+    const tile::Order order = tile::order(sms, resident, B * H, S);
+    gqa_decode_tc_kernel<HD><<<order.nqb * order.n_bh, C::NT, C::SMEM, stream>>>(
+        q, k, v, pos, out, S, H, T, KV, groups, scale, order);
+    return (int)cudaGetLastError();
+  }
+  constexpr size_t smem = split_smem_bytes<HD>();
+  static bool opted = false;  // above 48 KB a launch must opt in, once
+  if (!opted) {
+    if (const int e = tile::opt_in(gqa_decode_split_kernel<HD>, smem)) return e;
+    opted = true;
+  }
+  const int row_blocks = (S * groups + RB - 1) / RB;
+  dim3 grid(row_blocks * splits, KV, B);
+  gqa_decode_split_kernel<HD><<<grid, NT, smem, stream>>>(q, k, v, pos, out, ws, S, H, T, KV,
+                                                          groups, splits, scale);
+  if (splits > 1) attn::merge_splits(ws, out, (long long)B * S * H, HD, splits, stream);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// q (B, S, H, hd), k and v (B, T, KV, hd), out (B, S, H, hd), pos (B, S),
+// contiguous and 16-byte aligned (the wrapper checks). tc != 0 takes the
+// tensor-core path (S >= 16 in gqa_plan); otherwise the split-key path, with
+// ws holding B*S*H*splits*(hd + 4) floats when splits > 1: each split's hd
+// outputs, its max and its sum, padded to 16 bytes.
 extern "C" int gqa_decode_launch(const float* q, const float* k, const float* v, const int* pos,
-                                 float* out, int B, int S, int H, int T, int KV, int hd,
-                                 float scale, void* stream) {
+                                 float* out, float* ws, int B, int S, int H, int T, int KV,
+                                 int hd, int splits, int tc, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || S <= 0 || T <= 0 || KV <= 0 || H % KV || splits < 1)
+    return (int)cudaErrorInvalidValue;
   switch (hd) {
-    case 32: launch<32>(q, k, v, pos, out, B, S, H, T, KV, scale, s); break;
-    case 64: launch<64>(q, k, v, pos, out, B, S, H, T, KV, scale, s); break;
-    case 128: launch<128>(q, k, v, pos, out, B, S, H, T, KV, scale, s); break;
+    case 32: return launch<32>(q, k, v, pos, out, ws, B, S, H, T, KV, splits, tc, scale, s);
+    case 64: return launch<64>(q, k, v, pos, out, ws, B, S, H, T, KV, splits, tc, scale, s);
+    case 128: return launch<128>(q, k, v, pos, out, ws, B, S, H, T, KV, splits, tc, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

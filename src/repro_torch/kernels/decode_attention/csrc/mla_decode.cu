@@ -27,12 +27,13 @@
 // At full width a block holds 222 KB of shared memory (two 32-key tiles of
 // 576 floats and 32 query rows), one block of 8 warps per SM. A decode step
 // has too few (query, head group) blocks to fill the card (B = 4 slots: 16),
-// so the host splits the keys of each block across
-// `splits` blocks; each writes its running max, sum and unnormalised output
-// to a workspace and a second kernel merges them. A prefill bucket has
-// blocks to spare and runs unsplit. Against the plain two-pass softmax the
-// f32 reduction order differs, which costs a few ulps. Tensor cores (the
-// (HG x R) x (R x TK) score tile is a small GEMM) and TMA are later work.
+// so the host splits the keys of each block across `splits` blocks; each
+// writes its running max, sum and unnormalised output to a workspace and a
+// second kernel (attn::merge_splits, shared with the GQA kernel) merges
+// them. A prefill bucket has blocks to spare and runs unsplit. Against the
+// plain two-pass softmax the f32 reduction order differs, which costs a few
+// ulps. Tensor cores (the (HG x R) x (R x TK) score tile is a small GEMM)
+// and TMA are later work.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -41,7 +42,6 @@
 namespace {
 
 using mla::NT;
-using mla::NWARPS;
 
 template <int NV>
 __global__ void __launch_bounds__(NT)
@@ -53,34 +53,6 @@ mla_decode_kernel(const float* __restrict__ q_lat, const float* __restrict__ q_r
   const int split = blockIdx.z % splits, b = blockIdx.z / splits, s = blockIdx.x;
   mla::rows<NV>(q_lat, q_rope, c_kv, k_rope, out, ws, b, s, blockIdx.y * mla::HG, split, S, H,
                 T, R, RD, splits, pos[b * S + s], scale);
-}
-
-// one warp per (b, s, h) row: out = sum_i e^(m_i - M) acc_i / sum_i e^(m_i - M) l_i
-// over the row's splits; a split with no keys has m_i = -inf and adds nothing
-__global__ void __launch_bounds__(NT)
-mla_merge_kernel(const float* __restrict__ ws, float* __restrict__ out, long long rows, int R,
-                 int splits) {
-  const long long row = (long long)blockIdx.x * NWARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const int WS = R + 4;
-  const float* w = ws + row * splits * (size_t)WS;
-  float m = -INFINITY;
-  for (int i = 0; i < splits; ++i) m = fmaxf(m, w[i * WS + R]);
-  float l = 0.f;
-  for (int i = 0; i < splits; ++i) {
-    const float mi = w[i * WS + R];
-    if (mi != -INFINITY) l += expf(mi - m) * w[i * WS + R + 1];
-  }
-  const float inv = 1.f / l;
-  for (int c = lane; c < R; c += 32) {
-    float a = 0.f;
-    for (int i = 0; i < splits; ++i) {
-      const float mi = w[i * WS + R];
-      if (mi != -INFINITY) a += expf(mi - m) * w[i * WS + c];
-    }
-    out[row * R + c] = a * inv;
-  }
 }
 
 template <int NV>
@@ -98,11 +70,7 @@ int launch(const float* q_lat, const float* q_rope, const float* c_kv, const flo
   dim3 grid(S, (H + mla::HG - 1) / mla::HG, B * splits);
   mla_decode_kernel<NV><<<grid, NT, smem, stream>>>(q_lat, q_rope, c_kv, k_rope, pos, out, ws,
                                                      S, H, T, R, RD, splits, scale);
-  if (splits > 1) {
-    const long long rows = (long long)B * S * H;
-    mla_merge_kernel<<<(unsigned)((rows + NWARPS - 1) / NWARPS), NT, 0, stream>>>(ws, out, rows,
-                                                                                 R, splits);
-  }
+  if (splits > 1) attn::merge_splits(ws, out, (long long)B * S * H, R, splits, stream);
   return (int)cudaGetLastError();
 }
 

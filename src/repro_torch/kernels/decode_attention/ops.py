@@ -2,9 +2,14 @@
 
 * ``gqa_decode_attention`` (``csrc/decode_attention.cu``) replaces the TPU
   kernel ``repro/kernels/decode_attention/kernel.py:_gqa_decode_kernel``
-  (``gqa_decode``). On an H100 it is bound by the bytes of the K and V
-  cache, read once; the kernel streams T in shared-memory tiles with an
-  online softmax and skips tiles past the block's last query position.
+  (``gqa_decode``). :func:`gqa_plan` picks one of its two paths: at
+  ``S >= TC_MIN_S`` (a prefill bucket, bound by its multiply-adds) the
+  tensor-core tile loop of ``include/gqa_tile.cuh`` (3xTF32 ``mma.sync``,
+  64 query rows a block); below (decode, bursts, small buckets, bound by the
+  bytes of the K and V cache) the split-key path, which spreads each (batch
+  row, kv head)'s key tiles over :func:`gqa_splits` blocks and merges their
+  partial softmaxes in a second pass. Both skip the tiles past the block's
+  last query position.
 * ``mla_decode_attention`` (``csrc/mla_decode.cu``) replaces
   ``_mla_decode_kernel`` (``mla_decode``), the absorbed-form MLA decode. At
   full width it is bound by its f32 multiply-adds; one block serves a group
@@ -17,12 +22,14 @@ A CPU tensor runs the plain version (``*_ref``); a CUDA tensor launches the
 kernel or raises. Each wrapper's ``launches`` counts its launches. Against
 the plain versions the outputs agree to f32 reduction-order tolerance
 (:data:`TOLERANCE`): the kernels sum scores and P·V in another order and
-rescale per tile.
+rescale per tile, and the tensor-core path's 3xTF32 products keep about f32
+accuracy.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -39,12 +46,59 @@ TOLERANCE = 2e-5
 def _lib():
     lib = _build.library("decode_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gqa_decode_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+    lib.gqa_decode_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float,
+                                      p]
     lib.gqa_decode_launch.restype = i
     f = ctypes.c_float
     lib.mla_decode_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p]
     lib.mla_decode_launch.restype = i
     return lib
+
+
+# the GQA kernel's paths: the tensor-core tile loop from TC_MIN_S query rows
+# on (a 16-row MMA fragment), the split-key CUDA-core loop below. On the H100
+# (chip_smoke.py's gqa_path_alternatives, PERF.md) the split keys were faster
+# at decode and at bursts of 4 to 16 rows over a long key range, the tensor
+# cores at prefill buckets (few keys) from 4 rows on; the host cannot see the
+# positions, and 16 keeps every decode step and burst below it on the split
+# keys and every prefill bucket from 16 rows on the tensor cores
+TC_MIN_S = 16
+TENSOR_CORES, SPLIT_KEYS = "tensor cores", "split keys"
+# split-key geometry (csrc/decode_attention.cu): query rows per block, keys
+# per tile
+_GQA_ROWS_PER_BLOCK, _GQA_TILE = 16, 32
+# split the keys across blocks until about two blocks per SM of an H100
+_TARGET_BLOCKS = 264
+
+
+class GqaPlan(NamedTuple):
+    path: str    # TENSOR_CORES or SPLIT_KEYS
+    splits: int  # key splits per (batch row, kv head, row block); 1 on the tensor cores
+
+
+def _splits(blocks: int, n_tiles: int) -> int:
+    """Blocks to spread each of ``blocks`` blocks' ``n_tiles`` key tiles over:
+    enough for about two blocks per SM, at most one per key tile, and no
+    split left without a tile."""
+    if blocks >= _TARGET_BLOCKS // 2:
+        return 1
+    splits = max(1, min(-(-_TARGET_BLOCKS // blocks), n_tiles))
+    per = -(-n_tiles // splits)
+    return -(-n_tiles // per)
+
+
+def gqa_splits(b: int, s: int, h: int, t: int, kv: int) -> int:
+    """Blocks the split-key path spreads each (batch row, kv head, 16-row
+    group)'s key tiles over."""
+    blocks = b * kv * -(-s * (h // kv) // _GQA_ROWS_PER_BLOCK)
+    return _splits(blocks, -(-t // _GQA_TILE))
+
+
+def gqa_plan(b: int, s: int, h: int, t: int, kv: int) -> GqaPlan:
+    """The path and key splits of one GQA cache-attention call."""
+    if s >= TC_MIN_S:
+        return GqaPlan(TENSOR_CORES, 1)
+    return GqaPlan(SPLIT_KEYS, gqa_splits(b, s, h, t, kv))
 
 
 def _launch(q, ck, cv, positions, scale: float):
@@ -54,7 +108,7 @@ def _launch(q, ck, cv, positions, scale: float):
             raise ValueError(f"gqa_decode_attention: q on {dev}, {name} on {t.device}")
     b, s, h, hd = q.shape
     _, t_len, kv, hd2 = ck.shape
-    if cv.shape != ck.shape or hd2 != hd or ck.shape[0] != b or h % kv:
+    if cv.shape != ck.shape or hd2 != hd or ck.shape[0] != b or h % kv or s == 0 or t_len == 0:
         raise ValueError(f"gqa_decode_attention: q {tuple(q.shape)}, ck {tuple(ck.shape)}, "
                          f"cv {tuple(cv.shape)}")
     if hd not in HEAD_DIMS:
@@ -64,11 +118,18 @@ def _launch(q, ck, cv, positions, scale: float):
     if positions.shape != (b, s) or positions.dtype != torch.int32:
         raise ValueError("gqa_decode_attention: positions must be int32 (B, S)")
     q, ck, cv, positions = (t.contiguous() for t in (q, ck, cv, positions))
+    if any(t.data_ptr() % 16 for t in (q, ck, cv)):
+        raise ValueError("gqa_decode_attention: the kernel copies in 16-byte pieces; q, ck "
+                         "and cv must be 16-byte aligned")
     out = torch.empty_like(q)
+    path, splits = gqa_plan(b, s, h, t_len, kv)
+    ws = (torch.empty((b * s * h * splits * (hd + 4),), dtype=torch.float32, device=dev)
+          if splits > 1 else None)
     with torch.cuda.device(dev):
         status = _lib().gqa_decode_launch(
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            b, s, h, t_len, kv, hd, float(scale), torch.cuda.current_stream(dev).cuda_stream)
+            ws.data_ptr() if ws is not None else None, b, s, h, t_len, kv, hd, splits,
+            int(path == TENSOR_CORES), float(scale), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "gqa_decode_launch")
     gqa_decode_attention.launches += 1
     return out
@@ -92,16 +153,11 @@ _MLA_HEADS_PER_BLOCK, _MLA_TILE = 32, 32
 # its shared memory holds two key tiles of R + r + 4 floats and 32 query rows
 # of R + r: at most 227 KB on an H100, so R + r <= 576
 _MLA_MAX_ROW = 576
-# split the keys across blocks until about two blocks per SM of an H100
-_TARGET_BLOCKS = 264
 
 
 def mla_splits(b: int, s: int, h: int, t: int) -> int:
     """Blocks the MLA kernel splits each (query, head group)'s keys over."""
-    blocks = b * s * -(-h // _MLA_HEADS_PER_BLOCK)
-    if blocks >= _TARGET_BLOCKS // 2:
-        return 1
-    return max(1, min(-(-_TARGET_BLOCKS // blocks), -(-t // _MLA_TILE)))
+    return _splits(b * s * -(-h // _MLA_HEADS_PER_BLOCK), -(-t // _MLA_TILE))
 
 
 def _mla_launch(q_lat, q_rope, c_kv, k_rope, positions, scale: float):

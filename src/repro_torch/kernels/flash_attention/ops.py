@@ -3,16 +3,18 @@
 ``flash_attention`` (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``repro/kernels/flash_attention/kernel.py:_flash_kernel``
 (``flash_attention_bhsd``, model-layout entry ``ops.py:flash_attention``).
-On an H100 it is bound by its f32 multiply-adds on the CUDA cores; a block
-takes 64 query rows of one head, streams 32-key K/V tiles through shared
-memory with an online softmax, resolves the kv head by index (no repeated
-K/V) and skips the tiles above the diagonal.
+On an H100 it is bound by its multiply-adds; it runs the tensor-core tile
+loop of ``include/gqa_tile.cuh`` (3xTF32 ``mma.sync``, about f32 accuracy):
+a block takes 64 query rows of one head, streams 32-key K/V tiles through
+shared memory with an online softmax, resolves the kv head by index (no
+repeated K/V) and skips the tiles above the diagonal.
 
 A CPU tensor runs the plain version (``flash_attention_ref``); a CUDA tensor
 launches the kernel or raises. ``flash_attention.launches`` counts launches.
 Against the plain version the output agrees to f32 reduction-order
 tolerance (:data:`TOLERANCE`): the kernel sums scores and P·V in another
-order and rescales per tile.
+order, rescales per tile, and its split products carry about f32's
+rounding.
 """
 from __future__ import annotations
 

@@ -39,6 +39,12 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     mla_decode_attention,
     mla_decode_attention_ref,
 )
+from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
+    SPLIT_KEYS,
+    TC_MIN_S,
+    TENSOR_CORES,
+    gqa_plan,
+)
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref  # noqa: E402
 from repro_torch.kernels.int_dot import IMAD, NARROW, WGMMA, plan, to_k_major  # noqa: E402
 from repro_torch.kernels.mla_flash import mla_flash_attention, mla_flash_attention_ref  # noqa: E402
@@ -121,7 +127,10 @@ def test_fused_kernel_wraps_int32_overflow(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,h,kv,hd,t", [(4, 1, 16, 16, 128, 512), (1, 64, 16, 16, 128, 512),
-                                           (3, 5, 8, 4, 64, 100), (2, 1, 4, 2, 32, 33)])
+                                           (3, 5, 8, 4, 64, 100), (2, 1, 4, 2, 32, 33),
+                                           (1, 16, 16, 16, 128, 512), (1, 512, 16, 16, 128, 512),
+                                           (2, 8, 16, 8, 128, 512), (2, 17, 8, 2, 64, 100),
+                                           (3, 15, 8, 4, 32, 77), (1, 100, 4, 1, 128, 300)])
 def test_attention_kernel_within_tolerance_of_plain_version(cuda, b, s, h, kv, hd, t):
     gen = torch.Generator(device=cuda).manual_seed(b * s * t)
     q = torch.randn((b, s, h, hd), generator=gen, device=cuda)
@@ -136,6 +145,34 @@ def test_attention_kernel_within_tolerance_of_plain_version(cuda, b, s, h, kv, h
     assert gqa_decode_attention.launches == before + 1
     want = gqa_decode_attention_ref(q, ck, cv, pos, scale=scale)
     assert (got - want).abs().max().item() <= TOLERANCE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 4, 8, 15, 16, 17, 64, 512])
+@pytest.mark.parametrize("h,kv,hd", [(16, 16, 128), (8, 4, 64), (8, 2, 32)])
+def test_attention_kernel_ragged_positions_and_masked_rows(cuda, s, h, kv, hd):
+    """Both paths (split keys below TC_MIN_S query rows, the tensor cores from
+    it on) at every S of a bucket edge: positions drawn independently per row
+    (not a run), one row with pos < 0 (every key masked: a uniform softmax
+    over all T), one past the cache, and T not a multiple of the 32-key tile."""
+    b, t = 2, 300 if s < 512 else 520
+    gen = torch.Generator(device=cuda).manual_seed(s * hd + kv)
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda)
+    ck = torch.randn((b, t, kv, hd), generator=gen, device=cuda)
+    cv = torch.randn((b, t, kv, hd), generator=gen, device=cuda)
+    pos = torch.randint(0, t, (b, s), generator=gen, device=cuda, dtype=torch.int32)
+    pos[0, 0] = -1
+    pos[b - 1, s - 1] = t + 7
+    scale = 1.0 / math.sqrt(hd)
+    path, splits = gqa_plan(b, s, h, t, kv)
+    assert path == (TENSOR_CORES if s >= TC_MIN_S else SPLIT_KEYS)
+    before = gqa_decode_attention.launches
+    got = gqa_decode_attention(q, ck, cv, pos, scale=scale)
+    assert gqa_decode_attention.launches == before + 1
+    want = gqa_decode_attention_ref(q, ck, cv, pos, scale=scale)
+    assert (got - want).abs().max().item() <= TOLERANCE, (path, splits)
+    # the row with pos < 0: every key weighs 1 / T
+    assert (got[0, 0, 0] - cv[0, :, 0].mean(0)).abs().max().item() <= TOLERANCE
 
 
 @pytest.mark.gpu
@@ -161,7 +198,9 @@ def test_mla_kernel_within_tolerance_of_plain_version(cuda, b, s, h, r, rd, t):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,h,kv,hd,causal", [
     (2, 512, 16, 16, 128, True), (1, 70, 16, 4, 128, True), (2, 33, 4, 2, 32, False),
-    (1, 100, 2, 1, 256, True), (3, 17, 4, 4, 16, True), (2, 64, 8, 8, 64, False)])
+    (1, 100, 2, 1, 256, True), (3, 17, 4, 4, 16, True), (2, 64, 8, 8, 64, False),
+    (1, 200, 4, 2, 256, False), (2, 130, 8, 2, 16, False), (1, 1, 2, 2, 64, True),
+    (1, 2048, 16, 16, 128, True), (2, 333, 16, 4, 128, False)])
 def test_flash_kernel_within_tolerance_of_plain_version(cuda, b, s, h, kv, hd, causal):
     gen = torch.Generator(device=cuda).manual_seed(b * s + hd)
     q = torch.randn((b, s, h, hd), generator=gen, device=cuda)
@@ -186,6 +225,38 @@ def test_flash_kernel_bf16_within_one_rounding_step(cuda):
                for _ in range(3))
     got = flash_attention(q, k, v)
     want = flash_attention_ref(q, k, v)
+    assert got.dtype == torch.bfloat16
+    diff = (got.float() - want.float()).abs()
+    worst = (diff / (want.float().abs() * 2.0**-7 + TOLERANCE)).max().item()
+    assert worst <= 1.0, worst
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk", [(70, 100), (100, 70)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_query_and_key_lengths_differ(cuda, sq, sk, causal):
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn((2, sq, 8, 64), generator=gen, device=cuda)
+    k = torch.randn((2, sk, 2, 64), generator=gen, device=cuda)
+    v = torch.randn((2, sk, 2, 64), generator=gen, device=cuda)
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert (got - want).abs().max().item() <= TOLERANCE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,kv,d,causal", [(77, 4, 16, True), (130, 2, 64, False),
+                                           (512, 16, 128, True), (200, 1, 256, True),
+                                           (64, 8, 256, False)])
+def test_flash_kernel_bf16_every_head_dim(cuda, s, kv, d, causal):
+    """bf16 at the edge head dims, ragged S, causal and not: within one bf16
+    rounding step of the plain version (see the test above)."""
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q = torch.randn((2, s, 16, d), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((2, s, kv, d), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
     assert got.dtype == torch.bfloat16
     diff = (got.float() - want.float()).abs()
     worst = (diff / (want.float().abs() * 2.0**-7 + TOLERANCE)).max().item()

@@ -23,7 +23,12 @@ cache-free flash and MLA flash attentions), then:
    records its path (split keys below 16 query rows, the 3xTF32
    tensor-core tile loop from 16) with the f32-FMA and 3xTF32 bounds, and
    ``gqa_path_alternatives`` times both paths at decode and at the buckets
-   4 to 64; then drives the softmax through its entry point,
+   4 to 64; the MLA cache attention (its 3xTF32 tensor-core loop, the
+   heads of one query as the MMA rows) runs at decode, at the prefill
+   buckets 16, 64 and 512 from row 0 and, with a drained slot and a masked
+   row, at H = 7, the reduced widths and R + r off the MMA's 8, and MLA
+   flash at the deepseek forward's shape and the same odd widths; then
+   drives the softmax through its entry point,
    ``EngineContext.activate(x, "softmax")``, on lm_head-wide rows;
 3. serves full-width olmo-1b (16 layers, ``dtype="float32"``, seeded random
    weights) through ``BatchedServer`` in prepared kernel mode, checks the
@@ -57,8 +62,10 @@ cache-free flash and MLA flash attentions), then:
 7. and 8. do the same for full-width deepseek-v3 (MLA + MoE) cut to 4
    layers (the 3 dense-prefix layers and 1 MoE layer: the routed experts
    alone take 45 GB in f32), its ``forward`` at (1, 512) on the serving
-   weights (the MLA flash kernel), and for reduced deepseek-v3 card vs CPU,
-   served and through ``forward`` (the MLA flash kernel held as above).
+   weights (the MLA flash kernel), every MLA cache and MLA flash launch in
+   the profiled repeats on the tensor-core kernels, by name; and for reduced
+   deepseek-v3 card vs CPU, served and through ``forward`` (the MLA flash
+   kernel held as above).
 
 It imports nothing of JAX. It exits non-zero on any failure, and when no CUDA
 device is present. A full JSON report goes to ``chiprun_out/chip_smoke.json``.
@@ -196,9 +203,9 @@ CUBLAS_LAUNCHES_PER_PRODUCT = 2
 PORT_KERNELS = ("fused_dot_af_wgmma_kernel", "fused_dot_af_narrow_kernel",
                 "fused_dot_af_imad_kernel", "fused_quantize_x_kernel", "mac_matmul_wgmma_kernel",
                 "mac_matmul_narrow_kernel", "mac_matmul_imad_kernel", "gqa_decode_tc_kernel",
-                "gqa_decode_split_kernel", "merge_splits_kernel", "mla_decode_kernel",
+                "gqa_decode_split_kernel", "merge_splits_kernel", "mla_decode_tc_kernel",
                 "af_elementwise_kernel", "af_softmax_kernel",
-                "flash_attention_tc_kernel", "mla_flash_kernel")
+                "flash_attention_tc_kernel", "mla_flash_tc_kernel")
 # the int_dot.plan paths, by the names of their kernel instantiations
 PATH_NAMES = ("narrow", "wgmma", "imad")
 
@@ -259,15 +266,17 @@ def tensor_core_launches(label, rows, prefix: str) -> dict:
 
 
 def attention_launches(label, rows, want: dict) -> dict:
-    """Calls of the dense attention kernels in a profile, by kernel name:
-    ``want`` maps ``gqa_decode_tc_kernel`` (the tensor-core path of the GQA
-    cache attention, S >= 16), ``gqa_decode_split_kernel`` (its split-key
-    path, S < 16) and ``flash_attention_tc_kernel`` to the calls the shapes
-    imply; any other count fails."""
-    names = ("gqa_decode_tc_kernel", "gqa_decode_split_kernel", "flash_attention_tc_kernel")
+    """Calls of the attention kernels in a profile, by kernel name: ``want``
+    maps ``gqa_decode_tc_kernel`` (the tensor-core path of the GQA cache
+    attention, S >= 16), ``gqa_decode_split_kernel`` (its split-key path,
+    S < 16), ``flash_attention_tc_kernel``, ``mla_decode_tc_kernel`` (the MLA
+    cache attention's tensor-core loop, every S) and ``mla_flash_tc_kernel``
+    to the calls the shapes imply; any other count fails."""
+    names = ("gqa_decode_tc_kernel", "gqa_decode_split_kernel", "flash_attention_tc_kernel",
+             "mla_decode_tc_kernel", "mla_flash_tc_kernel")
     calls = {name: sum(n for _, k, n in rows if name in k) for name in names}
     if calls != {name: want.get(name, 0) for name in names}:
-        raise AssertionError(f"{label}: dense attention launches by kernel {calls}, the shapes "
+        raise AssertionError(f"{label}: attention launches by kernel {calls}, the shapes "
                              f"imply {want}")
     return calls
 
@@ -581,39 +590,55 @@ def gqa_path_alternatives(device):
 
 
 def check_mla(device):
+    """The MLA cache attention against its plain version: deepseek-v3 widths
+    (H 128, R 512, r 64) at decode (B4 S1, the key splits merged) and at the
+    serving prefill buckets 16, 64 and 512 from row 0; a run from a random
+    row at H = 7 over a ragged T, the reduced config's widths (H 4, R 16,
+    r 8) and widths off the MMA's 8 (R 12, r 8), each with a drained slot
+    (pos >= T) and a masked row (pos < 0); each row records its key splits,
+    the f32-FMA and 3xTF32 bounds and SDPA's time."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import (
         TOLERANCE, mla_decode_attention, mla_decode_attention_ref)
+    from repro_torch.kernels.decode_attention.ops import mla_splits
 
     m = get_config("deepseek-v3-671b").mla
     h, r, rd = get_config("deepseek-v3-671b").num_heads, m.kv_lora_rank, m.qk_rope_head_dim
-    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + rd)
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
-    cases = [(SLOTS, 1, MAX_LEN, h), (1, BUCKET, MAX_LEN, h), (3, 5, 100, 7)]  # (B, S, T, H)
+    cases = [  # (B, S, T, H, R, r, start): decode, prefill from row 0, runs from a random row
+        (SLOTS, 1, MAX_LEN, h, r, rd, None), (1, 16, MAX_LEN, h, r, rd, 0),
+        (1, 64, MAX_LEN, h, r, rd, 0), (1, BUCKET, MAX_LEN, h, r, rd, 0),
+        (3, 5, 100, 7, r, rd, "random"), (3, 2, 33, 4, 16, 8, "random"),
+        (2, 5, 45, 7, 12, 8, "random")]
     rows, max_err = [], 0.0
-    for b, s, t, hh in cases:
-        ql = torch.randn((b, s, hh, r), generator=gen, device=device)
-        qr = torch.randn((b, s, hh, rd), generator=gen, device=device)
-        ck = torch.randn((b, t, r), generator=gen, device=device)
-        kr = torch.randn((b, t, rd), generator=gen, device=device)
+    for b, s, t, hh, rr, rrd, start in cases:
+        scale = 1.0 / math.sqrt(m.qk_nope_head_dim + rd) if rr == r else 1.0 / math.sqrt(rr + rrd)
+        ql = torch.randn((b, s, hh, rr), generator=gen, device=device)
+        qr = torch.randn((b, s, hh, rrd), generator=gen, device=device)
+        ck = torch.randn((b, t, rr), generator=gen, device=device)
+        kr = torch.randn((b, t, rrd), generator=gen, device=device)
         if s == 1:
             pos = torch.full((b, 1), t - 1, dtype=torch.int32, device=device)
         else:
-            start = torch.randint(0, t - s + 1, (b, 1), generator=gen, device=device)
-            pos = (start + torch.arange(s, device=device)[None]).to(torch.int32)
+            first = (torch.zeros((b, 1), dtype=torch.int64, device=device) if start == 0 else
+                     torch.randint(0, t - s + 1, (b, 1), generator=gen, device=device))
+            pos = (first + torch.arange(s, device=device)[None]).to(torch.int32)
+        if start == "random":
+            pos[0, -1] = t + 7  # a drained slot
+            pos[-1, 0] = -1  # a masked row: every key weighs 1 / T
         args = (ql, qr, ck, kr, pos)
         got = mla_decode_attention(*args, scale=scale)
         want = mla_decode_attention_ref(*args, scale=scale)
         err = (got - want).abs().max().item()
         if not err <= TOLERANCE:
             raise AssertionError(f"mla_decode_attention vs plain: max|diff| {err} > {TOLERANCE} "
-                                 f"at B={b} S={s} T={t} H={hh}")
+                                 f"at B={b} S={s} T={t} H={hh} R={rr} r={rrd}")
         max_err = max(max_err, err)
         call = lambda: mla_decode_attention(*args, scale=scale)  # noqa: E731
-        ms = graph_ms(call, 20 if s > 1 else 100)
+        ms = graph_ms(call, 20 if s > 64 else 100)
         eager_ms = timed_ms(call, 20)
         plain_ms = timed_ms(lambda: mla_decode_attention_ref(*args, scale=scale), iters=5)
         # yardstick: SDPA on the concatenation form, the latent K/V shared by
@@ -625,19 +650,26 @@ def check_mla(device):
         lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
             q_cat, k_cat, v, attn_mask=mask, scale=scale, enable_gqa=True), 20)
         # what this run's positions need: each batch row's latent rows up to
-        # its last query position; each query row's keys up to its own
-        rows_needed = (pos.max(dim=1).values + 1).clamp(max=t).sum().item()
-        keys = (pos.long() + 1).clamp(max=t).sum().item()
-        flops = 2.0 * hh * keys * ((r + rd) + r)
-        nbytes = rows_needed * (r + rd) * 4 + (ql.numel() + qr.numel() + got.numel()) * 4
+        # its last query position, each query row's scores up to its own; a
+        # masked row (pos < 0) needs no score but the mean of every c_kv row
+        seen = (pos.long() + 1).clamp(min=0, max=t)
+        mean = torch.where(pos < 0, t, seen)
+        rows_qk, rows_v = seen.max(dim=1).values, mean.max(dim=1).values
+        flops = 2.0 * hh * (seen.sum().item() * (rr + rrd) + mean.sum().item() * rr)
+        nbytes = (rows_qk.sum().item() * (rr + rrd) + (rows_v - rows_qk).sum().item() * rr
+                  + ql.numel() + qr.numel() + got.numel()) * 4
         b_ms, b_by = bound(nbytes + pos.numel() * 4, flops, F32_FLOPS_PER_S)
-        rows.append(dict(B=b, S=s, T=t, H=hh, R=r, r=rd, tolerance=TOLERANCE, max_abs_err=err,
+        positions = ("decode" if s == 1 else "from row 0" if start == 0
+                     else "from a random row, a drained slot and a masked row")
+        rows.append(dict(B=b, S=s, T=t, H=hh, R=rr, r=rrd, positions=positions,
+                         splits=mla_splits(b, s, hh, t), tolerance=TOLERANCE, max_abs_err=err,
                          ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, sdpa_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by,
                          bound_tf32_ms=bound_tf32(nbytes + pos.numel() * 4, flops),
                          tf32_passes=3))
-        log(f"mla B={b} S={s} T={t} H={hh}: {ms:.4f} ms (eager {eager_ms:.4f}, plain "
-            f"{plain_ms:.3f}, sdpa {lib_ms:.4f}, bound {b_ms:.4f} {b_by}) err {err:.2e}")
+        log(f"mla B={b} S={s} T={t} H={hh} R={rr} r={rrd} ({positions}): {ms:.4f} ms (eager "
+            f"{eager_ms:.4f}, plain {plain_ms:.3f}, sdpa {lib_ms:.4f}, bound {b_ms:.4f} {b_by}) "
+            f"err {err:.2e}")
     return rows, max_err
 
 
@@ -720,7 +752,8 @@ def check_flash(device):
 def check_mla_flash(device):
     """The cache-free MLA flash attention against its plain version:
     deepseek-v3 widths (H 128, R 512, r 64) at the forward phase's B1 S512,
-    a ragged S, and the reduced config's (H 4, R 16, r 8)."""
+    a ragged S, H = 7, the reduced config's (H 4, R 16, r 8) and widths off
+    the MMA's 8 (R 12, r 8)."""
     import torch
     import torch.nn.functional as F
 
@@ -731,10 +764,12 @@ def check_mla_flash(device):
     full, small = get_config("deepseek-v3-671b"), reduced(get_config("deepseek-v3-671b"))
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     rows, max_err = [], 0.0
-    for cfg, b, s in ((full, 1, BUCKET), (full, 2, 70), (small, 2, 70)):
-        m, h = cfg.mla, cfg.num_heads
-        r, rd = m.kv_lora_rank, m.qk_rope_head_dim
-        scale = 1.0 / math.sqrt(m.qk_nope_head_dim + rd)
+    for cfg, b, s, heads, widths in ((full, 1, BUCKET, None, None), (full, 2, 70, None, None),
+                                     (full, 2, 70, 7, None), (small, 2, 70, None, None),
+                                     (small, 2, 45, 7, (12, 8))):
+        m, h = cfg.mla, heads or cfg.num_heads
+        r, rd = widths or (m.kv_lora_rank, m.qk_rope_head_dim)
+        scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
         ql = torch.randn((b, s, h, r), generator=gen, device=device)
         qr = torch.randn((b, s, h, rd), generator=gen, device=device)
         ck = torch.randn((b, s, r), generator=gen, device=device)
@@ -765,7 +800,7 @@ def check_mla_flash(device):
                          bound_ms=b_ms, bound_by=b_by,
                          bound_tf32_ms=bound_tf32(nbytes, 2.0 * pairs * (r + rd + r)),
                          tf32_passes=3))
-        log(f"mla_flash B={b} S={s} H={h} R={r}: {ms:.4f} ms (plain {plain_ms:.3f}, sdpa "
+        log(f"mla_flash B={b} S={s} H={h} R={r} r={rd}: {ms:.4f} ms (plain {plain_ms:.3f}, sdpa "
             f"{lib_ms:.4f}, bound {b_ms:.4f} {b_by}) err {err:.2e}")
     return rows, max_err
 
@@ -1211,17 +1246,22 @@ def serve_full_width(device, label, cfg, prepared_run=None, policy=None):
     if gemm_calls > allowed:
         raise AssertionError(f"{label}: {gemm_calls} library matmul launches, the plain "
                              f"products allow {allowed}: {gemm}")
-    attention_calls = None
-    if cfg.mla is None:  # every prefill bucket of 16 rows or more on the tensor cores
-        from repro_torch.kernels.decode_attention.ops import TC_MIN_S
-        from repro_torch.serve.kvcache import bucket_length
+    # by kernel name: GQA, every prefill bucket of 16 rows or more on the
+    # tensor cores and the rest on split keys; MLA, every prefill and decode
+    # step on the tensor-core loop
+    from repro_torch.kernels.decode_attention.ops import TC_MIN_S
+    from repro_torch.serve.kvcache import bucket_length
 
-        buckets = [bucket_length(len(r.prompt), MAX_LEN) for r in again_reqs]
+    buckets = [bucket_length(len(r.prompt), MAX_LEN) for r in again_reqs]
+    if cfg.mla is None:
         tc = sum(b >= TC_MIN_S for b in buckets)
-        attention_calls = attention_launches(label, rows, {
-            "gqa_decode_tc_kernel": tc * cfg.num_layers,
-            "gqa_decode_split_kernel": (server.decode_steps + len(buckets) - tc)
-            * cfg.num_layers})
+        want_calls = {"gqa_decode_tc_kernel": tc * cfg.num_layers,
+                      "gqa_decode_split_kernel": (server.decode_steps + len(buckets) - tc)
+                      * cfg.num_layers}
+    else:
+        want_calls = {"mla_decode_tc_kernel": (server.decode_steps + len(buckets))
+                      * cfg.num_layers}
+    attention_calls = attention_launches(label, rows, want_calls)
     busy_ms = sum(r[0] for r in rows) / 1e3
     report["profiled_repeat"] = dict(
         requests=len(again_reqs), forwards=profiled_forwards,
@@ -1354,11 +1394,11 @@ def forward_phase(device, label, cfg, params, batch):
             raise AssertionError(f"{label} forward: {gemm_calls} library matmul launches, the "
                                  f"plain products allow {allowed}: {gemm}")
         fused_calls = tensor_core_launches(f"{label} forward ({impl})", rows, "fused_dot_af")
-        attention_calls = None
-        if cfg.mla is None:  # every flash launch on the tensor-core kernel, by name
-            attention_calls = attention_launches(
-                f"{label} forward ({impl})", rows,
-                {"flash_attention_tc_kernel": cfg.num_layers if impl == "flash" else 0})
+        # every flash (MLA flash) launch on the tensor-core kernel, by name
+        attention_calls = attention_launches(
+            f"{label} forward ({impl})", rows,
+            {"mla_flash_tc_kernel" if cfg.mla else "flash_attention_tc_kernel":
+             cfg.num_layers if impl == "flash" else 0})
         busy_ms = sum(r[0] for r in rows) / 1e3
         runs[impl] = dict(
             wall_s=wall, launches=launches, lb_loss=float(aux["lb_loss"]),

@@ -12,17 +12,19 @@
   last query position.
 * ``mla_decode_attention`` (``csrc/mla_decode.cu``) replaces
   ``_mla_decode_kernel`` (``mla_decode``), the absorbed-form MLA decode. At
-  full width it is bound by its f32 multiply-adds; one block serves a group
-  of heads from each shared-memory tile of the latent cache, where the
-  Pallas grid re-read the cache once per head, and splits the keys across
-  blocks when there are too few (query, head group) blocks to fill the card
-  (:func:`mla_splits`).
+  full width it is bound by its multiply-adds; one block takes one query row
+  and 32 of its heads as the rows of a tensor-core tile loop
+  (``include/mla_attention.cuh``: 3xTF32 ``mma.sync``, shared with the MLA
+  flash kernel), which serves all of them from each shared-memory tile of
+  the latent cache, where the Pallas grid re-read the cache once per head,
+  and splits the keys across blocks when there are too few (query, head
+  block) blocks to fill the card (:func:`mla_splits`).
 
 A CPU tensor runs the plain version (``*_ref``); a CUDA tensor launches the
 kernel or raises. Each wrapper's ``launches`` counts its launches. Against
 the plain versions the outputs agree to f32 reduction-order tolerance
 (:data:`TOLERANCE`): the kernels sum scores and P·V in another order and
-rescale per tile, and the tensor-core path's 3xTF32 products keep about f32
+rescale per tile, and the tensor-core loops' 3xTF32 products keep about f32
 accuracy.
 """
 from __future__ import annotations
@@ -76,13 +78,13 @@ class GqaPlan(NamedTuple):
     splits: int  # key splits per (batch row, kv head, row block); 1 on the tensor cores
 
 
-def _splits(blocks: int, n_tiles: int) -> int:
+def _splits(blocks: int, n_tiles: int, target: int = _TARGET_BLOCKS) -> int:
     """Blocks to spread each of ``blocks`` blocks' ``n_tiles`` key tiles over:
-    enough for about two blocks per SM, at most one per key tile, and no
+    enough for about ``target`` blocks, at most one per key tile, and no
     split left without a tile."""
-    if blocks >= _TARGET_BLOCKS // 2:
+    if blocks >= target // 2:
         return 1
-    splits = max(1, min(-(-_TARGET_BLOCKS // blocks), n_tiles))
+    splits = max(1, min(-(-target // blocks), n_tiles))
     per = -(-n_tiles // splits)
     return -(-n_tiles // per)
 
@@ -146,18 +148,24 @@ def gqa_decode_attention(q, ck, cv, positions, *, scale: float):
 gqa_decode_attention.launches = 0
 
 
-# the kernel keeps R latent dims per output row in registers, 16 per lane
+# the MLA loop's four warps of a row group each keep 128 output columns in
+# registers, so R <= 512
 MAX_LATENT_DIM = 512
-# MLA kernel geometry (csrc/mla_decode.cu): heads per block, keys per tile
-_MLA_HEADS_PER_BLOCK, _MLA_TILE = 32, 32
-# its shared memory holds two key tiles of R + r + 4 floats and 32 query rows
-# of R + r: at most 227 KB on an H100, so R + r <= 576
+# MLA kernel geometry (include/mla_attention.cuh): heads per block (the MMA
+# rows: two groups of 16), keys per tile; a block takes 224 KB of shared
+# memory at full width, one an SM, so the key splits aim at one block an SM
+# of an H100
+_MLA_HEADS_PER_BLOCK, _MLA_TILE, _MLA_TARGET_BLOCKS = 32, 32, 132
+# its shared memory holds two key tiles of R + r floats (rounded up to 32),
+# Q's low parts and the score exchange: at most 227 KB on an H100, so
+# R + r <= 576
 _MLA_MAX_ROW = 576
 
 
 def mla_splits(b: int, s: int, h: int, t: int) -> int:
-    """Blocks the MLA kernel splits each (query, head group)'s keys over."""
-    return _splits(b * s * -(-h // _MLA_HEADS_PER_BLOCK), -(-t // _MLA_TILE))
+    """Blocks the MLA kernel splits each (query, head block)'s keys over."""
+    return _splits(b * s * -(-h // _MLA_HEADS_PER_BLOCK), -(-t // _MLA_TILE),
+                   _MLA_TARGET_BLOCKS)
 
 
 def _mla_launch(q_lat, q_rope, c_kv, k_rope, positions, scale: float):

@@ -3,9 +3,11 @@
 ``mla_flash_attention`` (``csrc/mla_flash.cu``) replaces the TPU kernel
 ``repro/kernels/mla_flash/kernel.py:_mla_flash_kernel`` (``mla_flash``,
 model entry ``ops.py:mla_flash_attention``). At deepseek-v3 width it is
-bound by its f32 multiply-adds; one block takes one query row and 32 heads,
-which share every shared-memory tile of the latent ``[c_kv | k_rope]`` (the
-reference's head broadcast), with the loop of the MLA cache-decode kernel.
+bound by its multiply-adds; one block takes one query row and 32 of its
+heads as the rows of a tensor-core tile loop (3xTF32 ``mma.sync``, the MLA
+cache kernel's ``include/mla_attention.cuh``), which share every
+shared-memory tile of the latent ``[c_kv | k_rope]`` (the reference's head
+broadcast).
 
 A CPU tensor runs the plain version (``mla_flash_attention_ref``); a CUDA
 tensor launches the kernel or raises. ``mla_flash_attention.launches``
@@ -24,10 +26,12 @@ from .ref import mla_flash_attention_ref
 
 # max |kernel - plain| on unit-scale f32 inputs (the decode kernels' bar)
 TOLERANCE = 2e-5
-# the kernel keeps R latent dims per output row in registers, 16 per lane
+# the loop's four warps of a row group each keep 128 output columns in
+# registers, so R <= 512
 MAX_LATENT_DIM = 512
-# shared memory holds two 32-key tiles of R + r + 4 floats and 32 query rows
-# of R + r: at most 227 KB on an H100, so R + r <= 576
+# shared memory holds two 32-key tiles of R + r floats (rounded up to 32),
+# Q's low parts and the score exchange: at most 227 KB on an H100, so
+# R + r <= 576
 MAX_ROW = 576
 
 

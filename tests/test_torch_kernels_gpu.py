@@ -176,23 +176,33 @@ def test_attention_kernel_ragged_positions_and_masked_rows(cuda, s, h, kv, hd):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,s,h,r,rd,t", [(4, 1, 128, 512, 64, 512), (1, 64, 128, 512, 64, 512),
-                                          (3, 5, 7, 512, 64, 100), (2, 3, 4, 16, 8, 33)])
-def test_mla_kernel_within_tolerance_of_plain_version(cuda, b, s, h, r, rd, t):
+@pytest.mark.parametrize("b,s,h,r,rd,t,start", [
+    (4, 1, 128, 512, 64, 512, None), (1, 64, 128, 512, 64, 512, None),
+    (3, 5, 7, 512, 64, 100, None), (2, 3, 4, 16, 8, 33, None), (2, 5, 7, 12, 8, 45, None),
+    (3, 4, 4, 12, 4, 70, None), (1, 16, 128, 512, 64, 512, 0), (1, 512, 128, 512, 64, 512, 0)])
+def test_mla_kernel_within_tolerance_of_plain_version(cuda, b, s, h, r, rd, t, start):
+    """Random runs of positions (start None) or a serving prefill from row 0;
+    R or R + r not a multiple of 8 (12 + 8, 12 + 4), H not a multiple of the
+    32-head block; a drained slot (pos >= T) and a masked row (pos < 0)."""
     gen = torch.Generator(device=cuda).manual_seed(b * s * t + r)
     ql = torch.randn((b, s, h, r), generator=gen, device=cuda)
     qr = torch.randn((b, s, h, rd), generator=gen, device=cuda)
     ck = torch.randn((b, t, r), generator=gen, device=cuda)
     kr = torch.randn((b, t, rd), generator=gen, device=cuda)
-    start = torch.randint(0, t - s + 1, (b, 1), generator=gen, device=cuda)
-    pos = (start + torch.arange(s, device=cuda)[None]).to(torch.int32)
-    pos[0, -1] = t + 7  # a drained slot whose index ran past the cache
+    first = (torch.zeros((b, 1), dtype=torch.int64, device=cuda) if start == 0 else
+             torch.randint(0, t - s + 1, (b, 1), generator=gen, device=cuda))
+    pos = (first + torch.arange(s, device=cuda)[None]).to(torch.int32)
+    if start is None:
+        pos[0, -1] = t + 7  # a drained slot whose index ran past the cache
+        pos[-1, 0] = -1  # a masked row: every key weighs 1 / T
     scale = 1.0 / math.sqrt(r + rd)
     before = mla_decode_attention.launches
     got = mla_decode_attention(ql, qr, ck, kr, pos, scale=scale)
     assert mla_decode_attention.launches == before + 1
     want = mla_decode_attention_ref(ql, qr, ck, kr, pos, scale=scale)
     assert (got - want).abs().max().item() <= TOLERANCE
+    if start is None:
+        assert (got[-1, 0] - ck[-1].mean(0)).abs().max().item() <= TOLERANCE
 
 
 @pytest.mark.gpu
@@ -267,7 +277,9 @@ def test_flash_kernel_bf16_every_head_dim(cuda, s, kv, d, causal):
 @pytest.mark.parametrize("b,s,h,r,rd,causal", [(1, 512, 128, 512, 64, True),
                                                (2, 70, 7, 512, 64, True),
                                                (2, 70, 4, 32, 16, True),
-                                               (2, 40, 4, 16, 8, False)])
+                                               (2, 40, 4, 16, 8, False),
+                                               (2, 45, 7, 12, 8, True),
+                                               (1, 33, 5, 12, 4, False)])
 def test_mla_flash_kernel_within_tolerance_of_plain_version(cuda, b, s, h, r, rd, causal):
     gen = torch.Generator(device=cuda).manual_seed(b * s + r)
     ql = torch.randn((b, s, h, r), generator=gen, device=cuda)

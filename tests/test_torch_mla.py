@@ -126,7 +126,7 @@ def test_mla_attention_cache_path_matches_reference(layer, s, attn_impl):
     np.testing.assert_array_equal(new["index"].numpy(), np.asarray(jnew["index"]))
 
 
-def test_cache_free_path_not_yet_ported(layer):
+def test_cache_free_path_matches_reference(layer):
     """The cache-free path (``forward``'s) runs: without a cache, under
     ``"xla"`` and ``"flash"``, the output matches the reference's cache-free
     path on the same layer and no cache comes back."""
@@ -149,7 +149,11 @@ def test_cache_free_path_not_yet_ported(layer):
 
 
 def test_key_splits_fill_the_card_only_when_blocks_are_few():
-    assert mla_splits(4, 1, 128, 512) == 16  # decode: 16 (query, head group) blocks
+    """One block an SM (224 KB of shared memory at full width): the splits aim
+    at the H100's 132 SMs."""
+    assert mla_splits(4, 1, 128, 512) == 8  # decode: 16 (query, 32-head) blocks, 2 tiles each
     assert mla_splits(1, 1, 128, 40) == 2  # never more splits than key tiles
     assert mla_splits(1, 512, 128, 512) == 1  # a prefill bucket fills the card
+    assert mla_splits(1, 16, 128, 512) == 3  # bucket 16: 64 blocks
+    assert mla_splits(1, 64, 128, 512) == 1  # bucket 64: 256 blocks
     assert mla_splits(2, 3, 4, 33) == 2

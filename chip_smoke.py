@@ -28,8 +28,11 @@ cache-free flash and MLA flash attentions), then:
    buckets 16, 64 and 512 from row 0 and, with a drained slot and a masked
    row, at H = 7, the reduced widths and R + r off the MMA's 8, and MLA
    flash at the deepseek forward's shape and the same odd widths; then
-   drives the softmax through its entry point,
-   ``EngineContext.activate(x, "softmax")``, on lm_head-wide rows;
+   times the row softmax on one-CTA-a-row, cluster-split and staged rows
+   against the kernel it replaced (``PARENT_SOFTMAX_MS``), and drives it
+   through its entry point, ``EngineContext.activate(x, "softmax")``, on
+   lm_head-wide rows, profiled: the one launch runs
+   ``af_softmax_cluster_kernel``, by name;
 3. serves full-width olmo-1b (16 layers, ``dtype="float32"``, seeded random
    weights) through ``BatchedServer`` in prepared kernel mode, checks the
    launch counts of its kernels against what the shapes imply, and checks
@@ -204,7 +207,7 @@ PORT_KERNELS = ("fused_dot_af_wgmma_kernel", "fused_dot_af_narrow_kernel",
                 "fused_dot_af_imad_kernel", "fused_quantize_x_kernel", "mac_matmul_wgmma_kernel",
                 "mac_matmul_narrow_kernel", "mac_matmul_imad_kernel", "gqa_decode_tc_kernel",
                 "gqa_decode_split_kernel", "merge_splits_kernel", "mla_decode_tc_kernel",
-                "af_elementwise_kernel", "af_softmax_kernel",
+                "af_elementwise_kernel", "af_softmax_cluster_kernel",
                 "flash_attention_tc_kernel", "mla_flash_tc_kernel")
 # the int_dot.plan paths, by the names of their kernel instantiations
 PATH_NAMES = ("narrow", "wgmma", "imad")
@@ -968,68 +971,111 @@ def softmax_int_ops(depth: int) -> int:
     ``depth``, counted as the function needs them (once per element, as
     ``af_int_ops`` counts them): the quantize/requantize/dequantize chain,
     the CORDIC exp and divide loops, the shift, the two reductions' adds and
-    compares. The kernel quantizes each input twice (max pass, exp pass);
-    that second chain is its own cost, not the function's."""
+    compares."""
     return 12 + (6 * depth + 12) + 6 * depth + 8
 
 
+# (rows, n) of the softmax rows, each at FxP8 and FxP16: the softmax path's
+# lm_head-wide logits (SLOTS, 50304) and one such row, one CTA a row at
+# (64, 512), (5, 300), (4096, 64) and (7, 17), and a row past the shared
+# memory the kernel may hold a slice in (the staged path)
+SOFTMAX_SHAPES = ((64, 512), (5, 300), (SLOTS, 50304), (1, 50304), (4096, 64), (7, 17),
+                  (2, 1_000_000))
+# ms of the one-512-thread-block-a-row kernel this one replaced, at full
+# depth on the same rows: the mean of two runs of benchmarks/softmax_probe.py
+# on that kernel's tree (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6); each
+# row reports its time against it
+PARENT_SOFTMAX_MS = {
+    ((64, 512), "Q1.6"): 0.00322272002696991, ((64, 512), "Q3.12"): 0.0035219199955463408,
+    ((5, 300), "Q1.6"): 0.003114879876375198, ((5, 300), "Q3.12"): 0.003193439990282059,
+    ((4, 50304), "Q1.6"): 0.11401328086853027, ((4, 50304), "Q3.12"): 0.13146992206573488,
+    ((1, 50304), "Q1.6"): 0.11399232387542725, ((1, 50304), "Q3.12"): 0.13167232036590576,
+    ((4096, 64), "Q1.6"): 0.022293279170989992, ((4096, 64), "Q3.12"): 0.023763359785079957,
+    ((7, 17), "Q1.6"): 0.0027953599393367766, ((7, 17), "Q3.12"): 0.002890239953994751,
+    ((2, 1_000_000), "Q1.6"): 2.222646427154541, ((2, 1_000_000), "Q3.12"): 2.5610936164855955,
+}
+
+
 def check_softmax(device):
-    """The row softmax against its plain version, bitwise."""
+    """The row softmax against its plain version, bitwise, at full depth; each
+    row records the launch plan (cluster size, slice, threads, path) and its
+    time against the one-block-a-row kernel it replaced."""
     import torch
 
     from repro_torch.core import FXP8, FXP16
     from repro_torch.core.activations import internal_depth, internal_fmt, softmax_shift
     from repro_torch.core.cordic import full_depth
     from repro_torch.kernels.cordic_af import af_softmax, af_softmax_ref
+    from repro_torch.kernels.cordic_af.ops import launch_plan
 
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
-    cases = [((64, 512), FXP8), ((64, 512), FXP16), ((5, 300), FXP8),
-             ((SLOTS, 50304), FXP8), ((SLOTS, 50304), FXP16)]
     rows = []
-    for shape, fmt in cases:
+    for shape in SOFTMAX_SHAPES:
         x = torch.randn(shape, generator=gen, device=device) * 3.0
-        depth = full_depth(fmt)
-        got = af_softmax(x, depth=depth, fmt=fmt)
-        want = af_softmax_ref(x, depth=depth, fmt=fmt)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            bad = (got != want).sum().item()
-            raise AssertionError(f"af_softmax != plain at {shape} {fmt}: {bad} elements differ")
-        ms = graph_ms(lambda: af_softmax(x, depth=depth, fmt=fmt), 20)
-        plain_ms = timed_ms(lambda: af_softmax_ref(x, depth=depth, fmt=fmt), iters=3, warmup=1)
-        ops = softmax_int_ops(internal_depth(depth, fmt))
-        b_ms, b_by = bound(8.0 * x.numel(), float(ops) * x.numel(), INT32_OPS_PER_S)
-        shift = softmax_shift(shape[1], internal_fmt(fmt).frac)
-        rows.append(dict(shape=list(shape), fmt=str(fmt), depth=depth, pre_shift=shift,
-                         bitwise_equal=True, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                         int_ops_per_element=ops, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None))
-        log(f"softmax {shape} {fmt} shift {shift}: {ms:.4f} ms (plain {plain_ms:.3f}, "
-            f"bound {b_ms:.4f} {b_by})")
+        plan = launch_plan(*shape, device)
+        for fmt in (FXP8, FXP16):
+            depth = full_depth(fmt)
+            got = af_softmax(x, depth=depth, fmt=fmt)
+            want = af_softmax_ref(x, depth=depth, fmt=fmt)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad = (got != want).sum().item()
+                raise AssertionError(f"af_softmax != plain at {shape} {fmt}: {bad} elements "
+                                     "differ")
+            ms = graph_ms(lambda: af_softmax(x, depth=depth, fmt=fmt),
+                          20 if x.numel() > 1e6 else 100)
+            plain_ms = timed_ms(lambda: af_softmax_ref(x, depth=depth, fmt=fmt), iters=3,
+                                warmup=1)
+            ops = softmax_int_ops(internal_depth(depth, fmt))
+            b_ms, b_by = bound(8.0 * x.numel(), float(ops) * x.numel(), INT32_OPS_PER_S)
+            shift = softmax_shift(shape[1], internal_fmt(fmt).frac)
+            parent_ms = PARENT_SOFTMAX_MS[(shape, str(fmt))]
+            rows.append(dict(shape=list(shape), fmt=str(fmt), depth=depth, pre_shift=shift,
+                             cluster=plan.cluster, planned_cluster=plan.planned_cluster,
+                             slice=plan.slice, threads=plan.threads, path=plan.path,
+                             bitwise_equal=True, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                             parent_ms=parent_ms, speedup_vs_parent=parent_ms / ms,
+                             int_ops_per_element=ops, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None))
+            log(f"softmax {shape} {fmt} shift {shift}, cluster {plan.cluster} {plan.path}: "
+                f"{ms:.4f} ms (parent {parent_ms:.4f}, plain {plain_ms:.3f}, bound {b_ms:.4f} "
+                f"{b_by})")
     return rows
 
 
 def softmax_path(device):
     """The softmax's entry point: ``EngineContext.activate(x, "softmax")`` in
-    kernel mode on lm_head-wide logits rows, with the launch count of its
-    kernel read just after, held against the plain version."""
+    kernel mode on lm_head-wide logits rows, profiled, with the launch count
+    of its kernel read just after, held against the plain version; the one
+    launch must be the cluster kernel, by name."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.cordic_af import af_softmax_ref
+    from repro_torch.kernels.cordic_af.ops import launch_plan
 
     ctx = kernel_ctx()
     x = torch.randn((SLOTS, 50304), generator=torch.Generator(device=device).manual_seed(SEED),
                     device=device) * 3.0
     kernels = zero_launches()
-    got = ctx.activate(x, "softmax")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = ctx.activate(x, "softmax")
+        torch.cuda.synchronize()
     launches = {name: w.launches for name, w in kernels.items()}
     if launches != {**{name: 0 for name in kernels}, "af_softmax": 1}:
         raise AssertionError(f"activate(x, 'softmax') launched {launches}")
+    by_name = port_kernel_ms(kernel_breakdown(prof))
+    if list(by_name) != ["af_softmax_cluster_kernel"] \
+            or by_name["af_softmax_cluster_kernel"]["calls"] != 1:
+        raise AssertionError(f"activate(x, 'softmax') ran port kernels {by_name}; the one "
+                             "launch must be af_softmax_cluster_kernel")
     lp = ctx.layer_precision("af")
     if not torch.equal(got, af_softmax_ref(x, depth=int(lp.depth), fmt=lp.fmt)):
         raise AssertionError("activate(x, 'softmax') != the plain version")
+    plan = launch_plan(*x.shape, device)
     return dict(entry="EngineContext(mode='kernel').activate(x, 'softmax')",
-                shape=list(x.shape), launches=launches, bitwise_equal=True)
+                shape=list(x.shape), launches=launches, port_kernels=by_name,
+                cluster=plan.cluster, path=plan.path, bitwise_equal=True)
 
 
 # ---------------------------------------------------------------------------

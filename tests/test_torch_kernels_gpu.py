@@ -30,6 +30,8 @@ from repro_torch.kernels.cordic_af import (  # noqa: E402
     multi_af,
     multi_af_ref,
 )
+from repro_torch.kernels.cordic_af.ops import launch_plan as softmax_launch_plan  # noqa: E402
+from repro_torch.kernels.cordic_af.ops import softmax_plan  # noqa: E402
 from repro_torch.kernels.cordic_mac import mac_matmul, mac_matmul_ref  # noqa: E402
 from repro_torch.kernels.cordic_fused import FUSED_AFS, fused_dot_af, fused_dot_af_ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -363,14 +365,30 @@ def test_per_call_dot_launches_the_mac_kernel(cuda, name):
     assert torch.equal(got.cpu(), want)
 
 
+# (rows, n) -> the softmax kernel's (cluster size, path) on an H100: every
+# plan path launches (one CTA a row, clusters of 2 and 16, a row past the
+# shared-memory cap staged in the output row)
+SOFTMAX_PLANS = {(64, 512): (1, "shared"), (5, 300): (1, "shared"), (4, 50304): (16, "shared"),
+                 (3, 1): (1, "shared"), (1, 50304): (16, "shared"), (1, 2048): (2, "shared"),
+                 (4096, 64): (1, "shared"), (7, 17): (1, "shared"),
+                 (2, 1_000_000): (16, "staged")}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,n", [(64, 512), (5, 300), (4, 50304), (3, 1)])
+@pytest.mark.parametrize("m,n", list(SOFTMAX_PLANS))
 @pytest.mark.parametrize("name", sorted(FORMATS))
 def test_softmax_kernel_bitwise_equal_to_plain_version(cuda, m, n, name):
     fmt, _ = FORMATS[name]
     gen = torch.Generator(device=cuda).manual_seed(m + n)
     x = torch.randn((m, n), generator=gen, device=cuda) * 3
     x.view(-1)[:3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    if m > 1:
+        x[-1, -1] = float("inf")  # the row max in the last CTA's slice
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = softmax_launch_plan(m, n, cuda)
+    assert plan.planned_cluster == softmax_plan(m, n, sms=sms).cluster
+    if sms == 132:  # an H100 SXM
+        assert (plan.cluster, plan.path) == SOFTMAX_PLANS[(m, n)]
     for depth in (2, cordic.full_depth(fmt)):
         before = af_softmax.launches
         got = multi_af(x, "softmax", depth=depth, fmt=fmt)

@@ -31,44 +31,68 @@ cache-free flash and MLA flash attentions), then:
    times the row softmax on one-CTA-a-row, cluster-split and staged rows
    against the kernel it replaced (``PARENT_SOFTMAX_MS``), and drives it
    through its entry point, ``EngineContext.activate(x, "softmax")``, on
-   lm_head-wide rows, profiled: the one launch runs
-   ``af_softmax_cluster_kernel``, by name;
+   lm_head-wide rows, profiled: its one launch is the cluster
+   instantiation and the profile shows ``af_softmax_cluster_kernel``;
 3. serves full-width olmo-1b (16 layers, ``dtype="float32"``, seeded random
-   weights) through ``BatchedServer`` in prepared kernel mode, checks the
-   launch counts of its kernels against what the shapes imply, and checks
-   that a repeat run and a ``burst=1`` run give identical greedy streams;
-   in the profiled repeat every GQA attention launch of a prefill bucket of
-   16 rows or more ran the tensor-core kernel and every other one the
-   split-key kernel, by name; then runs the cache-free ``forward`` on the
-   same weights at batch (2, 512) under ``attn_impl="flash"`` (the flash
-   kernel) and ``"xla"``, with launch counts, a profiled repeat (every fused
-   launch, M = 1024, and every flash launch on the tensor-core kernel, by
-   name) and the logits of the two compared;
+   weights) through ``BatchedServer`` in prepared kernel mode, each prefill
+   bucket and each decode burst one captured CUDA graph: checks the launch
+   counts exactly (``graph_accounting``: each graph's launches by
+   instantiation, counted by the wrappers at capture, times its replays,
+   against what the shapes imply; one replay and one transfer a prefill and
+   a burst) and that a repeat run (no launch issued from the host), the
+   uncaptured yardstick (``capture=False``: the same programs, every launch
+   issued from the host) and a captured ``burst=1`` run give identical
+   greedy streams and f32 top-2 margins; reports tokens/s, time to first
+   token and inter-token latency, each graph's capture time and the graph
+   pool's GiB; in the profiled repeat, by the wrappers' counts, every GQA
+   attention launch of a prefill bucket of 16 rows or more ran the
+   tensor-core instantiation and every other one the split keys, and the
+   profile shows each of those kernels and no other of the port's; then
+   runs the cache-free ``forward`` on the same weights at batch (2, 512)
+   under ``attn_impl="flash"`` (the flash kernel) and ``"xla"``, with launch
+   counts by instantiation (every fused launch, M = 1024, on wgmma, every
+   flash launch on the tensor cores), a profiled repeat and the logits of
+   the two compared; serves the same weights sampled (temperature 1.3,
+   ``serve_sampled``): streams identical captured and uncaptured (margins
+   too), at burst 1 and 8, alone and batched, and unlike the greedy ones;
+   and, on reduced olmo-1b (``replay_order``), captures the graphs while
+   serving one order of requests and replays them for two other orders,
+   each bitwise equal to the uncaptured run of the same order;
 4. serves the same model and weights per call (``prepare_weights=False``:
    every dot re-rounds its raw weight and runs the MAC-array kernel, the
-   gate its activation through the multi-AF kernel), and checks its streams
-   and top-2 margins against the prepared run's, bit for bit, at burst 8
-   and burst 1, with its own launch counts; times the per-call weight
-   rounding;
+   gate its activation through the multi-AF kernel), captured as in 3, and
+   checks its streams and top-2 margins against the prepared run's, bit for
+   bit, at burst 8 and burst 1 and uncaptured, with its own launch counts;
+   times the per-call weight rounding;
 5. runs the startup calibration scan (``calibration_scan``: per call,
    ``"flash"``, batch (2, 512), one forward per engine-dot group) on
    full-width olmo-1b, turns it into a policy with ``assign_depths``, and
-   serves the request set prepared under it (mixed-depth points), repeat and
-   ``burst=1`` streams identical; one scan forward is profiled again
-   (every MAC and flash launch on the tensor-core kernels, by name);
+   serves the request set prepared under it (mixed-depth points), captured
+   as in 3, repeat, uncaptured and ``burst=1`` streams identical; one scan
+   forward is profiled again (every MAC and flash launch on the
+   tensor-core instantiations, by the wrappers' counts);
 6. serves olmo-1b widths at 2 layers on the card and on the CPU (plain
    versions) with the same weights, and checks the streams are identical;
    the same per call, at reduced width; and runs the 2-layer ``forward``
    on the card and the CPU: the flash kernel on the forward's own inputs
    must equal the plain version within its tolerance, and the logits'
    agreement is reported under ``"flash"`` and ``"xla"``;
-7. and 8. do the same for full-width deepseek-v3 (MLA + MoE) cut to 4
-   layers (the 3 dense-prefix layers and 1 MoE layer: the routed experts
-   alone take 45 GB in f32), its ``forward`` at (1, 512) on the serving
-   weights (the MLA flash kernel), every MLA cache and MLA flash launch in
-   the profiled repeats on the tensor-core kernels, by name; and for reduced
+7. and 8. do the same for full-width deepseek-v3 (MLA + MoE, served
+   captured as in 3) cut to 4 layers (the 3 dense-prefix layers and 1 MoE
+   layer: the routed experts alone take 45 GB in f32), its ``forward`` at
+   (1, 512) on the serving weights (the MLA flash kernel), every MLA cache
+   and MLA flash launch on the tensor-core instantiation; and for reduced
    deepseek-v3 card vs CPU, served and through ``forward`` (the MLA flash
    kernel held as above).
+
+Exact launch counts come from the kernel wrappers (``repro_torch.kernels.
+launch_counts``, by instantiation), never from ``torch.profiler``, which
+drops records; a profile is read for times, the device-busy share and
+checks that a dropped record cannot fail (no library attention kernel,
+library matmuls within the plain products' allowance, each kernel that ran
+present and no other). Every phase runs through ``phase``: a failure
+prints ``{"failed_phase": ..., "error": ...}`` on stdout, the traceback on
+stderr, and the run exits non-zero.
 
 It imports nothing of JAX. It exits non-zero on any failure, and when no CUDA
 device is present. A full JSON report goes to ``chiprun_out/chip_smoke.json``.
@@ -83,6 +107,7 @@ import math
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -123,8 +148,11 @@ CYCLE_REDUCTION = 0.33
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", file=sys.stderr, flush=True)
 
 
 def emit(obj) -> None:
@@ -202,20 +230,34 @@ ATTENTION_KERNELS = ("fmha", "flash", "attention_kernel", "sdpa")
 # cuBLAS launches per plain product allowed: the GEMM and at most one split-K
 # reduction
 CUBLAS_LAUNCHES_PER_PRODUCT = 2
-# the __global__ names of the port's kernels, as the profiler reports them
-PORT_KERNELS = ("fused_dot_af_wgmma_kernel", "fused_dot_af_narrow_kernel",
-                "fused_dot_af_imad_kernel", "fused_quantize_x_kernel", "mac_matmul_wgmma_kernel",
-                "mac_matmul_narrow_kernel", "mac_matmul_imad_kernel", "gqa_decode_tc_kernel",
-                "gqa_decode_split_kernel", "merge_splits_kernel", "mla_decode_tc_kernel",
-                "af_elementwise_kernel", "af_softmax_cluster_kernel",
-                "flash_attention_tc_kernel", "mla_flash_tc_kernel")
-# the int_dot.plan paths, by the names of their kernel instantiations
-PATH_NAMES = ("narrow", "wgmma", "imad")
+# the __global__ each kernel instantiation launches (``repro_torch.kernels``'
+# ``launch_counts`` keys), as the profiler names it
+GLOBALS = {
+    "fused_dot_af/narrow": "fused_dot_af_narrow_kernel",
+    "fused_dot_af/wgmma": "fused_dot_af_wgmma_kernel",
+    "fused_dot_af/imad": "fused_dot_af_imad_kernel",
+    "cordic_mac/narrow": "mac_matmul_narrow_kernel",
+    "cordic_mac/wgmma": "mac_matmul_wgmma_kernel",
+    "cordic_mac/imad": "mac_matmul_imad_kernel",
+    "gqa_decode_attention/tc": "gqa_decode_tc_kernel",
+    "gqa_decode_attention/split": "gqa_decode_split_kernel",
+    "mla_decode_attention/tc": "mla_decode_tc_kernel",
+    "af_elementwise/elementwise": "af_elementwise_kernel",
+    "af_softmax/cluster": "af_softmax_cluster_kernel",
+    "flash_attention/tc": "flash_attention_tc_kernel",
+    "mla_flash_attention/tc": "mla_flash_tc_kernel",
+}
+# the __global__ names of the port's kernels, as the profiler reports them:
+# each instantiation's, the fused wgmma path's quantize pass and the split
+# merge of the cache attentions
+PORT_KERNELS = tuple(GLOBALS.values()) + ("fused_quantize_x_kernel", "merge_splits_kernel")
 
 
 def path_name(p) -> str:
     """The path of an ``int_dot.plan``, with its tile (wgmma: 128 x width) or
     its K split (narrow, imad), as the kernel rows record it."""
+    from repro_torch.kernels.int_dot import PATH_NAMES
+
     name = PATH_NAMES[p.path]
     return f"{name} 128x{p.config}" if name == "wgmma" else f"{name}, {p.splits} K splits"
 
@@ -256,32 +298,55 @@ def port_kernel_ms(rows) -> dict:
     return {k: dict(device_ms=ms, calls=n) for k, (ms, n) in out.items()}
 
 
-def tensor_core_launches(label, rows, prefix: str) -> dict:
-    """Calls by instantiation of the fused (``prefix="fused_dot_af"``) or MAC
-    (``"mac_matmul"``) kernel in a profile whose dots all have M > 16: every
-    one must be the wgmma instantiation, by kernel name."""
-    calls = {path: sum(n for _, k, n in rows if f"{prefix}_{path}_kernel" in k)
-             for path in PATH_NAMES}
-    if not calls["wgmma"] or calls["narrow"] or calls["imad"]:
+# the attention instantiations: GQA's tensor-core path (S >= 16) and its
+# split keys (S < 16), the MLA cache attention's tensor-core loop (every S),
+# flash and MLA flash
+ATTENTION_INSTANTIATIONS = ("gqa_decode_attention/tc", "gqa_decode_attention/split",
+                            "flash_attention/tc", "mla_decode_attention/tc",
+                            "mla_flash_attention/tc")
+
+
+def tensor_core_launches(label, counts: dict, prefix: str, want: int) -> dict:
+    """Launches by instantiation of the fused (``prefix="fused_dot_af"``) or
+    MAC (``"cordic_mac"``) kernel, from the wrappers' counts (``counts``:
+    ``launch_counts()`` or a graph's products), in a run whose dots all have
+    M > 16: exactly ``want``, every one the wgmma instantiation."""
+    from repro_torch.kernels.int_dot import PATH_NAMES
+
+    calls = {path: counts.get(f"{prefix}/{path}", 0) for path in PATH_NAMES}
+    if calls != {"narrow": 0, "wgmma": want, "imad": 0}:
         raise AssertionError(f"{label}: {prefix} launches by instantiation {calls}; at M > 16 "
-                             "every one must run the wgmma kernel")
+                             f"all {want} must run the wgmma kernel")
     return calls
 
 
-def attention_launches(label, rows, want: dict) -> dict:
-    """Calls of the attention kernels in a profile, by kernel name: ``want``
-    maps ``gqa_decode_tc_kernel`` (the tensor-core path of the GQA cache
-    attention, S >= 16), ``gqa_decode_split_kernel`` (its split-key path,
-    S < 16), ``flash_attention_tc_kernel``, ``mla_decode_tc_kernel`` (the MLA
-    cache attention's tensor-core loop, every S) and ``mla_flash_tc_kernel``
-    to the calls the shapes imply; any other count fails."""
-    names = ("gqa_decode_tc_kernel", "gqa_decode_split_kernel", "flash_attention_tc_kernel",
-             "mla_decode_tc_kernel", "mla_flash_tc_kernel")
-    calls = {name: sum(n for _, k, n in rows if name in k) for name in names}
-    if calls != {name: want.get(name, 0) for name in names}:
-        raise AssertionError(f"{label}: attention launches by kernel {calls}, the shapes "
-                             f"imply {want}")
+def attention_launches(label, counts: dict, want: dict) -> dict:
+    """Launches of the attention kernels by instantiation, from the wrappers'
+    counts: each of ``ATTENTION_INSTANTIATIONS`` exactly as ``want`` (what
+    the shapes imply); any other count fails."""
+    calls = {name: counts.get(name, 0) for name in ATTENTION_INSTANTIATIONS}
+    if calls != {name: want.get(name, 0) for name in ATTENTION_INSTANTIATIONS}:
+        raise AssertionError(f"{label}: attention launches by instantiation {calls}, the "
+                             f"shapes imply {want}")
     return calls
+
+
+def profile_names(label, rows, ran: dict) -> dict:
+    """Presence and absence by kernel name in a profile whose window ran the
+    port's kernels ``ran`` (flat counts by instantiation, from the wrappers):
+    every instantiation that ran shows its ``__global__`` at least once, and
+    none that did not run shows at all. The profiler may drop records (it
+    listed 27 of 29 fused launches of a deepseek forward at times), so no
+    count is read from it; a dropped record can fail neither check unless
+    every record of a kernel is dropped. Returns the calls seen, by
+    instantiation."""
+    seen = {key: sum(n for _, k, n in rows if name in k) for key, name in GLOBALS.items()}
+    missing = [key for key, n in ran.items() if n and not seen[key]]
+    stray = [key for key, n in seen.items() if n and not ran.get(key)]
+    if missing or stray:
+        raise AssertionError(f"{label}: the profile lacks {missing} and shows {stray} that "
+                             f"did not run (wrappers {ran}, profile {seen})")
+    return {k: n for k, n in seen.items() if n}
 
 
 def nvidia_smi() -> str:
@@ -1046,8 +1111,9 @@ def check_softmax(device):
 def softmax_path(device):
     """The softmax's entry point: ``EngineContext.activate(x, "softmax")`` in
     kernel mode on lm_head-wide logits rows, profiled, with the launch count
-    of its kernel read just after, held against the plain version; the one
-    launch must be the cluster kernel, by name."""
+    of its kernel read just after, held against the plain version: exactly
+    one launch, of the cluster instantiation, by the wrappers' counts; the
+    profile shows that kernel and no other of the port's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1062,11 +1128,13 @@ def softmax_path(device):
         got = ctx.activate(x, "softmax")
         torch.cuda.synchronize()
     launches = {name: w.launches for name, w in kernels.items()}
-    if launches != {**{name: 0 for name in kernels}, "af_softmax": 1}:
-        raise AssertionError(f"activate(x, 'softmax') launched {launches}")
-    by_name = port_kernel_ms(kernel_breakdown(prof))
-    if list(by_name) != ["af_softmax_cluster_kernel"] \
-            or by_name["af_softmax_cluster_kernel"]["calls"] != 1:
+    counts = wrapper_counts()
+    if counts != {**{key: 0 for key in counts}, "af_softmax/cluster": 1}:
+        raise AssertionError(f"activate(x, 'softmax') launched {counts}")
+    rows = kernel_breakdown(prof)
+    profile_names("activate(x, 'softmax')", rows, counts)
+    by_name = port_kernel_ms(rows)
+    if list(by_name) != ["af_softmax_cluster_kernel"]:
         raise AssertionError(f"activate(x, 'softmax') ran port kernels {by_name}; the one "
                              "launch must be af_softmax_cluster_kernel")
     lp = ctx.layer_precision("af")
@@ -1126,38 +1194,45 @@ def margins(reqs) -> list:
     return [r.margins for r in reqs]
 
 
-def path_kernels():
-    """name -> wrapper of every kernel a path may launch."""
-    from repro_torch.kernels.cordic_af import af_softmax, multi_af
-    from repro_torch.kernels.cordic_fused import fused_dot_af
-    from repro_torch.kernels.cordic_mac import mac_matmul
-    from repro_torch.kernels.decode_attention import gqa_decode_attention, mla_decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.mla_flash import mla_flash_attention
-
-    return {"fused_dot_af": fused_dot_af, "cordic_mac": mac_matmul,
-            "gqa_decode_attention": gqa_decode_attention,
-            "mla_decode_attention": mla_decode_attention, "af_elementwise": multi_af,
-            "af_softmax": af_softmax, "flash_attention": flash_attention,
-            "mla_flash_attention": mla_flash_attention}
-
-
 def zero_launches() -> dict:
-    kernels = path_kernels()
-    for w in kernels.values():
-        w.launches = 0
-    return kernels
+    """name -> wrapper of every kernel a path may launch, every count (in all
+    and by instantiation) set to 0."""
+    from repro_torch.kernels import reset_launch_counts, wrappers
+
+    reset_launch_counts()
+    return wrappers()
+
+
+def wrapper_counts() -> dict:
+    """The wrappers' launches by instantiation since ``zero_launches``, flat
+    (``"<kernel>/<instantiation>"``)."""
+    from repro_torch.kernels import launch_counts
+
+    return launch_counts()
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
 
 
 def check_launches(label, kernels, want: dict, times: int = 1) -> dict:
-    """The launch counts since ``zero_launches``: each kernel exactly as the
+    """Launch counts by kernel (``kernels``: the wrappers, read since
+    ``zero_launches``, or a name -> count dict): each kernel exactly as the
     shapes imply, ``times`` forwards, and any other kernel never."""
-    launches = {name: w.launches for name, w in kernels.items()}
+    launches = {name: getattr(w, "launches", w) for name, w in kernels.items()}
     for name, count in launches.items():
         if count != want.get(name, 0) * times:
             raise AssertionError(f"{label}: {name}: {count} launches, the shapes imply "
                                  f"{want.get(name, 0) * times}")
     return {name: launches[name] for name in want}
+
+
+def check_instantiations(label, counts: dict, want: dict) -> dict:
+    """Launch counts by instantiation (flat), exactly ``want``."""
+    if nonzero(counts) != nonzero(want):
+        raise AssertionError(f"{label}: launches by instantiation {nonzero(counts)}, the "
+                             f"shapes imply {nonzero(want)}")
+    return nonzero(counts)
 
 
 def launches_per_forward(cfg, per_call: bool = False) -> dict:
@@ -1193,6 +1268,44 @@ def forward_launches(cfg, attn_impl: str, per_call: bool = False) -> dict:
     return want
 
 
+def by_instantiation(per_kernel: dict, rows: int, s: int, times: int = 1) -> dict:
+    """``times`` forwards' launches by instantiation (flat), from their count
+    by kernel: every dot of a forward runs over ``rows`` token rows, on the
+    narrow loop up to ``NARROW_MAX_M`` rows and on the int8 tensor cores
+    (wgmma) above (``int_dot.plan``); the GQA cache attention of ``s`` query
+    rows a sequence on its tensor cores from ``TC_MIN_S`` rows and on split
+    keys below (``gqa_plan``); every other kernel has one instantiation."""
+    from repro_torch.kernels.decode_attention.ops import TC_MIN_S
+    from repro_torch.kernels.int_dot import NARROW_MAX_M
+
+    dot = "narrow" if rows <= NARROW_MAX_M else "wgmma"
+    inst = {"fused_dot_af": dot, "cordic_mac": dot, "mla_decode_attention": "tc",
+            "gqa_decode_attention": "tc" if s >= TC_MIN_S else "split",
+            "af_elementwise": "elementwise", "af_softmax": "cluster", "flash_attention": "tc",
+            "mla_flash_attention": "tc"}
+    return {f"{k}/{inst[k]}": n * times for k, n in per_kernel.items()}
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def serving_instantiations(cfg, server, reqs, per_call: bool = False) -> dict:
+    """Launches by instantiation that serving ``reqs`` implies: one forward
+    per request over its prompt's bucket, and the run's decode steps over
+    the server's slots, one query row each."""
+    from repro_torch.serve.kvcache import bucket_length
+
+    per_forward = launches_per_forward(cfg, per_call)
+    want = by_instantiation(per_forward, server.slots, 1, server.decode_steps)
+    for r in reqs:
+        b = bucket_length(len(r.prompt), server.max_len)
+        add_counts(want, by_instantiation(per_forward, b, b))
+    return want
+
+
 def plain_products_per_forward(cfg) -> int:
     """Products the reference leaves to XLA outside any kernel, which the port
     leaves to torch.einsum: MLA's wk_b/wv_b absorptions, the MoE router and
@@ -1202,9 +1315,138 @@ def plain_products_per_forward(cfg) -> int:
     return 2 * cfg.num_layers * bool(cfg.mla) + 4 * (cfg.num_layers - cfg.moe.first_dense_layers)
 
 
+def replayed_launches(runner) -> dict:
+    """Launches by instantiation that a run's replays made on the device:
+    each graph's launches counted at its capture, times its replays in the
+    run."""
+    out = {}
+    for name, replays in runner.replays.items():
+        add_counts(out, {k: v * replays for k, v in runner.captured_launches[name].items()})
+    return out
+
+
+def graph_accounting(label, server, cfg, reqs, per_call: bool = False,
+                     captured_before=frozenset()) -> tuple:
+    """The launch counts of a captured run of ``reqs``, exact, from the
+    wrappers. A wrapper counts a launch when the host issues it: in a graph's
+    warm-up and at its capture, never at a replay. So:
+
+    * each graph captured in this run (not in ``captured_before``) issued,
+      at its capture and again in its warm-up, exactly the launches by
+      instantiation that its forwards imply (a prefill bucket ``b``: one
+      forward over ``b`` rows; a burst: ``burst`` forwards over the slots);
+    * the wrappers' counts since ``zero_launches`` are exactly the sum of
+      those warm-ups and captures (nothing else was issued from the host);
+    * the launches the replays made on the device, each graph's captured
+      launches times its replays, are exactly what serving ``reqs``
+      implies, by instantiation;
+    * every prefill and every burst was one replay and one transfer.
+
+    Returns ``(launches by kernel, replayed launches by instantiation)``."""
+    from repro_torch.kernels import kernel_totals
+
+    runner = server.programs
+    per_forward = launches_per_forward(cfg, per_call)
+    issued = {}
+    for name, captured in runner.captured_launches.items():
+        if name in captured_before:
+            continue
+        if name.startswith("burst"):
+            want = by_instantiation(per_forward, server.slots, 1, server.burst)
+        else:
+            b = int(name.split()[-1])
+            want = by_instantiation(per_forward, b, b)
+        check_instantiations(f"{label}: graph {name!r} at capture", captured, want)
+        check_instantiations(f"{label}: graph {name!r} warm-up", runner.warmup_launches[name],
+                             want)
+        add_counts(issued, {k: 2 * v for k, v in captured.items()})
+    check_instantiations(f"{label}: issued from the host (warm-ups and captures)",
+                         wrapper_counts(), issued)
+    replayed = replayed_launches(runner)
+    forwards = server.prefill_calls + server.decode_steps
+    launches = check_launches(f"{label}: replayed", kernel_totals(replayed), per_forward,
+                              times=forwards)
+    check_instantiations(f"{label}: replayed", replayed,
+                         serving_instantiations(cfg, server, reqs, per_call))
+    rounds = server.prefill_calls + server.decode_steps // server.burst
+    if not server.graph_replays == server.host_transfers == rounds:
+        raise AssertionError(f"{label}: {server.graph_replays} graph replays, "
+                             f"{server.host_transfers} transfers, {rounds} prefills and bursts")
+    return launches, replayed
+
+
+def uncaptured_accounting(label, server, cfg, reqs, per_call: bool = False) -> dict:
+    """The launch counts of an uncaptured run (every launch issued from the
+    host), by kernel and by instantiation, exactly as serving ``reqs``
+    implies; no graph replayed."""
+    from repro_torch.kernels import kernel_totals
+
+    counts = wrapper_counts()
+    launches = check_launches(label, kernel_totals(counts), launches_per_forward(cfg, per_call),
+                              times=server.prefill_calls + server.decode_steps)
+    check_instantiations(label, counts, serving_instantiations(cfg, server, reqs, per_call))
+    if server.graph_replays:
+        raise AssertionError(f"{label}: {server.graph_replays} graph replays uncaptured")
+    return launches
+
+
+def latency(server) -> dict:
+    """Time to first token and inter-token latency of the last run, ms, from
+    each request's emissions (every request arrives at run entry): a burst
+    that lands n tokens dt after the request's previous emission gives each
+    of them dt / n, as the reference's observer counts it."""
+    import numpy as np
+
+    ttft = [em[0][0] * 1e3 for em in server.emissions.values()]
+    itl = [(t1 - t0) / n * 1e3 for em in server.emissions.values()
+           for (t0, _), (t1, n) in zip(em, em[1:]) for _ in range(n)]
+    return dict(ttft_ms_mean=float(np.mean(ttft)), ttft_ms_p50=float(np.median(ttft)),
+                ttft_ms_max=float(np.max(ttft)), intertoken_ms_mean=float(np.mean(itl)),
+                intertoken_ms_p50=float(np.median(itl)),
+                intertoken_ms_p90=float(np.percentile(itl, 90)))
+
+
+def timed_run(server, reqs):
+    """``server.run(reqs)`` with its wall time, tokens/s and latencies."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = server.run(reqs)
+    wall = time.perf_counter() - t0
+    tokens = sum(len(v) for v in out.values())
+    return out, dict(wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+                     prefill_s=server.prefill_seconds, decode_s=server.decode_seconds,
+                     decode_ms_per_step=server.decode_seconds / max(server.decode_steps, 1) * 1e3,
+                     graph_replays=server.graph_replays, host_transfers=server.host_transfers,
+                     **latency(server))
+
+
+def runtime_launches(prof) -> dict:
+    """Host calls that launch device work in a profile, by CUDA API entry
+    point (``cudaLaunchKernel``, ``cudaGraphLaunch``, ...): reported, not
+    gated."""
+    out = {}
+    for e in prof.key_averages():
+        if "Launch" in e.key and e.key.startswith(("cuda", "cu")):
+            out[e.key] = out.get(e.key, 0) + e.count
+    return out
+
+
+def graphs_report(runner) -> dict:
+    return {name: dict(captured_launches=runner.captured_launches[name],
+                       replays=runner.replays.get(name, 0),
+                       capture_s=runner.capture_seconds[name]) for name in runner.graphs}
+
+
 def serve_full_width(device, label, cfg, prepared_run=None, policy=None):
-    """Serve ``cfg`` at full width on the card: the main path with launch
-    counts, a profiled repeat, and a burst=1 run on the same weights.
+    """Serve ``cfg`` at full width on the card: the main path (every prefill
+    bucket and burst one captured CUDA graph) with exact launch accounting, a
+    steady repeat (every graph already captured: tokens/s, TTFT, inter-token
+    latency; no launch issued from the host), a profiled repeat, the
+    uncaptured yardstick at burst 8 and a captured ``burst=1`` run on the same
+    weights. Streams and f32 top-2 margins must be identical, bit for bit,
+    across all of them.
 
     With ``prepared_run`` (the ``(streams, margins)`` that a prepared run of
     the same weights returned) the server runs per call, and every stream
@@ -1212,10 +1454,10 @@ def serve_full_width(device, label, cfg, prepared_run=None, policy=None):
     (default: accurate FxP8) is the policy the weights are prepared under.
     Returns ``(report, streams, margins, server weights)``."""
     import torch
-
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import get_model
+    from repro_torch.serve.capture import pool_bytes
     from repro_torch.serve.engine import BatchedServer
 
     per_call = prepared_run is not None
@@ -1224,8 +1466,12 @@ def serve_full_width(device, label, cfg, prepared_run=None, policy=None):
     torch.cuda.reset_peak_memory_stats()
     params = model.init(torch.Generator(device=device).manual_seed(SEED))
     ctx = kernel_ctx(policy=policy)
+    make = lambda burst, capture=True: BatchedServer(  # noqa: E731
+        model, ctx, weights, slots=SLOTS, max_len=MAX_LEN, burst=burst, device=device,
+        prepare_weights=not per_call, capture=capture)
     server = BatchedServer(model, ctx, params, slots=SLOTS, max_len=MAX_LEN,
                            burst=BURST, device=device, prepare_weights=not per_call)
+    weights = server.params
     del params  # prepared: the raw banks the prepared tree replaced
     torch.cuda.synchronize()
     setup_peak = torch.cuda.max_memory_allocated()
@@ -1235,27 +1481,20 @@ def serve_full_width(device, label, cfg, prepared_run=None, policy=None):
     # the main path: counts zeroed just before, read just after; a kernel of
     # the path must launch exactly as the shapes imply (so at least once), any
     # other kernel never
-    kernels = zero_launches()
-    t0 = time.perf_counter()
+    zero_launches()
     first_reqs = requests(cfg)
-    first = server.run(first_reqs)
-    wall = time.perf_counter() - t0
-    forwards = server.prefill_calls + server.decode_steps
-    launches = check_launches(label, kernels, per_forward, times=forwards)
-    tokens = sum(len(v) for v in first.values())
+    first, first_run = timed_run(server, first_reqs)
+    launches, _ = graph_accounting(label, server, cfg, first_reqs, per_call)
+    runner = server.programs
     report = dict(
         config=f"{label} full width, {cfg.num_layers} layers, dtype float32, kernel mode "
                f"({'per-call' if per_call else 'prepared'} weights), FxP8 "
-               f"{'calibrated' if policy else 'accurate'}, attn_impl=decode_kernel",
+               f"{'calibrated' if policy else 'accurate'}, attn_impl=decode_kernel, greedy",
         slots=SLOTS, max_len=MAX_LEN, burst=BURST, prompt_lens=list(PROMPT_LENS),
-        max_new=MAX_NEW, tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
-        prefill_s=server.prefill_seconds, decode_s=server.decode_seconds,
-        prefill_calls=server.prefill_calls, decode_steps=server.decode_steps,
-        decode_ms_per_step=server.decode_seconds / max(server.decode_steps, 1) * 1e3,
-        host_transfers=server.host_transfers,
+        max_new=MAX_NEW, prefill_calls=server.prefill_calls, decode_steps=server.decode_steps,
+        first_run=first_run,  # graphs captured at first use, inside this run
         start_mem_gib=start_mem / 2**30,
         setup_peak_mem_gib=setup_peak / 2**30,
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         launches=launches,
         launches_per_forward=per_forward,
     )
@@ -1265,17 +1504,34 @@ def serve_full_width(device, label, cfg, prepared_run=None, policy=None):
     if per_call and (first != prepared_run[0] or margins(first_reqs) != prepared_run[1]):
         raise AssertionError(f"{label}: per-call greedy streams or their top-2 logit margins "
                              "differ from the prepared run's")
+    # steady state: the same requests again, every graph already captured, so
+    # no launch is issued from the host
+    captured = frozenset(runner.graphs)
+    zero_launches()
+    steady_reqs = requests(cfg)
+    steady, report["steady_run"] = timed_run(server, steady_reqs)
+    graph_accounting(f"{label} steady", server, cfg, steady_reqs, per_call, captured)
+    report.update(tokens_per_s=report["steady_run"]["tokens_per_s"],
+                  decode_ms_per_step=report["steady_run"]["decode_ms_per_step"],
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if steady != first or margins(steady_reqs) != margins(first_reqs):
+        raise AssertionError(f"{label}: full-width greedy streams or their top-2 logit "
+                             "margins differ between two runs")
     # what ran on the card, under the profiler: prepared, a repeat of the
-    # whole run; per call (~8,000 launches a forward), every request for 9
+    # whole run; per call (~12,000 launches a forward), every request for 9
     # tokens (a prefill in each of the run's buckets, then decode bursts),
     # which must repeat their streams' heads
     head = 9 if per_call else MAX_NEW
     again_reqs = requests(cfg, max_new=head)
+    zero_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         again = server.run(again_reqs)
         torch.cuda.synchronize()
         profiled_wall = time.perf_counter() - t0
+    if set(runner.graphs) != captured:
+        raise AssertionError(f"{label}: the profiled repeat captured {set(runner.graphs)}")
+    _, ran = graph_accounting(f"{label} profiled", server, cfg, again_reqs, per_call, captured)
     profiled_forwards = server.prefill_calls + server.decode_steps
     if again != {rid: toks[:head] for rid, toks in first.items()} \
             or margins(again_reqs) != [m[:head] for m in margins(first_reqs)]:
@@ -1292,45 +1548,61 @@ def serve_full_width(device, label, cfg, prepared_run=None, policy=None):
     if gemm_calls > allowed:
         raise AssertionError(f"{label}: {gemm_calls} library matmul launches, the plain "
                              f"products allow {allowed}: {gemm}")
-    # by kernel name: GQA, every prefill bucket of 16 rows or more on the
-    # tensor cores and the rest on split keys; MLA, every prefill and decode
-    # step on the tensor-core loop
-    from repro_torch.kernels.decode_attention.ops import TC_MIN_S
-    from repro_torch.serve.kvcache import bucket_length
-
-    buckets = [bucket_length(len(r.prompt), MAX_LEN) for r in again_reqs]
-    if cfg.mla is None:
-        tc = sum(b >= TC_MIN_S for b in buckets)
-        want_calls = {"gqa_decode_tc_kernel": tc * cfg.num_layers,
-                      "gqa_decode_split_kernel": (server.decode_steps + len(buckets) - tc)
-                      * cfg.num_layers}
-    else:
-        want_calls = {"mla_decode_tc_kernel": (server.decode_steps + len(buckets))
-                      * cfg.num_layers}
-    attention_calls = attention_launches(label, rows, want_calls)
+    # by instantiation, from the wrappers' counts of the replayed graphs: GQA,
+    # every prefill bucket of 16 rows or more on the tensor cores and the rest
+    # on split keys; MLA, every prefill and decode step on the tensor-core loop
+    attention_calls = attention_launches(label, ran, serving_instantiations(
+        cfg, server, again_reqs, per_call))
+    seen = profile_names(f"{label} profiled repeat", rows, ran)
     busy_ms = sum(r[0] for r in rows) / 1e3
+    rounds = server.graph_replays
+    host = runtime_launches(prof)
     report["profiled_repeat"] = dict(
-        requests=len(again_reqs), forwards=profiled_forwards,
-        attention_launches_by_kernel=attention_calls,
+        requests=len(again_reqs), forwards=profiled_forwards, graph_replays=rounds,
+        attention_launches_by_instantiation=attention_calls,
+        port_launches_replayed=nonzero(ran), profile_calls_by_instantiation=seen,
         wall_ms=profiled_wall * 1e3, device_busy_ms=busy_ms,
         device_busy_share=busy_ms / (profiled_wall * 1e3),
         device_launches_per_forward=sum(r[2] for r in rows) / profiled_forwards,
+        runtime_launch_calls=host,
+        runtime_launch_calls_per_round=sum(host.values()) / max(rounds, 1),
         library_matmul_launches_per_forward=gemm_calls / profiled_forwards,
         library_matmul_launches_allowed_per_forward=allowed / profiled_forwards,
         library_kernels=[dict(name=k[:100], calls=n) for k, n in gemm],
         port_kernels=port_kernel_ms(rows),
         top_kernels=[dict(name=k[:100], device_ms=us / 1e3, calls=n)
                      for us, k, n in rows[:12]])
+    report["graphs"] = graphs_report(runner)
+    report["graph_pool_gib"] = pool_bytes(runner.pool) / 2**30
     if per_call:
-        report["weight_rounding"] = weight_rounding_ms(server.params, cfg)
-    # burst=1 on the same weights
+        report["weight_rounding"] = weight_rounding_ms(weights, cfg)
+    del server, runner
+    free_card()
+    # the uncaptured yardstick, burst 8, the same weights: every launch issued
+    # from the host by the same programs
+    eager = make(BURST, capture=False)
+    zero_launches()
+    eager_reqs = requests(cfg)
+    eager_out, report["uncaptured_run"] = timed_run(eager, eager_reqs)
+    uncaptured_accounting(f"{label} uncaptured", eager, cfg, eager_reqs, per_call)
+    del eager
+    free_card()
+    if eager_out != first or margins(eager_reqs) != margins(first_reqs):
+        raise AssertionError(f"{label}: captured greedy streams or their top-2 logit margins "
+                             "differ from the uncaptured run's")
+    # burst=1 on the same weights, captured
+    one_server = make(1)
+    zero_launches()
     one_reqs = requests(cfg)
-    one = BatchedServer(model, ctx, server.params, slots=SLOTS, max_len=MAX_LEN,
-                        burst=1, device=device, prepare_weights=not per_call).run(one_reqs)
+    one = one_server.run(one_reqs)
+    graph_accounting(f"{label} burst 1", one_server, cfg, one_reqs, per_call)
+    del one_server
+    free_card()
     if one != first or margins(one_reqs) != margins(first_reqs):
         raise AssertionError(f"{label}: full-width greedy streams or their top-2 logit "
                              "margins differ between burst=8 and burst=1")
-    report["repeat_identical"] = True  # tokens (and prepared: f32 margins), bit for bit
+    report["repeat_identical"] = True  # tokens and f32 margins, bit for bit
+    report["uncaptured_identical"] = True
     report["burst1_identical"] = True
     if per_call:
         report["prepared_identical"] = True  # tokens and f32 margins, bit for bit
@@ -1339,8 +1611,174 @@ def serve_full_width(device, label, cfg, prepared_run=None, policy=None):
     report["margins_head"] = {r.rid: r.margins[:4] for r in first_reqs}
     if policy is not None:  # the execution points the prepared banks carry
         report["point_depths"] = sorted({
-            int(d) for w in iter_prepared(server.params) for d in w.point[..., 0].unique()})
-    return report, first, margins(first_reqs), server.params
+            int(d) for w in iter_prepared(weights) for d in w.point[..., 0].unique()})
+    log(f"{label}: {report['tokens_per_s']:.2f} tok/s captured (uncaptured "
+        f"{report['uncaptured_run']['tokens_per_s']:.2f}), busy "
+        f"{report['profiled_repeat']['device_busy_share']:.3f}, graphs "
+        f"{ {k: round(v['capture_s'], 2) for k, v in report['graphs'].items()} }, pool "
+        f"{report['graph_pool_gib']:.2f} GiB")
+    return report, first, margins(first_reqs), weights
+
+
+TEMPERATURE, SEED_BASE = 1.3, 40
+
+
+def sampled_requests(cfg, rids=None):
+    """``requests(cfg)`` sampled at ``TEMPERATURE``, request i seeded ``SEED_BASE + i``."""
+    reqs = requests(cfg)
+    for r in reqs:
+        r.temperature, r.seed = TEMPERATURE, SEED_BASE + r.rid
+    return [r for r in reqs if rids is None or r.rid in rids]
+
+
+def serve_sampled(device, cfg, params, greedy):
+    """Full-width olmo-1b served sampled (``TEMPERATURE``) on the prepared
+    ``params``: the captured burst-8 run with exact launch accounting, the
+    uncaptured yardstick, a captured burst-1 run and request 0 served alone
+    (burst 4) must give identical streams (and, captured vs uncaptured, f32
+    margins bit for bit); the streams must differ from the ``greedy`` ones."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import get_model
+    from repro_torch.serve.capture import pool_bytes
+    from repro_torch.serve.engine import BatchedServer
+
+    model = get_model(cfg)
+    ctx = kernel_ctx()
+    make = lambda burst, capture=True: BatchedServer(  # noqa: E731
+        model, ctx, params, slots=SLOTS, max_len=MAX_LEN, burst=burst, device=device,
+        capture=capture)
+    label = "olmo-1b sampled"
+    server = make(BURST)
+    zero_launches()
+    reqs = sampled_requests(cfg)
+    first, first_run = timed_run(server, reqs)
+    launches, _ = graph_accounting(label, server, cfg, reqs)
+    runner = server.programs
+    captured = frozenset(runner.graphs)
+    zero_launches()
+    steady_reqs = sampled_requests(cfg)
+    steady, steady_run = timed_run(server, steady_reqs)
+    graph_accounting(f"{label} steady", server, cfg, steady_reqs, captured_before=captured)
+    zero_launches()
+    prof_reqs = sampled_requests(cfg)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.run(prof_reqs)
+        torch.cuda.synchronize()
+        profiled_wall = time.perf_counter() - t0
+    _, ran = graph_accounting(f"{label} profiled", server, cfg, prof_reqs,
+                              captured_before=captured)
+    rows = kernel_breakdown(prof)
+    seen = profile_names(f"{label} profiled repeat", rows, ran)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    host = runtime_launches(prof)
+    graphs, pool = graphs_report(runner), pool_bytes(runner.pool) / 2**30
+    del server, runner
+    free_card()
+    eager = make(BURST, capture=False)
+    zero_launches()
+    eager_reqs = sampled_requests(cfg)
+    eager_out, eager_run = timed_run(eager, eager_reqs)
+    uncaptured_accounting(f"{label} uncaptured", eager, cfg, eager_reqs)
+    del eager
+    one_server = make(1)
+    zero_launches()
+    one_reqs = sampled_requests(cfg)
+    one = one_server.run(one_reqs)
+    graph_accounting(f"{label} burst 1", one_server, cfg, one_reqs)
+    del one_server
+    alone = make(4).run(sampled_requests(cfg, rids={0}))
+    free_card()
+    checks = {"repeat": steady == first and margins(steady_reqs) == margins(reqs),
+              "uncaptured": eager_out == first and margins(eager_reqs) == margins(reqs),
+              "burst1": one == first and margins(one_reqs) == margins(reqs),
+              "alone": alone[0] == first[0], "differs_from_greedy": first != greedy}
+    if not all(checks.values()):
+        raise AssertionError(f"{label}: {checks}")
+    if any(len(v) != MAX_NEW for v in first.values()):
+        raise AssertionError(f"{label}: stream lengths {[len(v) for v in first.values()]}")
+    log(f"{label}: {steady_run['tokens_per_s']:.2f} tok/s captured, uncaptured "
+        f"{eager_run['tokens_per_s']:.2f}, busy {busy_ms / (profiled_wall * 1e3):.3f}")
+    return dict(
+        config=f"olmo-1b full width, {cfg.num_layers} layers, prepared, temperature "
+               f"{TEMPERATURE}, request i seeded {SEED_BASE} + i",
+        launches=launches, first_run=first_run, steady_run=steady_run, uncaptured_run=eager_run,
+        tokens_per_s=steady_run["tokens_per_s"], graphs=graphs, graph_pool_gib=pool,
+        profiled_repeat=dict(wall_ms=profiled_wall * 1e3, device_busy_ms=busy_ms,
+                             device_busy_share=busy_ms / (profiled_wall * 1e3),
+                             port_launches_replayed=nonzero(ran),
+                             profile_calls_by_instantiation=seen,
+                             runtime_launch_calls=host,
+                             top_kernels=[dict(name=k[:100], device_ms=us / 1e3, calls=n)
+                                          for us, k, n in rows[:12]]),
+        identical=checks, distinct_tokens=len({t for v in first.values() for t in v}),
+        streams_head={rid: toks[:8] for rid, toks in first.items()})
+
+
+# the replay-order gate: reduced olmo-1b, prompts in six buckets, greedy and
+# sampled requests (the first two greedy, so that the first order captures
+# the greedy and the sampled burst), budgets that free slots at different
+# bursts; each order is a permutation of the request list
+ORDER_PROMPTS = (3, 17, 60, 9, 130, 33)
+ORDER_MAX_NEW = (8, 5, 11, 6, 9, 7)
+ORDER_TEMPS = (0.0, 0.0, TEMPERATURE, TEMPERATURE, 0.0, TEMPERATURE)
+ORDERS = ((0, 1, 2, 3, 4, 5), (5, 4, 3, 2, 1, 0), (3, 0, 5, 2, 4, 1))
+
+
+def order_requests(cfg, order):
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in ORDER_PROMPTS]
+    return [Request(i, prompts[i], ORDER_MAX_NEW[i], temperature=ORDER_TEMPS[i],
+                    seed=SEED_BASE + i) for i in order]
+
+
+def replay_order(device):
+    """One captured server on reduced olmo-1b captures its graphs (every
+    bucket, the greedy and the sampled burst) while serving the requests in
+    one order, then serves them again in two other orders, so that the
+    graphs that share one pool replay in orders other than their capture
+    order; no graph is captured after the first order. Each order's streams
+    and f32 margins must be bitwise those of an uncaptured server given the
+    same order."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+    from repro_torch.serve.capture import pool_bytes
+    from repro_torch.serve.engine import BatchedServer
+
+    cfg = reduced(get_config("olmo-1b"))
+    model = get_model(cfg)
+    params = scaled_init(model)
+    make = lambda capture: BatchedServer(model, kernel_ctx(), params, slots=2,  # noqa: E731
+                                         max_len=256, burst=4, device=device, capture=capture)
+    server, eager = make(True), make(False)
+    results = []
+    for i, order in enumerate(ORDERS):
+        before = frozenset(server.programs.graphs)
+        zero_launches()
+        reqs = order_requests(cfg, order)
+        got = server.run(reqs)
+        graph_accounting(f"replay order {order}", server, cfg, reqs, captured_before=before)
+        if i and set(server.programs.graphs) != before:
+            raise AssertionError(f"replay order {order}: captured "
+                                 f"{set(server.programs.graphs) - before} after the first order")
+        eager_reqs = order_requests(cfg, order)
+        want = eager.run(eager_reqs)
+        if got != want or margins(reqs) != margins(eager_reqs):
+            raise AssertionError(f"replay order {order}: captured streams or margins differ "
+                                 "from the uncaptured run's")
+        results.append(dict(order=list(order), replays=dict(server.programs.replays),
+                            identical=True))
+    return dict(config="olmo-1b reduced, 2 layers, prepared, slots 2, burst 4, max_len 256",
+                prompt_lens=list(ORDER_PROMPTS), max_new=list(ORDER_MAX_NEW),
+                temperatures=list(ORDER_TEMPS), graphs=sorted(server.programs.graphs),
+                capture_order=list(server.programs.capture_seconds),
+                graph_pool_gib=pool_bytes(server.programs.pool) / 2**30, orders=results)
 
 
 def iter_prepared(tree):
@@ -1417,15 +1855,20 @@ def forward_phase(device, label, cfg, params, batch):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = check_launches(f"{label} forward ({impl})", kernels, want)
+        rows_per_dot = batch[0] * batch[1]
+        check_instantiations(f"{label} forward ({impl})", wrapper_counts(),
+                             by_instantiation(want, rows_per_dot, batch[1]))
         if tuple(lg.shape) != (*batch, cfg.vocab_size) or not torch.isfinite(lg).all():
             raise AssertionError(f"{label} forward ({impl}): logits {tuple(lg.shape)}, "
                                  f"finite {bool(torch.isfinite(lg).all())}")
+        zero_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             with torch.no_grad():
                 again, _ = model.forward(params, {"tokens": tokens}, ctx)
             torch.cuda.synchronize()
             profiled_wall = time.perf_counter() - t0
+        ran = wrapper_counts()
         if not torch.equal(again, lg):
             raise AssertionError(f"{label} forward ({impl}): logits differ between two runs")
         rows = kernel_breakdown(prof)
@@ -1439,18 +1882,23 @@ def forward_phase(device, label, cfg, params, batch):
         if impl == "flash" and gemm_calls > allowed:
             raise AssertionError(f"{label} forward: {gemm_calls} library matmul launches, the "
                                  f"plain products allow {allowed}: {gemm}")
-        fused_calls = tensor_core_launches(f"{label} forward ({impl})", rows, "fused_dot_af")
-        # every flash (MLA flash) launch on the tensor-core kernel, by name
+        # by instantiation, from the wrappers: every fused launch (M = B x S >
+        # 16) on the int8 tensor cores, every flash (MLA flash) launch on the
+        # tensor-core kernel; the profile shows those kernels and no other
+        fused_calls = tensor_core_launches(f"{label} forward ({impl})", ran, "fused_dot_af",
+                                           want["fused_dot_af"])
         attention_calls = attention_launches(
-            f"{label} forward ({impl})", rows,
-            {"mla_flash_tc_kernel" if cfg.mla else "flash_attention_tc_kernel":
+            f"{label} forward ({impl})", ran,
+            {"mla_flash_attention/tc" if cfg.mla else "flash_attention/tc":
              cfg.num_layers if impl == "flash" else 0})
+        seen = profile_names(f"{label} forward ({impl})", rows, ran)
         busy_ms = sum(r[0] for r in rows) / 1e3
         runs[impl] = dict(
             wall_s=wall, launches=launches, lb_loss=float(aux["lb_loss"]),
             fused_launches_by_instantiation=fused_calls,
-            attention_launches_by_kernel=attention_calls,
+            attention_launches_by_instantiation=attention_calls,
             profiled_repeat=dict(
+                profile_calls_by_instantiation=seen,
                 wall_ms=profiled_wall * 1e3, device_busy_ms=busy_ms,
                 device_busy_share=busy_ms / (profiled_wall * 1e3),
                 device_launches=sum(r[2] for r in rows),
@@ -1501,22 +1949,29 @@ def calibrate_full_width(device):
     forwards = len(sens) + 1  # one at full depth, one per demoted group
     want = forward_launches(cfg, "flash", per_call=True)
     launches = check_launches("calibration scan", kernels, want, times=forwards)
+    check_instantiations("calibration scan", wrapper_counts(),
+                         by_instantiation(want, batch[0] * batch[1], batch[1], forwards))
     if len(sens) != 8 or not all(math.isfinite(v) and v > 0 for v in sens.values()):
         raise AssertionError(f"calibration scan: sensitivities {sens}")
     policy = assign_depths(sens, fmt=FXP8, cycle_reduction_target=CYCLE_REDUCTION)
     log(f"calibration: {seconds:.2f} s for {forwards} forwards; {sens}")
     # one of the scan's per-call forwards again, profiled: every MAC launch
-    # (M = 1024) on the tensor cores
+    # (M = 1024) on the tensor cores, by the wrappers' counts; the profile
+    # shows those kernels and no other
     from torch.profiler import ProfilerActivity, profile
 
+    zero_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with torch.no_grad():
             model.forward(params, {"tokens": tokens}, kernel_ctx("flash"))
         torch.cuda.synchronize()
+    ran = wrapper_counts()
     rows = kernel_breakdown(prof)
-    mac_calls = tensor_core_launches("calibration forward", rows, "mac_matmul")
-    flash_calls = attention_launches("calibration forward", rows,
-                                     {"flash_attention_tc_kernel": cfg.num_layers})
+    mac_calls = tensor_core_launches("calibration forward", ran, "cordic_mac",
+                                     want["cordic_mac"])
+    flash_calls = attention_launches("calibration forward", ran,
+                                     {"flash_attention/tc": cfg.num_layers})
+    seen = profile_names("calibration forward", rows, ran)
     return dict(
         config="olmo-1b full width, 16 layers, dtype float32, kernel mode per call (raw "
                "weights), attn_impl=flash, calibration_scan",
@@ -1525,7 +1980,8 @@ def calibrate_full_width(device):
         cycle_reduction=CYCLE_REDUCTION, policy=policy.to_json(), launches=launches,
         launches_per_forward=want,
         profiled_forward=dict(mac_launches_by_instantiation=mac_calls,
-                              attention_launches_by_kernel=flash_calls,
+                              attention_launches_by_instantiation=flash_calls,
+                              profile_calls_by_instantiation=seen,
                               port_kernels=port_kernel_ms(rows))), policy
 
 
@@ -1703,6 +2159,23 @@ def free_card():
     torch.cuda.empty_cache()
 
 
+def phase(name: str, fn, *args, **kw):
+    """Run one phase of ``main``: ``fn(*args, **kw)``. On an exception it
+    prints one stdout line ``{"failed_phase": name, "error": "<type>:
+    <first 300 characters>"}`` and the traceback on stderr, and re-raises,
+    so the run stops there with a non-zero exit code."""
+    t0 = time.perf_counter()
+    log(f"phase {name}")
+    try:
+        out = fn(*args, **kw)
+    except BaseException as e:
+        emit({"failed_phase": name, "error": f"{type(e).__name__}: {str(e)[:300]}"})
+        traceback.print_exc(file=sys.stderr)
+        raise
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1717,8 +2190,8 @@ def main() -> int:
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = nvidia_smi()
-    _build.build_all()
+    smi = phase("device", nvidia_smi)
+    phase("build", _build.build_all)
     device_line = dict(
         kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda,
@@ -1727,16 +2200,16 @@ def main() -> int:
     )
     emit({"device": device_line})
 
-    fused_rows, fused_err = check_fused(device)
-    plan_rows = plan_alternatives(device)
-    attn_rows, attn_err = check_attention(device)
-    gqa_plan_rows = gqa_path_alternatives(device)
-    mla_rows, mla_err = check_mla(device)
-    af_rows = check_af(device)
-    mac_rows = check_mac(device)
-    softmax_rows = check_softmax(device)
-    flash_rows, flash_err = check_flash(device)
-    mla_flash_rows, mla_flash_err = check_mla_flash(device)
+    fused_rows, fused_err = phase("check_fused", check_fused, device)
+    plan_rows = phase("plan_alternatives", plan_alternatives, device)
+    attn_rows, attn_err = phase("check_attention", check_attention, device)
+    gqa_plan_rows = phase("gqa_path_alternatives", gqa_path_alternatives, device)
+    mla_rows, mla_err = phase("check_mla", check_mla, device)
+    af_rows = phase("check_af", check_af, device)
+    mac_rows = phase("check_mac", check_mac, device)
+    softmax_rows = phase("check_softmax", check_softmax, device)
+    flash_rows, flash_err = phase("check_flash", check_flash, device)
+    mla_flash_rows, mla_flash_err = phase("check_mla_flash", check_mla_flash, device)
     checks = {"fused_dot_af": fused_rows, "plan_alternatives": plan_rows, "cordic_mac": mac_rows,
               "gqa_decode_attention": attn_rows, "gqa_path_alternatives": gqa_plan_rows,
               "mla_decode_attention": mla_rows,
@@ -1744,52 +2217,66 @@ def main() -> int:
               "flash_attention": flash_rows, "mla_flash_attention": mla_flash_rows}
     emit({"kernel_checks": checks})
     free_card()
-    paths = {"softmax activate": softmax_path(device)}
+    paths = {"softmax activate": phase("softmax_path", softmax_path, device)}
     emit({"softmax_path": paths["softmax activate"]})
 
     serving, forward, parity = {}, {}, {}
-    serving["olmo-1b"], streams, olmo_margins, weights = serve_full_width(device, "olmo-1b",
-                                                                          olmo())
+    serving["olmo-1b"], streams, olmo_margins, weights = phase(
+        "serve olmo-1b", serve_full_width, device, "olmo-1b", olmo())
     emit({"serving": serving["olmo-1b"]})
-    forward["olmo-1b"] = forward_phase(device, "olmo-1b", olmo(), weights, (2, BUCKET))
+    forward["olmo-1b"] = phase("forward olmo-1b", forward_phase, device, "olmo-1b", olmo(),
+                               weights, (2, BUCKET))
     emit({"forward": forward["olmo-1b"]})
+    serving["olmo-1b sampled"] = phase("serve olmo-1b sampled", serve_sampled, device, olmo(),
+                                       weights, streams)
+    emit({"serving": serving["olmo-1b sampled"]})
     del weights
     free_card()
-    serving["olmo-1b per-call"], *_ = serve_full_width(device, "olmo-1b", olmo(),
-                                                       prepared_run=(streams, olmo_margins))
+    order = phase("replay order", replay_order, device)
+    emit({"replay_order": order})
+    free_card()
+    serving["olmo-1b per-call"], *_ = phase(
+        "serve olmo-1b per-call", serve_full_width, device, "olmo-1b", olmo(),
+        prepared_run=(streams, olmo_margins))
     emit({"serving": serving["olmo-1b per-call"]})
     free_card()
-    calibration, policy = calibrate_full_width(device)
+    calibration, policy = phase("calibrate olmo-1b", calibrate_full_width, device)
     emit({"calibration": calibration})
     free_card()
-    serving["olmo-1b calibrated"], *_ = serve_full_width(device, "olmo-1b calibrated", olmo(),
-                                                         policy=policy)
+    serving["olmo-1b calibrated"], *_ = phase(
+        "serve olmo-1b calibrated", serve_full_width, device, "olmo-1b calibrated", olmo(),
+        policy=policy)
     emit({"serving": serving["olmo-1b calibrated"]})
     free_card()
-    parity["olmo-1b"] = olmo_card_vs_cpu(device)
+    parity["olmo-1b"] = phase("olmo-1b card vs cpu", olmo_card_vs_cpu, device)
     emit({"card_vs_cpu": parity["olmo-1b"]})
-    parity["olmo-1b per-call"] = olmo_per_call_card_vs_cpu(device)
+    parity["olmo-1b per-call"] = phase("olmo-1b per-call card vs cpu",
+                                       olmo_per_call_card_vs_cpu, device)
     emit({"card_vs_cpu": parity["olmo-1b per-call"]})
     cfg = olmo(layers=2)
-    parity["olmo-1b forward"] = forward_card_vs_cpu(
-        device, "olmo-1b full width, 2 layers, forward", cfg,
+    parity["olmo-1b forward"] = phase(
+        "olmo-1b forward card vs cpu", forward_card_vs_cpu, device,
+        "olmo-1b full width, 2 layers, forward", cfg,
         get_model(cfg).init(torch.Generator(device="cpu").manual_seed(SEED)), (2, 70))
     emit({"card_vs_cpu": parity["olmo-1b forward"]})
     free_card()
-    serving["deepseek-v3-671b"], _, _, weights = serve_full_width(device, "deepseek-v3-671b",
-                                                                  deepseek())
+    serving["deepseek-v3-671b"], _, _, weights = phase(
+        "serve deepseek-v3-671b", serve_full_width, device, "deepseek-v3-671b", deepseek())
     emit({"serving": serving["deepseek-v3-671b"]})
+    free_card()
     # the serving weights: 63 GB of f32 are not built twice
-    forward["deepseek-v3-671b"] = forward_phase(device, "deepseek-v3-671b", deepseek(), weights,
-                                                (1, BUCKET))
+    forward["deepseek-v3-671b"] = phase("forward deepseek-v3-671b", forward_phase, device,
+                                        "deepseek-v3-671b", deepseek(), weights, (1, BUCKET))
     emit({"forward": forward["deepseek-v3-671b"]})
     del weights
     free_card()
-    parity["deepseek-v3-671b"] = deepseek_card_vs_cpu(device)
+    parity["deepseek-v3-671b"] = phase("deepseek-v3-671b card vs cpu", deepseek_card_vs_cpu,
+                                       device)
     emit({"card_vs_cpu": parity["deepseek-v3-671b"]})
     cfg = reduced(get_config("deepseek-v3-671b"), layers=4)
-    parity["deepseek-v3-671b forward"] = forward_card_vs_cpu(
-        device, "deepseek-v3-671b reduced, 4 layers, forward", cfg, scaled_init(get_model(cfg)),
+    parity["deepseek-v3-671b forward"] = phase(
+        "deepseek-v3-671b forward card vs cpu", forward_card_vs_cpu, device,
+        "deepseek-v3-671b reduced, 4 layers, forward", cfg, scaled_init(get_model(cfg)),
         (2, 70))
     emit({"card_vs_cpu": parity["deepseek-v3-671b forward"]})
     paths.update(serving)
@@ -1801,46 +2288,52 @@ def main() -> int:
                    if rep["launches"].get(name)}
         return sum(by_path.values()), by_path
 
-    rep_f = next(r for r in fused_rows if (r["M"], r["K"], r["N"], r["af"]) ==
-                 (SLOTS, 2048, 8192, "identity"))
-    rep_mac = next(r for r in mac_rows if (r["M"], r["K"], r["N"], r["case"]) ==
-                   (SLOTS, 2048, 8192, "fxp8"))
-    rep_af = next(r for r in af_rows if (r["where"], r["fmt"], r["mode"]) ==
-                  ("decode", "Q1.6", "swish"))
-    rep_sm = next(r for r in softmax_rows if (r["shape"], r["fmt"]) == ([SLOTS, 50304], "Q1.6"))
-    rep_fl, rep_mf = flash_rows[0], mla_flash_rows[0]  # the forward phases' shapes
-    kernels = []
-    for name, file, replaces, err, rep, lib in (
-            ("fused_dot_af", "cordic_fused/csrc/cordic_fused.cu", "cordic_fused/kernel.py:104",
-             fused_err, rep_f, None),
-            ("cordic_mac", "cordic_mac/csrc/cordic_mac.cu", "cordic_mac/kernel.py:36", 0.0,
-             rep_mac, None),
-            ("gqa_decode_attention", "decode_attention/csrc/decode_attention.cu",
-             "decode_attention/kernel.py:40", attn_err, attn_rows[0], attn_rows[0]["sdpa_ms"]),
-            ("mla_decode_attention", "decode_attention/csrc/mla_decode.cu",
-             "decode_attention/kernel.py:79", mla_err, mla_rows[0], mla_rows[0]["sdpa_ms"]),
-            ("af_elementwise", "cordic_af/csrc/cordic_af.cu", "cordic_af/kernel.py:40", 0.0,
-             rep_af, None),
-            ("af_softmax", "cordic_af/csrc/af_softmax.cu", "cordic_af/kernel.py:54", 0.0,
-             rep_sm, None),
-            ("flash_attention", "flash_attention/csrc/flash_attention.cu",
-             "flash_attention/kernel.py:34", flash_err, rep_fl, rep_fl["sdpa_ms"]),
-            ("mla_flash_attention", "mla_flash/csrc/mla_flash.cu", "mla_flash/kernel.py:36",
-             mla_flash_err, rep_mf, rep_mf["sdpa_ms"])):
-        total, by_path = launches(name)
-        if not total:
-            raise AssertionError(f"{name}: no launch on any driven path")
-        kernels.append(dict(name=name, route="cuda", source=f"src/repro_torch/kernels/{file}",
-                            replaces=f"src/repro/kernels/{replaces}", launches=total,
-                            launches_by_path=by_path, max_abs_err=err, ms=rep["ms"],
-                            plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
-                            bound_by=rep["bound_by"], library_ms=lib))
+    def kernel_rows():
+        """The ``kernels`` line's rows; every kernel must have launched on a
+        driven path."""
+        rep_f = next(r for r in fused_rows if (r["M"], r["K"], r["N"], r["af"]) ==
+                     (SLOTS, 2048, 8192, "identity"))
+        rep_mac = next(r for r in mac_rows if (r["M"], r["K"], r["N"], r["case"]) ==
+                       (SLOTS, 2048, 8192, "fxp8"))
+        rep_af = next(r for r in af_rows if (r["where"], r["fmt"], r["mode"]) ==
+                      ("decode", "Q1.6", "swish"))
+        rep_sm = next(r for r in softmax_rows if (r["shape"], r["fmt"]) == ([SLOTS, 50304], "Q1.6"))
+        rep_fl, rep_mf = flash_rows[0], mla_flash_rows[0]  # the forward phases' shapes
+        kernels = []
+        for name, file, replaces, err, rep, lib in (
+                ("fused_dot_af", "cordic_fused/csrc/cordic_fused.cu", "cordic_fused/kernel.py:104",
+                 fused_err, rep_f, None),
+                ("cordic_mac", "cordic_mac/csrc/cordic_mac.cu", "cordic_mac/kernel.py:36", 0.0,
+                 rep_mac, None),
+                ("gqa_decode_attention", "decode_attention/csrc/decode_attention.cu",
+                 "decode_attention/kernel.py:40", attn_err, attn_rows[0], attn_rows[0]["sdpa_ms"]),
+                ("mla_decode_attention", "decode_attention/csrc/mla_decode.cu",
+                 "decode_attention/kernel.py:79", mla_err, mla_rows[0], mla_rows[0]["sdpa_ms"]),
+                ("af_elementwise", "cordic_af/csrc/cordic_af.cu", "cordic_af/kernel.py:40", 0.0,
+                 rep_af, None),
+                ("af_softmax", "cordic_af/csrc/af_softmax.cu", "cordic_af/kernel.py:54", 0.0,
+                 rep_sm, None),
+                ("flash_attention", "flash_attention/csrc/flash_attention.cu",
+                 "flash_attention/kernel.py:34", flash_err, rep_fl, rep_fl["sdpa_ms"]),
+                ("mla_flash_attention", "mla_flash/csrc/mla_flash.cu", "mla_flash/kernel.py:36",
+                 mla_flash_err, rep_mf, rep_mf["sdpa_ms"])):
+            total, by_path = launches(name)
+            if not total:
+                raise AssertionError(f"{name}: no launch on any driven path")
+            kernels.append(dict(name=name, route="cuda", source=f"src/repro_torch/kernels/{file}",
+                                replaces=f"src/repro/kernels/{replaces}", launches=total,
+                                launches_by_path=by_path, max_abs_err=err, ms=rep["ms"],
+                                plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+                                bound_by=rep["bound_by"], library_ms=lib))
+        return kernels
+
+    kernels = phase("kernels line", kernel_rows)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=device_line, kernel_checks=checks, softmax_path=paths["softmax activate"],
-        serving=serving, forward=forward, calibration=calibration, card_vs_cpu=parity,
-        kernels=kernels), indent=1))
+        serving=serving, forward=forward, calibration=calibration, replay_order=order,
+        card_vs_cpu=parity, kernels=kernels), indent=1))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

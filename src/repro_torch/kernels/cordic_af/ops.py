@@ -31,7 +31,7 @@ import torch
 from repro_torch.core.activations import ELEMENTWISE_AFS, internal_fmt, softmax_shift
 from repro_torch.core.fxp import FXP8, FxPFormat
 
-from .. import _build
+from .. import _build, count_launch, new_counts
 from ..af_table import af_table_on
 from .ref import af_softmax_ref, multi_af_ref
 
@@ -176,7 +176,7 @@ def _launch(x, mode: str, depth: int, fmt: FxPFormat):
             flat.data_ptr(), out.data_ptr(), tab.data_ptr(), flat.numel(),
             af_index(mode), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "cordic_af_launch")
-    multi_af.launches += 1
+    count_launch(multi_af, "elementwise")
     return out.reshape(x.shape)
 
 
@@ -194,7 +194,7 @@ def _launch_softmax(x2, depth: int, fmt: FxPFormat):
             plan.threads, plan.smem_bytes, int(plan.path == "staged"),
             softmax_shift(n, internal_fmt(fmt).frac), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "af_softmax_launch")
-    af_softmax.launches += 1
+    count_launch(af_softmax, "cluster")
     return out
 
 
@@ -208,6 +208,7 @@ def af_softmax(x, *, depth: int, fmt: FxPFormat = FXP8) -> torch.Tensor:
 
 
 af_softmax.launches = 0
+af_softmax.instantiations = new_counts("af_softmax")
 
 
 def multi_af(x, mode: Union[str, int], *, depth: int, fmt: FxPFormat = FXP8) -> torch.Tensor:
@@ -227,3 +228,4 @@ def multi_af(x, mode: Union[str, int], *, depth: int, fmt: FxPFormat = FXP8) -> 
 
 
 multi_af.launches = 0
+multi_af.instantiations = new_counts("af_elementwise")

@@ -12,7 +12,8 @@ int32 CUDA-core loop. See the source's header note.
 
 A CPU tensor runs the plain version (:func:`fused_dot_af_ref`); a CUDA tensor
 launches the kernel or raises. ``fused_dot_af.launches`` counts calls that
-launch (one per call, the quantize pass of the prefill path included).
+launch (one per call, the quantize pass of the prefill path included), and
+``fused_dot_af.instantiations`` the same calls by path.
 """
 from __future__ import annotations
 
@@ -25,9 +26,9 @@ from repro_torch.core import activations as afs
 from repro_torch.core.backends.kernel import POINT_LEN
 from repro_torch.core.fxp import FXP8, FxPFormat
 
-from .. import _build
+from .. import _build, count_launch, new_counts
 from ..af_table import af_table_on
-from ..int_dot import WGMMA, is_k_major, padded_k, plan, ptr, splitk_scratch
+from ..int_dot import PATH_NAMES, WGMMA, is_k_major, padded_k, plan, ptr, splitk_scratch
 from .ref import fused_dot_af_ref
 
 FUSED_AFS = ("identity",) + afs.ELEMENTWISE_AFS
@@ -75,7 +76,7 @@ def _launch(x2, w, point, mode: int, af_depth: int, af_fmt: FxPFormat, compute_r
             out.data_ptr(), ptr(ws), ptr(counts), m, n, k, mode, int(compute_round),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "cordic_fused_launch")
-    fused_dot_af.launches += 1
+    count_launch(fused_dot_af, PATH_NAMES[p.path])
     return out
 
 
@@ -102,3 +103,4 @@ def fused_dot_af(x, w, point, *, af_mode: str = "identity", af_depth: int = 8,
 
 
 fused_dot_af.launches = 0
+fused_dot_af.instantiations = new_counts("fused_dot_af")

@@ -21,7 +21,7 @@ ops, as the reference leaves them to XLA outside its Pallas kernel.
 
 ``mac_matmul`` on a CPU tensor runs the plain version (:func:`mac_matmul_ref`);
 on a CUDA tensor it launches the kernel or raises. ``mac_matmul.launches``
-counts launches.
+counts launches, ``mac_matmul.instantiations`` them by path.
 """
 from __future__ import annotations
 
@@ -34,8 +34,9 @@ import torch
 from repro_torch.core import cordic, fxp
 from repro_torch.core.fxp import FXP8, FXP8_UNIT, FxPFormat
 
-from .. import _build
-from ..int_dot import has_aligned_rows, is_k_major, plan, ptr, splitk_scratch, to_k_major
+from .. import _build, count_launch, new_counts
+from ..int_dot import (PATH_NAMES, has_aligned_rows, is_k_major, plan, ptr, splitk_scratch,
+                       to_k_major)
 from .ref import mac_matmul_ref
 
 _INT_TYPES = (torch.int8, torch.int16)
@@ -102,7 +103,7 @@ def _launch(x_q, w_q, x_scale, w_scale, fuse_relu: bool):
             wsc.data_ptr(), out.data_ptr(), ptr(ws), ptr(counts), m, n, k, int(fuse_relu),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "cordic_mac_launch")
-    mac_matmul.launches += 1
+    count_launch(mac_matmul, PATH_NAMES[p.path])
     return out
 
 
@@ -122,6 +123,7 @@ def mac_matmul(x_q, w_q, x_scale, w_scale, *, fuse_relu: bool = False) -> torch.
 
 
 mac_matmul.launches = 0
+mac_matmul.instantiations = new_counts("cordic_mac")
 
 
 def cordic_mac(x, w, *, depth: int, x_fmt: FxPFormat = FXP8, w_fmt: FxPFormat = FXP8_UNIT,

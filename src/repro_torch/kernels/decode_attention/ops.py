@@ -21,8 +21,9 @@
   block) blocks to fill the card (:func:`mla_splits`).
 
 A CPU tensor runs the plain version (``*_ref``); a CUDA tensor launches the
-kernel or raises. Each wrapper's ``launches`` counts its launches. Against
-the plain versions the outputs agree to f32 reduction-order tolerance
+kernel or raises. Each wrapper's ``launches`` counts its launches,
+``instantiations`` them by path. Against the plain versions the outputs
+agree to f32 reduction-order tolerance
 (:data:`TOLERANCE`): the kernels sum scores and P·V in another order and
 rescale per tile, and the tensor-core loops' 3xTF32 products keep about f32
 accuracy.
@@ -35,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import _build
+from .. import _build, count_launch, new_counts
 from .ref import gqa_decode_attention_ref, mla_decode_attention_ref
 
 HEAD_DIMS = (32, 64, 128)
@@ -133,7 +134,7 @@ def _launch(q, ck, cv, positions, scale: float):
             ws.data_ptr() if ws is not None else None, b, s, h, t_len, kv, hd, splits,
             int(path == TENSOR_CORES), float(scale), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "gqa_decode_launch")
-    gqa_decode_attention.launches += 1
+    count_launch(gqa_decode_attention, "tc" if path == TENSOR_CORES else "split")
     return out
 
 
@@ -146,6 +147,7 @@ def gqa_decode_attention(q, ck, cv, positions, *, scale: float):
 
 
 gqa_decode_attention.launches = 0
+gqa_decode_attention.instantiations = new_counts("gqa_decode_attention")
 
 
 # the MLA loop's four warps of a row group each keep 128 output columns in
@@ -206,7 +208,7 @@ def _mla_launch(q_lat, q_rope, c_kv, k_rope, positions, scale: float):
             b, s, h, t_len, r, rd, splits, float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "mla_decode_launch")
-    mla_decode_attention.launches += 1
+    count_launch(mla_decode_attention, "tc")
     return out
 
 
@@ -220,3 +222,4 @@ def mla_decode_attention(q_lat, q_rope, c_kv, k_rope, positions, *, scale: float
 
 
 mla_decode_attention.launches = 0
+mla_decode_attention.instantiations = new_counts("mla_decode_attention")

@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from .. import _build
+from .. import _build, count_launch, new_counts
 from .ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -70,7 +70,7 @@ def _launch(q, k, v, causal: bool):
             DTYPES[q.dtype], int(causal), 1.0 / math.sqrt(d),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "flash_attention_launch")
-    flash_attention.launches += 1
+    count_launch(flash_attention, "tc")
     return out
 
 
@@ -84,3 +84,4 @@ def flash_attention(q, k, v, *, causal: bool = True):
 
 
 flash_attention.launches = 0
+flash_attention.instantiations = new_counts("flash_attention")

@@ -27,6 +27,8 @@ from typing import NamedTuple
 import torch
 
 NARROW, WGMMA, IMAD = 0, 1, 2
+# each path's name, as its kernel instantiations carry it
+PATH_NAMES = ("narrow", "wgmma", "imad")
 NARROW_MAX_M = 16
 SMS = 132  # streaming multiprocessors of an H100 SXM
 

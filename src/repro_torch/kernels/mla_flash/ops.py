@@ -21,7 +21,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, count_launch, new_counts
 from .ref import mla_flash_attention_ref
 
 # max |kernel - plain| on unit-scale f32 inputs (the decode kernels' bar)
@@ -74,7 +74,7 @@ def _launch(q_lat, q_rope, c_kv, k_rope, scale: float, causal: bool):
             out.data_ptr(), b, s, h, t_len, r, rd, int(causal), float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "mla_flash_launch")
-    mla_flash_attention.launches += 1
+    count_launch(mla_flash_attention, "tc")
     return out
 
 
@@ -89,3 +89,4 @@ def mla_flash_attention(q_lat, q_rope, c_kv, k_rope, *, scale: float, causal: bo
 
 
 mla_flash_attention.launches = 0
+mla_flash_attention.instantiations = new_counts("mla_flash_attention")

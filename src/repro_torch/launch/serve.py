@@ -1,15 +1,18 @@
-"""Batched greedy serving driver (port of the kernel-mode subset of
+"""Batched serving CLI (port of the kernel-mode subset of
 ``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --reduced \\
-        --requests 4 --slots 2 --max-new 8 --device cpu
+        --requests 4 --slots 2 --max-new 8 --device cpu [--temperature 1.3 --seed 40]
 
-Runs on the card by default (``--device cuda``) through the Hopper kernels;
-``--device cpu`` runs their plain versions. ``kernel``-mode weights, prepared
-once (the fused dot+AF kernel) or, with ``--per-call``, re-rounded at every
-dot (the MAC-array kernel and the standalone multi-AF); greedy decoding.
-Weights are random, drawn from seed 0. The full-width config is served at
-``dtype="float32"`` to match the f32 engine context.
+Runs on the card by default (``--device cuda``) through the Hopper kernels,
+each prefill bucket and decode burst one captured CUDA graph; ``--device
+cpu`` runs the kernels' plain versions eagerly. ``kernel``-mode weights,
+prepared once (the fused dot+AF kernel) or, with ``--per-call``, re-rounded
+at every dot (the MAC-array kernel and the standalone multi-AF). Greedy
+unless ``--temperature`` is above 0; request ``i`` samples from seed
+``--seed + i`` (default: its index). Weights are random, drawn from seed
+0. The full-width config is served at ``dtype="float32"`` to match the f32
+engine context.
 
 The FxP8 policy is accurate unless ``--policy-file`` loads one (a file that
 either package saved) or ``--calibrate`` runs the startup sensitivity scan
@@ -72,6 +75,10 @@ def main(argv=None):
                     help="decode steps per host round trip")
     ap.add_argument("--max-len", type=int, default=None,
                     help="KV rows per slot (default: prompt-len + max-new + 2)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="per-request sampling temperature (0 = greedy)")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="base sampling seed (request i uses seed + i)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--policy-file", default=None,
                     help="JSON precision policy (PrecisionPolicy.save / assign_depths)")
@@ -97,15 +104,18 @@ def main(argv=None):
                            burst=args.burst, device=device, prepare_weights=not args.per_call)
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32),
-                    args.max_new) for i in range(args.requests)]
+                    args.max_new, temperature=args.temperature,
+                    seed=None if args.seed is None else args.seed + i)
+            for i in range(args.requests)]
     t0 = time.perf_counter()
     results = server.run(reqs)
     dt = time.perf_counter() - t0
     total = sum(len(v) for v in results.values())
     print(f"served {len(results)} requests, {total} tokens in {dt:.2f}s "
           f"({total / max(dt, 1e-9):.1f} tok/s, device={device}, burst={args.burst}, "
-          f"{server.host_transfers} host round-trips, "
-          f"{'per-call' if args.per_call else 'prepared'} {args.mode} weights)")
+          f"{server.host_transfers} host round-trips, {server.graph_replays} graph replays, "
+          f"{'per-call' if args.per_call else 'prepared'} {args.mode} weights, "
+          f"temperature {args.temperature})")
     for rid in sorted(results):
         print(f"  req {rid}: {results[rid][:8]}...")
     return results

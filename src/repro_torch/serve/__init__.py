@@ -1,5 +1,13 @@
-"""Serving (PyTorch port): batched greedy server and KV-cache helpers."""
-from .engine import BatchedServer, Request
+"""Serving (PyTorch port): the batched server, its decode-burst and prefill
+programs, per-slot sampling and KV-cache helpers."""
+from .engine import (
+    BatchedServer,
+    Request,
+    make_bucketed_prefill,
+    make_decode_burst,
+    sample,
+    top2_margin,
+)
 from .kvcache import bucket_length, cache_positions, scatter_rows, with_cache_positions
 
 __all__ = [
@@ -7,6 +15,10 @@ __all__ = [
     "Request",
     "bucket_length",
     "cache_positions",
+    "make_bucketed_prefill",
+    "make_decode_burst",
+    "sample",
     "scatter_rows",
+    "top2_margin",
     "with_cache_positions",
 ]

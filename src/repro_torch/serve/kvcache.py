@@ -31,12 +31,12 @@ def cache_positions(cache) -> torch.Tensor:
     raise ValueError("cache carries no write index")
 
 
-def with_cache_positions(cache, positions):
-    """Set every layer's write index to ``positions`` ((B,) int32), in place."""
+def with_cache_positions(cache, positions: torch.Tensor):
+    """Set every layer's write index to ``positions`` ((B,) int32 on the
+    cache's device), in place."""
     for leaf in _leaves(cache):
         if _is_index(leaf):
-            pos = torch.as_tensor(positions, dtype=leaf.dtype, device=leaf.device)
-            leaf.copy_(pos.expand_as(leaf))
+            leaf.copy_(positions.to(leaf.dtype).expand_as(leaf))
     return cache
 
 
@@ -49,9 +49,10 @@ def bucket_length(plen: int, max_len: int) -> int:
     return min(b, max_len)
 
 
-def scatter_rows(full, row, slot: int):
-    """Write a single-row cache into slot ``slot`` of a multi-slot cache, in
-    place. The one axis where the shapes differ is the slot axis."""
+def scatter_rows(full, row, slot: torch.Tensor):
+    """Write a single-row cache into slot ``slot`` (an integer tensor of one
+    element on the cache's device) of a multi-slot cache, in place. The one
+    axis where the shapes differ is the slot axis."""
     if isinstance(full, dict):
         for k in full:
             scatter_rows(full[k], row[k], slot)
@@ -62,5 +63,5 @@ def scatter_rows(full, row, slot: int):
         return full
     diff = [i for i, (a, b) in enumerate(zip(full.shape, src.shape)) if a != b]
     assert len(diff) == 1, (full.shape, src.shape)
-    full.narrow(diff[0], slot, 1).copy_(src)
+    full.index_copy_(diff[0], slot.reshape(1).to(torch.int64), src)
     return full

@@ -34,7 +34,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.models.mla", "repro_torch.core.mac", "repro_torch.kernels.int_dot",
             "repro_torch.kernels.cordic_mac", "repro_torch.kernels.cordic_mac.ops",
             "repro_torch.kernels.cordic_mac.ref", "repro_torch.kernels.flash_attention.ops",
-            "repro_torch.kernels.mla_flash.ops", "repro_torch.runtime.calibrate"} <= set(mods)
+            "repro_torch.kernels.mla_flash.ops", "repro_torch.runtime.calibrate",
+            "repro_torch.serve.threefry", "repro_torch.serve.capture"} <= set(mods)
     code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"

@@ -11,7 +11,9 @@ cache-free flash and MLA flash attentions), then:
 1. prints the device, the toolchain and each kernel's registers and shared
    memory (``nvcc -Xptxas -v``);
 2. holds each kernel against its plain PyTorch version on the card at the
-   serving paths' full-width shapes (olmo-1b and deepseek-v3) — the fused
+   serving paths' full-width shapes (olmo-1b, deepseek-v3 and, for the
+   fused dot, the GQA cache attention and flash, the other archs' new
+   shapes: odd and wide vocabularies, 5 and 8 head groups) — the fused
    CORDIC dot+AF, the MAC-array matmul, the multi-AF block and the softmax
    must be bitwise equal, the two decode attentions within their stated
    tolerance, the two flash attentions within it — and times kernel, plain
@@ -83,7 +85,18 @@ cache-free flash and MLA flash attentions), then:
    (1, 512) on the serving weights (the MLA flash kernel), every MLA cache
    and MLA flash launch on the tensor-core instantiation; and for reduced
    deepseek-v3 card vs CPU, served and through ``forward`` (the MLA flash
-   kernel held as above).
+   kernel held as above);
+9. serves the other transformer archs at stock widths as 3 serves olmo-1b
+   (``arch_phases``: captured, repeat, profiled, uncaptured and burst 1,
+   streams and margins bitwise, launch counts exact), their GQA with 5
+   (qwen2.5-14b, llama4), 4 (qwen3-8b), 8 (yi-9b) and 2 (internvl2-2b)
+   head groups: qwen2.5-14b cut to 8 layers and its ``forward`` at
+   (1, 512); internvl2-2b at all 24 layers, also sampled (its vocabulary of
+   92553 is odd), and its ``forward`` on 256 stub frontend embeddings and
+   256 tokens; qwen3-8b and yi-9b at 2 layers; llama4-maverick at 2 layers
+   (one interleaved dense/MoE pair) with 64 of its 128 routed experts
+   (``ARCH_LAYERS``, ``weight_reckoning``: 42.5 GB of f32 at set-up) and its
+   ``forward`` at (1, 512); then reduced llama4 card vs CPU, served.
 
 Exact launch counts come from the kernel wrappers (``repro_torch.kernels.
 launch_counts``, by instantiation), never from ``torch.profiler``, which
@@ -141,6 +154,26 @@ FUSED_SHAPES = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 50304))
 DEEPSEEK_FUSED_SHAPES = ((7168, 576), (16384, 7168), (1536, 24576), (18432, 7168),
                          (7168, 129280))
 DEEPSEEK_LAYERS = 4  # the stock 3 dense-prefix layers and 1 MoE layer
+# the other transformer archs, every width stock, f32: qwen2.5-14b cut from 48
+# to 8 layers (15.0 GB of f32 weights at set-up), qwen3-8b and yi-9b to 2;
+# llama4-maverick to 2 layers (one dense/MoE pair) and from 128 routed experts
+# to 64: at 128 the routed experts of one MoE layer alone are 128 x 3 x 5120 x
+# 8192 x 4 B = 64.4 GB of f32, the embedding and lm_head 8.3 GB more
+ARCH_LAYERS = {"qwen2.5-14b": 8, "qwen3-8b": 2, "yi-9b": 2, "internvl2-2b": None,
+               "llama4-maverick-400b-a17b": 2}
+LLAMA4_EXPERTS = 64
+# (K, N) of their new fused dots: qwen2.5's lm_head (N = 152064) and down
+# projection (K = 13824), internvl2's lm_head over an odd vocabulary
+# (N = 92553: rows of 370212 bytes, no multiple of 16), llama4's lm_head
+ARCH_FUSED_SHAPES = (("qwen2.5-14b", (5120, 152064)), ("internvl2-2b", (2048, 92553)),
+                     ("qwen2.5-14b", (13824, 5120)), ("llama4-maverick-400b-a17b", (5120, 202048)))
+# the cache-free forwards on the serving weights: internvl2's 256 tokens after
+# its 256 stub frontend embeddings
+ARCH_FORWARD = {"qwen2.5-14b": (1, BUCKET), "internvl2-2b": (1, 256),
+                "llama4-maverick-400b-a17b": (1, BUCKET)}
+# GQA head groups of the new archs on the cache and flash kernels: 5
+# (qwen2.5-14b and llama4, H40/KV8) and 8 (yi-9b, H32/KV4)
+ARCH_HEADS = ((40, 8), (32, 4))
 # the serving CLI's --cycle-reduction default, for the calibrated policy
 CYCLE_REDUCTION = 0.33
 # the yardstick the card vs CPU logits of the cache-free forward are reported
@@ -423,7 +456,8 @@ def check_fused(device):
     # 16 rows, the tensor cores above), the largest bucket, the forward's M
     # (2 x 512 tokens)
     shapes = ([("olmo-1b", kn, (SLOTS, 16, 32, 64, BUCKET, 2 * BUCKET)) for kn in FUSED_SHAPES]
-              + [("deepseek-v3-671b", kn, (SLOTS, BUCKET)) for kn in DEEPSEEK_FUSED_SHAPES])
+              + [("deepseek-v3-671b", kn, (SLOTS, BUCKET)) for kn in DEEPSEEK_FUSED_SHAPES]
+              + [(arch, kn, (SLOTS, BUCKET)) for arch, kn in ARCH_FUSED_SHAPES])
     for model_name, (k, n), ms_ in shapes:
         banks = prepared_weight(k, n, FXP8, gen, device,
                                 copies=max(1, min(48, math.ceil(3e8 / (k * n)))))
@@ -566,8 +600,9 @@ def check_attention(device):
     """The GQA cache attention against its plain version: decode (B4 S1,
     split keys), the serving prefill buckets 16, 64 and 512 from row 0 and a
     burst of 4 (the tensor-core path from S = 16 on, split keys below), with
-    GQA groups; each row records its path and splits, the f32-FMA and
-    3xTF32 bounds and SDPA's time."""
+    GQA groups of 1 and 2 (olmo-1b widths), 5 (H40/KV8) and 8 (H32/KV4); each
+    row records its path and splits, the f32-FMA and 3xTF32 bounds and
+    SDPA's time."""
     import torch
     import torch.nn.functional as F
 
@@ -584,6 +619,12 @@ def check_attention(device):
         (1, 16, MAX_LEN, 16, 16, 128, 0),
         (1, 64, MAX_LEN, 16, 16, 128, 0),
     ]
+    # the new archs' head groups: decode, a burst of 4 and the prefill
+    # buckets 16, 64 and 512 from row 0
+    for h, kv in ARCH_HEADS:
+        cases += [(SLOTS, 1, MAX_LEN, h, kv, 128, None), (2, 4, MAX_LEN, h, kv, 128, None),
+                  (1, 16, MAX_LEN, h, kv, 128, 0), (1, 64, MAX_LEN, h, kv, 128, 0),
+                  (1, BUCKET, MAX_LEN, h, kv, 128, 0)]
     rows, max_err = [], 0.0
     for b, s, t, h, kv, hd, start in cases:
         q, ck, cv, pos = attention_case(b, s, t, h, kv, hd, gen, device, start)
@@ -751,11 +792,12 @@ def causal_pairs(b: int, sq: int, sk: int, causal: bool) -> int:
 def check_flash(device):
     """The cache-free flash attention against its plain version: olmo-1b
     widths (H 16, D 128) at the forward phase's B2 S512 and at B1 S2048,
-    GQA (KV 4), a ragged S, and bf16 in and out (both round an f32 result
-    that agrees within TOLERANCE: at most one bf16 step apart, 2^-7 of the
-    value); each row records the f32-FMA bound (bf16: the bf16 tensor-core
-    rate), the TF32 tensor-core bound for the passes the kernel runs (3, or
-    1.5 with bf16 operands) and SDPA's time."""
+    GQA (KV 4), a ragged S, bf16 in and out (both round an f32 result that
+    agrees within TOLERANCE: at most one bf16 step apart, 2^-7 of the
+    value), and H40/KV8 (5 groups) at B1 S512; each row records the
+    f32-FMA bound (bf16: the bf16 tensor-core rate), the TF32 tensor-core
+    bound for the passes the kernel runs (3, or 1.5 with bf16 operands) and
+    SDPA's time."""
     import torch
     import torch.nn.functional as F
 
@@ -769,6 +811,7 @@ def check_flash(device):
         (2, BUCKET, 16, 4, 128, torch.float32),
         (2, 70, 16, 16, 128, torch.float32),
         (2, BUCKET, 16, 16, 128, torch.bfloat16),
+        (1, BUCKET, 40, 8, 128, torch.float32),  # qwen2.5-14b and llama4's forward
     ]
     rows, max_err = [], 0.0
     for b, s, h, kv, d, dtype in cases:
@@ -1170,6 +1213,41 @@ def deepseek():
                                num_layers=DEEPSEEK_LAYERS)
 
 
+def arch_config(name: str):
+    """One of the other transformer archs at stock widths, f32, with its
+    depth cut to ``ARCH_LAYERS`` and llama4's routed experts to
+    ``LLAMA4_EXPERTS`` (``weight_reckoning`` gives the bytes)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(name), dtype="float32")
+    if ARCH_LAYERS[name]:
+        cfg = dataclasses.replace(cfg, num_layers=ARCH_LAYERS[name])
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               num_experts=LLAMA4_EXPERTS))
+    return cfg
+
+
+def weight_reckoning(cfg) -> dict:
+    """GB of the f32 parameter tree ``cfg`` builds at set-up (from its
+    specs), and for an MoE config the routed experts' GB a MoE layer, at the
+    config's expert count and at the stock one."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.params import spec_leaves
+
+    out = dict(layers=cfg.num_layers, stock_layers=get_config(cfg.name).num_layers,
+               f32_weights_gb=sum(math.prod(s.shape) for _, s in
+                                  spec_leaves(get_model(cfg).specs())) * 4 / 1e9)
+    if cfg.moe is not None:
+        per_expert = 3 * cfg.d_model * cfg.moe.d_ff_expert * 4 / 1e9
+        stock = get_config(cfg.name).moe.num_experts
+        out.update(experts=cfg.moe.num_experts, stock_experts=stock,
+                   routed_experts_gb_per_moe_layer=cfg.moe.num_experts * per_expert,
+                   stock_routed_experts_gb_per_moe_layer=stock * per_expert)
+    return out
+
+
 def kernel_ctx(attn_impl: str = "decode_kernel", policy=None):
     import torch
 
@@ -1235,6 +1313,14 @@ def check_instantiations(label, counts: dict, want: dict) -> dict:
     return nonzero(counts)
 
 
+def moe_layers(cfg) -> int:
+    """The MoE layers of ``cfg``: every layer past the dense prefix, or one
+    of each interleaved (dense, MoE) pair."""
+    if cfg.moe is None:
+        return 0
+    return (cfg.num_layers - cfg.moe.first_dense_layers) // cfg.moe.moe_every
+
+
 def launches_per_forward(cfg, per_call: bool = False) -> dict:
     """Kernel launches one forward of ``cfg`` implies, by kernel. Per call,
     every dot is a MAC-array launch and the gate's activation its own
@@ -1244,15 +1330,14 @@ def launches_per_forward(cfg, per_call: bool = False) -> dict:
                 "gqa_decode_attention": cfg.num_layers}
     if per_call:
         raise NotImplementedError("per-call serving is driven for the dense family only")
+    attention = "mla_decode_attention" if cfg.mla else "gqa_decode_attention"
     if cfg.moe is None:  # dense GQA: q k v o up gate down per layer, and lm_head
-        return {"fused_dot_af": 7 * cfg.num_layers + 1,
-                "gqa_decode_attention": cfg.num_layers}
-    dense = cfg.moe.first_dense_layers
-    moe_layers = cfg.num_layers - dense
-    # MLA: q_a q_b kv_a o; dense MLP and shared expert: up gate down
-    fused = 7 * dense + (4 + 3 * bool(cfg.moe.num_shared_experts)) * moe_layers + 1
-    return {"fused_dot_af": fused, "mla_decode_attention": cfg.num_layers,
-            "af_elementwise": moe_layers}
+        return {"fused_dot_af": 7 * cfg.num_layers + 1, attention: cfg.num_layers}
+    moe = moe_layers(cfg)
+    # attention: GQA q k v o, MLA q_a q_b kv_a o; dense MLP and shared
+    # expert: up gate down; the routed experts' gate activation one multi-AF
+    fused = 7 * (cfg.num_layers - moe) + (4 + 3 * bool(cfg.moe.num_shared_experts)) * moe + 1
+    return {"fused_dot_af": fused, attention: cfg.num_layers, "af_elementwise": moe}
 
 
 def forward_launches(cfg, attn_impl: str, per_call: bool = False) -> dict:
@@ -1310,9 +1395,7 @@ def plain_products_per_forward(cfg) -> int:
     """Products the reference leaves to XLA outside any kernel, which the port
     leaves to torch.einsum: MLA's wk_b/wv_b absorptions, the MoE router and
     its three expert einsums."""
-    if cfg.moe is None:
-        return 0
-    return 2 * cfg.num_layers * bool(cfg.mla) + 4 * (cfg.num_layers - cfg.moe.first_dense_layers)
+    return 2 * cfg.num_layers * bool(cfg.mla) + 4 * moe_layers(cfg)
 
 
 def replayed_launches(runner) -> dict:
@@ -1632,7 +1715,7 @@ def sampled_requests(cfg, rids=None):
 
 
 def serve_sampled(device, cfg, params, greedy):
-    """Full-width olmo-1b served sampled (``TEMPERATURE``) on the prepared
+    """Full-width ``cfg`` served sampled (``TEMPERATURE``) on the prepared
     ``params``: the captured burst-8 run with exact launch accounting, the
     uncaptured yardstick, a captured burst-1 run and request 0 served alone
     (burst 4) must give identical streams (and, captured vs uncaptured, f32
@@ -1649,7 +1732,7 @@ def serve_sampled(device, cfg, params, greedy):
     make = lambda burst, capture=True: BatchedServer(  # noqa: E731
         model, ctx, params, slots=SLOTS, max_len=MAX_LEN, burst=burst, device=device,
         capture=capture)
-    label = "olmo-1b sampled"
+    label = f"{cfg.name} sampled"
     server = make(BURST)
     zero_launches()
     reqs = sampled_requests(cfg)
@@ -1702,7 +1785,7 @@ def serve_sampled(device, cfg, params, greedy):
     log(f"{label}: {steady_run['tokens_per_s']:.2f} tok/s captured, uncaptured "
         f"{eager_run['tokens_per_s']:.2f}, busy {busy_ms / (profiled_wall * 1e3):.3f}")
     return dict(
-        config=f"olmo-1b full width, {cfg.num_layers} layers, prepared, temperature "
+        config=f"{cfg.name} full width, {cfg.num_layers} layers, prepared, temperature "
                f"{TEMPERATURE}, request i seeded {SEED_BASE} + i",
         launches=launches, first_run=first_run, steady_run=steady_run, uncaptured_run=eager_run,
         tokens_per_s=steady_run["tokens_per_s"], graphs=graphs, graph_pool_gib=pool,
@@ -1827,7 +1910,10 @@ def weight_rounding_ms(params, cfg) -> dict:
 
 def forward_phase(device, label, cfg, params, batch):
     """One cache-free ``forward`` of ``cfg`` on prepared ``params`` and seeded
-    tokens of shape ``batch``, under ``attn_impl="flash"`` and ``"xla"``:
+    tokens of shape ``batch`` (a vision model: after its stub frontend's
+    ``cfg.frontend_tokens`` embeddings, seeded 0.02 x N(0, 1) as the
+    reference's data pipeline makes them), under ``attn_impl="flash"`` and
+    ``"xla"``:
     wall time and launch counts of the main path, a profiled repeat (which
     must give the same logits), no library attention kernel and, under
     "flash", library matmuls only for the plain products; then the largest
@@ -1841,8 +1927,13 @@ def forward_phase(device, label, cfg, params, batch):
     from repro_torch.models import get_model
 
     model = get_model(cfg)
-    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab_size, batch),
-                             device=device)
+    rng = np.random.default_rng(SEED)
+    inputs = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, batch), device=device)}
+    seq = batch[1]  # the sequence each dot and attention runs over
+    if cfg.frontend == "vision":
+        embeds = rng.standard_normal((batch[0], cfg.frontend_tokens, cfg.d_model)) * 0.02
+        inputs["frontend_embeds"] = torch.as_tensor(embeds, dtype=torch.float32, device=device)
+        seq += cfg.frontend_tokens
     runs, logits = {}, {}
     for impl in ("flash", "xla"):
         ctx = kernel_ctx(impl)
@@ -1851,21 +1942,20 @@ def forward_phase(device, label, cfg, params, batch):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
-            lg, aux = model.forward(params, {"tokens": tokens}, ctx)
+            lg, aux = model.forward(params, inputs, ctx)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = check_launches(f"{label} forward ({impl})", kernels, want)
-        rows_per_dot = batch[0] * batch[1]
         check_instantiations(f"{label} forward ({impl})", wrapper_counts(),
-                             by_instantiation(want, rows_per_dot, batch[1]))
-        if tuple(lg.shape) != (*batch, cfg.vocab_size) or not torch.isfinite(lg).all():
+                             by_instantiation(want, batch[0] * seq, seq))
+        if tuple(lg.shape) != (batch[0], seq, cfg.vocab_size) or not torch.isfinite(lg).all():
             raise AssertionError(f"{label} forward ({impl}): logits {tuple(lg.shape)}, "
                                  f"finite {bool(torch.isfinite(lg).all())}")
         zero_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             with torch.no_grad():
-                again, _ = model.forward(params, {"tokens": tokens}, ctx)
+                again, _ = model.forward(params, inputs, ctx)
             torch.cuda.synchronize()
             profiled_wall = time.perf_counter() - t0
         ran = wrapper_counts()
@@ -1915,7 +2005,8 @@ def forward_phase(device, label, cfg, params, batch):
     return dict(
         config=f"{label} full width, {cfg.num_layers} layers, dtype float32, kernel mode "
                "(prepared weights), FxP8 accurate, cache-free forward",
-        batch=list(batch), runs=runs, launches=runs["flash"]["launches"],
+        batch=list(batch), frontend_tokens=seq - batch[1], runs=runs,
+        launches=runs["flash"]["launches"],
         launches_per_forward=forward_launches(cfg, "flash"),
         max_abs_dlogit_flash_vs_xla=(logits["flash"] - logits["xla"]).abs().max().item(),
         argmax_agreement_flash_vs_xla=agree)
@@ -2152,11 +2243,52 @@ def deepseek_card_vs_cpu(device):
                        scaled_init(get_model(cfg)), (5, 11, 70), 96)
 
 
+def llama4_card_vs_cpu(device):
+    """Reduced llama4-maverick, one interleaved (dense, MoE) pair (d_model
+    128, 4 experts, top-1, a shared expert) with its 5 head groups kept
+    (H10/KV2, head_dim 32), card vs CPU, served; layer weights scaled as in
+    ``deepseek_card_vs_cpu``."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+
+    cfg = dataclasses.replace(reduced(get_config("llama4-maverick-400b-a17b")), num_heads=10,
+                              num_kv_heads=2, head_dim=32)
+    return card_vs_cpu(device, "llama4-maverick reduced, one pair, H10/KV2", cfg,
+                       scaled_init(get_model(cfg)), (5, 11, 70), 96)
+
+
 def free_card():
     import torch
 
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def arch_phases(device, serving: dict, forward: dict, parity: dict) -> None:
+    """The other transformer archs (``ARCH_LAYERS``), each served at full
+    width as ``serve_full_width`` serves olmo-1b, internvl2-2b also sampled,
+    the ``ARCH_FORWARD`` ones' forwards on the serving weights, the card freed
+    between archs; then reduced llama4 card vs CPU. Adds each report to the
+    dicts and prints it."""
+    for name in ARCH_LAYERS:
+        cfg = arch_config(name)
+        serving[name], streams, _, weights = phase(f"serve {name}", serve_full_width, device,
+                                                    name, cfg)
+        serving[name]["weights"] = weight_reckoning(cfg)
+        emit({"serving": serving[name]})
+        if name == "internvl2-2b":  # sampled over the odd vocabulary
+            serving[f"{name} sampled"] = phase(f"serve {name} sampled", serve_sampled, device,
+                                               cfg, weights, streams)
+            emit({"serving": serving[f"{name} sampled"]})
+        if name in ARCH_FORWARD:
+            forward[name] = phase(f"forward {name}", forward_phase, device, name, cfg, weights,
+                                  ARCH_FORWARD[name])
+            emit({"forward": forward[name]})
+        del weights
+        free_card()
+    parity["llama4-maverick"] = phase("llama4-maverick card vs cpu", llama4_card_vs_cpu,
+                                      device)
+    emit({"card_vs_cpu": parity["llama4-maverick"]})
 
 
 def phase(name: str, fn, *args, **kw):
@@ -2279,6 +2411,8 @@ def main() -> int:
         "deepseek-v3-671b reduced, 4 layers, forward", cfg, scaled_init(get_model(cfg)),
         (2, 70))
     emit({"card_vs_cpu": parity["deepseek-v3-671b forward"]})
+    free_card()
+    arch_phases(device, serving, forward, parity)
     paths.update(serving)
     paths.update({f"{label} forward": rep for label, rep in forward.items()})
     paths["olmo-1b calibration"] = calibration

@@ -1,11 +1,20 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Registered so far: olmo-1b (dense) and deepseek-v3-671b (MLA + MoE); the
-other architectures arrive with their model families.
+Registered: the seven transformer decoders (dense, MLA + MoE, interleaved
+dense/MoE, and the vision-stub VLM); mamba2-780m, zamba2-7b and
+seamless-m4t-large-v2 arrive with their model families.
 """
 from __future__ import annotations
 
-from . import deepseek_v3_671b, olmo_1b
+from . import (
+    deepseek_v3_671b,
+    internvl2_2b,
+    llama4_maverick,
+    olmo_1b,
+    qwen2_5_14b,
+    qwen3_8b,
+    yi_9b,
+)
 from .base import (
     TORCH_DTYPES,
     EncDecConfig,
@@ -19,7 +28,12 @@ from .base import (
 
 ARCHS = {
     "olmo-1b": olmo_1b.CONFIG,
+    "qwen3-8b": qwen3_8b.CONFIG,
+    "qwen2.5-14b": qwen2_5_14b.CONFIG,
+    "yi-9b": yi_9b.CONFIG,
     "deepseek-v3-671b": deepseek_v3_671b.CONFIG,
+    "llama4-maverick-400b-a17b": llama4_maverick.CONFIG,
+    "internvl2-2b": internvl2_2b.CONFIG,
 }
 
 

@@ -1,12 +1,16 @@
-"""Decoder-only LM, dense and MoE families (port of ``repro.models.transformer``).
+"""Decoder-only LM, dense, MoE and vision-stub families (port of
+``repro.models.transformer``).
 
 The reference's ``lax.scan`` over stacked layer parameters becomes a Python
-loop over layer views of the same stacked tensors, segment by segment (a
-deepseek-style MoE model is a dense prefix and an MoE segment). Attention is
-GQA, or MLA when the config carries one. ``forward`` is the cache-free
-pass (training, the calibration scan); ``decode_step`` the cached one. The
-KV cache is updated in place: ``decode_step`` writes each layer's rows and
-index into the cache it was given and returns that cache.
+loop over layer views of the same stacked tensors, segment by segment: a
+deepseek-style MoE model is a dense prefix and an MoE segment, a
+llama4-style one a segment of interleaved (dense, MoE) pairs, each pair one
+stacked entry with a ``dense`` and a ``moe`` sublayer. Attention is GQA, or
+MLA when the config carries one. ``forward`` is the cache-free pass
+(training, the calibration scan; a vision model prepends its stub frontend
+embeddings); ``decode_step`` the cached one, on text tokens. The KV cache is
+updated in place: ``decode_step`` writes each layer's rows and index into
+the cache it was given and returns that cache.
 """
 from __future__ import annotations
 
@@ -31,10 +35,14 @@ def _segments(cfg: ModelConfig):
         segs = []
         if m.first_dense_layers:
             segs.append(("dense_prefix", m.first_dense_layers))
-        if m.moe_every != 1:
-            raise NotImplementedError("interleaved dense/MoE ('pair') segments are not yet "
-                                      "ported")
-        segs.append(("moe", cfg.num_layers - m.first_dense_layers))
+        rest = cfg.num_layers - m.first_dense_layers
+        if m.moe_every == 1:
+            segs.append(("moe", rest))
+        else:
+            if rest % m.moe_every:
+                raise ValueError(f"{cfg.name}: {rest} layers after the dense prefix do not "
+                                 f"split into groups of moe_every={m.moe_every}")
+            segs.append(("pair", rest // m.moe_every))
         return segs
     raise NotImplementedError(f"the {cfg.family!r} family is not yet ported")
 
@@ -73,6 +81,9 @@ def decoder_specs(cfg: ModelConfig):
             layer = lambda: _dense_layer_specs(cfg)  # noqa: E731
         elif kind == "dense_prefix":
             layer = lambda: _dense_layer_specs(cfg, cfg.moe.d_ff_dense)  # noqa: E731
+        elif kind == "pair":
+            layer = lambda: {"dense": _dense_layer_specs(cfg, cfg.moe.d_ff_dense),  # noqa: E731
+                             "moe": _moe_layer_specs(cfg)}
         else:
             layer = lambda: _moe_layer_specs(cfg)  # noqa: E731
         specs[f"seg{i}_{kind}"] = stack_layers(layer, n)
@@ -80,7 +91,7 @@ def decoder_specs(cfg: ModelConfig):
 
 
 def layer_view(tree, i: int):
-    """Layer ``i`` of a stacked parameter tree (views, no copies)."""
+    """Layer ``i`` of a stacked parameter or cache tree (views, no copies)."""
     if isinstance(tree, dict):
         return {k: layer_view(v, i) for k, v in tree.items()}
     if isinstance(tree, PreparedWeight):
@@ -112,16 +123,41 @@ def _moe_layer(p, h, cfg, ctx, positions, cache, name="layer"):
     return h + out, new_cache, aux
 
 
+def _pair_layer(p, h, cfg, ctx, positions, cache):
+    """A dense layer then an MoE layer. Both run under the reference's default
+    name ``"layer"``, as its ``pair_fn`` calls them: their dots are looked up
+    in a policy as ``layer.attn.q``, ``layer.moe.shared.up``..., not under
+    their parameter paths (``layer.dense.attn.q``)."""
+    c = cache or {}
+    h, c_dense, _ = _dense_layer(p["dense"], h, cfg, ctx, positions, c.get("dense"))
+    h, c_moe, aux = _moe_layer(p["moe"], h, cfg, ctx, positions, c.get("moe"))
+    return h, {"dense": c_dense, "moe": c_moe}, aux
+
+
+_LAYERS = {"dense": _dense_layer, "dense_prefix": _dense_layer, "moe": _moe_layer,
+           "pair": _pair_layer}
+
+
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, device=None):
     """Per-segment KV caches stacked over layers: k, v (L, B, T, KV, hd), or
     MLA's c_kv (L, B, T, R) and k_rope (L, B, T, r), and the per-row write
-    index (L, B) int32."""
+    index (L, B) int32; a pair segment holds one such cache per sublayer,
+    ``{"dense": ..., "moe": ...}``."""
     init = mla.init_mla_cache if cfg.mla else blocks.init_attn_cache
+
+    def stack(tree, n):
+        if isinstance(tree, dict):
+            return {k: stack(v, n) for k, v in tree.items()}
+        return tree.unsqueeze(0).repeat((n,) + (1,) * tree.ndim)
+
     out = {}
     for i, (kind, n) in enumerate(_segments(cfg)):
-        one = init(cfg, batch, max_len, dtype, device)
-        out[f"seg{i}_{kind}"] = {k: v.unsqueeze(0).repeat((n,) + (1,) * v.ndim)
-                                 for k, v in one.items()}
+        if kind == "pair":
+            one = {"dense": init(cfg, batch, max_len, dtype, device),
+                   "moe": init(cfg, batch, max_len, dtype, device)}
+        else:
+            one = init(cfg, batch, max_len, dtype, device)
+        out[f"seg{i}_{kind}"] = stack(one, n)
     return out
 
 
@@ -133,41 +169,73 @@ def _lm_head(params, h, cfg, ctx):
     return ctx.linear(h, w, name="lm_head").to(torch.float32)
 
 
+def _run_segments(params, h, cfg, ctx, positions, cache=None):
+    """Every layer, segment by segment, over layer views of the stacked
+    parameters (and of ``cache``, whose write indices it advances in place).
+    Returns ``(h, lb_loss)``: the load-balancing loss summed over the MoE
+    layers of a cache-free pass (None with a cache)."""
+    lb_loss = torch.zeros((), dtype=torch.float32, device=h.device) if cache is None else None
+    for i, (kind, n) in enumerate(_segments(cfg)):
+        key = f"seg{i}_{kind}"
+        for layer in range(n):
+            c = layer_view(cache[key], layer) if cache is not None else None
+            h, new_c, aux = _LAYERS[kind](layer_view(params[key], layer), h, cfg, ctx,
+                                          positions, c)
+            if cache is not None:
+                _store_index(cache[key], layer, new_c)
+            elif "lb_loss" in aux:
+                lb_loss = lb_loss + aux["lb_loss"]
+    return h, lb_loss
+
+
+def _store_index(stacked, layer: int, new):
+    """Write a layer's new cache indices into layer ``layer`` of the stacked
+    cache, sublayer by sublayer (its k/v rows were written in place)."""
+    for k, v in stacked.items():
+        if isinstance(v, dict):
+            _store_index(v, layer, new[k])
+        elif k == "index":
+            v[layer] = new[k]
+
+
 def forward(params, batch, cfg: ModelConfig, ctx: EngineContext, *, remat: bool = False):
-    """Cache-free forward: ``batch["tokens"]`` (B, S) -> (logits (B, S, V)
+    """Cache-free forward: ``batch["tokens"]`` (B, S) -> (logits (B, S', V)
     f32, ``{"lb_loss": ...}``), the load-balancing loss summed over the MoE
     layers (zero for a dense model).
 
-    Positions are ``arange(S)``; attention runs causal over the sequence
-    itself (``ctx.attn_impl``: ``"flash"`` the flash kernels, ``"xla"`` the
-    reference's chunked chains). ``remat`` (activation checkpointing) is
-    accepted for the reference's signature; it takes effect only with
-    autograd, which this pass does not record yet.
+    A vision model (``cfg.frontend == "vision"``) prepends the stub
+    frontend's ``batch["frontend_embeds"]`` (B, P, D) to the token
+    embeddings, so S' = P + S and the logits cover both; without them it
+    raises ``KeyError``. Positions are ``arange(S')``; attention runs causal
+    over the sequence itself (``ctx.attn_impl``: ``"flash"`` the flash
+    kernels, ``"xla"`` the reference's chunked chains). ``remat``
+    (activation checkpointing) is accepted for the reference's signature; it
+    takes effect only with autograd, which this pass does not record yet.
     """
     del remat
-    if cfg.frontend == "vision":
-        raise NotImplementedError("the vision frontend's embeddings are not yet ported")
     tokens = batch["tokens"]
     h = params["embed"][tokens].to(cfg.compute_dtype)
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
-    lb_loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for i, (kind, n) in enumerate(_segments(cfg)):
-        seg_p = params[f"seg{i}_{kind}"]
-        layer_fn = _moe_layer if kind == "moe" else _dense_layer
-        for layer in range(n):
-            h, _, aux = layer_fn(layer_view(seg_p, layer), h, cfg, ctx, positions, None)
-            if "lb_loss" in aux:
-                lb_loss = lb_loss + aux["lb_loss"]
+    if cfg.frontend == "vision":
+        h = torch.cat([batch["frontend_embeds"].to(cfg.compute_dtype), h], dim=1)
+    positions = torch.arange(h.shape[1], dtype=torch.int32, device=tokens.device)
+    h, lb_loss = _run_segments(params, h, cfg, ctx, positions)
     h = blocks.apply_norm(params["final_norm"], h, cfg)
     return _lm_head(params, h, cfg, ctx), {"lb_loss": lb_loss}
 
 
+def _index_leaves(cache):
+    for v in cache.values():
+        if isinstance(v, dict):
+            yield from _index_leaves(v)
+        elif v.dtype == torch.int32 and v.ndim >= 2:
+            yield v
+
+
 def _cache_index(cache) -> torch.Tensor:
-    """Per-row decode positions (B,): layer 0 of the first stacked index."""
-    for seg in cache.values():
-        for v in seg.values():
-            if v.dtype == torch.int32 and v.ndim >= 2:
-                return v[0]
+    """Per-row decode positions (B,): layer 0 of the first stacked index (all
+    layers advance in lockstep)."""
+    for v in _index_leaves(cache):
+        return v[0]
     raise ValueError("cache carries no write index")
 
 
@@ -175,20 +243,13 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, ctx: EngineContext):
     """Cached decode: tokens (B, S) + cache -> (logits (B, S, V), cache).
 
     S = 1 is the one-token decode step; S > 1 writes a whole block (bucketed
-    prefill). The cache is updated in place and returned.
+    prefill). The cache is updated in place and returned. A vision model
+    decodes text tokens only, as the reference serves it.
     """
     h = params["embed"][tokens].to(cfg.compute_dtype)
     index = _cache_index(cache)
     positions = index[:, None] + torch.arange(tokens.shape[1], dtype=torch.int32,
                                               device=tokens.device)[None, :]
-    for i, (kind, n) in enumerate(_segments(cfg)):
-        key = f"seg{i}_{kind}"
-        seg_p, seg_c = params[key], cache[key]
-        layer_fn = _moe_layer if kind == "moe" else _dense_layer
-        for layer in range(n):
-            p = layer_view(seg_p, layer)
-            c = {name: v[layer] for name, v in seg_c.items()}
-            h, new_c, _ = layer_fn(p, h, cfg, ctx, positions, c)
-            seg_c["index"][layer] = new_c["index"]
+    h, _ = _run_segments(params, h, cfg, ctx, positions, cache)
     h = blocks.apply_norm(params["final_norm"], h, cfg)
     return _lm_head(params, h, cfg, ctx), cache

@@ -1,4 +1,4 @@
-"""PyTorch port: the ported configs (olmo-1b, deepseek-v3-671b) equal the
+"""PyTorch port: the ported configs (the seven transformer archs) equal the
 reference's, field for field, stock and reduced."""
 import dataclasses
 
@@ -37,6 +37,17 @@ def test_deepseek_config_matches_reference(variant):
     assert port.family == "moe" and port.mla is not None
 
 
+NEW_ARCHS = ["qwen2.5-14b", "qwen3-8b", "yi-9b", "internvl2-2b", "llama4-maverick-400b-a17b"]
+
+
+@pytest.mark.parametrize("variant", ["stock", "reduced", "reduced_3x64"])
+@pytest.mark.parametrize("name", NEW_ARCHS)
+def test_transformer_config_matches_reference(name, variant):
+    port, ref = _variant(get_config(name), ref_get_config(name), variant)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.kv_groups == ref.kv_groups
+
+
 def test_dtype_map():
     cfg = get_config("olmo-1b")
     assert cfg.compute_dtype == torch.bfloat16
@@ -45,6 +56,9 @@ def test_dtype_map():
 
 
 def test_registry_holds_only_ported_archs():
-    assert sorted(ARCHS) == ["deepseek-v3-671b", "olmo-1b"]
-    with pytest.raises(KeyError, match="unknown arch"):
-        get_config("qwen3-8b")
+    """The seven transformer archs; the recurrent and encoder-decoder ones
+    arrive with their families."""
+    assert sorted(ARCHS) == sorted(["olmo-1b", "deepseek-v3-671b", *NEW_ARCHS])
+    for name in ("mamba2-780m", "zamba2-7b", "seamless-m4t-large-v2"):
+        with pytest.raises(KeyError, match="unknown arch"):
+            get_config(name)

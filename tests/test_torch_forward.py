@@ -15,7 +15,6 @@ load-balancing loss within 1e-6.
 Past ``Q_CHUNK`` the chains run their query blocks; that is held at the
 attention functions, not the whole model, to keep the test fast.
 """
-import dataclasses
 import math
 
 import numpy as np
@@ -105,11 +104,24 @@ def test_forward_matches_reference(arch, weights, impl):
         assert float(aux["lb_loss"]) == 0.0
 
 
-def test_vision_frontend_is_not_yet_ported():
-    cfg = dataclasses.replace(reduced(get_config("olmo-1b")), frontend="vision")
-    with pytest.raises(NotImplementedError, match="vision"):
-        get_model(cfg).forward({}, {"tokens": torch.zeros((1, 2), dtype=torch.int64)},
-                               EngineContext(mode="kernel"))
+def test_vision_forward_takes_frontend_embeds():
+    """internvl2's stub frontend: ``frontend_embeds`` (B, P, D) are prepended,
+    the logits cover P + S rows; without them the forward raises KeyError,
+    as the reference's does (its parity is in test_torch_archs.py)."""
+    model = get_model(reduced(get_config("internvl2-2b")))
+    cfg = model.cfg
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.zeros((2, 5), dtype=torch.int64)
+    embeds = torch.randn((2, cfg.frontend_tokens, cfg.d_model), generator=torch.Generator()
+                         .manual_seed(1)) * 0.02
+    ctx = EngineContext(mode="kernel", policy=PrecisionPolicy.accurate(),
+                        compute_dtype=torch.float32)
+    with torch.no_grad():
+        logits, aux = model.forward(params, {"tokens": tokens, "frontend_embeds": embeds}, ctx)
+        assert tuple(logits.shape) == (2, cfg.frontend_tokens + 5, cfg.vocab_size)
+        assert torch.isfinite(logits).all() and float(aux["lb_loss"]) == 0.0
+        with pytest.raises(KeyError, match="frontend_embeds"):
+            model.forward(params, {"tokens": tokens}, ctx)
 
 
 def test_gqa_chains_past_q_chunk():

@@ -12,7 +12,6 @@ Logits agree to f32 reduction-order tolerance (norms, RoPE and the attention
 softmax sum in another order); greedy streams must be identical. Per-call
 and prepared logits are the same arithmetic and agree bitwise.
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -294,15 +293,15 @@ def test_deepseek_greedy_streams_identical_to_reference(ds_setup, ds_ref_streams
     assert server.host_transfers == len(DS_PROMPTS) + server.decode_steps // burst
 
 
-def test_interleaved_moe_segments_not_yet_ported():
-    from repro_torch.configs import MoEConfig
+def test_serving_cli_serves_interleaved_moe_on_cpu(capsys):
+    """llama4-maverick reduced (one interleaved dense/MoE pair) through the
+    CLI; its parity with the reference is in test_torch_llama4.py."""
+    from repro_torch.launch.serve import main
 
-    cfg = reduced(get_config("deepseek-v3-671b"), layers=4)
-    pair = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, moe_every=2,
-                                                             first_dense_layers=0))
-    assert isinstance(pair.moe, MoEConfig)
-    with pytest.raises(NotImplementedError, match="pair"):
-        get_model(pair).specs()
+    out = main(["--arch", "llama4-maverick-400b-a17b", "--reduced", "--requests", "3",
+                "--slots", "2", "--max-new", "4", "--burst", "2", "--device", "cpu"])
+    assert sorted(out) == [0, 1, 2] and all(len(v) == 4 for v in out.values())
+    assert "host round-trips" in capsys.readouterr().out
 
 
 def test_serving_cli_serves_deepseek_on_cpu(capsys):

@@ -60,12 +60,13 @@ cache-free flash and MLA flash attentions), then:
    and, on reduced olmo-1b (``replay_order``), captures the graphs while
    serving one order of requests and replays them for two other orders,
    each bitwise equal to the uncaptured run of the same order;
-4. serves the same model and weights per call (``prepare_weights=False``:
+4. serves olmo-1b widths at 4 layers (``PER_CALL_LAYERS``) prepared, as in
+   3, and the same model and weights per call (``prepare_weights=False``:
    every dot re-rounds its raw weight and runs the MAC-array kernel, the
    gate its activation through the multi-AF kernel), captured as in 3, and
-   checks its streams and top-2 margins against the prepared run's, bit for
-   bit, at burst 8 and burst 1 and uncaptured, with its own launch counts;
-   times the per-call weight rounding;
+   checks its streams and top-2 margins against that prepared run's, bit
+   for bit, at burst 8 and burst 1 and uncaptured, with its own launch
+   counts; times the per-call weight rounding;
 5. runs the startup calibration scan (``calibration_scan``: per call,
    ``"flash"``, batch (2, 512), one forward per engine-dot group) on
    full-width olmo-1b, turns it into a policy with ``assign_depths``, and
@@ -91,12 +92,25 @@ cache-free flash and MLA flash attentions), then:
    streams and margins bitwise, launch counts exact), their GQA with 5
    (qwen2.5-14b, llama4), 4 (qwen3-8b), 8 (yi-9b) and 2 (internvl2-2b)
    head groups: qwen2.5-14b cut to 8 layers and its ``forward`` at
-   (1, 512); internvl2-2b at all 24 layers, also sampled (its vocabulary of
-   92553 is odd), and its ``forward`` on 256 stub frontend embeddings and
-   256 tokens; qwen3-8b and yi-9b at 2 layers; llama4-maverick at 2 layers
-   (one interleaved dense/MoE pair) with 64 of its 128 routed experts
-   (``ARCH_LAYERS``, ``weight_reckoning``: 42.5 GB of f32 at set-up) and its
-   ``forward`` at (1, 512); then reduced llama4 card vs CPU, served.
+   (1, 512); internvl2-2b at 12 of its 24 layers, also sampled (its
+   vocabulary of 92553 is odd), and its ``forward`` on 256 stub frontend
+   embeddings and 256 tokens; qwen3-8b and yi-9b at 2 layers;
+   llama4-maverick at 2 layers (one interleaved dense/MoE pair) with 64 of
+   its 128 routed experts (``ARCH_LAYERS``, ``weight_reckoning``: 42.5 GB of
+   f32 at set-up) and its ``forward`` at (1, 512); then reduced llama4 card
+   vs CPU, served;
+10. serves the recurrent and encoder-decoder archs at stock widths as 3
+   serves olmo-1b (``scan_phases``), each prompt prefilled through the scan
+   (a captured single-token step replayed once per prompt token, then a
+   captured finish: one transfer a prefill), the exact launch gates counting
+   those replays: mamba2-780m (48 layers, also sampled), zamba2-7b (18 of 81
+   layers: two groups of nine Mamba2 layers and the shared attention block,
+   GQA at head_dim 112) and seamless-m4t-large-v2 (24 + 24 layers); their
+   ``forward`` on the serving weights (mamba2 and zamba2 at (1, 512), two SSD
+   chunks; seamless on 512 stub frames and 256 tokens, its encoder's flash
+   launches non-causal); then each reduced card vs CPU, served (zamba2 at
+   d_model 448: head_dim 112). Its kernel rows add GQA and flash at head_dim
+   112, non-causal flash, and the new archs' fused shapes.
 
 Exact launch counts come from the kernel wrappers (``repro_torch.kernels.
 launch_counts``, by instantiation), never from ``torch.profiler``, which
@@ -154,12 +168,17 @@ FUSED_SHAPES = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 50304))
 DEEPSEEK_FUSED_SHAPES = ((7168, 576), (16384, 7168), (1536, 24576), (18432, 7168),
                          (7168, 129280))
 DEEPSEEK_LAYERS = 4  # the stock 3 dense-prefix layers and 1 MoE layer
+# olmo-1b per call (every dot re-rounds its raw weight) cut from 16 to 4
+# layers, held against a prepared run at that depth: for the smoke's time,
+# since the scan archs' phases (PR 21's 16-layer per-call phase: ~130 s)
+PER_CALL_LAYERS = 4
 # the other transformer archs, every width stock, f32: qwen2.5-14b cut from 48
-# to 8 layers (15.0 GB of f32 weights at set-up), qwen3-8b and yi-9b to 2;
+# to 8 layers (15.0 GB of f32 weights at set-up), internvl2-2b from 24 to 12
+# (for the smoke's time, since the scan archs' phases), qwen3-8b and yi-9b to 2;
 # llama4-maverick to 2 layers (one dense/MoE pair) and from 128 routed experts
 # to 64: at 128 the routed experts of one MoE layer alone are 128 x 3 x 5120 x
 # 8192 x 4 B = 64.4 GB of f32, the embedding and lm_head 8.3 GB more
-ARCH_LAYERS = {"qwen2.5-14b": 8, "qwen3-8b": 2, "yi-9b": 2, "internvl2-2b": None,
+ARCH_LAYERS = {"qwen2.5-14b": 8, "qwen3-8b": 2, "yi-9b": 2, "internvl2-2b": 12,
                "llama4-maverick-400b-a17b": 2}
 LLAMA4_EXPERTS = 64
 # (K, N) of their new fused dots: qwen2.5's lm_head (N = 152064) and down
@@ -174,6 +193,41 @@ ARCH_FORWARD = {"qwen2.5-14b": (1, BUCKET), "internvl2-2b": (1, 256),
 # GQA head groups of the new archs on the cache and flash kernels: 5
 # (qwen2.5-14b and llama4, H40/KV8) and 8 (yi-9b, H32/KV4)
 ARCH_HEADS = ((40, 8), (32, 4))
+# the recurrent and encoder-decoder archs, every width stock, f32, prefilled
+# through the scan (one single-token step a prompt token): mamba2-780m at all
+# 48 layers; zamba2-7b cut from 81 to 18 layers, two groups of nine Mamba2
+# layers with the shared block applied twice (1.84 B params, 7.35 GB of f32;
+# all 81 would be 6.75 B and 27.0 GB, which fits one card: the cut is for the
+# smoke's time only); seamless-m4t-large-v2 at all 24 + 24 layers
+SCAN_ARCH_LAYERS = {"mamba2-780m": None, "zamba2-7b": 18, "seamless-m4t-large-v2": None}
+# every fused dot (K, N) of their main paths and the activations each runs:
+# mamba2's in_proj, out_proj and lm_head; zamba2's in_proj and out_proj, its
+# shared block's q/k/v/o, GLU up and gate (swish) and down, and its lm_head;
+# seamless's q/k/v/o (self and cross, encoder and decoder), its ReLU MLP's up
+# and down, and its lm_head over 256206 (rows of 1024800 bytes)
+SCAN_FUSED_SHAPES = (("mamba2-780m", (1536, 6448), ("identity",)),
+                     ("mamba2-780m", (3072, 1536), ("identity",)),
+                     ("mamba2-780m", (1536, 50280), ("identity",)),
+                     ("zamba2-7b", (3584, 14576), ("identity",)),
+                     ("zamba2-7b", (7168, 3584), ("identity",)),
+                     ("zamba2-7b", (3584, 3584), ("identity",)),
+                     ("zamba2-7b", (3584, 14336), ("identity", "swish")),
+                     ("zamba2-7b", (14336, 3584), ("identity",)),
+                     ("zamba2-7b", (3584, 32000), ("identity",)),
+                     ("seamless-m4t-large-v2", (1024, 1024), ("identity",)),
+                     ("seamless-m4t-large-v2", (1024, 8192), ("identity", "relu")),
+                     ("seamless-m4t-large-v2", (8192, 1024), ("identity",)),
+                     ("seamless-m4t-large-v2", (1024, 256206), ("identity",)))
+# the cache-free forwards on the serving weights: mamba2 and zamba2 over two
+# SSD chunks of 256; seamless over 512 stub frames (pooled to 256) and 256
+# decoder tokens
+SCAN_FORWARD = {"mamba2-780m": (1, BUCKET), "zamba2-7b": (1, BUCKET),
+                "seamless-m4t-large-v2": (1, 256)}
+SEAMLESS_FRAMES = 512
+# the requests of a scan arch's profiled repeat (prompts 3, 17 and 9): every
+# prompt token is a replayed step of ~2000 kernels at mamba2's depth, and the
+# whole request set's 519 steps would be a million profiler records
+SCAN_PROFILE_RIDS = (0, 1, 5)
 # the serving CLI's --cycle-reduction default, for the calibrated policy
 CYCLE_REDUCTION = 0.33
 # the yardstick the card vs CPU logits of the cache-free forward are reported
@@ -458,7 +512,9 @@ def check_fused(device):
     shapes = ([("olmo-1b", kn, (SLOTS, 16, 32, 64, BUCKET, 2 * BUCKET)) for kn in FUSED_SHAPES]
               + [("deepseek-v3-671b", kn, (SLOTS, BUCKET)) for kn in DEEPSEEK_FUSED_SHAPES]
               + [(arch, kn, (SLOTS, BUCKET)) for arch, kn in ARCH_FUSED_SHAPES])
-    for model_name, (k, n), ms_ in shapes:
+    shapes = ([(name, kn, ms_, ("identity", "swish")) for name, kn, ms_ in shapes]
+              + [(arch, kn, (SLOTS, BUCKET), afs) for arch, kn, afs in SCAN_FUSED_SHAPES])
+    for model_name, (k, n), ms_, afs in shapes:
         banks = prepared_weight(k, n, FXP8, gen, device,
                                 copies=max(1, min(48, math.ceil(3e8 / (k * n)))))
         for m in ms_:
@@ -466,7 +522,7 @@ def check_fused(device):
             xq = torch.clamp(torch.round(x * 64), -128, 127).to(torch.int8)
             iters = 60 if m <= 32 else 20
             lib = int_mm_ms(xq, [b.data for b in banks], iters)
-            for af in ("identity", "swish"):
+            for af in afs:
                 w = banks[0]
                 kw = dict(af_mode=af, af_depth=FXP8.frac + 1, af_fmt=FXP8)
                 got = fused_dot_af(x, w.data, w.point, **kw)
@@ -600,7 +656,8 @@ def check_attention(device):
     """The GQA cache attention against its plain version: decode (B4 S1,
     split keys), the serving prefill buckets 16, 64 and 512 from row 0 and a
     burst of 4 (the tensor-core path from S = 16 on, split keys below), with
-    GQA groups of 1 and 2 (olmo-1b widths), 5 (H40/KV8) and 8 (H32/KV4); each
+    GQA groups of 1 and 2 (olmo-1b widths), 5 (H40/KV8) and 8 (H32/KV4), and
+    at head_dim 112 (zamba2, H32/KV32) and 64 (seamless, H16/KV16); each
     row records its path and splits, the f32-FMA and 3xTF32 bounds and
     SDPA's time."""
     import torch
@@ -625,6 +682,14 @@ def check_attention(device):
         cases += [(SLOTS, 1, MAX_LEN, h, kv, 128, None), (2, 4, MAX_LEN, h, kv, 128, None),
                   (1, 16, MAX_LEN, h, kv, 128, 0), (1, 64, MAX_LEN, h, kv, 128, 0),
                   (1, BUCKET, MAX_LEN, h, kv, 128, 0)]
+    # zamba2's shared attention, H32/KV32 at head_dim 112: decode, a burst of 4
+    # and the prefill buckets 16, 64 and 512 from row 0
+    cases += [(SLOTS, 1, MAX_LEN, 32, 32, 112, None), (2, 4, MAX_LEN, 32, 32, 112, None),
+              (1, 16, MAX_LEN, 32, 32, 112, 0), (1, 64, MAX_LEN, 32, 32, 112, 0),
+              (1, BUCKET, MAX_LEN, 32, 32, 112, 0)]
+    # seamless's decoder self-attention, H16/KV16 at head_dim 64 (split keys,
+    # two dims a lane): decode and a burst of 4
+    cases += [(SLOTS, 1, MAX_LEN, 16, 16, 64, None), (2, 4, MAX_LEN, 16, 16, 64, None)]
     rows, max_err = [], 0.0
     for b, s, t, h, kv, hd, start in cases:
         q, ck, cv, pos = attention_case(b, s, t, h, kv, hd, gen, device, start)
@@ -794,10 +859,12 @@ def check_flash(device):
     widths (H 16, D 128) at the forward phase's B2 S512 and at B1 S2048,
     GQA (KV 4), a ragged S, bf16 in and out (both round an f32 result that
     agrees within TOLERANCE: at most one bf16 step apart, 2^-7 of the
-    value), and H40/KV8 (5 groups) at B1 S512; each row records the
-    f32-FMA bound (bf16: the bf16 tensor-core rate), the TF32 tensor-core
-    bound for the passes the kernel runs (3, or 1.5 with bf16 operands) and
-    SDPA's time."""
+    value), H40/KV8 (5 groups) at B1 S512, zamba2's head_dim 112 (H32) at
+    B1 S512 causal and not, and seamless's non-causal encoder (H16 at
+    head_dim 64 over its 256 pooled frames) and causal decoder (256
+    tokens); each row records the f32-FMA bound (bf16: the bf16 tensor-core
+    rate), the TF32 tensor-core bound for the passes the kernel runs (3, or
+    1.5 with bf16 operands) and SDPA's time."""
     import torch
     import torch.nn.functional as F
 
@@ -805,21 +872,25 @@ def check_flash(device):
                                                      flash_attention_ref)
 
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
-    cases = [  # (B, S, H, KV, D, dtype)
-        (2, BUCKET, 16, 16, 128, torch.float32),
-        (1, 2048, 16, 16, 128, torch.float32),
-        (2, BUCKET, 16, 4, 128, torch.float32),
-        (2, 70, 16, 16, 128, torch.float32),
-        (2, BUCKET, 16, 16, 128, torch.bfloat16),
-        (1, BUCKET, 40, 8, 128, torch.float32),  # qwen2.5-14b and llama4's forward
+    cases = [  # (B, S, H, KV, D, dtype, causal)
+        (2, BUCKET, 16, 16, 128, torch.float32, True),
+        (1, 2048, 16, 16, 128, torch.float32, True),
+        (2, BUCKET, 16, 4, 128, torch.float32, True),
+        (2, 70, 16, 16, 128, torch.float32, True),
+        (2, BUCKET, 16, 16, 128, torch.bfloat16, True),
+        (1, BUCKET, 40, 8, 128, torch.float32, True),  # qwen2.5-14b and llama4's forward
+        (1, BUCKET, 32, 32, 112, torch.float32, True),  # zamba2's forward
+        (1, 256, 16, 16, 64, torch.float32, False),  # seamless's encoder (pooled frames)
+        (1, 256, 16, 16, 64, torch.float32, True),  # seamless's decoder forward
+        (1, BUCKET, 32, 32, 112, torch.float32, False),
     ]
     rows, max_err = [], 0.0
-    for b, s, h, kv, d, dtype in cases:
+    for b, s, h, kv, d, dtype, causal in cases:
         q = torch.randn((b, s, h, d), generator=gen, device=device).to(dtype)
         k = torch.randn((b, s, kv, d), generator=gen, device=device).to(dtype)
         v = torch.randn((b, s, kv, d), generator=gen, device=device).to(dtype)
-        got = flash_attention(q, k, v)
-        want = flash_attention_ref(q, k, v)
+        got = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
         err = diff.max().item()
@@ -834,14 +905,16 @@ def check_flash(device):
             if not (diff <= want.float().abs() * 2.0**-7 + TOLERANCE).all():
                 raise AssertionError(f"flash_attention bf16 vs plain: max|diff| {err} past one "
                                      f"rounding step at B={b} S={s}")
-        ms = graph_ms(lambda: flash_attention(q, k, v), 20)
-        plain_ms = timed_ms(lambda: flash_attention_ref(q, k, v), iters=3, warmup=1)
+        ms = graph_ms(lambda: flash_attention(q, k, v, causal=causal), 20)
+        plain_ms = timed_ms(lambda: flash_attention_ref(q, k, v, causal=causal), iters=3,
+                            warmup=1)
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
         if kv != h:
             kt, vt = kt.repeat_interleave(h // kv, 1), vt.repeat_interleave(h // kv, 1)
-        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20)
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
+                          20)
         elem = q.element_size()
-        pairs = h * causal_pairs(b, s, s, True)
+        pairs = h * causal_pairs(b, s, s, causal)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * elem
         # bf16 operands: bounded at the bf16 tensor-core rate; on the TF32
         # units the kernel runs one pass for Q.K^T (both bf16) and two for
@@ -851,10 +924,11 @@ def check_flash(device):
         passes = 1.5 if bf16 else 3.0
         b3_ms = bound_tf32(nbytes, 4.0 * d * pairs, passes)
         rows.append(dict(B=b, S=s, H=h, KV=kv, D=d, dtype=str(dtype).removeprefix("torch."),
-                         causal=True, tolerance=tol, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         causal=causal, tolerance=tol, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          sdpa_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bound_tf32_ms=b3_ms,
                          tf32_passes=passes))
-        log(f"flash B={b} S={s} H={h} KV={kv} D={d} {dtype}: {ms:.4f} ms (plain {plain_ms:.3f}, "
+        log(f"flash B={b} S={s} H={h} KV={kv} D={d} {dtype} causal={causal}: {ms:.4f} ms (plain "
+            f"{plain_ms:.3f}, "
             f"sdpa {lib_ms:.4f}, bound {b_ms:.4f} {b_by}, TF32 x{passes} {b3_ms:.4f}) "
             f"err {err:.2e}")
     return rows, max_err
@@ -1229,16 +1303,20 @@ def arch_config(name: str):
 
 
 def weight_reckoning(cfg) -> dict:
-    """GB of the f32 parameter tree ``cfg`` builds at set-up (from its
-    specs), and for an MoE config the routed experts' GB a MoE layer, at the
-    config's expert count and at the stock one."""
+    """Parameters (billions) and GB of the f32 parameter tree ``cfg`` builds
+    at set-up (from its specs), the parameters at the stock depth, and for an
+    MoE config the routed experts' GB a MoE layer, at the config's expert
+    count and at the stock one."""
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
     from repro_torch.models.params import spec_leaves
 
-    out = dict(layers=cfg.num_layers, stock_layers=get_config(cfg.name).num_layers,
-               f32_weights_gb=sum(math.prod(s.shape) for _, s in
-                                  spec_leaves(get_model(cfg).specs())) * 4 / 1e9)
+    def params(c):
+        return sum(math.prod(s.shape) for _, s in spec_leaves(get_model(c).specs()))
+
+    stock = dataclasses.replace(cfg, num_layers=get_config(cfg.name).num_layers)
+    out = dict(layers=cfg.num_layers, stock_layers=stock.num_layers, params_b=params(cfg) / 1e9,
+               f32_weights_gb=params(cfg) * 4 / 1e9, params_b_at_stock_depth=params(stock) / 1e9)
     if cfg.moe is not None:
         per_expert = 3 * cfg.d_model * cfg.moe.d_ff_expert * 4 / 1e9
         stock = get_config(cfg.name).moe.num_experts
@@ -1321,10 +1399,35 @@ def moe_layers(cfg) -> int:
     return (cfg.num_layers - cfg.moe.first_dense_layers) // cfg.moe.moe_every
 
 
+def scan_prefill(cfg) -> bool:
+    """Whether ``cfg``'s server prefills through the scan (one single-token
+    decode step a prompt token) rather than one forward over a bucket: the
+    engine's own rule."""
+    from repro_torch.serve.engine import prefills_batched
+
+    return not prefills_batched(cfg)
+
+
+def hybrid_groups(cfg) -> int:
+    return cfg.num_layers // cfg.hybrid.attn_every
+
+
 def launches_per_forward(cfg, per_call: bool = False) -> dict:
-    """Kernel launches one forward of ``cfg`` implies, by kernel. Per call,
-    every dot is a MAC-array launch and the gate's activation its own
-    multi-AF launch."""
+    """Kernel launches one decode forward of ``cfg`` implies, by kernel. Per
+    call, every dot is a MAC-array launch and the gate's activation its own
+    multi-AF launch. A Mamba2 layer runs two fused dots (in_proj, out_proj);
+    zamba2's shared block seven (q k v o, up gate down) and one GQA launch a
+    group; a seamless decoder layer eight (self q k v o, cross q o: the
+    cross K/V are cached, up down) and one GQA launch (cross-attention is
+    plain)."""
+    if cfg.family == "ssm":
+        return {"fused_dot_af": 2 * cfg.num_layers + 1}
+    if cfg.family == "hybrid":
+        groups = hybrid_groups(cfg)
+        return {"fused_dot_af": 2 * cfg.num_layers + 7 * groups + 1,
+                "gqa_decode_attention": groups}
+    if cfg.family == "audio":
+        return {"fused_dot_af": 8 * cfg.num_layers + 1, "gqa_decode_attention": cfg.num_layers}
     if cfg.moe is None and per_call:
         return {"cordic_mac": 7 * cfg.num_layers + 1, "af_elementwise": cfg.num_layers,
                 "gqa_decode_attention": cfg.num_layers}
@@ -1343,13 +1446,22 @@ def launches_per_forward(cfg, per_call: bool = False) -> dict:
 def forward_launches(cfg, attn_impl: str, per_call: bool = False) -> dict:
     """Kernel launches one cache-free ``forward`` implies: the decode step's
     dots, and under ``"flash"`` one flash (dense) or MLA flash launch per
-    layer in place of the decode attention; ``"xla"`` runs no attention
-    kernel."""
+    attention layer in place of the decode attention; ``"xla"`` runs no
+    attention kernel. seamless's forward also projects the cross K/V and
+    runs its encoder."""
+    if cfg.family == "audio":  # encoder q k v o up down, decoder self and cross q k v o, up down
+        enc, dec = cfg.encdec.encoder_layers, cfg.num_layers
+        want = {"fused_dot_af": 6 * enc + 10 * dec + 1}
+        if attn_impl == "flash":  # the encoder's (non-causal) and the decoder's self-attention
+            want["flash_attention"] = enc + dec
+        return want
     want = launches_per_forward(cfg, per_call)
     want.pop("gqa_decode_attention", None)
     want.pop("mla_decode_attention", None)
-    if attn_impl == "flash":
-        want["mla_flash_attention" if cfg.mla else "flash_attention"] = cfg.num_layers
+    attention_layers = (0 if cfg.family == "ssm" else hybrid_groups(cfg)
+                        if cfg.family == "hybrid" else cfg.num_layers)
+    if attn_impl == "flash" and attention_layers:
+        want["mla_flash_attention" if cfg.mla else "flash_attention"] = attention_layers
     return want
 
 
@@ -1379,23 +1491,39 @@ def add_counts(total: dict, more: dict) -> dict:
 
 def serving_instantiations(cfg, server, reqs, per_call: bool = False) -> dict:
     """Launches by instantiation that serving ``reqs`` implies: one forward
-    per request over its prompt's bucket, and the run's decode steps over
-    the server's slots, one query row each."""
+    per request over its prompt's bucket (the scan: one single-row forward
+    per prompt token), and the run's decode steps over the server's slots,
+    one query row each."""
     from repro_torch.serve.kvcache import bucket_length
 
     per_forward = launches_per_forward(cfg, per_call)
     want = by_instantiation(per_forward, server.slots, 1, server.decode_steps)
+    if scan_prefill(cfg):
+        return add_counts(want, by_instantiation(per_forward, 1, 1,
+                                                 sum(len(r.prompt) for r in reqs)))
     for r in reqs:
         b = bucket_length(len(r.prompt), server.max_len)
         add_counts(want, by_instantiation(per_forward, b, b))
     return want
 
 
-def plain_products_per_forward(cfg) -> int:
+def plain_products_per_forward(cfg, cache_free: bool = False) -> int:
     """Products the reference leaves to XLA outside any kernel, which the port
     leaves to torch.einsum: MLA's wk_b/wv_b absorptions, the MoE router and
-    its three expert einsums."""
-    return 2 * cfg.num_layers * bool(cfg.mla) + 4 * moe_layers(cfg)
+    its three expert einsums; a Mamba2 layer's conv window, state update and
+    readout at decode, its SSD's four chunk products in a cache-free pass;
+    seamless's two cross-attention products a decoder layer."""
+    mamba = {"ssm": cfg.num_layers, "hybrid": cfg.num_layers}.get(cfg.family, 0)
+    cross = 2 * cfg.num_layers if cfg.family == "audio" else 0
+    return (2 * cfg.num_layers * bool(cfg.mla) + 4 * moe_layers(cfg)
+            + (4 if cache_free else 3) * mamba + cross)
+
+
+def model_forwards(server) -> int:
+    """The model forwards a run made: prefills (one each when bucketed, one
+    per prompt token through the scan) and decode steps."""
+    prefill = server.prefill_calls if server.batched_prefill else server.prefill_steps
+    return prefill + server.decode_steps
 
 
 def replayed_launches(runner) -> dict:
@@ -1417,13 +1545,15 @@ def graph_accounting(label, server, cfg, reqs, per_call: bool = False,
     * each graph captured in this run (not in ``captured_before``) issued,
       at its capture and again in its warm-up, exactly the launches by
       instantiation that its forwards imply (a prefill bucket ``b``: one
-      forward over ``b`` rows; a burst: ``burst`` forwards over the slots);
+      forward over ``b`` rows; the scan prefill's step: one forward over one
+      row, its finish none; a burst: ``burst`` forwards over the slots);
     * the wrappers' counts since ``zero_launches`` are exactly the sum of
       those warm-ups and captures (nothing else was issued from the host);
     * the launches the replays made on the device, each graph's captured
       launches times its replays, are exactly what serving ``reqs``
       implies, by instantiation;
-    * every prefill and every burst was one replay and one transfer.
+    * every prefill and every burst was one replay and one transfer; a scan
+      prefill also replayed its step once per prompt token.
 
     Returns ``(launches by kernel, replayed launches by instantiation)``."""
     from repro_torch.kernels import kernel_totals
@@ -1436,6 +1566,10 @@ def graph_accounting(label, server, cfg, reqs, per_call: bool = False,
             continue
         if name.startswith("burst"):
             want = by_instantiation(per_forward, server.slots, 1, server.burst)
+        elif name == "prefill step":  # the scan: one single-row forward
+            want = by_instantiation(per_forward, 1, 1)
+        elif name == "prefill finish":  # sampling, scatter, admission: no kernel
+            want = {}
         else:
             b = int(name.split()[-1])
             want = by_instantiation(per_forward, b, b)
@@ -1446,15 +1580,19 @@ def graph_accounting(label, server, cfg, reqs, per_call: bool = False,
     check_instantiations(f"{label}: issued from the host (warm-ups and captures)",
                          wrapper_counts(), issued)
     replayed = replayed_launches(runner)
-    forwards = server.prefill_calls + server.decode_steps
     launches = check_launches(f"{label}: replayed", kernel_totals(replayed), per_forward,
-                              times=forwards)
+                              times=model_forwards(server))
     check_instantiations(f"{label}: replayed", replayed,
                          serving_instantiations(cfg, server, reqs, per_call))
+    # one transfer a prefill and a burst; one replay each, and the scan's
+    # step once per prompt token besides
     rounds = server.prefill_calls + server.decode_steps // server.burst
-    if not server.graph_replays == server.host_transfers == rounds:
+    steps = 0 if server.batched_prefill else sum(len(r.prompt) for r in reqs)
+    if not (server.host_transfers == rounds and server.prefill_steps == steps
+            and server.graph_replays == rounds + steps):
         raise AssertionError(f"{label}: {server.graph_replays} graph replays, "
-                             f"{server.host_transfers} transfers, {rounds} prefills and bursts")
+                             f"{server.host_transfers} transfers, {rounds} prefills and bursts, "
+                             f"{server.prefill_steps} scan steps for {steps} prompt tokens")
     return launches, replayed
 
 
@@ -1466,7 +1604,7 @@ def uncaptured_accounting(label, server, cfg, reqs, per_call: bool = False) -> d
 
     counts = wrapper_counts()
     launches = check_launches(label, kernel_totals(counts), launches_per_forward(cfg, per_call),
-                              times=server.prefill_calls + server.decode_steps)
+                              times=model_forwards(server))
     check_instantiations(label, counts, serving_instantiations(cfg, server, reqs, per_call))
     if server.graph_replays:
         raise AssertionError(f"{label}: {server.graph_replays} graph replays uncaptured")
@@ -1574,7 +1712,9 @@ def serve_full_width(device, label, cfg, prepared_run=None, policy=None):
                f"({'per-call' if per_call else 'prepared'} weights), FxP8 "
                f"{'calibrated' if policy else 'accurate'}, attn_impl=decode_kernel, greedy",
         slots=SLOTS, max_len=MAX_LEN, burst=BURST, prompt_lens=list(PROMPT_LENS),
-        max_new=MAX_NEW, prefill_calls=server.prefill_calls, decode_steps=server.decode_steps,
+        max_new=MAX_NEW, prefill="scan" if scan_prefill(cfg) else "bucketed",
+        prefill_calls=server.prefill_calls, prefill_steps=server.prefill_steps,
+        decode_steps=server.decode_steps,
         first_run=first_run,  # graphs captured at first use, inside this run
         start_mem_gib=start_mem / 2**30,
         setup_peak_mem_gib=setup_peak / 2**30,
@@ -1606,6 +1746,8 @@ def serve_full_width(device, label, cfg, prepared_run=None, policy=None):
     # which must repeat their streams' heads
     head = 9 if per_call else MAX_NEW
     again_reqs = requests(cfg, max_new=head)
+    if scan_prefill(cfg):
+        again_reqs = [r for r in again_reqs if r.rid in SCAN_PROFILE_RIDS]
     zero_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1615,9 +1757,10 @@ def serve_full_width(device, label, cfg, prepared_run=None, policy=None):
     if set(runner.graphs) != captured:
         raise AssertionError(f"{label}: the profiled repeat captured {set(runner.graphs)}")
     _, ran = graph_accounting(f"{label} profiled", server, cfg, again_reqs, per_call, captured)
-    profiled_forwards = server.prefill_calls + server.decode_steps
-    if again != {rid: toks[:head] for rid, toks in first.items()} \
-            or margins(again_reqs) != [m[:head] for m in margins(first_reqs)]:
+    profiled_forwards = model_forwards(server)
+    heads = {r.rid: (first[r.rid][:head], r.margins[:head]) for r in first_reqs}
+    if again != {r.rid: heads[r.rid][0] for r in again_reqs} \
+            or margins(again_reqs) != [heads[r.rid][1] for r in again_reqs]:
         raise AssertionError(f"{label}: full-width greedy streams or their top-2 logit "
                              "margins differ between two runs")
     rows = kernel_breakdown(prof)
@@ -1641,7 +1784,8 @@ def serve_full_width(device, label, cfg, prepared_run=None, policy=None):
     rounds = server.graph_replays
     host = runtime_launches(prof)
     report["profiled_repeat"] = dict(
-        requests=len(again_reqs), forwards=profiled_forwards, graph_replays=rounds,
+        requests=len(again_reqs), prompt_lens=[len(r.prompt) for r in again_reqs],
+        forwards=profiled_forwards, graph_replays=rounds,
         attention_launches_by_instantiation=attention_calls,
         port_launches_replayed=nonzero(ran), profile_calls_by_instantiation=seen,
         wall_ms=profiled_wall * 1e3, device_busy_ms=busy_ms,
@@ -1745,7 +1889,8 @@ def serve_sampled(device, cfg, params, greedy):
     steady, steady_run = timed_run(server, steady_reqs)
     graph_accounting(f"{label} steady", server, cfg, steady_reqs, captured_before=captured)
     zero_launches()
-    prof_reqs = sampled_requests(cfg)
+    # a scan arch's profiled repeat serves SCAN_PROFILE_RIDS only (see there)
+    prof_reqs = sampled_requests(cfg, rids=set(SCAN_PROFILE_RIDS) if scan_prefill(cfg) else None)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         server.run(prof_reqs)
@@ -1934,6 +2079,9 @@ def forward_phase(device, label, cfg, params, batch):
         embeds = rng.standard_normal((batch[0], cfg.frontend_tokens, cfg.d_model)) * 0.02
         inputs["frontend_embeds"] = torch.as_tensor(embeds, dtype=torch.float32, device=device)
         seq += cfg.frontend_tokens
+    elif cfg.frontend == "audio":  # stub frames, pooled 2x to the decoder's length
+        embeds = rng.standard_normal((batch[0], SEAMLESS_FRAMES, cfg.d_model)) * 0.02
+        inputs["frontend_embeds"] = torch.as_tensor(embeds, dtype=torch.float32, device=device)
     runs, logits = {}, {}
     for impl in ("flash", "xla"):
         ctx = kernel_ctx(impl)
@@ -1968,7 +2116,7 @@ def forward_phase(device, label, cfg, params, batch):
                                  f"{attention}")
         gemm = library_kernels(rows, GEMM_KERNELS)
         gemm_calls = sum(n for _, n in gemm)
-        allowed = CUBLAS_LAUNCHES_PER_PRODUCT * plain_products_per_forward(cfg)
+        allowed = CUBLAS_LAUNCHES_PER_PRODUCT * plain_products_per_forward(cfg, cache_free=True)
         if impl == "flash" and gemm_calls > allowed:
             raise AssertionError(f"{label} forward: {gemm_calls} library matmul launches, the "
                                  f"plain products allow {allowed}: {gemm}")
@@ -1977,14 +2125,13 @@ def forward_phase(device, label, cfg, params, batch):
         # tensor-core kernel; the profile shows those kernels and no other
         fused_calls = tensor_core_launches(f"{label} forward ({impl})", ran, "fused_dot_af",
                                            want["fused_dot_af"])
-        attention_calls = attention_launches(
-            f"{label} forward ({impl})", ran,
-            {"mla_flash_attention/tc" if cfg.mla else "flash_attention/tc":
-             cfg.num_layers if impl == "flash" else 0})
+        flash_name = "mla_flash_attention" if cfg.mla else "flash_attention"
+        attention_calls = attention_launches(f"{label} forward ({impl})", ran,
+                                             {f"{flash_name}/tc": want.get(flash_name, 0)})
         seen = profile_names(f"{label} forward ({impl})", rows, ran)
         busy_ms = sum(r[0] for r in rows) / 1e3
         runs[impl] = dict(
-            wall_s=wall, launches=launches, lb_loss=float(aux["lb_loss"]),
+            wall_s=wall, launches=launches, lb_loss=float(aux.get("lb_loss", 0.0)),
             fused_launches_by_instantiation=fused_calls,
             attention_launches_by_instantiation=attention_calls,
             profiled_repeat=dict(
@@ -2005,7 +2152,8 @@ def forward_phase(device, label, cfg, params, batch):
     return dict(
         config=f"{label} full width, {cfg.num_layers} layers, dtype float32, kernel mode "
                "(prepared weights), FxP8 accurate, cache-free forward",
-        batch=list(batch), frontend_tokens=seq - batch[1], runs=runs,
+        batch=list(batch), frontend_tokens=seq - batch[1],
+        frontend_frames=SEAMLESS_FRAMES if cfg.frontend == "audio" else 0, runs=runs,
         launches=runs["flash"]["launches"],
         launches_per_forward=forward_launches(cfg, "flash"),
         max_abs_dlogit_flash_vs_xla=(logits["flash"] - logits["xla"]).abs().max().item(),
@@ -2179,8 +2327,12 @@ def card_vs_cpu(device, label, cfg, params, lens, max_len, prepare_weights=True)
         out[where] = server.run(reqs())
         prompt = torch.as_tensor(reqs()[1].prompt[None], device=dev)
         row = model.make_cache(1, max_len, device=dev)
+        # the logits of every prompt row: one block, or a step a token (the
+        # scan), the steps' rows concatenated
+        blocks = prompt.split(1, dim=1) if scan_prefill(cfg) else (prompt,)
         with torch.no_grad():
-            lg, _ = model.decode_step(server.params, prompt, row, server.ctx)
+            lg = torch.cat([model.decode_step(server.params, block, row, server.ctx)[0]
+                            for block in blocks], dim=1)
         logits[where] = lg.cpu()
     if out["card"] != out["cpu"]:
         raise AssertionError(f"{label}: streams differ card vs CPU: {out}")
@@ -2203,18 +2355,24 @@ def olmo_card_vs_cpu(device):
 def scaled_init(model, scale: float = 0.1):
     """``model.init`` on the CPU from ``SEED``, with the layer matrices scaled
     to N(0, scale^2), as in the CPU parity tests, so that the layers and not
-    the tied embedding pick the tokens."""
+    the tied embedding pick the tokens; for the scan families the leaves
+    initialised to ones (norm scales, the Mamba2 mixer's ``norm`` and ``D``)
+    become 1 + 0.1 x N(0, 1), as the CPU parity tests make them: at exactly
+    one the reduced streams collapse onto one token."""
     import torch
 
     from repro_torch.models.params import spec_leaves
 
     params = model.init(torch.Generator(device="cpu").manual_seed(SEED))
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     for path, spec in spec_leaves(model.specs()):
+        leaf = params
+        for key in path:
+            leaf = leaf[key]
         if spec.init == "normal" and path[0] != "embed":
-            leaf = params
-            for key in path:
-                leaf = leaf[key]
             leaf.mul_(scale / spec.scale)
+        elif spec.init == "ones" and scan_prefill(model.cfg):
+            leaf.add_(torch.randn(leaf.shape, generator=gen) * 0.1)
     return params
 
 
@@ -2257,6 +2415,21 @@ def llama4_card_vs_cpu(device):
                        scaled_init(get_model(cfg)), (5, 11, 70), 96)
 
 
+def scan_card_vs_cpu(device, name):
+    """A reduced scan arch (2 layers, d_model 128; zamba2 at d_model 448, where
+    the reduced rules give its stock head_dim 112 at H4/KV4, so that the
+    GQA kernel at 112 runs end to end) served on the card and the CPU, layer
+    weights scaled and ones-leaves perturbed as in ``scaled_init``."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+
+    cfg = reduced(get_config(name), d_model=448 if name == "zamba2-7b" else 128)
+    label = f"{name} reduced, {cfg.num_layers} layers, d_model {cfg.d_model}"
+    if cfg.num_heads:
+        label += f", H{cfg.num_heads}/KV{cfg.num_kv_heads} head_dim {cfg.head_dim}"
+    return card_vs_cpu(device, label, cfg, scaled_init(get_model(cfg)), (5, 11, 40), 64)
+
+
 def free_card():
     import torch
 
@@ -2289,6 +2462,43 @@ def arch_phases(device, serving: dict, forward: dict, parity: dict) -> None:
     parity["llama4-maverick"] = phase("llama4-maverick card vs cpu", llama4_card_vs_cpu,
                                       device)
     emit({"card_vs_cpu": parity["llama4-maverick"]})
+
+
+def scan_config(name: str):
+    """One of the scan archs at stock widths, f32, its depth cut to
+    ``SCAN_ARCH_LAYERS``."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(name), dtype="float32")
+    if SCAN_ARCH_LAYERS[name]:
+        cfg = dataclasses.replace(cfg, num_layers=SCAN_ARCH_LAYERS[name])
+    return cfg
+
+
+def scan_phases(device, serving: dict, forward: dict, parity: dict) -> None:
+    """The recurrent and encoder-decoder archs (``SCAN_ARCH_LAYERS``), each
+    served at full width as ``serve_full_width`` serves olmo-1b, through the
+    scan prefill; mamba2 also sampled; each one's ``SCAN_FORWARD`` forward on
+    the serving weights, the card freed between archs; then each reduced,
+    card vs CPU. Adds each report to the dicts and prints it."""
+    for name in SCAN_ARCH_LAYERS:
+        cfg = scan_config(name)
+        serving[name], streams, _, weights = phase(f"serve {name}", serve_full_width, device,
+                                                    name, cfg)
+        serving[name]["weights"] = weight_reckoning(cfg)
+        emit({"serving": serving[name]})
+        if name == "mamba2-780m":
+            serving[f"{name} sampled"] = phase(f"serve {name} sampled", serve_sampled, device,
+                                               cfg, weights, streams)
+            emit({"serving": serving[f"{name} sampled"]})
+        forward[name] = phase(f"forward {name}", forward_phase, device, name, cfg, weights,
+                              SCAN_FORWARD[name])
+        emit({"forward": forward[name]})
+        del weights
+        free_card()
+    for name in SCAN_ARCH_LAYERS:
+        parity[name] = phase(f"{name} card vs cpu", scan_card_vs_cpu, device, name)
+        emit({"card_vs_cpu": parity[name]})
 
 
 def phase(name: str, fn, *args, **kw):
@@ -2367,9 +2577,16 @@ def main() -> int:
     order = phase("replay order", replay_order, device)
     emit({"replay_order": order})
     free_card()
+    # per call at PER_CALL_LAYERS, held against a prepared run of the same
+    # weights at that depth
+    serving[f"olmo-1b {PER_CALL_LAYERS} layers"], cut_streams, cut_margins, _ = phase(
+        f"serve olmo-1b {PER_CALL_LAYERS} layers", serve_full_width, device,
+        f"olmo-1b {PER_CALL_LAYERS} layers", olmo(PER_CALL_LAYERS))
+    emit({"serving": serving[f"olmo-1b {PER_CALL_LAYERS} layers"]})
+    free_card()
     serving["olmo-1b per-call"], *_ = phase(
-        "serve olmo-1b per-call", serve_full_width, device, "olmo-1b", olmo(),
-        prepared_run=(streams, olmo_margins))
+        "serve olmo-1b per-call", serve_full_width, device, "olmo-1b", olmo(PER_CALL_LAYERS),
+        prepared_run=(cut_streams, cut_margins))
     emit({"serving": serving["olmo-1b per-call"]})
     free_card()
     calibration, policy = phase("calibrate olmo-1b", calibrate_full_width, device)
@@ -2413,6 +2630,8 @@ def main() -> int:
     emit({"card_vs_cpu": parity["deepseek-v3-671b forward"]})
     free_card()
     arch_phases(device, serving, forward, parity)
+    free_card()
+    scan_phases(device, serving, forward, parity)
     paths.update(serving)
     paths.update({f"{label} forward": rep for label, rep in forward.items()})
     paths["olmo-1b calibration"] = calibration

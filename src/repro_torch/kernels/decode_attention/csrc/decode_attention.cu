@@ -82,8 +82,12 @@ gqa_decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k
                         const float* __restrict__ v, const int* __restrict__ pos,
                         float* __restrict__ out, float* __restrict__ ws, int S, int H, int T,
                         int KV, int groups, int splits, float scale) {
-  constexpr int DPL = HD / 32;  // output dims per lane
+  // output dims per lane: lane l owns dims l, l + 32, ...; the last group is
+  // partial unless HD is a multiple of 32 (HD = 112: 4 groups, the last of 16)
+  constexpr int DPL = (HD + 31) / 32;
   constexpr int KS = HD + 4;    // K/V shared row stride
+  static_assert(HD % 4 == 0, "the split kernel copies and dots 4 floats at a time");
+  static_assert(DPL * 32 >= HD && (DPL - 1) * 32 < HD, "every output dim has one lane");
   extern __shared__ __align__(16) float smem[];
   float* kvs = smem;                 // [2][K, V][TK][KS]
   float* qs = smem + 4 * TK * KS;    // [RB][HD]
@@ -182,7 +186,8 @@ gqa_decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k
       for (int j = 0; j < TK; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
-        for (int d = 0; d < DPL; ++d) acc[i][d] = fmaf(pj, vs[j * KS + lane + 32 * d], acc[i][d]);
+        for (int d = 0; d < DPL; ++d)
+          if (lane + 32 * d < HD) acc[i][d] = fmaf(pj, vs[j * KS + lane + 32 * d], acc[i][d]);
       }
     }
     __syncthreads();  // the next stage overwrites this buffer
@@ -196,11 +201,13 @@ gqa_decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k
     const size_t row = (size_t)(b * S + s) * H + hh;
     if (splits == 1) {
 #pragma unroll
-      for (int d = 0; d < DPL; ++d) out[row * HD + lane + 32 * d] = acc[i][d] / l_run[i];
+      for (int d = 0; d < DPL; ++d)
+        if (lane + 32 * d < HD) out[row * HD + lane + 32 * d] = acc[i][d] / l_run[i];
     } else {
       float* w = ws + (row * splits + split) * (HD + 4);
 #pragma unroll
-      for (int d = 0; d < DPL; ++d) w[lane + 32 * d] = acc[i][d];
+      for (int d = 0; d < DPL; ++d)
+        if (lane + 32 * d < HD) w[lane + 32 * d] = acc[i][d];
       if (lane == 0) {
         w[HD] = m_run[i];
         w[HD + 1] = l_run[i];
@@ -257,6 +264,7 @@ extern "C" int gqa_decode_launch(const float* q, const float* k, const float* v,
   switch (hd) {
     case 32: return launch<32>(q, k, v, pos, out, ws, B, S, H, T, KV, splits, tc, scale, s);
     case 64: return launch<64>(q, k, v, pos, out, ws, B, S, H, T, KV, splits, tc, scale, s);
+    case 112: return launch<112>(q, k, v, pos, out, ws, B, S, H, T, KV, splits, tc, scale, s);
     case 128: return launch<128>(q, k, v, pos, out, ws, B, S, H, T, KV, splits, tc, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }

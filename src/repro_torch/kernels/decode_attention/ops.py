@@ -39,7 +39,7 @@ import torch
 from .. import _build, count_launch, new_counts
 from .ref import gqa_decode_attention_ref, mla_decode_attention_ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 # max |kernel - plain| allowed on unit-scale f32 inputs: a few ulps of
 # reduction-order drift, with headroom
 TOLERANCE = 2e-5

@@ -69,6 +69,7 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* out, int 
     case 16: return launch<T, 16, Mask>(q, k, v, out, B, Sq, Sk, H, KV, scale, s);
     case 32: return launch<T, 32, Mask>(q, k, v, out, B, Sq, Sk, H, KV, scale, s);
     case 64: return launch<T, 64, Mask>(q, k, v, out, B, Sq, Sk, H, KV, scale, s);
+    case 112: return launch<T, 112, Mask>(q, k, v, out, B, Sq, Sk, H, KV, scale, s);
     case 128: return launch<T, 128, Mask>(q, k, v, out, B, Sq, Sk, H, KV, scale, s);
     case 256: return launch<T, 256, Mask>(q, k, v, out, B, Sq, Sk, H, KV, scale, s);
     default: return (int)cudaErrorInvalidValue;

@@ -27,7 +27,7 @@ import torch
 from .. import _build, count_launch, new_counts
 from .ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # max |kernel - plain| allowed on unit-scale f32 inputs: a few ulps of
 # reduction-order drift, with headroom (the decode kernels' bar)

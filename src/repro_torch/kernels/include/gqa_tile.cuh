@@ -172,6 +172,15 @@ inline Order order(int sms, int resident, int n_bh, int n_rows) {
   return Order{n_bh, nqb, n <= sms ? -1 : n <= resident ? sms : n};
 }
 
+// V fragments a P.V pass takes at a time: the largest divisor of the
+// head dim's 8-dim groups up to 8 (14 groups at D = 112: 7), so that the
+// passes cover the groups exactly
+__host__ __device__ constexpr int pv_group(int nd) {
+  for (int g = 8; g > 1; --g)
+    if (nd % g == 0) return g;
+  return 1;
+}
+
 // masks: the last visible key of a query row
 struct Causal {
   __device__ int limit(int row) const { return row; }
@@ -246,7 +255,8 @@ __device__ __forceinline__ void attend(const T* __restrict__ qg, const T* __rest
   constexpr bool LO = Elem<T>::HAS_LO;
   constexpr int NK = BK / 8;          // 8-key groups per tile
   constexpr int ND = D / 8;           // 8-dim groups
-  constexpr int NG = ND < 8 ? ND : 8; // V fragments split per P.V pass
+  constexpr int NG = pv_group(ND);    // V fragments split per P.V pass
+  static_assert(ND % NG == 0 && NG <= 8, "the P.V passes must cover the 8-dim groups exactly");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);  // [ROWS][QS]
   T* ks = qs + ROWS * QS;                   // [2][BK][QS]
@@ -323,6 +333,8 @@ __device__ __forceinline__ void attend(const T* __restrict__ qg, const T* __rest
   // them; at D = 256 hi and O would not fit the registers, and each tile
   // splits the raw rows again
   constexpr bool QREG = LO && D <= 128;
+  static_assert(!QREG || (size_t)ROWS * QS * sizeof(T) >= (size_t)WARPS * ND * 32 * sizeof(uint4),
+                "Q's lo fragments are stashed over the raw Q rows");
   const T* qa = qs + (wr + g) * QS + 2 * c;
   uint4* qlo = reinterpret_cast<uint4*>(smem_raw) + warp * ND * 32 + lane;
   uint32_t qhi[QREG ? ND : 1][4];

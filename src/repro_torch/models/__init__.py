@@ -1,4 +1,6 @@
-"""Unified model API (port of ``repro.models``); dense and MoE (MLA) families so far."""
+"""Unified model API over every arch family (port of ``repro.models``): the
+decoder-only families (dense, MoE with MLA, vision stub, SSM, hybrid) in
+``transformer``, the encoder-decoder (audio stub) in ``encdec``."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,7 +10,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import EngineContext
 
-from . import blocks, mla, params as P, transformer
+from . import blocks, encdec, mamba2, mla, params as P, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -16,6 +18,8 @@ class ModelApi:
     cfg: ModelConfig
 
     def specs(self):
+        if self.cfg.family == "audio":
+            return encdec.encdec_specs(self.cfg)
         return transformer.decoder_specs(self.cfg)
 
     def init(self, generator: torch.Generator, dtype=torch.float32):
@@ -28,12 +32,18 @@ class ModelApi:
 
     def forward(self, prms, batch, ctx: EngineContext, *, remat: bool = False):
         """Cache-free forward: ``batch["tokens"]`` (B, S) -> (logits, aux)."""
+        if self.cfg.family == "audio":
+            return encdec.forward(prms, batch, self.cfg, ctx, remat=remat)
         return transformer.forward(prms, batch, self.cfg, ctx, remat=remat)
 
     def decode_step(self, prms, tokens, cache, ctx: EngineContext):
+        if self.cfg.family == "audio":
+            return encdec.decode_step(prms, tokens, cache, self.cfg, ctx)
         return transformer.decode_step(prms, tokens, cache, self.cfg, ctx)
 
     def make_cache(self, batch: int, max_len: int, dtype=torch.float32, device=None):
+        if self.cfg.family == "audio":
+            return encdec.make_cache(self.cfg, batch, max_len, dtype, device)
         return transformer.make_cache(self.cfg, batch, max_len, dtype, device)
 
 
@@ -42,4 +52,4 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     return ModelApi(cfg)
 
 
-__all__ = ["ModelApi", "get_model", "blocks", "mla", "transformer"]
+__all__ = ["ModelApi", "get_model", "blocks", "encdec", "mamba2", "mla", "transformer"]

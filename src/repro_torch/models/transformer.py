@@ -1,16 +1,20 @@
-"""Decoder-only LM, dense, MoE and vision-stub families (port of
-``repro.models.transformer``).
+"""Decoder-only LM: the dense, MoE, vision-stub, SSM and hybrid families
+(port of ``repro.models.transformer``).
 
 The reference's ``lax.scan`` over stacked layer parameters becomes a Python
 loop over layer views of the same stacked tensors, segment by segment: a
 deepseek-style MoE model is a dense prefix and an MoE segment, a
 llama4-style one a segment of interleaved (dense, MoE) pairs, each pair one
 stacked entry with a ``dense`` and a ``moe`` sublayer. Attention is GQA, or
-MLA when the config carries one. ``forward`` is the cache-free pass
-(training, the calibration scan; a vision model prepends its stub frontend
-embeddings); ``decode_step`` the cached one, on text tokens. The KV cache is
-updated in place: ``decode_step`` writes each layer's rows and index into
-the cache it was given and returns that cache.
+MLA when the config carries one. An SSM model (mamba2) is one segment of
+Mamba2 layers; a hybrid one (zamba2) a segment of groups, each ``attn_every``
+Mamba2 layers (a nested ``(groups, attn_every, ...)`` stack) followed by the
+weight-shared attention block and MLP (``params["shared_attn"]``).
+``forward`` is the cache-free pass (training, the calibration scan; a vision
+model prepends its stub frontend embeddings); ``decode_step`` the cached
+one, on text tokens. The cache is updated in place: ``decode_step`` writes
+each layer's KV rows, index and recurrent state into the cache it was given
+and returns that cache.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backends.base import PreparedWeight
 from repro_torch.core.engine import EngineContext
 
-from . import blocks, mla
+from . import blocks, mamba2, mla
 from .params import ParamSpec, stack_layers
 
 
@@ -44,7 +48,15 @@ def _segments(cfg: ModelConfig):
                                  f"split into groups of moe_every={m.moe_every}")
             segs.append(("pair", rest // m.moe_every))
         return segs
-    raise NotImplementedError(f"the {cfg.family!r} family is not yet ported")
+    if cfg.family == "ssm":
+        return [("mamba", cfg.num_layers)]
+    if cfg.family == "hybrid":
+        per = cfg.hybrid.attn_every
+        if cfg.num_layers % per:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not split into groups of "
+                             f"attn_every={per}")
+        return [("hybrid", cfg.num_layers // per)]  # groups of (per mamba + shared attn)
+    raise ValueError(cfg.family)
 
 
 def _attn_specs(cfg: ModelConfig):
@@ -69,6 +81,10 @@ def _moe_layer_specs(cfg: ModelConfig):
     }
 
 
+def _mamba_layer_specs(cfg: ModelConfig):
+    return {"norm": blocks.norm_spec(cfg), "mixer": mamba2.mamba2_specs(cfg)}
+
+
 def decoder_specs(cfg: ModelConfig):
     specs: Dict[str, Any] = {
         "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed")),
@@ -84,6 +100,17 @@ def decoder_specs(cfg: ModelConfig):
         elif kind == "pair":
             layer = lambda: {"dense": _dense_layer_specs(cfg, cfg.moe.d_ff_dense),  # noqa: E731
                              "moe": _moe_layer_specs(cfg)}
+        elif kind == "mamba":
+            layer = lambda: _mamba_layer_specs(cfg)  # noqa: E731
+        elif kind == "hybrid":
+            per = cfg.hybrid.attn_every
+            layer = lambda: stack_layers(lambda: _mamba_layer_specs(cfg), per)  # noqa: E731
+            specs["shared_attn"] = {
+                "attn_norm": blocks.norm_spec(cfg),
+                "attn": blocks.attention_specs(cfg),
+                "mlp_norm": blocks.norm_spec(cfg),
+                "mlp": blocks.mlp_specs(cfg),
+            }
         else:
             layer = lambda: _moe_layer_specs(cfg)  # noqa: E731
         specs[f"seg{i}_{kind}"] = stack_layers(layer, n)
@@ -134,15 +161,47 @@ def _pair_layer(p, h, cfg, ctx, positions, cache):
     return h, {"dense": c_dense, "moe": c_moe}, aux
 
 
+def _mamba_layer(p, h, cfg, ctx, state, name="layer"):
+    x = blocks.apply_norm(p["norm"], h, cfg)
+    out, new_state = mamba2.mamba2_forward(p["mixer"], x, cfg, ctx, name=f"{name}.mixer",
+                                           state=state)
+    return h + out, new_state
+
+
+def _mamba_segment_layer(p, h, cfg, ctx, positions, cache):
+    h, new_state = _mamba_layer(p, h, cfg, ctx, cache)
+    return h, new_state, {}
+
+
+def _hybrid_group(p, h, cfg, ctx, positions, cache, shared):
+    """One hybrid group: ``attn_every`` Mamba2 layers (``p`` stacks them),
+    then the shared attention block and MLP. Those run under the
+    reference's runtime names ``shared.attn`` and ``shared.mlp``, while
+    their prepared banks take their names from the ``shared_attn.*``
+    parameter paths."""
+    c = cache or {}
+    c_ssm = c.get("ssm")
+    for j in range(cfg.hybrid.attn_every):
+        h, _ = _mamba_layer(layer_view(p, j), h, cfg, ctx,
+                            layer_view(c_ssm, j) if c_ssm is not None else None)
+    h, new_attn = _attn_block(shared, h, cfg, ctx, positions, c.get("attn"), "shared.attn")
+    x = blocks.apply_norm(shared["mlp_norm"], h, cfg)
+    h = h + blocks.mlp(shared["mlp"], x, cfg, ctx, name="shared.mlp")
+    return h, {"ssm": c_ssm, "attn": new_attn}, {}
+
+
 _LAYERS = {"dense": _dense_layer, "dense_prefix": _dense_layer, "moe": _moe_layer,
-           "pair": _pair_layer}
+           "pair": _pair_layer, "mamba": _mamba_segment_layer}
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, device=None):
-    """Per-segment KV caches stacked over layers: k, v (L, B, T, KV, hd), or
+    """Per-segment caches stacked over layers: k, v (L, B, T, KV, hd), or
     MLA's c_kv (L, B, T, R) and k_rope (L, B, T, r), and the per-row write
     index (L, B) int32; a pair segment holds one such cache per sublayer,
-    ``{"dense": ..., "moe": ...}``."""
+    ``{"dense": ..., "moe": ...}``. A Mamba2 layer's state is its conv
+    window (L, B, W-1, C) and SSM state (L, B, H, N, P); a hybrid segment
+    holds, per group, its layers' states ``ssm`` (G, per, B, ...) and the
+    shared attention's KV cache ``attn`` (G, B, T, KV, hd)."""
     init = mla.init_mla_cache if cfg.mla else blocks.init_attn_cache
 
     def stack(tree, n):
@@ -150,11 +209,19 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, 
             return {k: stack(v, n) for k, v in tree.items()}
         return tree.unsqueeze(0).repeat((n,) + (1,) * tree.ndim)
 
+    def mamba_c():
+        return mamba2.init_mamba_state(cfg, batch, dtype, device)
+
     out = {}
     for i, (kind, n) in enumerate(_segments(cfg)):
         if kind == "pair":
             one = {"dense": init(cfg, batch, max_len, dtype, device),
                    "moe": init(cfg, batch, max_len, dtype, device)}
+        elif kind == "mamba":
+            one = mamba_c()
+        elif kind == "hybrid":
+            one = {"ssm": stack(mamba_c(), cfg.hybrid.attn_every),
+                   "attn": blocks.init_attn_cache(cfg, batch, max_len, dtype, device)}
         else:
             one = init(cfg, batch, max_len, dtype, device)
         out[f"seg{i}_{kind}"] = stack(one, n)
@@ -171,16 +238,19 @@ def _lm_head(params, h, cfg, ctx):
 
 def _run_segments(params, h, cfg, ctx, positions, cache=None):
     """Every layer, segment by segment, over layer views of the stacked
-    parameters (and of ``cache``, whose write indices it advances in place).
+    parameters (and of ``cache``, whose write indices and recurrent state it
+    advances in place).
     Returns ``(h, lb_loss)``: the load-balancing loss summed over the MoE
     layers of a cache-free pass (None with a cache)."""
     lb_loss = torch.zeros((), dtype=torch.float32, device=h.device) if cache is None else None
     for i, (kind, n) in enumerate(_segments(cfg)):
         key = f"seg{i}_{kind}"
+        run = _LAYERS.get(kind)
+        if kind == "hybrid":
+            run = lambda *a: _hybrid_group(*a, params["shared_attn"])  # noqa: E731
         for layer in range(n):
             c = layer_view(cache[key], layer) if cache is not None else None
-            h, new_c, aux = _LAYERS[kind](layer_view(params[key], layer), h, cfg, ctx,
-                                          positions, c)
+            h, new_c, aux = run(layer_view(params[key], layer), h, cfg, ctx, positions, c)
             if cache is not None:
                 _store_index(cache[key], layer, new_c)
             elif "lb_loss" in aux:
@@ -223,20 +293,23 @@ def forward(params, batch, cfg: ModelConfig, ctx: EngineContext, *, remat: bool 
     return _lm_head(params, h, cfg, ctx), {"lb_loss": lb_loss}
 
 
-def _index_leaves(cache):
+def _leaves(cache):
     for v in cache.values():
         if isinstance(v, dict):
-            yield from _index_leaves(v)
-        elif v.dtype == torch.int32 and v.ndim >= 2:
+            yield from _leaves(v)
+        else:
             yield v
 
 
 def _cache_index(cache) -> torch.Tensor:
     """Per-row decode positions (B,): layer 0 of the first stacked index (all
-    layers advance in lockstep)."""
-    for v in _index_leaves(cache):
-        return v[0]
-    raise ValueError("cache carries no write index")
+    layers advance in lockstep). An SSM-only cache has no index (the mixer
+    reads no positions): zeros, as in the reference."""
+    for v in _leaves(cache):
+        if v.dtype == torch.int32 and v.ndim >= 2:
+            return v[0]
+    some = next(_leaves(cache))
+    return torch.zeros((some.shape[1],), dtype=torch.int32, device=some.device)
 
 
 def decode_step(params, tokens, cache, cfg: ModelConfig, ctx: EngineContext):

@@ -4,7 +4,8 @@ donation.
 The reference compiles each decode burst and each prefill bucket into one
 XLA program and donates the KV cache and the slot state to it. Here a
 program is a function ``fn(cache, state) -> out`` that updates the cache and
-state in place and returns one tensor, the program's whole output. On a CUDA
+state in place and returns one tensor, the program's whole output, or None:
+a program with no output (one step of the scan prefill) costs no transfer. On a CUDA
 device :class:`GraphRunner` captures each program as one CUDA graph at its
 first call and replays it after; on the CPU it runs the function eagerly, as
 the caller asked for the CPU. ``GraphRunner(device, capture=False)`` runs
@@ -50,7 +51,7 @@ launches by instantiation at capture (``captured_launches``) and its
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -61,6 +62,10 @@ def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
     return tree.clone()
+
+
+def _to_host(out: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if out is None else out.cpu()
 
 
 def _diff(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
@@ -139,23 +144,24 @@ class GraphRunner:
         return Staged(shape, dtype, self.device)
 
     def run(self, name: str, fn: Callable, cache, state,
-            inputs: Sequence[Staged] = ()) -> torch.Tensor:
+            inputs: Sequence[Staged] = ()) -> Optional[torch.Tensor]:
         """Run program ``name`` (``fn`` is read only at its first call when
         capturing) after uploading ``inputs``; returns its output on the
-        host, the program's one transfer."""
+        host, the program's one transfer (None for a program without
+        output: no transfer)."""
         if self.device.type != "cuda":
-            return fn(cache, state).cpu()
+            return _to_host(fn(cache, state))
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self.stream):
             for inp in inputs:
                 inp.upload()
             if not self.capture:
-                return fn(cache, state).cpu()
+                return _to_host(fn(cache, state))
             if name not in self.graphs:
                 self._capture(name, fn, cache, state)
             self.graphs[name].replay()
             self.replays[name] = self.replays.get(name, 0) + 1
-            return self._outs[name].cpu()
+            return _to_host(self._outs[name])
 
     def _capture(self, name: str, fn: Callable, cache, state) -> None:
         from repro_torch.kernels import launch_counts
@@ -171,7 +177,10 @@ class GraphRunner:
                                f"were reallocated ({moved} -> {built[1]})")
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            out.copy_(fn(cache, state))
+            res = fn(cache, state)
+            if out is not None:
+                out.copy_(res)
+            del res
         after = launch_counts()
         torch.cuda.synchronize(self.device)
         if lazy_state() != built:

@@ -1,15 +1,25 @@
 """Serving engine: decode bursts, bucketed prefill, per-slot sampling, batched
 scheduler (port of ``repro.serve.engine``).
 
-Continuous batching over a fixed slot count, with the reference's two hot
-paths, each one device program:
+Continuous batching over a fixed slot count, with the reference's hot
+paths, each a device program:
 
-* **bucketed prefill** (:func:`make_bucketed_prefill`): an admitted prompt is
-  padded to a power-of-two bucket and run through the model in one
+* **bucketed prefill** (:func:`make_bucketed_prefill`), for the families
+  whose caches are pure KV rows (``_BATCHED_PREFILL_FAMILIES``): an admitted
+  prompt is padded to a power-of-two bucket and run through the model in one
   multi-token decode step into a fresh f32 row cache; token 0 is sampled
   from the logits at the true prompt length, the row is scattered into the
   slot, its write index rewound to the prompt length and the slot's serving
   state admitted (:func:`_finish_prefill`). One program per bucket;
+* **scan prefill** (:func:`make_scan_prefill`), for the recurrent-state
+  families (ssm, hybrid, audio): one single-token decode step per prompt
+  token into a static row cache, then the same finish. The reference scans
+  the whole padded bucket and masks the state updates past the prompt
+  length; a masked step leaves the row and the last logits exactly as they
+  were, so running only the prompt's steps gives the same row and logits,
+  bit for bit. Two programs for every prompt length: the step (replayed
+  once per prompt token; it reads its token at a device-side counter and
+  has no output) and the finish (the prefill's one transfer);
 * **decode bursts** (:func:`make_decode_burst`): ``burst`` single-token steps
   keep the pending tokens, counts, budgets, PRNG keys and temperatures on the
   device; one host transfer per burst brings tokens and top-2 margins back,
@@ -24,9 +34,10 @@ arithmetic is ``threefry.py``.
 
 The functions run the same on any device and update the cache and slot state
 in place, which stands in for JAX's donation. ``BatchedServer`` runs them
-through ``capture.GraphRunner``: on the card each prefill bucket and each
-burst variant is one captured CUDA graph, replayed once per prefill and per
-burst; on the CPU they run eagerly.
+through ``capture.GraphRunner``: on the card each prefill bucket, the scan
+prefill's step and finish, and each burst variant is one captured CUDA
+graph, replayed once per prefill (the scan step once per prompt token) and
+per burst; on the CPU they run eagerly.
 
 Slots that are free or drained keep decoding every burst, as in the
 reference; their cache index runs on and the KV write clamps at ``max_len``.
@@ -49,6 +60,17 @@ from repro_torch.models import ModelApi
 from . import threefry
 from .capture import GraphRunner, Staged
 from .kvcache import bucket_length, scatter_rows, with_cache_positions
+
+# families whose decode caches are pure attention/MLA KV rows (scatterable,
+# index-rewindable); recurrent-state families prefill through the scan
+_BATCHED_PREFILL_FAMILIES = ("dense", "vlm", "moe")
+
+
+def prefills_batched(cfg) -> bool:
+    """Whether a server of ``cfg`` prefills a prompt as one forward over its
+    bucket; every other family prefills through the scan, one single-token
+    step a prompt token."""
+    return cfg.family in _BATCHED_PREFILL_FAMILIES
 
 
 def sample(logits, key, *, temperature: float = 0.0):
@@ -188,6 +210,46 @@ def make_bucketed_prefill(model: ModelApi, ctx: EngineContext, max_len: int):
     return prefill
 
 
+def _zero(tree) -> None:
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _zero(v)
+    else:
+        tree.zero_()
+
+
+def make_scan_prefill(model: ModelApi, ctx: EngineContext):
+    """The recurrent-state families' prefill, as two programs over a static
+    row cache ``row`` (a fresh ``make_cache(1, max_len)``) and a scan state
+    ``scan = {"i": (1,) int64 counter, "last": (1, V) f32 logits}``.
+
+    ``step(tree, row, scan, prompt)``: one decode step of token
+    ``prompt[0, i]`` (``prompt`` (1, max_len) int32) into ``row``; writes its
+    logits to ``last`` and advances ``i``. Run once per prompt token.
+
+    ``finish(cache, state, row, scan, slot, base_key, temp, max_new) -> (tok
+    (1, 1), margin (1,))``: sample token 0 from ``last``, scatter the row into
+    slot ``slot``, admit the slot (:func:`_finish_prefill`); then zero the
+    row, ``last`` and ``i`` for the next prefill, as the reference starts
+    each from a fresh cache (the hybrid attention index and the
+    encoder-decoder's cross K/V too).
+    """
+
+    def step(tree, row, scan, prompt):
+        tok = prompt.index_select(1, scan["i"])
+        logits, _ = model.decode_step(tree, tok, row, ctx)
+        scan["last"].copy_(logits[:, -1, :])
+        scan["i"].add_(1)
+
+    def finish(cache, state, row, scan, slot, base_key, temp, max_new):
+        out = _finish_prefill(cache, state, row, scan["last"], slot, base_key, temp, max_new)
+        _zero(row)
+        _zero(scan)
+        return out
+
+    return step, finish
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -220,8 +282,10 @@ class BatchedServer:
     the prepared path).
 
     Counters of the last ``run``: ``host_transfers`` (device-to-host round
-    trips, one per prefill and per burst), ``prefill_calls`` and
-    ``decode_steps`` (model forwards), ``prefill_seconds`` /
+    trips, one per prefill and per burst), ``prefill_calls`` (prefills: one
+    model forward each when bucketed), ``prefill_steps`` (the scan
+    prefill's single-token forwards, one per prompt token) and
+    ``decode_steps`` (decode forwards), ``prefill_seconds`` /
     ``decode_seconds`` (their wall time), ``graph_replays`` (CUDA-graph
     replays; 0 on the CPU) and ``emissions``: rid -> ``(seconds since run
     entry, tokens)`` each time tokens of the request reached the host.
@@ -247,7 +311,7 @@ class BatchedServer:
         self.cache = model.make_cache(slots, max_len, dtype=torch.float32, device=self.device)
         self._state = _init_slot_state(slots, self.device)
         self.programs = GraphRunner(self.device, capture)
-        self._prefill = make_bucketed_prefill(model, ctx, max_len)
+        self.batched_prefill = prefills_batched(model.cfg)
         self._bursts = {s: make_decode_burst(model, ctx, burst, sampled=s) for s in (False, True)}
         staged = self.programs.staged
         # the prefill's host inputs; each bucket has its own prompt buffer
@@ -255,12 +319,24 @@ class BatchedServer:
         self._args = {"plen": staged((), torch.int32), "slot": staged((), torch.int32),
                       "key": staged((2,), torch.int64), "temp": staged((), torch.float32),
                       "max_new": staged((), torch.int32)}
+        if self.batched_prefill:
+            self._prefill = make_bucketed_prefill(model, ctx, max_len)
+        else:
+            # the scan prefill's static row cache, counter, last logits and
+            # prompt buffer, made here, before any capture
+            self._scan_step, self._scan_finish = make_scan_prefill(model, ctx)
+            self._row = model.make_cache(1, max_len, dtype=torch.float32, device=self.device)
+            self._scan = {"i": torch.zeros((1,), dtype=torch.int64, device=self.device),
+                          "last": torch.zeros((1, model.cfg.vocab_size), dtype=torch.float32,
+                                              device=self.device)}
+            self._scan_prompt = staged((1, max_len), torch.int32)
         self.active: Dict[int, Request] = {}
         self._reset_counters()
 
     def _reset_counters(self):
         self.host_transfers = 0
         self.prefill_calls = 0
+        self.prefill_steps = 0
         self.decode_steps = 0
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
@@ -293,11 +369,30 @@ class BatchedServer:
 
     @torch.no_grad()
     def _prefill_slot(self, slot: int, req: Request) -> None:
-        """One program: the prompt (padded to its bucket) prefills a fresh row
-        cache, the row is scattered into the slot and the slot's serving
-        state admitted; token 0 and its margin are the one transfer."""
+        """Bucketed: one program, in which the prompt (padded to its bucket)
+        prefills a fresh row cache, the row is scattered into the slot and
+        the slot's serving state admitted. Scan: the step program once per
+        prompt token, then the finish program. Token 0 and its margin are
+        the one transfer."""
         t0 = time.perf_counter()
         prompt = _checked_prompt(req)
+        plen = len(prompt)
+        args = self._args
+        seed = req.seed if req.seed is not None else req.rid
+        for name, value in (("plen", plen), ("slot", slot), ("key", threefry.prng_key(seed)),
+                            ("temp", req.temperature), ("max_new", req.max_new)):
+            args[name].fill(value)
+        if self.batched_prefill:
+            out = self._bucketed_prefill(prompt)
+        else:
+            out = self._scan_prefill(prompt)
+        self.prefill_calls += 1
+        self.host_transfers += 1
+        req.generated, req.margins = [], []
+        self._emit(req, out[0].tolist(), out[1].tolist())
+        self.prefill_seconds += time.perf_counter() - t0
+
+    def _bucketed_prefill(self, prompt: np.ndarray) -> torch.Tensor:
         plen = len(prompt)
         bucket = bucket_length(plen, self.max_len)
         if bucket not in self._prompts:
@@ -306,10 +401,6 @@ class BatchedServer:
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :plen] = prompt
         tokens.fill(padded)
-        seed = req.seed if req.seed is not None else req.rid
-        for name, value in (("plen", plen), ("slot", slot), ("key", threefry.prng_key(seed)),
-                            ("temp", req.temperature), ("max_new", req.max_new)):
-            args[name].fill(value)
 
         def program(cache, state):
             a = {name: s.device_buf for name, s in args.items()}
@@ -317,13 +408,36 @@ class BatchedServer:
                                         a["slot"], a["key"], a["temp"], a["max_new"])
             return torch.stack([tok.reshape(1).to(torch.float32), margin])
 
-        out = self.programs.run(f"prefill {bucket}", program, self.cache, self._state,
-                                inputs=[tokens, *args.values()])
-        self.prefill_calls += 1
-        self.host_transfers += 1
-        req.generated, req.margins = [], []
-        self._emit(req, out[0].tolist(), out[1].tolist())
-        self.prefill_seconds += time.perf_counter() - t0
+        return self.programs.run(f"prefill {bucket}", program, self.cache, self._state,
+                                 inputs=[tokens, *args.values()])
+
+    def _scan_prefill(self, prompt: np.ndarray) -> torch.Tensor:
+        tokens, args = self._scan_prompt, self._args
+        padded = np.zeros((1, self.max_len), np.int32)
+        padded[0, :len(prompt)] = prompt
+        tokens.fill(padded)
+
+        def step(row, scan):
+            self._scan_step(self.params, row, scan, tokens.device_buf)
+
+        for j in range(len(prompt)):
+            self.programs.run("prefill step", step, self._row, self._scan,
+                              inputs=[tokens] if j == 0 else ())
+            self.prefill_steps += 1
+
+        def finish(cache, state):
+            a = {name: s.device_buf for name, s in args.items()}
+            tok, margin = self._scan_finish(cache["slots"], state["slots"], cache["row"],
+                                            state["scan"], a["slot"], a["key"], a["temp"],
+                                            a["max_new"])
+            return torch.stack([tok.reshape(1).to(torch.float32), margin])
+
+        # the row and the scan state go in with the slot cache and state, so
+        # that a graph's warm-up runs on copies of all of them
+        return self.programs.run("prefill finish", finish,
+                                 {"slots": self.cache, "row": self._row},
+                                 {"slots": self._state, "scan": self._scan},
+                                 inputs=list(args.values()))
 
     @torch.no_grad()
     def _burst_round(self, slot_of: Dict[int, int]) -> None:

@@ -9,7 +9,9 @@ contracts each 8-dim group in the order (0, 2, 4, 6, 1, 3, 5, 7) and P.V each
 Below 16 query rows the GQA attention splits the key tiles over several blocks
 and merges their (max, sum, unnormalised output). Those kernels run only on
 the card; here the same steps run in plain torch at olmo-1b's widths (16
-heads, head dim 128) on small S and T, and must stay within the kernels'
+heads, head dim 128) and at zamba2's head dim 112, whose geometry the
+emulation follows (the 8-dim groups each P.V pass takes, the output dims each
+lane of the split path owns), on small S and T, and must stay within the kernels'
 TOLERANCE of the plain versions and of the JAX reference's own oracles, as
 ``test_torch_decode_attention.py`` and ``test_torch_flash_attention.py`` call
 them. The kernels themselves are held against the plain versions on the card
@@ -37,6 +39,7 @@ from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
 )
 from repro_torch.kernels.flash_attention import TOLERANCE as FLASH_TOLERANCE  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
+from test_torch_mamba2 import one_torch_thread  # noqa: E402, F401
 
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
@@ -98,14 +101,40 @@ def tile_loop(q, k, v, lims, scale):
         l = l * alpha + p.sum(dim=1, keepdim=True)
         o = o * alpha
         m = m_new
+        cols = pv_columns(d)
         for j in range(TILE // 8):
             keys8 = PERM + 8 * j
             phi, plo = split(p[:, keys8])
-            vhi, vlo = split(vt[keys8])
-            o = o + phi @ vlo
-            o = o + plo @ vhi
-            o = o + phi @ vhi
+            vhi, vlo = split(vt[keys8][:, cols])
+            o[:, cols] = o[:, cols] + phi @ vlo
+            o[:, cols] = o[:, cols] + plo @ vhi
+            o[:, cols] = o[:, cols] + phi @ vhi
     return o * (1.0 / torch.where(l == 0, torch.ones_like(l), l))
+
+
+def pv_group(nd):
+    """``gqa_tile.cuh``'s ``pv_group``: the V fragments a P.V pass takes, the
+    largest divisor of the head dim's 8-dim groups up to 8."""
+    return next(g for g in range(8, 0, -1) if nd % g == 0)
+
+
+def pv_columns(d):
+    """The output columns the tile loop's P.V passes accumulate, in pass
+    order: pass n0 (a step of ``pv_group``) takes 8-dim groups n0 .. n0 + NG - 1.
+    A group past the head dim raises (an index past the accumulators); a
+    group the passes miss stays 0."""
+    nd = d // 8
+    ng = pv_group(nd)
+    groups = [n0 + u for n0 in range(0, nd, ng) for u in range(ng)]
+    return torch.tensor([8 * g + e for g in groups for e in range(8)])
+
+
+def split_lane_dims(hd):
+    """The output dims the split-key kernel's lanes own: lane l holds dims
+    l + 32 d for d < DPL = ceil(hd / 32), guarded below hd."""
+    dpl = -(-hd // 32)
+    return torch.tensor(sorted(lane + 32 * d for d in range(dpl) for lane in range(32)
+                               if lane + 32 * d < hd))
 
 
 def split_keys(q, k, v, lims, scale, splits):
@@ -137,7 +166,11 @@ def split_keys(q, k, v, lims, scale, splits):
     for m, l, acc in parts:
         e = torch.where(m == -math.inf, torch.zeros_like(m), torch.exp(m - big))
         num, den = num + e * acc, den + e * l
-    return num * (1.0 / den)
+    # each lane writes the dims it owns; a dim no lane owns stays NaN
+    out = torch.full_like(q, math.nan)
+    dims = split_lane_dims(q.shape[1])
+    out[:, dims] = (num * (1.0 / den))[:, dims]
+    return out
 
 
 def emulate_gqa(path, q, ck, cv, pos, scale, splits=1):
@@ -243,6 +276,69 @@ def test_flash_tile_loop_matches_plain_version_and_reference(s, causal):
     """The flash kernel's loop (the index as the mask) at olmo-1b widths."""
     h, d = 16, 128
     rng = np.random.default_rng(s)
+    q, k, v = (rng.standard_normal((1, s, h, d)).astype(np.float32) for _ in range(3))
+    lims = torch.arange(s, dtype=torch.int32) if causal else torch.full((s,), 2**31 - 1)
+    got = torch.empty((1, s, h, d))
+    for hi in range(h):
+        got[0, :, hi] = tile_loop(*(torch.from_numpy(a[0, :, hi]) for a in (q, k, v)), lims,
+                                  1.0 / math.sqrt(d))
+    plain = flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal)
+    assert (got - plain).abs().max().item() <= FLASH_TOLERANCE
+    assert np.abs(got.numpy() - _flash_oracle(q, k, v, causal)).max() <= FLASH_TOLERANCE
+
+
+def test_kernel_geometry_covers_head_dim_112():
+    """zamba2's head dim: 14 8-dim groups, which P.V passes of 8 would
+    overrun (groups 14 and 15), and 3.5 lane groups of 32, which 3 dims a
+    lane would leave 16 dims short; the kernels' rules cover every head dim
+    they take exactly once."""
+    from repro_torch.kernels.decode_attention.ops import HEAD_DIMS as GQA_HEAD_DIMS
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS as FLASH_HEAD_DIMS
+
+    assert 112 in GQA_HEAD_DIMS and 112 in FLASH_HEAD_DIMS
+    assert pv_group(14) == 7 and pv_group(16) == 8 and pv_group(2) == 2
+    for d in sorted(set(GQA_HEAD_DIMS) | set(FLASH_HEAD_DIMS)):
+        assert sorted(pv_columns(d).tolist()) == list(range(d))
+    for hd in GQA_HEAD_DIMS:
+        assert split_lane_dims(hd).tolist() == list(range(hd))
+
+
+@pytest.mark.parametrize("s,t,start", [(16, 70, 0), (20, 53, 10)])
+def test_tensor_core_loop_head_dim_112(s, t, start):
+    """The S >= 16 path at zamba2's head dim (4 heads here; the loop runs per
+    head): the P.V passes in groups of 7 of its 14 8-dim groups."""
+    b, h, kv, hd = 1, 4, 4, 112
+    q, ck, cv = _gqa_case(b, s, h, kv, hd, t, seed=s + t + hd)
+    pos = (start + np.arange(s, dtype=np.int32))[None]
+    pos[0, 1] = -1
+    scale = 1.0 / math.sqrt(hd)
+    assert gqa_plan(b, s, h, t, kv) == (TENSOR_CORES, 1)
+    got = emulate_gqa(TENSOR_CORES, *(torch.from_numpy(a) for a in (q, ck, cv, pos)), scale)
+    _check_against_plain_and_reference(got, q, ck, cv, pos, scale)
+
+
+@pytest.mark.parametrize("s,pos_max", [(1, 511), (4, 300)])
+def test_split_key_merge_head_dim_112(s, pos_max):
+    """The S < 16 path at zamba2's head dim (decode and a burst of 4 on the
+    serving cache length): 4 dims a lane, the last group of 32 half full."""
+    b, h, kv, hd, t = 2, 4, 4, 112, 512
+    q, ck, cv = _gqa_case(b, s, h, kv, hd, t, seed=s + hd)
+    pos = np.stack([pos_max - s + 1 + np.arange(s), np.arange(s) - 1]).astype(np.int32)
+    scale = 1.0 / math.sqrt(hd)
+    path, splits = gqa_plan(b, s, h, t, kv)
+    assert path == SPLIT_KEYS and splits > 1
+    got = emulate_gqa(path, *(torch.from_numpy(a) for a in (q, ck, cv, pos)), scale,
+                      splits=splits)
+    assert not torch.isnan(got).any()
+    _check_against_plain_and_reference(got, q, ck, cv, pos, scale)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tile_loop_head_dim_112(causal):
+    """The flash kernel's loop at zamba2's head dim, causal (its forward) and
+    not (the same loop as seamless's encoder runs it)."""
+    s, h, d = 45, 2, 112
+    rng = np.random.default_rng(d + causal)
     q, k, v = (rng.standard_normal((1, s, h, d)).astype(np.float32) for _ in range(3))
     lims = torch.arange(s, dtype=torch.int32) if causal else torch.full((s,), 2**31 - 1)
     got = torch.empty((1, s, h, d))

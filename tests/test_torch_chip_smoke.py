@@ -9,6 +9,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_mamba2 import one_torch_thread  # noqa: E402, F401
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -128,3 +130,242 @@ def test_last_line_is_the_device_contract(smoke):
     assert device.values[0].value == "gpu"
     assert "get_device_name" in ast.unparse(device.values[1])
     assert "device_count" in ast.unparse(device.values[2])
+
+
+class _CpuCapture:
+    """A stand-in for ``serve.capture.GraphRunner`` on the CPU, with the card's
+    launch accounting: a new program runs twice on copies of the cache and
+    state (the warm-up and the capture, each counted by the wrappers), then
+    every call runs it on the real ones with the wrappers' counts saved and
+    restored (a replay issues no launch) and counts a replay."""
+
+    def __new__(cls, device, capture=True):
+        from repro_torch.serve import capture as cap
+
+        class Runner(cap.GraphRunner):
+            def __init__(self, device, capture=True):
+                super().__init__(device, capture=False)
+                self.emulate, self.pool = capture, None
+
+            def run(self, name, fn, cache, state, inputs=()):
+                from repro_torch.kernels import launch_counts, wrappers
+
+                if not self.emulate:
+                    return super().run(name, fn, cache, state, inputs)
+                if name not in self.graphs:
+                    before = launch_counts()
+                    fn(cap._clone(cache), cap._clone(state))
+                    mid = launch_counts()
+                    fn(cap._clone(cache), cap._clone(state))
+                    self.warmup_launches[name] = cap._diff(mid, before)
+                    self.captured_launches[name] = cap._diff(launch_counts(), mid)
+                    self.capture_seconds[name] = 0.0
+                    self.graphs[name] = None
+                saved = {n: (w.launches, dict(w.instantiations)) for n, w in wrappers().items()}
+                out = fn(cache, state)
+                for n, w in wrappers().items():
+                    w.launches, w.instantiations = saved[n][0], saved[n][1]
+                self.replays[name] = self.replays.get(name, 0) + 1
+                return cap._to_host(out)
+
+        return Runner(device, capture)
+
+
+@pytest.fixture
+def counted(monkeypatch):
+    """On the CPU the wrappers run their plain versions and count nothing:
+    each plain version the model paths reach counts a launch on its wrapper,
+    by the instantiation the wrapper's plan would launch."""
+    from repro_torch import kernels
+    from repro_torch.kernels.cordic_fused import ops as fused_ops
+    from repro_torch.kernels.decode_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.int_dot import PATH_NAMES, plan
+
+    def counting(module, name, wrapper, instantiation):
+        plain = getattr(module, name)
+
+        def run(*args, **kw):
+            kernels.count_launch(wrapper, instantiation(*args))
+            return plain(*args, **kw)
+
+        monkeypatch.setattr(module, name, run)
+
+    counting(fused_ops, "fused_dot_af_ref", fused_ops.fused_dot_af,
+             lambda x, w, *a: PATH_NAMES[plan(x.numel() // x.shape[-1], w.shape[1], w.shape[0],
+                                              1, w.element_size()).path])
+    counting(attn_ops, "gqa_decode_attention_ref", attn_ops.gqa_decode_attention,
+             lambda q, *a: "tc" if q.shape[1] >= attn_ops.TC_MIN_S else "split")
+    counting(flash_ops, "flash_attention_ref", flash_ops.flash_attention, lambda *a: "tc")
+
+
+SCAN_ARCHS = ["mamba2-780m", "zamba2-7b", "seamless-m4t-large-v2"]
+
+
+@pytest.mark.parametrize("name", ["zamba2-7b"])
+def test_scan_prefill_launch_accounting(smoke, counted, monkeypatch, name):
+    """A reduced scan arch (zamba2: Mamba2 layers and the shared block's GQA)
+    served on the CPU under the stand-in capture, with the smoke's exact
+    gates: each prefill is one single-row forward per
+    prompt token (the step graph, replayed) and one finish replay without a
+    kernel, one transfer a prefill and a burst; the launches per forward
+    (mamba2 2L + 1 fused; zamba2 2L + 7 groups + 1 and a GQA launch a group;
+    seamless 8L + 1 and a GQA launch a layer) times the forwards, by
+    instantiation (every prefill step a narrow dot and a split-key GQA); a
+    steady repeat issues nothing from the host; the uncaptured run launches
+    exactly the replays' launches; a count off by one fails."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import kernel_totals
+    from repro_torch.models import get_model
+    from repro_torch.serve import engine
+
+    monkeypatch.setattr(engine, "GraphRunner", _CpuCapture)
+    cfg = reduced(get_config(name))
+    model = get_model(cfg)
+    per_forward = smoke.launches_per_forward(cfg)
+    layers, groups = cfg.num_layers, cfg.num_layers // (cfg.hybrid.attn_every if cfg.hybrid else 1)
+    assert per_forward == {"mamba2-780m": {"fused_dot_af": 2 * layers + 1},
+                           "zamba2-7b": {"fused_dot_af": 2 * layers + 7 * groups + 1,
+                                         "gqa_decode_attention": groups},
+                           "seamless-m4t-large-v2": {"fused_dot_af": 8 * layers + 1,
+                                                     "gqa_decode_attention": layers}}[name]
+    params = smoke.scaled_init(model)
+    make = lambda capture=True: engine.BatchedServer(  # noqa: E731
+        model, smoke.kernel_ctx(), params, slots=2, max_len=64, burst=4, device="cpu",
+        capture=capture)
+    server = make()
+    lens = (3, 6)
+    smoke.zero_launches()
+    reqs = smoke.requests(cfg, lens=lens, max_new=5)
+    first = server.run(reqs)
+    launches, replayed = smoke.graph_accounting(name, server, cfg, reqs)
+    forwards = sum(lens) + server.decode_steps
+    assert smoke.model_forwards(server) == forwards
+    assert launches == {k: v * forwards for k, v in per_forward.items()}
+    assert server.prefill_steps == sum(lens) and server.prefill_calls == len(lens)
+    assert server.programs.replays["prefill step"] == sum(lens)
+    assert server.programs.replays["prefill finish"] == len(lens)
+    assert server.programs.captured_launches["prefill finish"] == {}
+    assert replayed.get("fused_dot_af/narrow") == per_forward["fused_dot_af"] * forwards
+    if "gqa_decode_attention" in per_forward:
+        assert replayed["gqa_decode_attention/split"] == per_forward["gqa_decode_attention"] * forwards
+    # steady: every graph captured, nothing issued from the host
+    captured = frozenset(server.programs.graphs)
+    smoke.zero_launches()
+    again_reqs = smoke.requests(cfg, lens=lens, max_new=5)
+    assert server.run(again_reqs) == first
+    smoke.graph_accounting(f"{name} steady", server, cfg, again_reqs, captured_before=captured)
+    assert not any(smoke.wrapper_counts().values())
+    # uncaptured: every launch issued from the host, no replay
+    eager = make(capture=False)
+    smoke.zero_launches()
+    eager_reqs = smoke.requests(cfg, lens=lens, max_new=5)
+    assert eager.run(eager_reqs) == first
+    assert smoke.uncaptured_accounting(f"{name} uncaptured", eager, cfg, eager_reqs) == launches
+    assert smoke.nonzero(kernel_totals(smoke.wrapper_counts())) == kernel_totals(replayed)
+    # the gates are exact: one scan step more than the prompts hold fails
+    smoke.zero_launches()
+    server.prefill_steps += 1
+    with pytest.raises(AssertionError, match="tampered"):
+        smoke.graph_accounting(f"{name} tampered", server, cfg, again_reqs,
+                               captured_before=captured)
+
+
+@pytest.mark.parametrize("name", SCAN_ARCHS)
+def test_scan_forward_launches(smoke, counted, name):
+    """One cache-free forward of each reduced scan arch under ``"flash"``
+    launches what ``forward_launches`` says (seamless: 6 per encoder and 10
+    per decoder layer fused, a flash launch each; zamba2 a flash launch a
+    group; mamba2 none), every dot over more than 16 rows on the wgmma
+    instantiation; one decode step what ``launches_per_forward`` says."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+
+    cfg = reduced(get_config(name))
+    model = get_model(cfg)
+    params = smoke.scaled_init(model)
+    from repro_torch.core import prepare_params
+
+    ctx = smoke.kernel_ctx("flash")
+    prepared = prepare_params(params, ctx.policy, "kernel", specs=model.specs())
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 32)))}
+    if cfg.frontend == "audio":
+        batch["frontend_embeds"] = torch.randn((1, 64, cfg.d_model)) * 0.02
+    kernels = smoke.zero_launches()
+    with torch.no_grad():
+        model.forward(prepared, batch, ctx)
+    want = smoke.forward_launches(cfg, "flash")
+    smoke.check_launches(f"{name} forward", kernels, want)
+    smoke.check_instantiations(f"{name} forward", smoke.wrapper_counts(),
+                               smoke.by_instantiation(want, 32, 32))
+    if name == "seamless-m4t-large-v2":
+        enc, dec = cfg.encdec.encoder_layers, cfg.num_layers
+        assert want == {"fused_dot_af": 6 * enc + 10 * dec + 1, "flash_attention": enc + dec}
+    kernels = smoke.zero_launches()
+    cache = model.make_cache(2, 16, device="cpu")
+    with torch.no_grad():
+        model.decode_step(prepared, torch.zeros((2, 1), dtype=torch.int64), cache,
+                          smoke.kernel_ctx())
+    smoke.check_launches(f"{name} decode", kernels, smoke.launches_per_forward(cfg))
+
+
+def test_scan_configs_keep_stock_widths_and_name_their_cuts(smoke):
+    """The scan archs' card configs: stock widths, f32, zamba2 cut to 18 of
+    its 81 layers (two groups of nine), with the parameter reckoning the
+    phases report (mamba2 857.2 M, zamba2 1.84 B of a stock 6.75 B, seamless
+    1.63 B)."""
+    from repro_torch.configs import get_config
+
+    for name, layers in smoke.SCAN_ARCH_LAYERS.items():
+        cfg, stock = smoke.scan_config(name), get_config(name)
+        assert dataclass_widths(cfg) == dataclass_widths(stock)
+        assert cfg.dtype == "float32" and cfg.num_layers == (layers or stock.num_layers)
+    got = {n: smoke.weight_reckoning(smoke.scan_config(n)) for n in smoke.SCAN_ARCH_LAYERS}
+    assert round(got["mamba2-780m"]["params_b"], 4) == 0.8574
+    assert round(got["zamba2-7b"]["params_b"], 2) == 1.84
+    assert round(got["zamba2-7b"]["params_b_at_stock_depth"], 2) == 6.75
+    assert round(got["zamba2-7b"]["f32_weights_gb"], 2) == 7.35
+    assert round(got["seamless-m4t-large-v2"]["params_b"], 2) == 1.63
+    assert smoke.scan_config("zamba2-7b").num_layers % 9 == 0
+
+
+def dataclass_widths(cfg):
+    return (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size,
+            cfg.ssm, cfg.hybrid, cfg.encdec)
+
+
+def test_scan_phases_names_and_reports(smoke, monkeypatch, capsys):
+    """``scan_phases`` with its phases stubbed: each scan arch served, mamba2
+    also sampled, each one's forward on its serving weights, then each
+    reduced card vs CPU; a failing phase prints ``failed_phase``."""
+    calls = []
+
+    def serve(device, label, cfg):
+        calls.append(("serve", label))
+        return {"config": label}, {0: [1]}, [[0.5]], {"weights of": label}
+
+    monkeypatch.setattr(smoke, "serve_full_width", serve)
+    monkeypatch.setattr(smoke, "serve_sampled", lambda d, cfg, w, streams: (
+        calls.append(("sampled", cfg.name)) or {"config": "sampled"}))
+    monkeypatch.setattr(smoke, "forward_phase", lambda d, label, cfg, w, batch: (
+        calls.append(("forward", label, w["weights of"], batch)) or {"config": "forward"}))
+    monkeypatch.setattr(smoke, "scan_card_vs_cpu", lambda d, name: (
+        calls.append(("parity", name)) or {"config": name}))
+    monkeypatch.setattr(smoke, "free_card", lambda: None)
+    serving, forward, parity = {}, {}, {}
+    smoke.scan_phases("cpu", serving, forward, parity)
+    out, err = capsys.readouterr()
+    names = list(smoke.SCAN_ARCH_LAYERS)
+    assert [c[1] for c in calls if c[0] == "serve"] == names
+    assert [c[1] for c in calls if c[0] == "sampled"] == ["mamba2-780m"]
+    assert [(c[1], c[3]) for c in calls if c[0] == "forward"] == list(smoke.SCAN_FORWARD.items())
+    assert all(c[1] == c[2] for c in calls if c[0] == "forward")
+    assert [c[1] for c in calls if c[0] == "parity"] == names == list(parity)
+    assert sorted(serving) == sorted(names + ["mamba2-780m sampled"])
+    lines = [json.loads(line) for line in out.splitlines()]
+    assert [next(iter(x)) for x in lines].count("card_vs_cpu") == len(names)
+    for name in names:
+        assert f"phase serve {name}" in err and f"phase {name} card vs cpu" in err

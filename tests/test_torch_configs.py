@@ -1,5 +1,6 @@
-"""PyTorch port: the ported configs (the seven transformer archs) equal the
-reference's, field for field, stock and reduced."""
+"""PyTorch port: the ported configs (all ten archs: the seven transformer
+decoders, the recurrent mamba2 and zamba2, the encoder-decoder seamless)
+equal the reference's, field for field, stock and reduced."""
 import dataclasses
 
 import pytest
@@ -55,10 +56,26 @@ def test_dtype_map():
     assert dataclasses.replace(cfg, dtype="float32").compute_dtype == torch.float32
 
 
+RECURRENT_ENCDEC_ARCHS = ["mamba2-780m", "zamba2-7b", "seamless-m4t-large-v2"]
+
+
+@pytest.mark.parametrize("variant", ["stock", "reduced", "reduced_3x64", "reduced_4_layers"])
+@pytest.mark.parametrize("name", RECURRENT_ENCDEC_ARCHS)
+def test_recurrent_and_encdec_config_matches_reference(name, variant):
+    port, ref = _variant(get_config(name), ref_get_config(name), variant)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.kv_groups == ref.kv_groups
+
+
 def test_registry_holds_only_ported_archs():
-    """The seven transformer archs; the recurrent and encoder-decoder ones
-    arrive with their families."""
-    assert sorted(ARCHS) == sorted(["olmo-1b", "deepseek-v3-671b", *NEW_ARCHS])
-    for name in ("mamba2-780m", "zamba2-7b", "seamless-m4t-large-v2"):
-        with pytest.raises(KeyError, match="unknown arch"):
-            get_config(name)
+    """All ten archs of the reference's registry, in its order; an unknown
+    name raises."""
+    from repro.configs import ARCHS as REF_ARCHS
+
+    assert list(ARCHS) == list(REF_ARCHS)
+    assert sorted(ARCHS) == sorted(["olmo-1b", "deepseek-v3-671b", *NEW_ARCHS,
+                                    *RECURRENT_ENCDEC_ARCHS])
+    for name in ARCHS:
+        assert get_config(name) is ARCHS[name]
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("mamba3-1b")

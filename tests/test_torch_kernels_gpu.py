@@ -227,6 +227,59 @@ def test_flash_kernel_within_tolerance_of_plain_version(cuda, b, s, h, kv, hd, c
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,t,start", [
+    (4, 1, 32, 32, 512, None), (2, 4, 32, 32, 512, None), (1, 16, 32, 32, 512, 0),
+    (1, 64, 32, 32, 512, 0), (1, 512, 32, 32, 512, 0), (3, 5, 8, 2, 100, None),
+    (2, 17, 8, 4, 77, None), (4, 1, 4, 4, 33, None)])
+def test_attention_kernel_head_dim_112(cuda, b, s, h, kv, t, start):
+    """zamba2's shared attention (H32/KV32, head_dim 112: not a multiple of
+    the split path's 32 lanes, nor 8-dim groups a multiple of 8): decode,
+    a burst of 4 and the prefill buckets from row 0, both paths, with
+    grouped heads, a drained slot and a masked row on the random runs."""
+    gen = torch.Generator(device=cuda).manual_seed(b * s * t + 112)
+    q = torch.randn((b, s, h, 112), generator=gen, device=cuda)
+    ck = torch.randn((b, t, kv, 112), generator=gen, device=cuda)
+    cv = torch.randn((b, t, kv, 112), generator=gen, device=cuda)
+    first = (torch.zeros((b, 1), dtype=torch.int64, device=cuda) if start == 0 else
+             torch.randint(0, t - s + 1, (b, 1), generator=gen, device=cuda))
+    pos = (first + torch.arange(s, device=cuda)[None]).to(torch.int32)
+    if start is None and b > 1:
+        pos[0, -1] = t + 7  # a drained slot
+        pos[-1, 0] = -1  # a masked row: every key weighs 1 / T
+    scale = 1.0 / math.sqrt(112)
+    path, _ = gqa_plan(b, s, h, t, kv)
+    assert path == (TENSOR_CORES if s >= TC_MIN_S else SPLIT_KEYS)
+    got = gqa_decode_attention(q, ck, cv, pos, scale=scale)
+    want = gqa_decode_attention_ref(q, ck, cv, pos, scale=scale)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOLERANCE, path
+    if start is None and b > 1:
+        g = h // kv
+        assert (got[-1, 0, :g] - cv[-1, :, 0].mean(0)).abs().max().item() <= TOLERANCE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,hd,causal", [
+    (1, 512, 32, 32, 112, True), (1, 512, 32, 32, 112, False), (2, 70, 8, 2, 112, False),
+    (2, 45, 4, 4, 112, True), (1, 256, 16, 16, 64, False), (2, 100, 16, 16, 64, False)])
+def test_flash_kernel_head_dim_112_and_non_causal(cuda, b, s, h, kv, hd, causal):
+    """zamba2's forward (head_dim 112, causal) and seamless's encoder (full,
+    non-causal attention at head_dim 64; its pooled 256 frames), ragged S."""
+    gen = torch.Generator(device=cuda).manual_seed(b * s + hd + causal)
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda)
+    k = torch.randn((b, s, kv, hd), generator=gen, device=cuda)
+    v = torch.randn((b, s, kv, hd), generator=gen, device=cuda)
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOLERANCE
+    bf = [t.to(torch.bfloat16) for t in (q, k, v)]
+    got, want = flash_attention(*bf, causal=causal), flash_attention_ref(*bf, causal=causal)
+    diff = (got.float() - want.float()).abs()
+    assert (diff / (want.float().abs() * 2.0**-7 + TOLERANCE)).max().item() <= 1.0
+
+
+@pytest.mark.gpu
 def test_flash_kernel_bf16_within_one_rounding_step(cuda):
     """bf16 in and out: the kernel and the plain version each round an f32
     result that agrees within TOLERANCE, so they differ by at most one bf16

@@ -110,7 +110,30 @@ cache-free flash and MLA flash attentions), then:
    chunks; seamless on 512 stub frames and 256 tokens, its encoder's flash
    launches non-causal); then each reduced card vs CPU, served (zamba2 at
    d_model 448: head_dim 112). Its kernel rows add GQA and flash at head_dim
-   112, non-causal flash, and the new archs' fused shapes.
+   112, non-causal flash, and the new archs' fused shapes;
+11. serves full-width olmo-1b from multi-point weight banks, right after
+   the accurate-only run of 3 (``adaptive_phases``: the bank approx FxP8,
+   accurate FxP8 and hifi FxP16; a controller pinned at each point equals a
+   static server of that point's weights, streams and f32 margins bitwise;
+   the CLI's flow, cycle budget 0.75, captured = repeat = uncaptured in
+   point trajectory, streams, margins and telemetry, the repeat capturing
+   nothing and allocating less than a bank; a budget-driven run with the
+   margins disarmed switches; ``spec_phases``: greedy self-speculative
+   serving, draft_len 4, equals the accurate-only run of 3 bit for bit, as
+   does a verify's decode step the token-by-token steps; sampled
+   speculation captured = uncaptured; the controller picking the draft
+   point), every (program, point) one captured graph, launches exact by
+   (program, point) (``program_launches``, ``check_point_replays``), one
+   transfer a prefill, a burst and a round; then reduced card vs CPU of
+   olmo-1b adaptive and speculative and deepseek-v3 speculative
+   (``bank_parity_phases``). Its kernel rows add the fused kernel on the
+   hifi point's FxP16 banks at decode and every bucket, inputs whose int32
+   sums wrap included (``check_fused_hifi``), at a verify's 20 rows, and GQA
+   and MLA at a verify's 5 rows a slot (each GQA row bitwise its single-row
+   call, ``verify_rows_bitwise``).
+
+``python3 chip_smoke.py --phases bank`` (groups of ``PHASE_GROUPS``) runs
+some groups only, with no ``kernels`` and no ``ok`` line.
 
 Exact launch counts come from the kernel wrappers (``repro_torch.kernels.
 launch_counts``, by instantiation), never from ``torch.profiler``, which
@@ -157,6 +180,10 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 TF32_FLOPS_PER_S = 494.7e12
 
 SLOTS, MAX_LEN, BURST, BUCKET = 4, 512, 8, 512
+# the speculative phases' draft length; a verify runs draft_len + 1 query
+# rows a slot
+DRAFT_LEN = 4
+VERIFY_ROWS = SLOTS * (DRAFT_LEN + 1)
 PROMPT_LENS = (3, 17, 60, 130, 300, 9)
 MAX_NEW = 32
 SEED = 0
@@ -483,14 +510,17 @@ def int_mm_ms(x, banks, iters: int) -> dict:
     return out
 
 
-def fused_bound(m: int, k: int, n: int, af: str, af_depth: int, fmt):
+def fused_bound(m: int, k: int, n: int, af: str, af_depth: int, fmt, w_bytes: int = 1):
     """The fused dot+AF's least time: the larger of its bytes (x f32, the
-    bank, the point, out f32), its int8 multiply-adds on the tensor cores and,
-    past identity, the CORDIC epilogue's int32 operations on every output."""
+    bank, the point, out f32), its multiply-adds (int8: two operations each
+    on the tensor cores; int16, which no tensor core takes: one int32
+    multiply-add instruction each on the CUDA cores) and, past identity, the
+    CORDIC epilogue's int32 operations on every output."""
     from repro_torch.core.activations import internal_depth
 
-    t_bytes, _ = bound(m * k * 4 + k * n + m * n * 4 + 20, 0.0, INT8_OPS_PER_S)
-    t_mma = 2.0 * m * n * k / INT8_OPS_PER_S * 1e3
+    t_bytes, _ = bound(m * k * 4 + k * n * w_bytes + m * n * 4 + 20, 0.0, INT8_OPS_PER_S)
+    t_mma = (2.0 * m * n * k / INT8_OPS_PER_S if w_bytes == 1
+             else 1.0 * m * n * k / INT32_OPS_PER_S) * 1e3
     t_af = 0.0
     if af != "identity":
         t_af = af_int_ops(af, internal_depth(af_depth, fmt)) * m * n / INT32_OPS_PER_S * 1e3
@@ -507,9 +537,10 @@ def check_fused(device):
     gen = torch.Generator(device=device).manual_seed(SEED)
     rows, max_err = [], 0.0
     # decode, the 16-, 32- and 64-row serving buckets (the narrow loop up to
-    # 16 rows, the tensor cores above), the largest bucket, the forward's M
-    # (2 x 512 tokens)
-    shapes = ([("olmo-1b", kn, (SLOTS, 16, 32, 64, BUCKET, 2 * BUCKET)) for kn in FUSED_SHAPES]
+    # 16 rows, the tensor cores above), a speculative verify's rows, the
+    # largest bucket, the forward's M (2 x 512 tokens)
+    shapes = ([("olmo-1b", kn, (SLOTS, 16, VERIFY_ROWS, 32, 64, BUCKET, 2 * BUCKET))
+               for kn in FUSED_SHAPES]
               + [("deepseek-v3-671b", kn, (SLOTS, BUCKET)) for kn in DEEPSEEK_FUSED_SHAPES]
               + [(arch, kn, (SLOTS, BUCKET)) for arch, kn in ARCH_FUSED_SHAPES])
     shapes = ([(name, kn, ms_, ("identity", "swish")) for name, kn, ms_ in shapes]
@@ -573,6 +604,68 @@ def check_fused(device):
                          path=path_name(plan(m, n, k, w.data.element_size(),
                                              w.data.element_size())),
                          nan_inf_in_x=True, bitwise_equal=True))
+    torch.cuda.synchronize()
+    return rows, max_err
+
+
+# the hifi point's dots (FxP16 banks, the int32 CUDA-core loop) at decode and
+# at every prefill bucket the requests fall in: each of the loop's tile
+# configs (M <= 8, <= 32, above)
+HIFI_MS = (SLOTS, 16, 32, 64, 256, BUCKET)
+
+
+def check_fused_hifi(device):
+    """The fused dot+AF on FxP16 banks, as the adaptive bank's hifi point
+    launches it (x quantized at FxP16, the AF epilogue at the serving
+    context's FxP8 depth), against its plain version, bitwise, at olmo-1b's
+    shapes, identity and swish, for every ``HIFI_MS``; and at decode and
+    the largest bucket on inputs whose int32 sums wrap modulo 2^32, as the
+    reference's do. Times, bounds (an int16 multiply-add one CUDA-core int32
+    instruction) and the launches' path."""
+    import torch
+
+    from repro_torch.core import FXP8, FXP16
+    from repro_torch.kernels.cordic_fused import fused_dot_af, fused_dot_af_ref
+    from repro_torch.kernels.int_dot import plan
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    rows, max_err = [], 0.0
+    for k, n in FUSED_SHAPES:
+        banks = prepared_weight(k, n, FXP16, gen, device,
+                                copies=max(1, min(24, math.ceil(3e8 / (2 * k * n)))))
+        w = banks[0]
+        for m in HIFI_MS:
+            for scale, afs in ((1.0, ("identity", "swish")), (1e3, ("identity",))):
+                if scale > 1.0 and m not in (SLOTS, BUCKET):
+                    continue
+                x = torch.randn((m, k), generator=gen, device=device) * scale
+                for af in afs:
+                    kw = dict(af_mode=af, af_depth=FXP8.frac + 1, af_fmt=FXP8)
+                    got = fused_dot_af(x, w.data, w.point, **kw)
+                    want = fused_dot_af_ref(x, w.data, w.point, **kw)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"fused_dot_af FxP16 != plain at M={m} K={k} N={n} "
+                                             f"af={af} x scale {scale}: "
+                                             f"{(got != want).sum().item()} elements differ")
+                    row = dict(model="olmo-1b hifi", M=m, K=k, N=n, af=af, fmt="fxp16",
+                               x_scale=scale, path=path_name(plan(m, n, k, 2, 2)),
+                               bitwise_equal=True, max_abs_err=0.0)
+                    if scale == 1.0:
+                        iters = 30 if m <= 32 else 10
+                        it = iter(range(1 << 30))
+                        call = lambda: fused_dot_af(  # noqa: E731
+                            x, banks[next(it) % len(banks)].data, w.point, **kw)
+                        b_ms, b_by = fused_bound(m, k, n, af, FXP8.frac + 1, FXP8, w_bytes=2)
+                        row.update(ms=graph_ms(call, iters), eager_ms=timed_ms(call, iters),
+                                   plain_ms=timed_ms(lambda: fused_dot_af_ref(
+                                       x, w.data, w.point, **kw), iters=3, warmup=1),
+                                   bound_ms=b_ms, bound_by=b_by)
+                        log(f"fused FxP16 M={m} K={k} N={n} {af} [{row['path']}]: "
+                            f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f}, plain "
+                            f"{row['plain_ms']:.3f}, bound {b_ms:.4f} {b_by})")
+                    rows.append(row)
+        del banks
     torch.cuda.synchronize()
     return rows, max_err
 
@@ -690,6 +783,8 @@ def check_attention(device):
     # seamless's decoder self-attention, H16/KV16 at head_dim 64 (split keys,
     # two dims a lane): decode and a burst of 4
     cases += [(SLOTS, 1, MAX_LEN, 16, 16, 64, None), (2, 4, MAX_LEN, 16, 16, 64, None)]
+    # a speculative verify at olmo-1b widths: draft_len + 1 rows a slot
+    cases += [(SLOTS, DRAFT_LEN + 1, MAX_LEN, 16, 16, 128, None)]
     rows, max_err = [], 0.0
     for b, s, t, h, kv, hd, start in cases:
         q, ck, cv, pos = attention_case(b, s, t, h, kv, hd, gen, device, start)
@@ -722,7 +817,38 @@ def check_attention(device):
         log(f"attn B={b} S={s} T={t} H={h} KV={kv} [{path}, {splits} splits]: {ms:.4f} ms "
             f"(eager {eager_ms:.4f}, plain {plain_ms:.3f}, sdpa {lib_ms:.4f}, bound "
             f"{b_ms:.4f} {b_by}, 3xTF32 {b3_ms:.4f}) err {err:.2e}")
+    rows.append(verify_rows_bitwise(device, gen))
     return rows, max_err
+
+
+def verify_rows_bitwise(device, gen) -> dict:
+    """A speculative verify's GQA call (B4, draft_len + 1 rows a slot, split
+    keys) gives each query row the bits that the single-row call of its
+    position gives, at verify windows that cross 128 and 256 keys (where a
+    partition of the block's visible key tiles would regroup a row's keys):
+    greedy speculation's bit identity with token-by-token decoding rests on
+    it."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import gqa_decode_attention
+    from repro_torch.kernels.decode_attention.ops import gqa_plan
+
+    b, s, h, kv, hd = SLOTS, DRAFT_LEN + 1, 16, 16, 128
+    q, ck, cv, _ = attention_case(b, s, MAX_LEN, h, kv, hd, gen, device)
+    starts = torch.tensor([125, 253, 30, 380], dtype=torch.int32, device=device)[:b, None]
+    pos = (starts + torch.arange(s, dtype=torch.int32, device=device)[None]).contiguous()
+    scale = 1.0 / math.sqrt(hd)
+    block = gqa_decode_attention(q, ck, cv, pos, scale=scale)
+    for j in range(s):
+        alone = gqa_decode_attention(q[:, j:j + 1].contiguous(), ck, cv,
+                                     pos[:, j:j + 1].contiguous(), scale=scale)
+        if not torch.equal(alone[:, 0], block[:, j]):
+            raise AssertionError(f"gqa_decode_attention: verify row {j} differs from its "
+                                 f"single-row call: {(alone[:, 0] - block[:, j]).abs().max()}")
+    return dict(B=b, S=s, T=MAX_LEN, H=h, KV=kv, hd=hd, positions="verify windows from rows "
+                f"{starts[:, 0].tolist()}", path=gqa_plan(b, s, h, MAX_LEN, kv).path,
+                splits=gqa_plan(b, s, h, MAX_LEN, kv).splits,
+                rows_equal_single_row_calls=True)
 
 
 def gqa_path_alternatives(device):
@@ -786,7 +912,9 @@ def check_mla(device):
         (SLOTS, 1, MAX_LEN, h, r, rd, None), (1, 16, MAX_LEN, h, r, rd, 0),
         (1, 64, MAX_LEN, h, r, rd, 0), (1, BUCKET, MAX_LEN, h, r, rd, 0),
         (3, 5, 100, 7, r, rd, "random"), (3, 2, 33, 4, 16, 8, "random"),
-        (2, 5, 45, 7, 12, 8, "random")]
+        (2, 5, 45, 7, 12, 8, "random"),
+        # a speculative verify on deepseek-v3: draft_len + 1 rows a slot
+        (SLOTS, DRAFT_LEN + 1, MAX_LEN, h, r, rd, None)]
     rows, max_err = [], 0.0
     for b, s, t, hh, rr, rrd, start in cases:
         scale = 1.0 / math.sqrt(m.qk_nope_head_dim + rd) if rr == r else 1.0 / math.sqrt(rr + rrd)
@@ -1465,17 +1593,20 @@ def forward_launches(cfg, attn_impl: str, per_call: bool = False) -> dict:
     return want
 
 
-def by_instantiation(per_kernel: dict, rows: int, s: int, times: int = 1) -> dict:
+def by_instantiation(per_kernel: dict, rows: int, s: int, times: int = 1,
+                     w_bytes: int = 1) -> dict:
     """``times`` forwards' launches by instantiation (flat), from their count
     by kernel: every dot of a forward runs over ``rows`` token rows, on the
     narrow loop up to ``NARROW_MAX_M`` rows and on the int8 tensor cores
-    (wgmma) above (``int_dot.plan``); the GQA cache attention of ``s`` query
-    rows a sequence on its tensor cores from ``TC_MIN_S`` rows and on split
-    keys below (``gqa_plan``); every other kernel has one instantiation."""
+    (wgmma) above (``int_dot.plan``), or on int16 banks (``w_bytes`` 2, an
+    FxP16 point) on the CUDA-core loop (imad) at any rows; the GQA cache
+    attention of ``s`` query rows a sequence on its tensor cores from
+    ``TC_MIN_S`` rows and on split keys below (``gqa_plan``); every other
+    kernel has one instantiation."""
     from repro_torch.kernels.decode_attention.ops import TC_MIN_S
     from repro_torch.kernels.int_dot import NARROW_MAX_M
 
-    dot = "narrow" if rows <= NARROW_MAX_M else "wgmma"
+    dot = "imad" if w_bytes > 1 else "narrow" if rows <= NARROW_MAX_M else "wgmma"
     inst = {"fused_dot_af": dot, "cordic_mac": dot, "mla_decode_attention": "tc",
             "gqa_decode_attention": "tc" if s >= TC_MIN_S else "split",
             "af_elementwise": "elementwise", "af_softmax": "cluster", "flash_attention": "tc",
@@ -1521,9 +1652,101 @@ def plain_products_per_forward(cfg, cache_free: bool = False) -> int:
 
 def model_forwards(server) -> int:
     """The model forwards a run made: prefills (one each when bucketed, one
-    per prompt token through the scan) and decode steps."""
+    per prompt token through the scan), decode steps (a speculative round's
+    draft steps among them) and a speculative round's verify."""
     prefill = server.prefill_calls if server.batched_prefill else server.prefill_steps
-    return prefill + server.decode_steps
+    return prefill + server.decode_steps + server.spec_rounds
+
+
+def point_bytes(bank) -> dict:
+    """Bytes of a weight integer at each point of ``bank`` (1: int8 FxP8, 2:
+    int16 FxP16); every ladder the smoke serves keeps one format a point."""
+    from repro_torch.core.backends.base import unit_fmt
+
+    out = {}
+    for p in bank.points:
+        fmts = {p.policy.default.fmt, *(lp.fmt for lp in p.policy.overrides.values())}
+        widths = {unit_fmt(f).storage_dtype.itemsize for f in fmts}
+        if len(widths) != 1:
+            raise AssertionError(f"point {p.name}: weights of {widths} bytes")
+        out[p.name] = widths.pop()
+    return out
+
+
+def program_launches(name: str, server, cfg, per_call: bool = False, widths=None) -> dict:
+    """Launches by instantiation that one capture of program ``name``
+    implies: a prefill bucket ``b``, one forward over ``b`` rows; the scan
+    prefill's step, one forward over one row, its finish none; a burst,
+    ``burst`` forwards over the slots; a speculative draft (either variant),
+    ``draft_len`` forwards over the slots, its verify one forward of
+    ``draft_len + 1`` query rows a slot. A name ``"<program> @<point>"`` runs at that bank
+    point, its dots on the banks of ``widths[point]`` bytes."""
+    per_forward = launches_per_forward(cfg, per_call)
+    base, _, point = name.partition(" @")
+    w = (widths or {}).get(point, 1)
+    if base.startswith("burst"):
+        return by_instantiation(per_forward, server.slots, 1, server.burst, w)
+    if base == "prefill step":
+        return by_instantiation(per_forward, 1, 1, 1, w)
+    if base == "prefill finish":
+        return {}
+    if base.startswith("draft"):
+        return by_instantiation(per_forward, server.slots, 1, server.spec.draft_len, w)
+    if base.startswith("verify"):
+        s = server.spec.draft_len + 1
+        return by_instantiation(per_forward, server.slots * s, s, 1, w)
+    b = int(base.split()[-1])
+    return by_instantiation(per_forward, b, b, 1, w)
+
+
+def replays_by_point(runner, program) -> dict:
+    """point -> replays of the graphs whose program name starts with
+    ``program``, summed over the graphs of a point."""
+    out = {}
+    for name, n in runner.replays.items():
+        base, _, point = name.partition(" @")
+        if base.startswith(program):
+            out[point] = out.get(point, 0) + n
+    return out
+
+
+def check_point_replays(label, server, reqs) -> dict:
+    """A bank server's replays by (program, point), against what its run
+    recorded: each prefill bucket as often as the requests' prompts fall in
+    it, every prefill at the verify point when speculating; each burst at
+    the point the telemetry charged it to; each speculative round one draft
+    at the point the round drafted at and one verify at the verify point."""
+    from collections import Counter
+
+    from repro_torch.serve.kvcache import bucket_length
+
+    runner = server.programs
+    buckets = Counter(f"prefill {bucket_length(len(r.prompt), server.max_len)}" for r in reqs)
+    got = Counter()
+    for name, n in runner.replays.items():
+        base = name.partition(" @")[0]
+        if base.startswith("prefill") and base != "prefill step" and base != "prefill finish":
+            got[base] += n
+    if server.batched_prefill and got != buckets:
+        raise AssertionError(f"{label}: prefill replays {dict(got)}, the prompts imply "
+                             f"{dict(buckets)}")
+    out = {"prefill": replays_by_point(runner, "prefill")}
+    if server.spec is not None:
+        tele = server.spec_telemetry
+        want_draft = nonzero(tele.rounds_by_draft_point)
+        out["draft"], out["verify"] = (replays_by_point(runner, "draft"),
+                                       replays_by_point(runner, "verify"))
+        if out["draft"] != want_draft or out["verify"] != {server.spec.verify_point: tele.rounds}:
+            raise AssertionError(f"{label}: draft replays {out['draft']} (rounds {want_draft}), "
+                                 f"verify {out['verify']} ({tele.rounds} rounds)")
+        if set(out["prefill"]) != {server.spec.verify_point}:
+            raise AssertionError(f"{label}: prefills at {out['prefill']}, not the verify point")
+    else:
+        out["burst"] = replays_by_point(runner, "burst")
+        if out["burst"] != nonzero(server.telemetry.steps_by_point):
+            raise AssertionError(f"{label}: burst replays by point {out['burst']}, the "
+                                 f"telemetry {server.telemetry.steps_by_point}")
+    return out
 
 
 def replayed_launches(runner) -> dict:
@@ -1537,23 +1760,26 @@ def replayed_launches(runner) -> dict:
 
 
 def graph_accounting(label, server, cfg, reqs, per_call: bool = False,
-                     captured_before=frozenset()) -> tuple:
+                     captured_before=frozenset(), widths=None) -> tuple:
     """The launch counts of a captured run of ``reqs``, exact, from the
     wrappers. A wrapper counts a launch when the host issues it: in a graph's
     warm-up and at its capture, never at a replay. So:
 
     * each graph captured in this run (not in ``captured_before``) issued,
       at its capture and again in its warm-up, exactly the launches by
-      instantiation that its forwards imply (a prefill bucket ``b``: one
-      forward over ``b`` rows; the scan prefill's step: one forward over one
-      row, its finish none; a burst: ``burst`` forwards over the slots);
+      instantiation that its program implies (``program_launches``; a graph
+      of a bank point at that point's weight width, ``widths``);
     * the wrappers' counts since ``zero_launches`` are exactly the sum of
       those warm-ups and captures (nothing else was issued from the host);
     * the launches the replays made on the device, each graph's captured
       launches times its replays, are exactly what serving ``reqs``
-      implies, by instantiation;
-    * every prefill and every burst was one replay and one transfer; a scan
-      prefill also replayed its step once per prompt token.
+      implies: by kernel, the run's forwards; by instantiation, the
+      requests' buckets and the decode steps for a server without a bank,
+      and for a bank server its replays by (program, point) as its run
+      recorded them (``check_point_replays``);
+    * every prefill and every burst or speculative round was one replay (a
+      round two: its draft and its verify) and one transfer; a scan prefill
+      also replayed its step once per prompt token.
 
     Returns ``(launches by kernel, replayed launches by instantiation)``."""
     from repro_torch.kernels import kernel_totals
@@ -1564,15 +1790,7 @@ def graph_accounting(label, server, cfg, reqs, per_call: bool = False,
     for name, captured in runner.captured_launches.items():
         if name in captured_before:
             continue
-        if name.startswith("burst"):
-            want = by_instantiation(per_forward, server.slots, 1, server.burst)
-        elif name == "prefill step":  # the scan: one single-row forward
-            want = by_instantiation(per_forward, 1, 1)
-        elif name == "prefill finish":  # sampling, scatter, admission: no kernel
-            want = {}
-        else:
-            b = int(name.split()[-1])
-            want = by_instantiation(per_forward, b, b)
+        want = program_launches(name, server, cfg, per_call, widths)
         check_instantiations(f"{label}: graph {name!r} at capture", captured, want)
         check_instantiations(f"{label}: graph {name!r} warm-up", runner.warmup_launches[name],
                              want)
@@ -1582,17 +1800,23 @@ def graph_accounting(label, server, cfg, reqs, per_call: bool = False,
     replayed = replayed_launches(runner)
     launches = check_launches(f"{label}: replayed", kernel_totals(replayed), per_forward,
                               times=model_forwards(server))
-    check_instantiations(f"{label}: replayed", replayed,
-                         serving_instantiations(cfg, server, reqs, per_call))
-    # one transfer a prefill and a burst; one replay each, and the scan's
-    # step once per prompt token besides
-    rounds = server.prefill_calls + server.decode_steps // server.burst
+    if widths is None:
+        check_instantiations(f"{label}: replayed", replayed,
+                             serving_instantiations(cfg, server, reqs, per_call))
+    else:
+        check_point_replays(label, server, reqs)
+    # one transfer a prefill and a burst or round; one replay each (a round
+    # two), and the scan's step once per prompt token besides
+    rounds = server.spec_rounds if server.spec is not None else server.decode_steps // server.burst
+    transfers = server.prefill_calls + rounds
+    replays = transfers + (rounds if server.spec is not None else 0)
     steps = 0 if server.batched_prefill else sum(len(r.prompt) for r in reqs)
-    if not (server.host_transfers == rounds and server.prefill_steps == steps
-            and server.graph_replays == rounds + steps):
+    if not (server.host_transfers == transfers and server.prefill_steps == steps
+            and server.graph_replays == replays + steps):
         raise AssertionError(f"{label}: {server.graph_replays} graph replays, "
-                             f"{server.host_transfers} transfers, {rounds} prefills and bursts, "
-                             f"{server.prefill_steps} scan steps for {steps} prompt tokens")
+                             f"{server.host_transfers} transfers, {server.prefill_calls} prefills "
+                             f"and {rounds} bursts or rounds, {server.prefill_steps} scan steps "
+                             f"for {steps} prompt tokens")
     return launches, replayed
 
 
@@ -2430,6 +2654,447 @@ def scan_card_vs_cpu(device, name):
     return card_vs_cpu(device, label, cfg, scaled_init(get_model(cfg)), (5, 11, 40), 64)
 
 
+def recorded(controller) -> list:
+    """Wrap ``controller.observe`` to record the point it picks after each
+    observation; returns the (growing) list."""
+    trajectory, observe = [], controller.observe
+
+    def record(signals):
+        trajectory.append(observe(signals))
+        return trajectory[-1]
+
+    controller.observe = record
+    return trajectory
+
+
+def bank_report(bank, seconds: float) -> dict:
+    """A bank's points, build time, shared leaves and, by point, the GiB of
+    the prepared leaves it holds that no cheaper point holds, and its
+    relative MAC cycles."""
+    seen, by_point = set(), {}
+    for name in bank.names:
+        nbytes = 0
+        for leaf in iter_prepared(bank.tree(name)):
+            if id(leaf) not in seen:
+                seen.add(id(leaf))
+                nbytes += leaf.data.untyped_storage().nbytes() + leaf.point.numel() * 4
+        by_point[name] = dict(gib=nbytes / 2**30, rel_cycles=bank.rel_cycles(name),
+                              cycles_per_token=bank.cycles_per_token[name])
+    return dict(points=list(bank.names), reference=bank.reference, build_s=seconds,
+                shared_leaves=bank.shared_leaves, unique_leaves=bank.unique_leaves,
+                cycle_model=bank.cycle_model, by_point=by_point)
+
+
+def capture_by_point(runner) -> dict:
+    """point -> (graphs, capture seconds) of a runner's graphs ("" for a
+    program without a point)."""
+    out = {}
+    for name, sec in runner.capture_seconds.items():
+        point = name.partition(" @")[2]
+        n, t = out.get(point, (0, 0.0))
+        out[point] = (n + 1, t + sec)
+    return {p: dict(graphs=n, capture_s=t) for p, (n, t) in out.items()}
+
+
+def make_bank(device, cfg, hifi: bool):
+    """Full-width ``cfg``'s seeded weights on the card (those of
+    ``serve_full_width``) and their multi-point bank: approx and accurate
+    FxP8, and with ``hifi`` accurate FxP16. Returns ``(model, params, bank,
+    report)``."""
+    import torch
+
+    from repro_torch.core import FXP8, FXP16
+    from repro_torch.models import get_model
+    from repro_torch.runtime import build_bank, default_points
+
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bank = build_bank(params, "kernel", default_points(FXP8, hifi_fmt=FXP16 if hifi else None),
+                      specs=model.specs())
+    torch.cuda.synchronize()
+    return model, params, bank, bank_report(bank, time.perf_counter() - t0)
+
+
+def adaptive_phases(device, accurate):
+    """Runtime-adaptive precision on full-width olmo-1b (16 layers), the bank
+    ``default_points(FXP8, hifi_fmt=FXP16)`` (approx FxP8, accurate FxP8,
+    hifi FxP16: three whole banks), the six requests of ``requests``; every
+    (program, point) one captured graph, in one pool a server:
+
+    a. a controller pinned at each point serves what a static server of
+       that point's prepared weights serves, streams and f32 margins bit for
+       bit (at accurate, the ``serve olmo-1b`` phase's run, ``accurate``);
+    b. the CLI's flow (cycle budget 0.75): the captured run, a steady repeat
+       (no graph captured: every point it visits replays its graphs) and the
+       uncaptured yardstick give the same point trajectory, streams, margins
+       and telemetry summary; the repeat allocates less than a bank (no bank
+       is copied); the yardstick launches exactly the captured run's
+       replayed launches;
+    c. a budget-driven run with the margins disarmed switches at least once.
+
+    Each captured run's launches are exact by (program, point)
+    (``graph_accounting`` with the points' weight widths) with one transfer
+    a prefill and a burst. Reports tokens/s by point, capture seconds by
+    point and the pool's GiB."""
+    import torch
+
+    from repro_torch.core import prepare_params
+    from repro_torch.runtime import ControllerConfig, ModeController
+    from repro_torch.serve.capture import pool_bytes
+    from repro_torch.serve.engine import BatchedServer
+
+    cfg = olmo()
+    torch.cuda.reset_peak_memory_stats()
+    model, params, bank, report = make_bank(device, cfg, hifi=True)
+    widths = point_bytes(bank)
+    ctx = kernel_ctx()
+    label = "olmo-1b adaptive"
+
+    def serve(controller, capture=True):
+        return BatchedServer(model, ctx, params, slots=SLOTS, max_len=MAX_LEN, burst=BURST,
+                             device=device, controller=controller, capture=capture)
+
+    report.update(config=f"{label}: full width, {cfg.num_layers} layers, kernel mode, bank "
+                         f"{list(bank.names)}, slots {SLOTS}, burst {BURST}, max_len {MAX_LEN}",
+                  setup_peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    # a. pinned at each point == a static server of that point's weights
+    pinned = {}
+    for point in bank.names:
+        server = serve(ModeController(bank, ControllerConfig(pin=point)))
+        zero_launches()
+        reqs = requests(cfg)
+        out, first_run = timed_run(server, reqs)
+        launches, _ = graph_accounting(f"{label} pinned {point}", server, cfg, reqs,
+                                       widths=widths)
+        runner = server.programs
+        if any(name.partition(" @")[2] not in ("", point) for name in runner.graphs):
+            raise AssertionError(f"{label} pinned {point}: graphs {sorted(runner.graphs)}")
+        captured = frozenset(runner.graphs)
+        zero_launches()
+        steady_reqs = requests(cfg)
+        steady, steady_run = timed_run(server, steady_reqs)
+        graph_accounting(f"{label} pinned {point} steady", server, cfg, steady_reqs,
+                         captured_before=captured, widths=widths)
+        if steady != out or margins(steady_reqs) != margins(reqs):
+            raise AssertionError(f"{label} pinned {point}: two runs differ")
+        row = dict(first_run=first_run, steady_run=steady_run,
+                   tokens_per_s=steady_run["tokens_per_s"],
+                   decode_ms_per_step=steady_run["decode_ms_per_step"], launches=launches,
+                   graphs=graphs_report(runner), graph_pool_gib=pool_bytes(runner.pool) / 2**30,
+                   telemetry=server.telemetry.summary())
+        del server, runner
+        free_card()
+        if point == bank.reference and accurate is not None:
+            want, want_margins = accurate
+        else:
+            policy = next(p.policy for p in bank.points if p.name == point)
+            static = BatchedServer(model, ctx, prepare_params(params, policy, "kernel",
+                                                              specs=model.specs()),
+                                   slots=SLOTS, max_len=MAX_LEN, burst=BURST, device=device,
+                                   prepare_weights=False)
+            static_reqs = requests(cfg)
+            want, want_margins = static.run(static_reqs), margins(static_reqs)
+            del static
+            free_card()
+        if out != want or margins(reqs) != want_margins:
+            raise AssertionError(f"{label}: pinned at {point}, streams or f32 margins differ "
+                                 "from the static server's")
+        row["static_identical"] = True
+        pinned[point] = row
+        log(f"{label} pinned {point}: {row['tokens_per_s']:.2f} tok/s, "
+            f"{row['decode_ms_per_step']:.3f} ms a step")
+    report["pinned"] = pinned
+
+    # b. the CLI's flow: captured, steady, uncaptured
+    budget = ControllerConfig(cycle_budget=0.75)
+    ctrl = ModeController(bank, budget)
+    trajectory = recorded(ctrl)
+    server = serve(ctrl)
+    zero_launches()
+    reqs = requests(cfg)
+    out, first_run = timed_run(server, reqs)
+    launches, replayed = graph_accounting(f"{label} cli", server, cfg, reqs, widths=widths)
+    tele, first_traj = server.telemetry.summary(), list(trajectory)
+    runner = server.programs
+    captured = frozenset(runner.graphs)
+    trajectory.clear()
+    zero_launches()
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    steady_reqs = requests(cfg)
+    steady, steady_run = timed_run(server, steady_reqs)
+    steady_alloc = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    graph_accounting(f"{label} cli steady", server, cfg, steady_reqs, captured_before=captured,
+                     widths=widths)
+    smallest_bank = min(v["gib"] for v in report["by_point"].values())
+    checks = {"repeat": steady == out and margins(steady_reqs) == margins(reqs),
+              "repeat_trajectory": trajectory == first_traj,
+              "repeat_telemetry": server.telemetry.summary() == tele,
+              "no_recapture": set(runner.graphs) == captured,
+              "no_bank_copy": steady_alloc < smallest_bank}
+    cli = dict(first_run=first_run, steady_run=steady_run,
+               tokens_per_s=steady_run["tokens_per_s"], launches=launches,
+               trajectory=first_traj, telemetry=tele, graphs=graphs_report(runner),
+               capture_by_point=capture_by_point(runner),
+               graph_pool_gib=pool_bytes(runner.pool) / 2**30,
+               steady_alloc_over_start_gib=steady_alloc,
+               replays_by_program_point=check_point_replays(f"{label} cli", server, reqs))
+    del server, runner
+    free_card()
+    ctrl = ModeController(bank, budget)
+    eager_traj = recorded(ctrl)
+    eager = serve(ctrl, capture=False)
+    zero_launches()
+    eager_reqs = requests(cfg)
+    eager_out, cli["uncaptured_run"] = timed_run(eager, eager_reqs)
+    check_instantiations(f"{label} cli uncaptured", wrapper_counts(), replayed)
+    checks.update(uncaptured=eager_out == out and margins(eager_reqs) == margins(reqs),
+                  uncaptured_trajectory=eager_traj == first_traj,
+                  uncaptured_telemetry=eager.telemetry.summary() == tele,
+                  uncaptured_replays_none=eager.graph_replays == 0)
+    del eager
+    free_card()
+    if not all(checks.values()):
+        raise AssertionError(f"{label} cli: {checks}")
+    cli["identical"] = checks
+    report["cli_flow"] = cli
+    report["launches"] = launches
+    log(f"{label} cli: trajectory {first_traj}, {cli['tokens_per_s']:.2f} tok/s, "
+        f"{tele['switches']} switches, capture by point {cli['capture_by_point']}")
+
+    # c. budget-driven, margins disarmed: at least one switch
+    ctrl = ModeController(bank, ControllerConfig(cycle_budget=0.7, margin_promote=-1.0,
+                                                 margin_demote=float("inf")))
+    trajectory = recorded(ctrl)
+    server = serve(ctrl)
+    zero_launches()
+    reqs = requests(cfg)
+    _, run = timed_run(server, reqs)
+    graph_accounting(f"{label} budget", server, cfg, reqs, widths=widths)
+    tele = server.telemetry.summary()
+    if tele["switches"] < 1:
+        raise AssertionError(f"{label} budget-driven: no switch ({tele})")
+    report["budget_driven"] = dict(run=run, trajectory=list(trajectory), telemetry=tele,
+                                   capture_by_point=capture_by_point(server.programs),
+                                   graph_pool_gib=pool_bytes(server.programs.pool) / 2**30)
+    del server, bank, params
+    free_card()
+    return report
+
+
+def verify_logits_bitwise(model, ctx, tree, device) -> dict:
+    """A verify's decode step (``DRAFT_LEN + 1`` tokens a slot on ``SLOTS``
+    slots, a cache filled to rows 125..380) gives every position the logits
+    that the token-by-token decode steps give, bit for bit; raises with the
+    largest difference otherwise."""
+    import torch
+
+    from repro_torch.serve.kvcache import scatter_rows
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    vocab = model.cfg.vocab_size
+    cache = model.make_cache(SLOTS, MAX_LEN, device=device)
+    with torch.no_grad():
+        for b, plen in enumerate((125, 253, 30, 380)[:SLOTS]):
+            plen = min(plen, MAX_LEN - DRAFT_LEN - 1)
+            row = model.make_cache(1, MAX_LEN, device=device)
+            model.decode_step(tree, torch.randint(0, vocab, (1, plen), generator=gen,
+                                                  device=device), row, ctx)
+            scatter_rows(cache, row, torch.tensor([b], device=device))
+        block = torch.randint(0, vocab, (SLOTS, DRAFT_LEN + 1), generator=gen, device=device)
+        seq_cache = {k: {n: t.clone() for n, t in v.items()} for k, v in cache.items()}
+        seq = torch.cat([model.decode_step(tree, block[:, j:j + 1], seq_cache, ctx)[0]
+                         for j in range(DRAFT_LEN + 1)], dim=1)
+        blk, _ = model.decode_step(tree, block, cache, ctx)
+    diff = (seq - blk).abs().max().item()
+    if not torch.equal(seq, blk):
+        raise AssertionError(f"verify logits differ from token-by-token decode: max |diff| {diff}")
+    return dict(slots=SLOTS, rows=DRAFT_LEN + 1, identical=True)
+
+
+def spec_phases(device, accurate, accurate_tokens_per_s=None):
+    """Self-speculative serving on full-width olmo-1b (16 layers), the bank
+    ``default_points(FXP8, hifi_fmt=None)``, draft_len ``DRAFT_LEN``, the six
+    requests; the draft program one captured graph a draft point, the
+    verify one at the verify point, the prefills at the verify point:
+
+    * greedy speculation equals the accurate-only captured run (``accurate``,
+      the ``serve olmo-1b`` phase's streams and f32 margins) bit for bit,
+      and so does its steady repeat;
+    * sampled speculation (``TEMPERATURE``, request i seeded ``SEED_BASE`` +
+      i) gives every request ``MAX_NEW`` tokens, and its captured run equals
+      its uncaptured run (streams and f32 margins; the yardstick launches
+      exactly the captured run's replayed launches);
+    * with a controller (the CLI's ``--adaptive --speculative``: budget 0.75,
+      starting at the cheapest point) the controller picks the draft point,
+      and greedy streams still equal accurate-only serving.
+
+    Launches exact by (program, point), one transfer a prefill and a round.
+    Reports acceptance, tokens per verify and tokens/s (against
+    ``accurate_tokens_per_s``, the accurate-only steady run's)."""
+    from repro_torch.runtime import ControllerConfig, ModeController
+    from repro_torch.serve.capture import pool_bytes
+    from repro_torch.serve.engine import BatchedServer
+    from repro_torch.spec import SpecConfig
+
+    cfg = olmo()
+    model, params, bank, report = make_bank(device, cfg, hifi=False)
+    widths = point_bytes(bank)
+    ctx = kernel_ctx()
+    label = "olmo-1b speculative"
+
+    def serve(capture=True, controller=None):
+        return BatchedServer(model, ctx, params, slots=SLOTS, max_len=MAX_LEN, burst=BURST,
+                             device=device, speculate=SpecConfig(draft_len=DRAFT_LEN),
+                             bank=None if controller else bank, controller=controller,
+                             capture=capture)
+
+    report.update(config=f"{label}: full width, {cfg.num_layers} layers, kernel mode, bank "
+                         f"{list(bank.names)}, draft_len {DRAFT_LEN}, slots {SLOTS}, "
+                         f"max_len {MAX_LEN}", accurate_only_tokens_per_s=accurate_tokens_per_s)
+
+    def spec_summary(server, run):
+        tele = server.spec_telemetry.summary()
+        return dict(run=run, tokens_per_s=run["tokens_per_s"], rounds=server.spec_rounds,
+                    acceptance_rate=tele["acceptance_rate"],
+                    tokens_per_verify=tele["tokens_per_step"], telemetry=tele,
+                    graphs=graphs_report(server.programs),
+                    capture_by_point=capture_by_point(server.programs),
+                    graph_pool_gib=pool_bytes(server.programs.pool) / 2**30)
+
+    report["verify_logits_bitwise"] = verify_logits_bitwise(model, ctx, bank.tree(bank.reference),
+                                                           device)
+    # greedy == accurate-only, captured and steady
+    server = serve()
+    zero_launches()
+    reqs = requests(cfg)
+    out, first_run = timed_run(server, reqs)
+    launches, _ = graph_accounting(f"{label} greedy", server, cfg, reqs, widths=widths)
+    if out != accurate[0] or margins(reqs) != accurate[1]:
+        raise AssertionError(f"{label}: greedy streams or f32 margins differ from accurate-only "
+                             "serving")
+    captured = frozenset(server.programs.graphs)
+    zero_launches()
+    steady_reqs = requests(cfg)
+    steady, steady_run = timed_run(server, steady_reqs)
+    graph_accounting(f"{label} greedy steady", server, cfg, steady_reqs,
+                     captured_before=captured, widths=widths)
+    if steady != out or margins(steady_reqs) != margins(reqs):
+        raise AssertionError(f"{label}: greedy repeat differs")
+    greedy = spec_summary(server, steady_run)
+    greedy.update(first_run=first_run, launches=launches, accurate_identical=True,
+                  replays_by_program_point=check_point_replays(label, server, steady_reqs))
+    report["greedy"], report["launches"] = greedy, launches
+    del server
+    free_card()
+    log(f"{label} greedy: {greedy['tokens_per_s']:.2f} tok/s, acceptance "
+        f"{greedy['acceptance_rate']}, {greedy['tokens_per_verify']} tokens a verify")
+
+    # sampled: captured == uncaptured
+    server = serve()
+    zero_launches()
+    reqs = sampled_requests(cfg)
+    out, run = timed_run(server, reqs)
+    _, replayed = graph_accounting(f"{label} sampled", server, cfg, reqs, widths=widths)
+    sampled = spec_summary(server, run)
+    del server
+    free_card()
+    eager = serve(capture=False)
+    zero_launches()
+    eager_reqs = sampled_requests(cfg)
+    eager_out, sampled["uncaptured_run"] = timed_run(eager, eager_reqs)
+    check_instantiations(f"{label} sampled uncaptured", wrapper_counts(), replayed)
+    del eager
+    free_card()
+    checks = {"uncaptured": eager_out == out and margins(eager_reqs) == margins(reqs),
+              "max_new": all(len(v) == MAX_NEW for v in out.values()),
+              "differs_from_greedy": out != accurate[0]}
+    if not all(checks.values()):
+        raise AssertionError(f"{label} sampled: {checks}")
+    sampled["identical"] = checks
+    report["sampled"] = sampled
+
+    # the controller picks the draft point
+    ctrl = ModeController(bank, ControllerConfig(cycle_budget=0.75, start=bank.names[0]))
+    trajectory = recorded(ctrl)
+    server = serve(controller=ctrl)
+    zero_launches()
+    reqs = requests(cfg)
+    out, run = timed_run(server, reqs)
+    graph_accounting(f"{label} adaptive", server, cfg, reqs, widths=widths)
+    if out != accurate[0] or margins(reqs) != accurate[1]:
+        raise AssertionError(f"{label} adaptive: greedy streams differ from accurate-only")
+    adaptive = spec_summary(server, run)
+    adaptive.update(trajectory=list(trajectory), telemetry_adaptive=server.telemetry.summary())
+    report["adaptive"] = adaptive
+    del server, bank, params
+    free_card()
+    log(f"{label} sampled {sampled['tokens_per_s']:.2f} tok/s (uncaptured "
+        f"{sampled['uncaptured_run']['tokens_per_s']:.2f}); adaptive draft points "
+        f"{adaptive['telemetry']['rounds_by_draft_point']}")
+    return report
+
+
+def bank_card_vs_cpu(device, label, cfg, params, lens, max_len, speculative: bool):
+    """The same weights' bank served on the card and the CPU: adaptive (the
+    CLI's flow, budget 0.75, bank with hifi FxP16) or speculative (greedy,
+    draft_len ``DRAFT_LEN``); the streams must be identical. Reports whether
+    the point trajectories and telemetry agree too."""
+    import torch
+
+    from repro_torch.core import FXP8, FXP16
+    from repro_torch.models import get_model
+    from repro_torch.runtime import ControllerConfig, ModeController, build_bank, default_points
+    from repro_torch.serve.engine import BatchedServer, _to_device
+    from repro_torch.spec import SpecConfig
+
+    model = get_model(cfg)
+    out, tele, traj = {}, {}, {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        tree = _to_device(params, dev)
+        bank = build_bank(tree, "kernel", default_points(FXP8, hifi_fmt=None if speculative
+                                                         else FXP16), specs=model.specs())
+        kw = dict(slots=2, max_len=max_len, burst=4, device=dev)
+        if speculative:
+            server = BatchedServer(model, kernel_ctx(), tree, bank=bank,
+                                   speculate=SpecConfig(draft_len=DRAFT_LEN), **kw)
+        else:
+            ctrl = ModeController(bank, ControllerConfig(cycle_budget=0.75))
+            traj[where] = recorded(ctrl)
+            server = BatchedServer(model, kernel_ctx(), tree, controller=ctrl, **kw)
+        out[where] = server.run(requests(cfg, lens=lens, max_new=8))
+        tele[where] = (server.spec_telemetry if speculative else server.telemetry).summary()
+    if out["card"] != out["cpu"]:
+        raise AssertionError(f"{label}: streams differ card vs CPU: {out}")
+    return dict(config=label, layers=cfg.num_layers, d_model=cfg.d_model, prompt_lens=list(lens),
+                serving="speculative, greedy" if speculative else "adaptive, budget 0.75",
+                streams_identical=True, telemetry_identical=tele["card"] == tele["cpu"],
+                trajectory_identical=traj.get("card") == traj.get("cpu"), telemetry=tele,
+                streams=out["card"])
+
+
+def bank_parity_phases(device, parity: dict) -> None:
+    """Reduced card vs CPU of the bank servers: olmo-1b adaptive and
+    speculative, deepseek-v3 speculative (MLA + MoE), weights as
+    ``scaled_init``."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+
+    olmo_cfg = reduced(get_config("olmo-1b"))
+    ds_cfg = reduced(get_config("deepseek-v3-671b"), layers=4)
+    for name, cfg, speculative, lens, max_len in (
+            ("olmo-1b adaptive", olmo_cfg, False, (5, 11, 40), 64),
+            ("olmo-1b speculative", olmo_cfg, True, (5, 11, 40), 64),
+            ("deepseek-v3-671b speculative", ds_cfg, True, (5, 11, 70), 96)):
+        label = f"{name} reduced, {cfg.num_layers} layers"
+        parity[name] = phase(f"{name} card vs cpu", bank_card_vs_cpu, device, label, cfg,
+                             scaled_init(get_model(cfg)), lens, max_len, speculative)
+        emit({"card_vs_cpu": parity[name]})
+
+
 def free_card():
     import torch
 
@@ -2518,8 +3183,30 @@ def phase(name: str, fn, *args, **kw):
     return out
 
 
-def main() -> int:
+PHASE_GROUPS = ("kernels", "olmo", "bank", "parity", "deepseek", "archs", "scan")
+
+
+def main(argv=()) -> int:
+    """Every phase, with no arguments; ``--phases`` runs the named groups of
+    ``PHASE_GROUPS`` only (a quicker check while working on one path; "bank"
+    needs "olmo"), writes their report and prints no ``kernels`` and no
+    ``ok`` line."""
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="on-card smoke test of the PyTorch/CUDA port")
+    ap.add_argument("--phases", default=None,
+                    help=f"comma-separated groups of {PHASE_GROUPS} (default: all)")
+    args = ap.parse_args(list(argv))
+    groups = None if args.phases is None else set(args.phases.split(","))
+    if groups is not None and not groups <= set(PHASE_GROUPS):
+        ap.error(f"--phases takes groups of {PHASE_GROUPS}")
+    if groups is not None and "bank" in groups:
+        groups.add("olmo")
+
+    def want(group: str) -> bool:
+        return groups is None or group in groups
 
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -2542,96 +3229,129 @@ def main() -> int:
     )
     emit({"device": device_line})
 
-    fused_rows, fused_err = phase("check_fused", check_fused, device)
-    plan_rows = phase("plan_alternatives", plan_alternatives, device)
-    attn_rows, attn_err = phase("check_attention", check_attention, device)
-    gqa_plan_rows = phase("gqa_path_alternatives", gqa_path_alternatives, device)
-    mla_rows, mla_err = phase("check_mla", check_mla, device)
-    af_rows = phase("check_af", check_af, device)
-    mac_rows = phase("check_mac", check_mac, device)
-    softmax_rows = phase("check_softmax", check_softmax, device)
-    flash_rows, flash_err = phase("check_flash", check_flash, device)
-    mla_flash_rows, mla_flash_err = phase("check_mla_flash", check_mla_flash, device)
-    checks = {"fused_dot_af": fused_rows, "plan_alternatives": plan_rows, "cordic_mac": mac_rows,
-              "gqa_decode_attention": attn_rows, "gqa_path_alternatives": gqa_plan_rows,
-              "mla_decode_attention": mla_rows,
-              "af_elementwise": af_rows, "af_softmax": softmax_rows,
-              "flash_attention": flash_rows, "mla_flash_attention": mla_flash_rows}
-    emit({"kernel_checks": checks})
-    free_card()
-    paths = {"softmax activate": phase("softmax_path", softmax_path, device)}
-    emit({"softmax_path": paths["softmax activate"]})
+    checks, paths, serving, forward, parity = {}, {}, {}, {}, {}
+    calibration = order = None
+    if want("kernels"):
+        fused_rows, fused_err = phase("check_fused", check_fused, device)
+        hifi_rows, _ = phase("check_fused_hifi", check_fused_hifi, device)
+        plan_rows = phase("plan_alternatives", plan_alternatives, device)
+        attn_rows, attn_err = phase("check_attention", check_attention, device)
+        gqa_plan_rows = phase("gqa_path_alternatives", gqa_path_alternatives, device)
+        mla_rows, mla_err = phase("check_mla", check_mla, device)
+        af_rows = phase("check_af", check_af, device)
+        mac_rows = phase("check_mac", check_mac, device)
+        softmax_rows = phase("check_softmax", check_softmax, device)
+        flash_rows, flash_err = phase("check_flash", check_flash, device)
+        mla_flash_rows, mla_flash_err = phase("check_mla_flash", check_mla_flash, device)
+        checks = {"fused_dot_af": fused_rows, "fused_dot_af_fxp16": hifi_rows,
+                  "plan_alternatives": plan_rows, "cordic_mac": mac_rows,
+                  "gqa_decode_attention": attn_rows, "gqa_path_alternatives": gqa_plan_rows,
+                  "mla_decode_attention": mla_rows,
+                  "af_elementwise": af_rows, "af_softmax": softmax_rows,
+                  "flash_attention": flash_rows, "mla_flash_attention": mla_flash_rows}
+        emit({"kernel_checks": checks})
+        free_card()
+        paths["softmax activate"] = phase("softmax_path", softmax_path, device)
+        emit({"softmax_path": paths["softmax activate"]})
 
-    serving, forward, parity = {}, {}, {}
-    serving["olmo-1b"], streams, olmo_margins, weights = phase(
-        "serve olmo-1b", serve_full_width, device, "olmo-1b", olmo())
-    emit({"serving": serving["olmo-1b"]})
-    forward["olmo-1b"] = phase("forward olmo-1b", forward_phase, device, "olmo-1b", olmo(),
-                               weights, (2, BUCKET))
-    emit({"forward": forward["olmo-1b"]})
-    serving["olmo-1b sampled"] = phase("serve olmo-1b sampled", serve_sampled, device, olmo(),
-                                       weights, streams)
-    emit({"serving": serving["olmo-1b sampled"]})
-    del weights
-    free_card()
-    order = phase("replay order", replay_order, device)
-    emit({"replay_order": order})
-    free_card()
-    # per call at PER_CALL_LAYERS, held against a prepared run of the same
-    # weights at that depth
-    serving[f"olmo-1b {PER_CALL_LAYERS} layers"], cut_streams, cut_margins, _ = phase(
-        f"serve olmo-1b {PER_CALL_LAYERS} layers", serve_full_width, device,
-        f"olmo-1b {PER_CALL_LAYERS} layers", olmo(PER_CALL_LAYERS))
-    emit({"serving": serving[f"olmo-1b {PER_CALL_LAYERS} layers"]})
-    free_card()
-    serving["olmo-1b per-call"], *_ = phase(
-        "serve olmo-1b per-call", serve_full_width, device, "olmo-1b", olmo(PER_CALL_LAYERS),
-        prepared_run=(cut_streams, cut_margins))
-    emit({"serving": serving["olmo-1b per-call"]})
-    free_card()
-    calibration, policy = phase("calibrate olmo-1b", calibrate_full_width, device)
-    emit({"calibration": calibration})
-    free_card()
-    serving["olmo-1b calibrated"], *_ = phase(
-        "serve olmo-1b calibrated", serve_full_width, device, "olmo-1b calibrated", olmo(),
-        policy=policy)
-    emit({"serving": serving["olmo-1b calibrated"]})
-    free_card()
-    parity["olmo-1b"] = phase("olmo-1b card vs cpu", olmo_card_vs_cpu, device)
-    emit({"card_vs_cpu": parity["olmo-1b"]})
-    parity["olmo-1b per-call"] = phase("olmo-1b per-call card vs cpu",
-                                       olmo_per_call_card_vs_cpu, device)
-    emit({"card_vs_cpu": parity["olmo-1b per-call"]})
-    cfg = olmo(layers=2)
-    parity["olmo-1b forward"] = phase(
-        "olmo-1b forward card vs cpu", forward_card_vs_cpu, device,
-        "olmo-1b full width, 2 layers, forward", cfg,
-        get_model(cfg).init(torch.Generator(device="cpu").manual_seed(SEED)), (2, 70))
-    emit({"card_vs_cpu": parity["olmo-1b forward"]})
-    free_card()
-    serving["deepseek-v3-671b"], _, _, weights = phase(
-        "serve deepseek-v3-671b", serve_full_width, device, "deepseek-v3-671b", deepseek())
-    emit({"serving": serving["deepseek-v3-671b"]})
-    free_card()
-    # the serving weights: 63 GB of f32 are not built twice
-    forward["deepseek-v3-671b"] = phase("forward deepseek-v3-671b", forward_phase, device,
-                                        "deepseek-v3-671b", deepseek(), weights, (1, BUCKET))
-    emit({"forward": forward["deepseek-v3-671b"]})
-    del weights
-    free_card()
-    parity["deepseek-v3-671b"] = phase("deepseek-v3-671b card vs cpu", deepseek_card_vs_cpu,
-                                       device)
-    emit({"card_vs_cpu": parity["deepseek-v3-671b"]})
-    cfg = reduced(get_config("deepseek-v3-671b"), layers=4)
-    parity["deepseek-v3-671b forward"] = phase(
-        "deepseek-v3-671b forward card vs cpu", forward_card_vs_cpu, device,
-        "deepseek-v3-671b reduced, 4 layers, forward", cfg, scaled_init(get_model(cfg)),
-        (2, 70))
-    emit({"card_vs_cpu": parity["deepseek-v3-671b forward"]})
-    free_card()
-    arch_phases(device, serving, forward, parity)
-    free_card()
-    scan_phases(device, serving, forward, parity)
+    if want("olmo"):
+        serving["olmo-1b"], streams, olmo_margins, weights = phase(
+            "serve olmo-1b", serve_full_width, device, "olmo-1b", olmo())
+        emit({"serving": serving["olmo-1b"]})
+    if want("olmo") and groups is None:
+        forward["olmo-1b"] = phase("forward olmo-1b", forward_phase, device, "olmo-1b", olmo(),
+                                   weights, (2, BUCKET))
+        emit({"forward": forward["olmo-1b"]})
+        serving["olmo-1b sampled"] = phase("serve olmo-1b sampled", serve_sampled, device,
+                                           olmo(), weights, streams)
+        emit({"serving": serving["olmo-1b sampled"]})
+    if want("olmo"):
+        del weights
+        free_card()
+    if want("bank"):
+        # runtime-adaptive precision and self-speculative serving, held
+        # against the accurate-only run above
+        serving["olmo-1b adaptive"] = phase("adaptive olmo-1b", adaptive_phases, device,
+                                            (streams, olmo_margins))
+        emit({"serving": serving["olmo-1b adaptive"]})
+        free_card()
+        serving["olmo-1b speculative"] = phase(
+            "speculative olmo-1b", spec_phases, device, (streams, olmo_margins),
+            serving["olmo-1b"]["tokens_per_s"])
+        emit({"serving": serving["olmo-1b speculative"]})
+        free_card()
+    if want("olmo") and groups is None:
+        order = phase("replay order", replay_order, device)
+        emit({"replay_order": order})
+        free_card()
+        # per call at PER_CALL_LAYERS, held against a prepared run of the same
+        # weights at that depth
+        serving[f"olmo-1b {PER_CALL_LAYERS} layers"], cut_streams, cut_margins, _ = phase(
+            f"serve olmo-1b {PER_CALL_LAYERS} layers", serve_full_width, device,
+            f"olmo-1b {PER_CALL_LAYERS} layers", olmo(PER_CALL_LAYERS))
+        emit({"serving": serving[f"olmo-1b {PER_CALL_LAYERS} layers"]})
+        free_card()
+        serving["olmo-1b per-call"], *_ = phase(
+            "serve olmo-1b per-call", serve_full_width, device, "olmo-1b", olmo(PER_CALL_LAYERS),
+            prepared_run=(cut_streams, cut_margins))
+        emit({"serving": serving["olmo-1b per-call"]})
+        free_card()
+        calibration, policy = phase("calibrate olmo-1b", calibrate_full_width, device)
+        emit({"calibration": calibration})
+        free_card()
+        serving["olmo-1b calibrated"], *_ = phase(
+            "serve olmo-1b calibrated", serve_full_width, device, "olmo-1b calibrated", olmo(),
+            policy=policy)
+        emit({"serving": serving["olmo-1b calibrated"]})
+        free_card()
+    if want("parity"):
+        parity["olmo-1b"] = phase("olmo-1b card vs cpu", olmo_card_vs_cpu, device)
+        emit({"card_vs_cpu": parity["olmo-1b"]})
+        parity["olmo-1b per-call"] = phase("olmo-1b per-call card vs cpu",
+                                           olmo_per_call_card_vs_cpu, device)
+        emit({"card_vs_cpu": parity["olmo-1b per-call"]})
+        cfg = olmo(layers=2)
+        parity["olmo-1b forward"] = phase(
+            "olmo-1b forward card vs cpu", forward_card_vs_cpu, device,
+            "olmo-1b full width, 2 layers, forward", cfg,
+            get_model(cfg).init(torch.Generator(device="cpu").manual_seed(SEED)), (2, 70))
+        emit({"card_vs_cpu": parity["olmo-1b forward"]})
+        bank_parity_phases(device, parity)
+        free_card()
+    if want("deepseek"):
+        serving["deepseek-v3-671b"], _, _, weights = phase(
+            "serve deepseek-v3-671b", serve_full_width, device, "deepseek-v3-671b", deepseek())
+        emit({"serving": serving["deepseek-v3-671b"]})
+        free_card()
+        # the serving weights: 63 GB of f32 are not built twice
+        forward["deepseek-v3-671b"] = phase("forward deepseek-v3-671b", forward_phase, device,
+                                            "deepseek-v3-671b", deepseek(), weights, (1, BUCKET))
+        emit({"forward": forward["deepseek-v3-671b"]})
+        del weights
+        free_card()
+        parity["deepseek-v3-671b"] = phase("deepseek-v3-671b card vs cpu", deepseek_card_vs_cpu,
+                                           device)
+        emit({"card_vs_cpu": parity["deepseek-v3-671b"]})
+        cfg = reduced(get_config("deepseek-v3-671b"), layers=4)
+        parity["deepseek-v3-671b forward"] = phase(
+            "deepseek-v3-671b forward card vs cpu", forward_card_vs_cpu, device,
+            "deepseek-v3-671b reduced, 4 layers, forward", cfg, scaled_init(get_model(cfg)),
+            (2, 70))
+        emit({"card_vs_cpu": parity["deepseek-v3-671b forward"]})
+        free_card()
+    if want("archs"):
+        arch_phases(device, serving, forward, parity)
+        free_card()
+    if want("scan"):
+        scan_phases(device, serving, forward, parity)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    if groups is not None:
+        (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
+            device=device_line, phases=sorted(groups), kernel_checks=checks, serving=serving,
+            forward=forward, card_vs_cpu=parity), indent=1))
+        log(f"chip_smoke: groups {sorted(groups)} done")
+        return 0
     paths.update(serving)
     paths.update({f"{label} forward": rep for label, rep in forward.items()})
     paths["olmo-1b calibration"] = calibration
@@ -2681,8 +3401,6 @@ def main() -> int:
         return kernels
 
     kernels = phase("kernels line", kernel_rows)
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=device_line, kernel_checks=checks, softmax_path=paths["softmax activate"],
         serving=serving, forward=forward, calibration=calibration, replay_order=order,
@@ -2694,4 +3412,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -29,8 +29,8 @@
 //   (include/attention.cuh, shared with the MLA kernel) merges them. A split
 //   with no keys (max -inf) adds nothing.
 //
-// Tiles past max(pos) + 1 of a block's query rows are skipped: their weight
-// is exactly 0. Against the plain two-pass softmax the f32 reduction order
+// Split i takes key tiles i, i + splits, ...; tiles past max(pos) + 1 of a
+// block's query rows are skipped: their weight is exactly 0. Against the plain two-pass softmax the f32 reduction order
 // differs, which costs a few ulps.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -118,9 +118,13 @@ gqa_decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k
     t_end_s = (neg || mx >= T) ? T : mx + 1;
   }
   __syncthreads();
+  // split `split` takes every splits-th key tile from tile `split` on, up to
+  // the block's last visible key: a query row's keys fall into the same
+  // splits, in the same order, whatever rows share its block (a verify's S
+  // rows of a slot get the bits the single-row decode of each position
+  // gets: a tile masked for a row leaves its running max, sum and output as
+  // they were), and a short visible range still spreads over the splits
   const int n_tiles = (t_end_s + TK - 1) / TK;
-  const int per = (n_tiles + splits - 1) / splits;
-  const int tile0 = split * per, tile1 = min(n_tiles, tile0 + per);
 
   const size_t row_stride = (size_t)KV * HD;
   const float* kb = k + (size_t)b * T * row_stride + (size_t)kvh * HD;
@@ -146,11 +150,11 @@ gqa_decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k
     for (int d = 0; d < DPL; ++d) acc[i][d] = 0.f;
   }
 
-  if (tile0 < tile1) stage(tile0, 0);
+  if (split < n_tiles) stage(split, 0);
   attn::cp_async_commit();
-  for (int tile = tile0; tile < tile1; ++tile) {
-    const int buf = (tile - tile0) & 1;
-    if (tile + 1 < tile1) stage(tile + 1, buf ^ 1);
+  for (int tile = split; tile < n_tiles; tile += splits) {
+    const int buf = (tile / splits) & 1;
+    if (tile + splits < n_tiles) stage(tile + splits, buf ^ 1);
     attn::cp_async_commit();
     attn::cp_async_wait_one();
     __syncthreads();

@@ -92,8 +92,13 @@ def _splits(blocks: int, n_tiles: int, target: int = _TARGET_BLOCKS) -> int:
 
 def gqa_splits(b: int, s: int, h: int, t: int, kv: int) -> int:
     """Blocks the split-key path spreads each (batch row, kv head, 16-row
-    group)'s key tiles over."""
-    blocks = b * kv * -(-s * (h // kv) // _GQA_ROWS_PER_BLOCK)
+    group)'s key tiles over (split i takes tiles i, i + splits, ...).
+    Counted from the row blocks of one query step, whatever ``s``: a
+    query's result then does not depend on the rows it rides with, so a
+    multi-token verify gives each position the bits of its single-token
+    decode."""
+    del s
+    blocks = b * kv * -(-(h // kv) // _GQA_ROWS_PER_BLOCK)
     return _splits(blocks, -(-t // _GQA_TILE))
 
 

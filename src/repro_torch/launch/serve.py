@@ -20,11 +20,22 @@ either package saved) or ``--calibrate`` runs the startup sensitivity scan
 flash kernels) and ``assign_depths`` meets ``--cycle-reduction``;
 ``--save-policy`` writes the policy served. A depth-demoted group gets its
 own point vector from ``prepare_params``.
+
+``--adaptive`` serves from a multi-point bank (``runtime.build_bank``: the
+cheap point, accurate FxP8 and ``hifi``, accurate FxP16) under a
+``runtime.ModeController`` steering toward ``--cycle-budget``;
+``--calibration`` prices the points with a ``sim.calibrate`` export.
+``--speculative`` serves self-speculative rounds (``spec``): ``--draft-len``
+tokens drafted at ``--draft-point`` (default: the cheapest point; with
+``--adaptive`` the controller picks), verified at accurate FxP8. Both refuse
+``--per-call``: the bank is the prepared path. Each prints the reference's
+``telemetry:`` / ``speculative:`` summary line.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -32,7 +43,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs import ARCHS, get_config, reduced as reduce_cfg
-from repro_torch.core import FXP8, EngineContext, PrecisionPolicy, assign_depths
+from repro_torch.core import FXP8, FXP16, EngineContext, PrecisionPolicy, assign_depths
 from repro_torch.models import get_model
 from repro_torch.serve.engine import BatchedServer, Request
 
@@ -88,6 +99,22 @@ def main(argv=None):
                     help="write the resolved policy as JSON (round-trips via --policy-file)")
     ap.add_argument("--cycle-reduction", type=float, default=0.33,
                     help="assign_depths cycle-reduction budget for --calibrate")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="runtime-adaptive precision: multi-point bank + mode controller")
+    ap.add_argument("--cycle-budget", type=float, default=0.75,
+                    help="--adaptive: target MAC-cycle fraction vs all-accurate")
+    ap.add_argument("--calibration", default=None, metavar="PATH",
+                    help="PE-array calibration JSON (a sim.calibrate export): prices "
+                         "the bank's per-point cycle costs with fitted constants "
+                         "instead of the analytic model")
+    ap.add_argument("--speculative", action="store_true",
+                    help="self-speculative serving: draft on the shallow execution "
+                         "point, verify on the accurate point")
+    ap.add_argument("--draft-len", type=int, default=4,
+                    help="--speculative: tokens drafted per verify round")
+    ap.add_argument("--draft-point", default=None,
+                    help="--speculative: bank point to draft at (default: the "
+                         "cheapest; with --adaptive the controller picks)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -99,9 +126,41 @@ def main(argv=None):
     policy = resolve_policy(args, model, params, FXP8, device)
     ctx = EngineContext(mode=args.mode, policy=policy, compute_dtype=torch.float32,
                         attn_impl="decode_kernel")
-    max_len = args.max_len or args.prompt_len + args.max_new + 2
+    controller = bank = speculate = None
+    if args.adaptive or args.speculative:
+        if args.per_call:
+            raise SystemExit("--per-call contradicts --adaptive/--speculative: the "
+                             "multi-point bank IS the prepared path")
+        from repro_torch.runtime import ControllerConfig, ModeController, build_bank, default_points
+
+        calibration = None
+        if args.calibration:
+            from repro_torch.sim import load_calibration
+
+            calibration = load_calibration(args.calibration)
+            print(f"cycle calibration: {calibration['id']} (from {args.calibration})")
+        bank = build_bank(params, args.mode, default_points(FXP8, base_policy=policy,
+                                                            hifi_fmt=FXP16),
+                          specs=model.specs(), calibration=calibration)
+        print(f"bank: points={bank.names} shared_leaves={bank.shared_leaves}/"
+              f"{bank.unique_leaves} rel_cycles="
+              f"{ {n: round(bank.rel_cycles(n), 3) for n in bank.names} }")
+        if args.adaptive:
+            controller = ModeController(bank, ControllerConfig(
+                cycle_budget=args.cycle_budget,
+                # speculative rounds draft cheap from the first round; the
+                # verify point guards accuracy regardless
+                start=bank.names[0] if args.speculative else None,
+            ))
+    if args.speculative:
+        from repro_torch.spec import SpecConfig
+
+        speculate = SpecConfig(draft_len=args.draft_len, draft_point=args.draft_point)
+    max_len = args.max_len or (args.prompt_len + args.max_new
+                               + (args.draft_len if args.speculative else 0) + 2)
     server = BatchedServer(model, ctx, params, slots=args.slots, max_len=max_len,
-                           burst=args.burst, device=device, prepare_weights=not args.per_call)
+                           burst=args.burst, device=device, prepare_weights=not args.per_call,
+                           controller=controller, bank=bank, speculate=speculate)
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32),
                     args.max_new, temperature=args.temperature,
@@ -111,11 +170,16 @@ def main(argv=None):
     results = server.run(reqs)
     dt = time.perf_counter() - t0
     total = sum(len(v) for v in results.values())
+    weights = "adaptive" if args.adaptive else ("per-call" if args.per_call else "prepared")
+    serving = "speculative " if args.speculative else ""
     print(f"served {len(results)} requests, {total} tokens in {dt:.2f}s "
           f"({total / max(dt, 1e-9):.1f} tok/s, device={device}, burst={args.burst}, "
           f"{server.host_transfers} host round-trips, {server.graph_replays} graph replays, "
-          f"{'per-call' if args.per_call else 'prepared'} {args.mode} weights, "
-          f"temperature {args.temperature})")
+          f"{serving}{weights} {args.mode} weights, temperature {args.temperature})")
+    if server.telemetry is not None:
+        print("telemetry:", json.dumps(server.telemetry.summary()))
+    if server.spec_telemetry is not None:
+        print("speculative:", json.dumps(server.spec_telemetry.summary()))
     for rid in sorted(results):
         print(f"  req {rid}: {results[rid][:8]}...")
     return results

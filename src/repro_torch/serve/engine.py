@@ -24,7 +24,19 @@ paths, each a device program:
   keep the pending tokens, counts, budgets, PRNG keys and temperatures on the
   device; one host transfer per burst brings tokens and top-2 margins back,
   and the host clips each slot's run to its remaining budget. Two variants:
-  sampled and all-greedy, picked per burst from the active requests.
+  sampled and all-greedy, picked per burst from the active requests;
+* **runtime-adaptive precision** (``repro_torch.runtime``): with a
+  ``ModeController``, each prefill and burst runs at the controller's
+  current execution point, a tree of its multi-point weight bank; after
+  each burst the controller observes the burst's min top-2 margin, the
+  queue depth and the free slots (they ride the burst's one transfer), and
+  ``self.telemetry`` records occupancy, switches and estimated MAC cycles;
+* **self-speculative decoding** (``repro_torch.spec``): with
+  ``speculate=SpecConfig(...)`` the decode loop becomes draft-k-then-verify
+  rounds over a bank (``bank=``, or the controller's), each round one
+  draft program, one verify program and one transfer; prompts prefill at
+  the verify point, and greedy output is bit-identical to serving every
+  token at that point.
 
 Sampling is the reference's (:func:`_sample_slots`): each request's PRNG key
 (``Request.seed``, default its ``rid``) is folded with the index of the token
@@ -37,12 +49,18 @@ in place, which stands in for JAX's donation. ``BatchedServer`` runs them
 through ``capture.GraphRunner``: on the card each prefill bucket, the scan
 prefill's step and finish, and each burst variant is one captured CUDA
 graph, replayed once per prefill (the scan step once per prompt token) and
-per burst; on the CPU they run eagerly.
+per burst; on the CPU they run eagerly. A graph replays the addresses it was
+captured with, so under a bank each (program, execution point) is a graph
+of its own, named ``"<program> @<point>"`` (:func:`program_name`) and
+captured at its first visit: a switch to a point already visited replays
+its graphs, with no re-capture and no copy of any bank.
 
 Slots that are free or drained keep decoding every burst, as in the
 reference; their cache index runs on and the KV write clamps at ``max_len``.
-Adaptive precision, speculative decoding, resilience (and with it the slot
-state's fault flag), observability and mesh serving are not yet ported.
+Resilience (and with it the slot state's fault flag), observability and mesh
+serving are not yet ported: the speculative round's fault flags are computed
+and transferred, and nothing acts on them, as in the reference without
+``resilience``.
 """
 from __future__ import annotations
 
@@ -64,6 +82,13 @@ from .kvcache import bucket_length, scatter_rows, with_cache_positions
 # families whose decode caches are pure attention/MLA KV rows (scatterable,
 # index-rewindable); recurrent-state families prefill through the scan
 _BATCHED_PREFILL_FAMILIES = ("dense", "vlm", "moe")
+
+
+def program_name(base: str, point: Optional[str] = None) -> str:
+    """The graph name of program ``base`` run at bank execution point
+    ``point`` (None: a server without a bank, or a program that reads no
+    weights)."""
+    return base if point is None else f"{base} @{point}"
 
 
 def prefills_batched(cfg) -> bool:
@@ -294,24 +319,66 @@ class BatchedServer:
     ``capture.GraphRunner``) also its ``replays`` and capture time.
     ``capture=False`` runs the same programs eagerly on the card, every
     launch issued from the host (the uncaptured yardstick).
+
+    ``controller`` (a ``runtime.ModeController``) serves runtime-adaptive
+    precision from its bank; ``params`` may then stay raw (they are not
+    prepared), and ``telemetry`` accumulates the run's record.
+    ``speculate`` (a ``spec.SpecConfig``) serves self-speculative rounds
+    from ``bank`` (default: the controller's bank), which must hold trees on
+    ``device``; with a controller, it picks the draft point a round.
+    ``spec_rounds`` counts the rounds of the last run (one verify forward
+    and one transfer each; ``decode_steps`` then counts the draft steps).
     """
 
     def __init__(self, model: ModelApi, ctx: EngineContext, params, slots: int = 4,
                  max_len: int = 256, burst: int = 8, device=None, prepare_weights: bool = True,
-                 capture: bool = True):
+                 capture: bool = True, controller=None, bank=None, speculate=None):
         if burst < 1:
             raise ValueError(f"burst must be >= 1, got {burst}")
         self.model, self.ctx = model, ctx
         self.slots, self.max_len, self.burst = slots, max_len, burst
         self.device = resolve_device(device)
+        self.controller, self.speculate = controller, speculate
+        self._bank = bank if bank is not None or controller is None else controller.bank
         params = _to_device(params, self.device)
-        if prepare_weights:
+        self.telemetry = None
+        if controller is not None:
+            from repro_torch.runtime import TelemetryRecorder
+
+            self.telemetry = TelemetryRecorder.for_bank(controller.bank)
+        elif prepare_weights and speculate is None:
             params = prepare_params(params, ctx.policy, ctx.mode, specs=model.specs())
         self.params = params
+        self.batched_prefill = prefills_batched(model.cfg)
+        if speculate is not None:
+            if self._bank is None:
+                raise ValueError(
+                    "speculate= needs a multi-point weight bank: pass bank= "
+                    "or a controller that carries one"
+                )
+            if not self.batched_prefill:
+                raise ValueError(
+                    f"speculative serving needs a scatterable KV cache; the "
+                    f"{model.cfg.family!r} family carries recurrent "
+                    "state that cannot roll back past rejected drafts"
+                )
         self.cache = model.make_cache(slots, max_len, dtype=torch.float32, device=self.device)
         self._state = _init_slot_state(slots, self.device)
         self.programs = GraphRunner(self.device, capture)
-        self.batched_prefill = prefills_batched(model.cfg)
+        self.spec = self.spec_telemetry = None
+        if speculate is not None:
+            from repro_torch.spec import SpeculativeDecoder
+
+            self.spec = SpeculativeDecoder(model, ctx, self._bank, speculate,
+                                           programs=self.programs)
+            self.spec_telemetry = self.spec.telemetry
+        # host views of each slot's committed KV rows and, for the
+        # speculative rounds, its pending token and generated count (uploaded)
+        # and its temperature (which picks a round's variant)
+        self._slot_start = np.zeros((slots,), np.int32)
+        self._slot_tok = np.zeros((slots,), np.int32)
+        self._slot_count = np.zeros((slots,), np.int32)
+        self._slot_temp = np.zeros((slots,), np.float32)
         self._bursts = {s: make_decode_burst(model, ctx, burst, sampled=s) for s in (False, True)}
         staged = self.programs.staged
         # the prefill's host inputs; each bucket has its own prompt buffer
@@ -338,6 +405,7 @@ class BatchedServer:
         self.prefill_calls = 0
         self.prefill_steps = 0
         self.decode_steps = 0
+        self.spec_rounds = 0
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
         self.programs.replays.clear()
@@ -353,12 +421,31 @@ class BatchedServer:
         """Each graph's kernel launches by instantiation, counted at its capture."""
         return self.programs.captured_launches
 
+    def _serving_tree(self):
+        """The tree prefill and non-speculative decode run at: the verify
+        point's when speculating (the committed prompt KV is accurate), the
+        controller's current point's, else the prepared tree."""
+        if self.spec is not None:
+            return self._bank.tree(self.spec.verify_point)
+        return self.controller.tree() if self.controller is not None else self.params
+
+    def _serving_point(self) -> Optional[str]:
+        """Name of the execution point prefill and non-speculative decode run
+        at (None when serving a plain prepared tree)."""
+        if self.spec is not None:
+            return self.spec.verify_point
+        return self.controller.point if self.controller is not None else None
+
     def _admission_error(self, req: Request) -> None:
         prompt = _checked_prompt(req)
-        if len(prompt) + req.max_new > self.max_len:
+        scratch = self.spec.draft_len if self.spec is not None else 0
+        if len(prompt) + req.max_new + scratch > self.max_len:
+            extra = f" + draft_len ({scratch})" if self.spec is not None else ""
+            why = (" — the verify forward needs draft_len rows of scratch headroom"
+                   if self.spec is not None else " — the KV cache would overflow mid-decode")
             raise ValueError(
-                f"request {req.rid}: prompt ({len(prompt)}) + max_new ({req.max_new}) "
-                f"exceeds max_len ({self.max_len}) — the KV cache would overflow mid-decode"
+                f"request {req.rid}: prompt ({len(prompt)}) + max_new ({req.max_new}){extra} "
+                f"exceeds max_len ({self.max_len}){why}"
             )
 
     def _emit(self, req: Request, toks, margins) -> None:
@@ -382,17 +469,23 @@ class BatchedServer:
         for name, value in (("plen", plen), ("slot", slot), ("key", threefry.prng_key(seed)),
                             ("temp", req.temperature), ("max_new", req.max_new)):
             args[name].fill(value)
+        tree, point = self._serving_tree(), self._serving_point()
         if self.batched_prefill:
-            out = self._bucketed_prefill(prompt)
+            out = self._bucketed_prefill(prompt, tree, point)
         else:
-            out = self._scan_prefill(prompt)
+            out = self._scan_prefill(prompt, tree, point)
         self.prefill_calls += 1
         self.host_transfers += 1
         req.generated, req.margins = [], []
         self._emit(req, out[0].tolist(), out[1].tolist())
+        self._slot_start[slot] = plen
+        self._slot_tok[slot], self._slot_count[slot] = req.generated[0], 1
+        self._slot_temp[slot] = req.temperature
+        if self.telemetry is not None:
+            self.telemetry.record_prefill(point, plen)
         self.prefill_seconds += time.perf_counter() - t0
 
-    def _bucketed_prefill(self, prompt: np.ndarray) -> torch.Tensor:
+    def _bucketed_prefill(self, prompt: np.ndarray, tree, point) -> torch.Tensor:
         plen = len(prompt)
         bucket = bucket_length(plen, self.max_len)
         if bucket not in self._prompts:
@@ -404,24 +497,24 @@ class BatchedServer:
 
         def program(cache, state):
             a = {name: s.device_buf for name, s in args.items()}
-            tok, margin = self._prefill(self.params, cache, state, tokens.device_buf, a["plen"],
+            tok, margin = self._prefill(tree, cache, state, tokens.device_buf, a["plen"],
                                         a["slot"], a["key"], a["temp"], a["max_new"])
             return torch.stack([tok.reshape(1).to(torch.float32), margin])
 
-        return self.programs.run(f"prefill {bucket}", program, self.cache, self._state,
-                                 inputs=[tokens, *args.values()])
+        return self.programs.run(program_name(f"prefill {bucket}", point), program, self.cache,
+                                 self._state, inputs=[tokens, *args.values()])
 
-    def _scan_prefill(self, prompt: np.ndarray) -> torch.Tensor:
+    def _scan_prefill(self, prompt: np.ndarray, tree, point) -> torch.Tensor:
         tokens, args = self._scan_prompt, self._args
         padded = np.zeros((1, self.max_len), np.int32)
         padded[0, :len(prompt)] = prompt
         tokens.fill(padded)
 
         def step(row, scan):
-            self._scan_step(self.params, row, scan, tokens.device_buf)
+            self._scan_step(tree, row, scan, tokens.device_buf)
 
         for j in range(len(prompt)):
-            self.programs.run("prefill step", step, self._row, self._scan,
+            self.programs.run(program_name("prefill step", point), step, self._row, self._scan,
                               inputs=[tokens] if j == 0 else ())
             self.prefill_steps += 1
 
@@ -433,41 +526,115 @@ class BatchedServer:
             return torch.stack([tok.reshape(1).to(torch.float32), margin])
 
         # the row and the scan state go in with the slot cache and state, so
-        # that a graph's warm-up runs on copies of all of them
+        # that a graph's warm-up runs on copies of all of them; the finish
+        # reads no weights, so one graph serves every point
         return self.programs.run("prefill finish", finish,
                                  {"slots": self.cache, "row": self._row},
                                  {"slots": self._state, "scan": self._scan},
                                  inputs=list(args.values()))
 
     @torch.no_grad()
-    def _burst_round(self, slot_of: Dict[int, int]) -> None:
+    def _burst_round(self, slot_of: Dict[int, int]) -> Dict:
         """One decode burst over all slots, one program and one transfer;
-        each active slot's run is clipped to its budget on the host."""
+        each active slot's run is clipped to its budget on the host. Returns
+        the round summary the controller observes: the point it ran at, the
+        tokens emitted, the engine steps and the min top-2 margin over the
+        committed tokens."""
         t0 = time.perf_counter()
         sampled = any(r.temperature > 0.0 for r in self.active.values())
         burst_fn = self._bursts[sampled]
+        tree, point = self._serving_tree(), self._serving_point()
 
         def program(cache, state):
-            toks, margins = burst_fn(self.params, cache, state)
+            toks, margins = burst_fn(tree, cache, state)
             return torch.stack([toks.to(torch.float32), margins])
 
-        out = self.programs.run(f"burst {'sampled' if sampled else 'greedy'}", program,
-                                self.cache, self._state).numpy()
+        name = program_name(f"burst {'sampled' if sampled else 'greedy'}", point)
+        out = self.programs.run(name, program, self.cache, self._state).numpy()
         self.decode_steps += self.burst
         self.host_transfers += 1
+        emitted, burst_margins = 0, []
         for rid, req in self.active.items():
             s = slot_of[rid]
             n = min(self.burst, req.max_new - len(req.generated))
             self._emit(req, out[0, s, :n], out[1, s, :n])
+            emitted += n
+            burst_margins.append(float(out[1, s, :n].min()))
         self.decode_seconds += time.perf_counter() - t0
+        return {"point": point, "emitted": emitted, "steps": self.burst,
+                "min_margin": min(burst_margins) if burst_margins else None}
+
+    @torch.no_grad()
+    def _spec_round(self, slot_of: Dict[int, int]) -> Dict:
+        """One draft-k-then-verify round over the active slots, one transfer.
+
+        Each active request gains between 1 and ``draft_len + 1`` tokens,
+        clipped to its ``max_new``; the cache comes back rolled back to the
+        committed length a slot, and each slot's pending token and count are
+        set on the host, to go in with the next round's uploads."""
+        t0 = time.perf_counter()
+        draft_point = self.controller.point if self.controller is not None else None
+        # the all-greedy variants only where no slot, active or not, samples:
+        # a drained slot still drafts, as in the reference's round
+        emitted, accepted, margins, _, _, point = self.spec.round(
+            self._slot_tok, self.cache, self._state, self._slot_count, self._slot_start,
+            draft_point=draft_point, sampled=bool((self._slot_temp > 0.0).any()))
+        self.host_transfers += 1
+        self.spec_rounds += 1
+        self.decode_steps += self.spec.draft_len
+        accs, emits, round_margins = [], [], []
+        for rid, req in self.active.items():
+            s = slot_of[rid]
+            n = min(int(accepted[s]) + 1, req.max_new - len(req.generated))
+            self._emit(req, emitted[s, :n], margins[s, :n])
+            self._slot_start[s] += int(accepted[s]) + 1
+            accs.append(int(accepted[s]))
+            emits.append(n)
+            round_margins.append(float(margins[s, :n].min()))
+            self._slot_tok[s], self._slot_count[s] = emitted[s, n - 1], len(req.generated)
+        self.spec.telemetry.record_round(point, self.spec.verify_point, accs, emits)
+        self.decode_seconds += time.perf_counter() - t0
+        # a round is draft_len single-token steps and one multi-token verify:
+        # that is what the budget EMA and decode_steps cover
+        return {"point": point, "emitted": sum(emits), "steps": self.spec.draft_len + 1,
+                "min_margin": min(round_margins) if round_margins else None}
+
+    def _observe(self, point, tokens, steps, queue_depth, free_slots, min_margin):
+        from repro_torch.runtime import StepSignals
+
+        self.telemetry.record_burst(point, tokens=tokens, steps=steps, min_margin=min_margin)
+        self.controller.observe(StepSignals(
+            active=len(self.active),
+            queue_depth=queue_depth,
+            free_slots=free_slots,
+            min_margin=min_margin,
+            steps=steps,
+        ))
+
+    def _telemetry_records(self) -> List[Dict]:
+        """The unified telemetry records (``to_dict`` shape) this run holds."""
+        recs = []
+        if self.telemetry is not None:
+            recs.append(self.telemetry.to_dict())
+        if self.spec_telemetry is not None:
+            recs.append(self.spec_telemetry.to_dict())
+        return recs
 
     def run(self, requests: List[Request]) -> Dict[int, List[int]]:
         """Serve requests to completion; returns rid -> generated tokens.
-        Per-token top-2 margins land on each request's ``.margins``."""
+        Per-token top-2 margins land on each request's ``.margins``. The
+        counters, the telemetry, the controller and the speculative round
+        counter all start fresh on every call."""
         for req in requests:  # reject before any state mutates
             self._admission_error(req)
         self._reset_counters()
         self.active.clear()
+        if self.telemetry is not None:
+            self.telemetry.reset()
+        if self.controller is not None:
+            self.controller.reset()
+        if self.spec is not None:
+            self.spec.reset()
         queue = list(requests)
         results: Dict[int, List[int]] = {}
         slot_of: Dict[int, int] = {}
@@ -484,10 +651,17 @@ class BatchedServer:
                     slot_of[req.rid] = slot
             if not self.active:
                 continue
-            self._burst_round(slot_of)
+            queue_depth, free_slots = len(queue), len(free)
+            if self.spec is not None:
+                summary = self._spec_round(slot_of)
+            else:
+                summary = self._burst_round(slot_of)
             for rid in [r for r, q in self.active.items() if len(q.generated) >= q.max_new]:
                 results[rid] = self.active.pop(rid).generated
                 free.append(slot_of.pop(rid))
+            if self.controller is not None:
+                self._observe(summary["point"], summary["emitted"], summary["steps"],
+                              queue_depth, free_slots, summary["min_margin"])
         return results
 
 

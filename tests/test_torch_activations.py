@@ -9,6 +9,7 @@ from repro.core import activations as ja  # noqa: E402
 from repro.core import fxp as jf  # noqa: E402
 from repro_torch.core import activations as ta  # noqa: E402
 from repro_torch.core import fxp as tf  # noqa: E402
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 IO = {"fxp8": (jf.FXP8, tf.FXP8), "fxp16": (jf.FXP16, tf.FXP16)}
 AFS = ("relu", "gelu", "tanh", "sigmoid", "swish", "selu")

@@ -30,6 +30,7 @@ from repro_torch.kernels.cordic_af.ops import (  # noqa: E402
     SLICE_BYTES_CAP,
     softmax_plan,
 )
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 FMTS = {"fxp8": (FXP8, J8), "fxp16": (FXP16, J16)}
 INT_MIN = -(2**31)

@@ -137,20 +137,20 @@ def split_lane_dims(hd):
                                if lane + 32 * d < hd))
 
 
-def split_keys(q, k, v, lims, scale, splits):
-    """One head of the split-key path: the key tiles up to the rows' last
-    visible key shared over `splits` blocks, each an online softmax in f32
+def split_keys(q, k, v, lims, scale, splits, end=None):
+    """One head of the split-key path: split i takes key tiles i, i +
+    splits, ... up to the rows' last visible key, an online softmax in f32
     on the CUDA cores, merged as sum e^(m_i - M) acc_i times 1 / sum e^(m_i - M) l_i."""
     t = k.shape[0]
-    end = t if (lims < 0).any() or lims.max() >= t else int(lims.max()) + 1
+    if end is None:  # the block's rows are these rows
+        end = t if (lims < 0).any() or lims.max() >= t else int(lims.max()) + 1
     n_tiles = -(-end // TILE)
-    per = -(-n_tiles // splits)
     parts = []
     for sp in range(splits):
         m = torch.full((q.shape[0], 1), -math.inf)
         l = torch.zeros((q.shape[0], 1))
         acc = torch.zeros_like(q)
-        for tile in range(sp * per, min(n_tiles, sp * per + per)):
+        for tile in range(sp, n_tiles, splits):
             keys = torch.arange(tile * TILE, min(t, tile * TILE + TILE))
             s = (q @ k[keys].T) * np.float32(scale)
             s = torch.where(keys[None] > lims[:, None], torch.tensor(NEG_INF), s)
@@ -350,6 +350,27 @@ def test_flash_tile_loop_head_dim_112(causal):
     assert np.abs(got.numpy() - _flash_oracle(q, k, v, causal)).max() <= FLASH_TOLERANCE
 
 
+@pytest.mark.parametrize("start", [125, 253, 30])
+def test_split_keys_give_a_row_the_bits_of_its_single_row_decode(start):
+    """A speculative verify runs S = 5 query rows of a slot through the split
+    path in one block, whose visible range ends at the last row's key; each
+    row must get the bits the single-row decode of its position gets (greedy
+    speculation is bit-identical to decoding token by token). Each row is
+    emulated alone, once with its own visible range and once with the
+    block's: dealing the tiles out to the splits in turn makes them equal.
+    The verify windows cross 128 and 256 keys, where cutting the block's
+    visible tiles into runs would regroup a row's keys."""
+    b, h, kv, hd, t, s = 4, 16, 16, 128, 512, 5
+    q, ck, cv = (torch.from_numpy(a[0, :, 0]) for a in _gqa_case(1, s, 1, 1, hd, t, seed=start))
+    lims = torch.from_numpy(start + np.arange(s, dtype=np.int32))
+    path, splits = gqa_plan(b, s, h, t, kv)
+    assert path == SPLIT_KEYS and splits > 1 and gqa_plan(b, 1, h, t, kv) == (path, splits)
+    scale = 1.0 / math.sqrt(hd)
+    for j in range(s):
+        row = (q[j:j + 1], ck, cv, lims[j:j + 1], scale, splits)
+        assert torch.equal(split_keys(*row), split_keys(*row, end=start + s))
+
+
 def test_gqa_plan_and_splits():
     assert TC_MIN_S == 16
     assert gqa_plan(1, 16, 16, 512, 16) == (TENSOR_CORES, 1)
@@ -363,6 +384,5 @@ def test_gqa_plan_and_splits():
                            (1, 8, 16, 16, 512), (2, 15, 32, 8, 1000), (1, 1, 1, 1, 1)]:
         splits = gqa_splits(b, s, h, t, kv)
         n_tiles = -(-t // TILE)
-        per = -(-n_tiles // splits)
-        assert 1 <= splits <= n_tiles
-        assert per * (splits - 1) < n_tiles  # every split gets a tile when all keys count
+        assert 1 <= splits <= n_tiles  # every split gets a tile when all keys count
+        assert splits == gqa_splits(b, 1, h, t, kv)  # whatever the query rows

@@ -34,6 +34,7 @@ from repro_torch.core.backends import iter_dot_weights, prepare_params  # noqa: 
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.runtime import calibration_scan  # noqa: E402
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 SENS_RTOL = 1e-3
 CAL_TOKENS = (2, 8)

@@ -369,3 +369,88 @@ def test_scan_phases_names_and_reports(smoke, monkeypatch, capsys):
     assert [next(iter(x)) for x in lines].count("card_vs_cpu") == len(names)
     for name in names:
         assert f"phase serve {name}" in err and f"phase {name} card vs cpu" in err
+
+
+def test_bank_servers_launch_accounting(smoke, counted, monkeypatch):
+    """Reduced olmo-1b served from a multi-point bank on the CPU under the
+    stand-in capture, with the smoke's exact gates: every graph is named by
+    its program and point (``"<program> @<point>"``), each captured once at
+    its first visit (a point visited again replays), its launches by
+    instantiation those of its point's weights (the hifi point's FxP16 dots
+    on the CUDA-core loop, ``imad``); captured x replays by (program, point)
+    is what the run recorded (bursts by the telemetry's points; a
+    speculative round one draft at its draft point and one verify at the
+    verify point, every prefill at the verify point); one transfer a prefill
+    and a burst or round; a count off by one fails."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import FXP8, FXP16
+    from repro_torch.models import get_model
+    from repro_torch.runtime import ControllerConfig, ModeController, build_bank, default_points
+    from repro_torch.serve import engine
+    from repro_torch.spec import SpecConfig
+
+    monkeypatch.setattr(engine, "GraphRunner", _CpuCapture)
+    cfg = reduced(get_config("olmo-1b"))
+    model = get_model(cfg)
+    params = smoke.scaled_init(model)
+    bank = build_bank(params, "kernel", default_points(FXP8, hifi_fmt=FXP16), specs=model.specs())
+    widths = smoke.point_bytes(bank)
+    assert widths == {"approx": 1, "accurate": 1, "hifi": 2}
+    kw = dict(slots=2, max_len=64, burst=4, device="cpu")
+    lens = (3, 9, 17, 5)
+    # adaptive: the CLI's budget; then pinned at hifi
+    ctrl = ModeController(bank, ControllerConfig(cycle_budget=0.75))
+    trajectory = smoke.recorded(ctrl)
+    server = engine.BatchedServer(model, smoke.kernel_ctx(), params, controller=ctrl, **kw)
+    smoke.zero_launches()
+    reqs = smoke.requests(cfg, lens=lens, max_new=16)
+    server.run(reqs)
+    smoke.graph_accounting("adaptive", server, cfg, reqs, widths=widths)
+    assert len(set(trajectory)) > 1 and server.telemetry.summary()["switches"] >= 1
+    names = set(server.programs.graphs)
+    assert {n.partition(" @")[2] for n in names} == set(trajectory)
+    assert "burst greedy @approx" in names and "burst greedy @accurate" in names
+    replays = smoke.check_point_replays("adaptive", server, reqs)
+    assert replays["burst"] == {p: n for p, n in server.telemetry.steps_by_point.items() if n}
+    captured = frozenset(names)
+    smoke.zero_launches()
+    again = smoke.requests(cfg, lens=lens, max_new=16)
+    server.run(again)
+    smoke.graph_accounting("adaptive steady", server, cfg, again, captured_before=captured,
+                           widths=widths)
+    assert set(server.programs.graphs) == captured  # visited points replay, no capture
+    assert not any(smoke.wrapper_counts().values())
+    hifi = engine.BatchedServer(model, smoke.kernel_ctx(), params,
+                                controller=ModeController(bank, ControllerConfig(pin="hifi")),
+                                **kw)
+    smoke.zero_launches()
+    reqs = smoke.requests(cfg, lens=lens, max_new=6)
+    hifi.run(reqs)
+    smoke.graph_accounting("hifi", hifi, cfg, reqs, widths=widths)
+    assert hifi.programs.captured_launches["burst greedy @hifi"] == {
+        "fused_dot_af/imad": 4 * (7 * cfg.num_layers + 1),
+        "gqa_decode_attention/split": 4 * cfg.num_layers}
+    # speculative: greedy, then sampled
+    spec = engine.BatchedServer(model, smoke.kernel_ctx(), params, bank=bank,
+                                speculate=SpecConfig(draft_len=3), **kw)
+    for label, make in (("greedy", smoke.requests), ("sampled", smoke.sampled_requests)):
+        captured = frozenset(spec.programs.graphs)
+        smoke.zero_launches()
+        reqs = make(cfg, lens=lens, max_new=8) if label == "greedy" else [
+            r for r in make(cfg) if r.rid < 2]
+        spec.run(reqs)
+        smoke.graph_accounting(f"spec {label}", spec, cfg, reqs, captured_before=captured,
+                               widths=widths)
+        assert spec.host_transfers == len(reqs) + spec.spec_rounds
+        assert spec.programs.replays[f"verify {label} @accurate"] == spec.spec_rounds
+        assert spec.programs.replays[f"draft {label} @approx"] == spec.spec_rounds
+    # 2 slots x 4 rows: the narrow loop (the card's 4 x 5 rows: wgmma)
+    assert spec.programs.captured_launches["verify greedy @accurate"] == {
+        "fused_dot_af/narrow": 7 * cfg.num_layers + 1,
+        "gqa_decode_attention/split": cfg.num_layers}
+    assert all(n.endswith("@accurate") for n in spec.programs.graphs if n.startswith("prefill"))
+    # the gates are exact: one round more than the replays fails
+    spec.spec_rounds += 1
+    with pytest.raises(AssertionError, match="spec tampered"):
+        smoke.graph_accounting("spec tampered", spec, cfg, reqs,
+                               captured_before=frozenset(spec.programs.graphs), widths=widths)

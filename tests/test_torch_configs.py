@@ -10,6 +10,7 @@ torch = pytest.importorskip("torch")
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.configs import reduced as ref_reduced  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, reduced  # noqa: E402
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 
 def _variant(port, ref, variant):

@@ -31,6 +31,7 @@ from repro_torch.kernels.cordic_af import (  # noqa: E402
     multi_af,
     multi_af_ref,
 )
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 FMTS = {"fxp8": (FXP8, J8), "fxp16": (FXP16, J16)}
 

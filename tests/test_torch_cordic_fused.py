@@ -24,6 +24,7 @@ from repro_torch.core.backends.kernel import make_point  # noqa: E402
 from repro_torch.kernels.cordic_fused import FUSED_AFS, fused_dot_af, plan  # noqa: E402
 from repro_torch.kernels.int_dot import (  # noqa: E402
     IMAD, NARROW, WGMMA, is_k_major, padded_k, to_k_major)
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 FMTS = {"fxp8": (jf.FXP8, tf.FXP8), "fxp16": (jf.FXP16, tf.FXP16)}
 UNITS = {"fxp8": (jf.FXP8_UNIT, tf.FXP8_UNIT), "fxp16": (jf.FXP16_UNIT, tf.FXP16_UNIT)}

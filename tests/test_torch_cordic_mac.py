@@ -28,6 +28,7 @@ from repro_torch.kernels.cordic_mac import (  # noqa: E402
     quantize_activations,
     quantize_weights,
 )
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 FMTS = {
     "fxp8": (fxp.FXP8, fxp.FXP8_UNIT, jfxp.FXP8, jfxp.FXP8_UNIT),

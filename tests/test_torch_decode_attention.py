@@ -22,6 +22,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     gqa_decode_attention,
     gqa_decode_attention_ref,
 )
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 ULPS = dict(rtol=2e-6, atol=2e-6)
 

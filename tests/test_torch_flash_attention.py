@@ -19,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref  # noqa: E402
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 TOL = dict(atol=3e-5, rtol=1e-4)
 CASES = [

@@ -38,6 +38,7 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mla_flash import mla_flash_attention  # noqa: E402
 from repro_torch.models import blocks, get_model, mla  # noqa: E402
 from repro_torch.models.params import load_numpy_params  # noqa: E402
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 LB_TOL = 1e-6

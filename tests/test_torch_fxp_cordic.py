@@ -15,6 +15,7 @@ from repro.core import cordic as jc  # noqa: E402
 from repro.core import fxp as jf  # noqa: E402
 from repro_torch.core import cordic as tc  # noqa: E402
 from repro_torch.core import fxp as tf  # noqa: E402
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 FMTS = {"fxp8": (jf.FXP8, tf.FXP8), "fxp16": (jf.FXP16, tf.FXP16)}
 UNITS = {"fxp8": (jf.FXP8_UNIT, tf.FXP8_UNIT), "fxp16": (jf.FXP16_UNIT, tf.FXP16_UNIT)}

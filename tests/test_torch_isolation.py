@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
@@ -35,7 +37,11 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.cordic_mac", "repro_torch.kernels.cordic_mac.ops",
             "repro_torch.kernels.cordic_mac.ref", "repro_torch.kernels.flash_attention.ops",
             "repro_torch.kernels.mla_flash.ops", "repro_torch.runtime.calibrate",
-            "repro_torch.serve.threefry", "repro_torch.serve.capture"} <= set(mods)
+            "repro_torch.serve.threefry", "repro_torch.serve.capture",
+            "repro_torch.runtime.bank", "repro_torch.runtime.controller",
+            "repro_torch.runtime.telemetry", "repro_torch.sim.calibrate",
+            "repro_torch.spec.config", "repro_torch.spec.decoding", "repro_torch.spec.engine",
+            "repro_torch.spec.rollback", "repro_torch.spec.telemetry"} <= set(mods)
     code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"

@@ -500,3 +500,134 @@ def test_wrappers_refuse_banks_that_are_not_k_major(cuda, m):
     with pytest.raises(ValueError, match="16-byte-aligned rows"):
         mac_matmul(torch.zeros((m, 72), dtype=torch.int8, device=cuda)[:, :64],
                    to_k_major(n_major), *scales)
+
+
+# the instantiations that adaptive and speculative serving of olmo-1b reach
+# (the hifi point's FxP16 banks; a verify of 4 drafts on 4 slots)
+VERIFY_B, VERIFY_S = 4, 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 20, 512])
+@pytest.mark.parametrize("k,n,af", [(2048, 8192, "swish"), (2048, 50304, "identity"),
+                                    (8192, 2048, "identity")])
+def test_fused_hifi_point_bitwise_equal_to_plain_version(cuda, m, k, n, af):
+    """The hifi point's dots: int16 banks, activations quantized at FxP16,
+    the AF epilogue at the serving context's FxP8 depth, on the CUDA-core
+    loop at decode (4 rows), a verify (20 rows) and the largest bucket; once
+    on inputs whose int32 sums wrap modulo 2^32."""
+    assert plan(m, n, k, 2, 2).path == IMAD
+    _, x, ints, point = _fused_case(cuda, m, k, n, "fxp16", m + k + n)
+    kw = dict(af_mode=af, af_depth=fxp.FXP8.frac + 1, af_fmt=fxp.FXP8)
+    for scale in (1.0, 1e3):
+        got = fused_dot_af(x * scale, ints, point, **kw)
+        assert torch.equal(got, fused_dot_af_ref(x * scale, ints, point, **kw)), scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 8192), (8192, 2048), (2048, 50304)])
+def test_fused_verify_rows_bitwise_equal_to_plain_version(cuda, k, n):
+    """A speculative verify's dots at FxP8: 4 slots x 5 rows on the int8
+    tensor cores, every row the bits of its own single-row dot."""
+    m = VERIFY_B * VERIFY_S
+    assert plan(m, n, k).path == WGMMA
+    fmt, x, ints, point = _fused_case(cuda, m, k, n, "fxp8", k + n)
+    _fused_all_modes(x, ints, point, fmt)
+    kw = dict(af_mode="identity", af_depth=fmt.frac + 1, af_fmt=fmt)
+    block = fused_dot_af(x, ints, point, **kw)
+    for i in (1, m - 1):
+        assert torch.equal(fused_dot_af(x[i:i + 1], ints, point, **kw)[0], block[i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("starts", [(125, 253, 30, 380), (0, 60, 127, 250)])
+def test_gqa_verify_rows_equal_single_row_calls(cuda, starts):
+    """A verify's GQA call at olmo-1b widths (B4 S5, T512, split keys): within
+    tolerance of the plain version, and each query row bit for bit the
+    single-row call of its position (windows that cross 128 and 256 keys)."""
+    b, s, h, kv, hd, t = VERIFY_B, VERIFY_S, 16, 16, 128, 512
+    gen = torch.Generator(device=cuda).manual_seed(sum(starts))
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda)
+    ck = torch.randn((b, t, kv, hd), generator=gen, device=cuda)
+    cv = torch.randn((b, t, kv, hd), generator=gen, device=cuda)
+    pos = (torch.tensor(starts, device=cuda)[:, None]
+           + torch.arange(s, device=cuda)[None]).to(torch.int32)
+    scale = 1.0 / math.sqrt(hd)
+    path, splits = gqa_plan(b, s, h, t, kv)
+    assert path == SPLIT_KEYS and (path, splits) == gqa_plan(b, 1, h, t, kv)
+    block = gqa_decode_attention(q, ck, cv, pos, scale=scale)
+    want = gqa_decode_attention_ref(q, ck, cv, pos, scale=scale)
+    assert (block - want).abs().max().item() <= TOLERANCE
+    for j in range(s):
+        alone = gqa_decode_attention(q[:, j:j + 1].contiguous(), ck, cv,
+                                     pos[:, j:j + 1].contiguous(), scale=scale)
+        assert torch.equal(alone[:, 0], block[:, j]), j
+
+
+@pytest.mark.gpu
+def test_mla_decode_at_verify_rows(cuda):
+    """A verify's MLA call at deepseek-v3 widths (B4 S5, H128, R512, r64,
+    T512) within tolerance of the plain version."""
+    b, s, h, r, rd, t = VERIFY_B, VERIFY_S, 128, 512, 64, 512
+    gen = torch.Generator(device=cuda).manual_seed(55)
+    ql = torch.randn((b, s, h, r), generator=gen, device=cuda)
+    qr = torch.randn((b, s, h, rd), generator=gen, device=cuda)
+    ck = torch.randn((b, t, r), generator=gen, device=cuda)
+    kr = torch.randn((b, t, rd), generator=gen, device=cuda)
+    pos = (torch.randint(0, t - s + 1, (b, 1), generator=gen, device=cuda)
+           + torch.arange(s, device=cuda)[None]).to(torch.int32)
+    scale = 1.0 / math.sqrt(128 + rd)
+    got = mla_decode_attention(ql, qr, ck, kr, pos, scale=scale)
+    want = mla_decode_attention_ref(ql, qr, ck, kr, pos, scale=scale)
+    assert (got - want).abs().max().item() <= TOLERANCE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [2048, 1024, 448, 5120])
+def test_layernorm_rows_independent_of_the_rows_beside_them(cuda, d):
+    """A row's layernorm bits (with and without its affine parameters) do
+    not depend on how many rows share the call (decode 4 x 1, verify 4 x 5,
+    a bucket of 512), and agree with the CPU formula within f32 rounding."""
+    from repro_torch.core.normalization import layernorm, nonparametric_ln
+
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn((4, 512, d), generator=gen, device=cuda) * 3
+    w, b = (torch.randn((d,), generator=gen, device=cuda) for _ in range(2))
+    cpu = layernorm(x.cpu(), w.cpu(), b.cpu())
+    assert (layernorm(x, w, b).cpu() - cpu).abs().max().item() <= 1e-4
+    for norm in (lambda t: layernorm(t, w, b), nonparametric_ln):
+        one = norm(x[:, :1].contiguous())
+        assert torch.equal(norm(x[:, :VERIFY_S].contiguous())[:, :1], one)
+        assert torch.equal(norm(x)[:, :1], one)
+        assert torch.equal(norm(x[:1, :1].contiguous()), one[:1])
+
+
+@pytest.mark.gpu
+def test_verify_step_logits_equal_token_by_token_decode(cuda):
+    """olmo-1b at full width (2 layers, prepared FxP8): a decode step of 5
+    tokens a slot on 4 slots gives every position the logits, bit for bit,
+    that 5 single-token steps give: greedy speculation's identity with
+    token-by-token serving on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prepare_params
+    from repro_torch.models import get_model
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), dtype="float32", num_layers=2)
+    model = get_model(cfg)
+    ctx = EngineContext(mode="kernel", policy=PrecisionPolicy.accurate(),
+                        compute_dtype=torch.float32, attn_impl="decode_kernel")
+    params = prepare_params(model.init(torch.Generator(device=cuda).manual_seed(0)),
+                            ctx.policy, "kernel", specs=model.specs())
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (VERIFY_B, 123), generator=gen, device=cuda)
+    block = torch.randint(0, cfg.vocab_size, (VERIFY_B, VERIFY_S), generator=gen, device=cuda)
+    with torch.no_grad():
+        cache = model.make_cache(VERIFY_B, 512, device=cuda)
+        model.decode_step(params, prompt, cache, ctx)
+        seq_cache = {k: {n: t.clone() for n, t in v.items()} for k, v in cache.items()}
+        seq = torch.cat([model.decode_step(params, block[:, j:j + 1], seq_cache, ctx)[0]
+                         for j in range(VERIFY_S)], dim=1)
+        blk, _ = model.decode_step(params, block, cache, ctx)
+    assert torch.equal(seq, blk), (seq - blk).abs().max().item()

@@ -25,6 +25,7 @@ from repro_torch.kernels.cordic_mac import ops as mac_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as attn_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.mla_flash import ops as mla_flash_ops  # noqa: E402
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 _ENTRY_POINTS = ("cordic_fused_launch", "cordic_mac_launch", "gqa_decode_launch",
                  "mla_decode_launch", "cordic_af_launch", "af_softmax_launch",

@@ -25,6 +25,7 @@ from test_torch_archs import (  # noqa: E402, F401  (the shared tests, collected
     test_greedy_streams_identical_to_reference,
     test_variant_keeps_the_arch_head_groups,
 )
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 SENS_RTOL = 1e-3
 # the scan's groups held against the reference: a pair sublayer's, keyed by

@@ -18,6 +18,7 @@ from repro.core import fxp as jfxp  # noqa: E402
 from repro.core import mac as jmac  # noqa: E402
 from repro_torch.core import cordic, fxp, mac  # noqa: E402
 from repro_torch.kernels.cordic_mac import cordic_mac  # noqa: E402
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 FMTS = {
     "fxp8": (fxp.FXP8, fxp.FXP8_UNIT, jfxp.FXP8, jfxp.FXP8_UNIT),

@@ -36,6 +36,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import mla_splits  # noqa: E402
 from repro_torch.models import mla  # noqa: E402
 from repro_torch.models.params import load_numpy_params  # noqa: E402
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 OUT_TOL = dict(rtol=1e-4, atol=1e-4)
 CACHE_TOL = dict(rtol=1e-6, atol=1e-6)

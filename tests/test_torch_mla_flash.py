@@ -24,6 +24,7 @@ from repro.kernels.mla_flash.kernel import mla_flash  # noqa: E402
 from repro.kernels.mla_flash.ops import mla_flash_attention as jax_wrapper  # noqa: E402
 from repro.kernels.mla_flash.ref import mla_attention_ref  # noqa: E402
 from repro_torch.kernels.mla_flash import mla_flash_attention, mla_flash_attention_ref  # noqa: E402
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 TOL = dict(atol=3e-5, rtol=1e-4)
 CASES = [

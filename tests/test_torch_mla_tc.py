@@ -36,6 +36,7 @@ from repro_torch.kernels.decode_attention.ops import mla_splits  # noqa: E402
 from repro_torch.kernels.mla_flash import TOLERANCE as FLASH_TOLERANCE  # noqa: E402
 from repro_torch.kernels.mla_flash import mla_flash_attention_ref  # noqa: E402
 from test_torch_attention_tc import LOG2E, NEG_INF, PERM, split  # noqa: E402
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 TILE = 32  # keys per tile
 WARPS = 4  # warps of a row group: each a quarter of the dims and of the columns

@@ -28,6 +28,7 @@ from repro_torch.core import EngineContext, PrecisionPolicy  # noqa: E402
 from repro_torch.core.backends import prepare_params  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models.params import load_numpy_params  # noqa: E402
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 OUT_TOL = dict(rtol=1e-4, atol=1e-4)
 

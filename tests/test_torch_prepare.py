@@ -27,6 +27,7 @@ from repro_torch.core.backends.base import PreparedWeight  # noqa: E402
 from repro_torch.core.backends.base import unit_fmt as fxp_unit  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.params import load_numpy_params  # noqa: E402
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,7 @@ from repro.serve.engine import sample as ref_sample  # noqa: E402
 from repro.serve.engine import top2_margin as ref_top2_margin  # noqa: E402
 from repro_torch.serve import sample, threefry, top2_margin  # noqa: E402
 from repro_torch.serve.engine import _sample_slots  # noqa: E402
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 SEEDS = (0, 1, 40, 12345, 2**31 - 1, -1)
 SHAPES = ((5,), (4, 7), (4, 50304))

@@ -33,6 +33,7 @@ from repro_torch.core import EngineContext, PrecisionPolicy  # noqa: E402
 from repro_torch.core.backends import prepare_params  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.serve import BatchedServer, Request, bucket_length, engine, threefry  # noqa: E402
+from test_torch_mamba2 import one_torch_thread  # noqa: E402,F401
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 NEAR_TIE = 1e-5

@@ -129,8 +129,21 @@ cache-free flash and MLA flash attentions), then:
    (``bank_parity_phases``). Its kernel rows add the fused kernel on the
    hifi point's FxP16 banks at decode and every bucket, inputs whose int32
    sums wrap included (``check_fused_hifi``), at a verify's 20 rows, and GQA
-   and MLA at a verify's 5 rows a slot (each GQA row bitwise its single-row
-   call, ``verify_rows_bitwise``).
+   and MLA at a verify's 5 rows a slot (each GQA and MLA row bitwise its
+   single-row call, ``verify_rows_bitwise``).
+12. ``resilience_phases``, right after 11: full-width olmo-1b with ``resilience=``,
+   ``observer=`` and ``injector=`` attached: the clean run equals the plain
+   server's bitwise and writes a checked JSONL and Chrome trace; a NaN
+   cache fault leaves the other requests bitwise unchanged (the poisoned
+   one as a reduced card-vs-CPU run of the plan); a NaN weight fault on
+   one bank point re-captures only that point's graphs; speculation under
+   a draft-point fault equals accurate-only serving and a verify fault
+   flag quarantines its lane; queue-limit, too_long and deadline shedding;
+   kernels 1 and 2 on NaN-poisoned rows against their plain versions
+   (``nan_rows_check``). ``spec_bitwise``: greedy speculation equals
+   accurate-only serving bitwise on stock-width qwen3-8b (2 layers) and
+   deepseek-v3 (4 layers), after the row-stable rmsnorm, MLA key splits and
+   f32 products.
 
 ``python3 chip_smoke.py --phases bank`` (groups of ``PHASE_GROUPS``) runs
 some groups only, with no ``kernels`` and no ``ok`` line.
@@ -257,6 +270,9 @@ SEAMLESS_FRAMES = 512
 SCAN_PROFILE_RIDS = (0, 1, 5)
 # the serving CLI's --cycle-reduction default, for the calibrated policy
 CYCLE_REDUCTION = 0.33
+# resilience_phases' reduced card-vs-CPU run: a logit limit that flags some
+# lanes mid-stream on the scaled_init weights
+RESILIENCE_LIMIT = 0.8
 # the yardstick the card vs CPU logits of the cache-free forward are reported
 # against (test_torch_serving's LOGIT_TOL)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -833,21 +849,39 @@ def verify_rows_bitwise(device, gen) -> dict:
     from repro_torch.kernels.decode_attention import gqa_decode_attention
     from repro_torch.kernels.decode_attention.ops import gqa_plan
 
+    from repro_torch.kernels.decode_attention import mla_decode_attention
+    from repro_torch.kernels.decode_attention.ops import mla_splits
+
     b, s, h, kv, hd = SLOTS, DRAFT_LEN + 1, 16, 16, 128
     q, ck, cv, _ = attention_case(b, s, MAX_LEN, h, kv, hd, gen, device)
     starts = torch.tensor([125, 253, 30, 380], dtype=torch.int32, device=device)[:b, None]
     pos = (starts + torch.arange(s, dtype=torch.int32, device=device)[None]).contiguous()
-    scale = 1.0 / math.sqrt(hd)
-    block = gqa_decode_attention(q, ck, cv, pos, scale=scale)
-    for j in range(s):
-        alone = gqa_decode_attention(q[:, j:j + 1].contiguous(), ck, cv,
-                                     pos[:, j:j + 1].contiguous(), scale=scale)
-        if not torch.equal(alone[:, 0], block[:, j]):
-            raise AssertionError(f"gqa_decode_attention: verify row {j} differs from its "
-                                 f"single-row call: {(alone[:, 0] - block[:, j]).abs().max()}")
+
+    def rows_equal(name, call, args, split_at):
+        block = call(*args)
+        for j in range(s):
+            alone = call(*(split_at(a, j) for a in args))
+            if not torch.equal(alone[:, 0], block[:, j]):
+                raise AssertionError(f"{name}: verify row {j} differs from its single-row "
+                                     f"call: {(alone[:, 0] - block[:, j]).abs().max()}")
+
+    one = lambda a, j: a[:, j:j + 1].contiguous() if a.shape[1] == s else a  # noqa: E731
+    rows_equal("gqa_decode_attention",
+               lambda *a: gqa_decode_attention(*a, scale=1.0 / math.sqrt(hd)),
+               (q, ck, cv, pos), one)
+    # the MLA cache attention at deepseek-v3's widths (H128, R512, r64)
+    mh, r, rd = 128, 512, 64
+    mla_args = (torch.randn((b, s, mh, r), generator=gen, device=device),
+                torch.randn((b, s, mh, rd), generator=gen, device=device),
+                torch.randn((b, MAX_LEN, r), generator=gen, device=device),
+                torch.randn((b, MAX_LEN, rd), generator=gen, device=device), pos)
+    rows_equal("mla_decode_attention",
+               lambda *a: mla_decode_attention(*a, scale=1.0 / math.sqrt(128 + rd)),
+               mla_args, lambda a, j: one(a, j) if a.dim() != 3 else a)
     return dict(B=b, S=s, T=MAX_LEN, H=h, KV=kv, hd=hd, positions="verify windows from rows "
                 f"{starts[:, 0].tolist()}", path=gqa_plan(b, s, h, MAX_LEN, kv).path,
                 splits=gqa_plan(b, s, h, MAX_LEN, kv).splits,
+                mla=dict(H=mh, R=r, r=rd, splits=mla_splits(b, s, mh, MAX_LEN)),
                 rows_equal_single_row_calls=True)
 
 
@@ -3095,6 +3129,398 @@ def bank_parity_phases(device, parity: dict) -> None:
         emit({"card_vs_cpu": parity[name]})
 
 
+def spec_bitwise(device, label, cfg):
+    """Greedy self-speculative serving of ``cfg`` at full width (its bank's
+    approx and accurate FxP8 points, draft_len ``DRAFT_LEN``, the six
+    requests, captured) equals accurate-only serving of the bank's accurate
+    tree bit for bit, streams and f32 margins, and a verify's decode step
+    gives each position the logits of its token-by-token steps: the rmsnorm
+    and MLA/MoE archs, whose rows depended on the rows beside them before
+    the row-stable norm, key splits and f32 products. Launches exact by
+    (program, point)."""
+    import torch
+
+    from repro_torch.serve.engine import BatchedServer
+    from repro_torch.spec import SpecConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    model, params, bank, report = make_bank(device, cfg, hifi=False)
+    del params  # the bank holds the prepared banks and the shared f32 leaves
+    free_card()
+    ctx = kernel_ctx()
+    widths = point_bytes(bank)
+    report["verify_logits_bitwise"] = verify_logits_bitwise(model, ctx, bank.tree(bank.reference),
+                                                           device)
+    accurate = BatchedServer(model, ctx, bank.tree("accurate"), slots=SLOTS, max_len=MAX_LEN,
+                             burst=BURST, device=device, prepare_weights=False)
+    acc_reqs = requests(cfg)
+    acc_out, acc_run = timed_run(accurate, acc_reqs)
+    del accurate
+    free_card()
+    server = BatchedServer(model, ctx, bank.tree("accurate"), slots=SLOTS, max_len=MAX_LEN,
+                           device=device, bank=bank, speculate=SpecConfig(draft_len=DRAFT_LEN))
+    zero_launches()
+    reqs = requests(cfg)
+    out, run = timed_run(server, reqs)
+    launches, _ = graph_accounting(f"{label} speculative", server, cfg, reqs, widths=widths)
+    if out != acc_out or margins(reqs) != margins(acc_reqs):
+        raise AssertionError(f"{label}: greedy speculation differs from accurate-only serving")
+    tele = server.spec_telemetry.summary()
+    report.update(config=f"{label}: full width, {cfg.num_layers} layers, kernel mode, bank "
+                         f"{list(bank.names)}, draft_len {DRAFT_LEN}, slots {SLOTS}, "
+                         f"max_len {MAX_LEN}", accurate_identical=True, launches=launches,
+                  accurate_only_run=acc_run, run=run, tokens_per_s=run["tokens_per_s"],
+                  rounds=server.spec_rounds, acceptance_rate=tele["acceptance_rate"],
+                  setup_peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del server, bank
+    free_card()
+    log(f"{label} speculative: greedy = accurate-only bitwise; {run['tokens_per_s']:.2f} tok/s "
+        f"(accurate-only {acc_run['tokens_per_s']:.2f})")
+    return report
+
+
+def nan_rows_check(device) -> dict:
+    """Kernels 1 and 2 on NaN-poisoned rows against their plain versions:
+    the fused dot (narrow M = 4 and wgmma M = 20) with one row all NaN and
+    one partly NaN (the kernel quantizes NaN to 0, as JAX's cast does:
+    bitwise equal to the plain version), and the GQA cache attention at a
+    decode step and a verify with one slot's cache rows NaN: the same
+    finite / non-finite pattern per row as the plain version, the clean
+    rows within tolerance of it and bitwise the kernel's rows on the clean
+    cache."""
+    import torch
+
+    from repro_torch.kernels.cordic_fused import fused_dot_af, fused_dot_af_ref
+    from repro_torch.kernels.decode_attention import (TOLERANCE, gqa_decode_attention,
+                                                      gqa_decode_attention_ref)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    out = {"fused_dot_af": [], "gqa_decode_attention": []}
+    from repro_torch.core import FXP8
+
+    k, n = 2048, 8192
+    w = prepared_weight(k, n, FXP8, gen, device)[0]
+    bank, point = w.data, w.point
+    for m in (SLOTS, VERIFY_ROWS):
+        x = torch.randn((m, k), generator=gen, device=device)
+        x[1] = float("nan")
+        x[2, ::3] = float("nan")
+        kw = dict(af_mode="identity", af_depth=FXP8.frac + 1, af_fmt=FXP8)
+        got, want = fused_dot_af(x, bank, point, **kw), fused_dot_af_ref(x, bank, point, **kw)
+        if not (torch.equal(torch.isfinite(got), torch.isfinite(want))
+                and torch.equal(got.nan_to_num(), want.nan_to_num())):
+            raise AssertionError(f"fused_dot_af on NaN rows (M={m}) differs from its plain version")
+        out["fused_dot_af"].append(dict(M=m, K=k, N=n, nan_rows=[1, 2], bitwise=True,
+                                        finite_rows=int(torch.isfinite(got).all(1).sum())))
+    b, h, kv, hd = SLOTS, 16, 16, 128
+    for s in (1, DRAFT_LEN + 1):
+        q, ck, cv, _ = attention_case(b, s, MAX_LEN, h, kv, hd, gen, device)
+        pos = (torch.tensor([125, 253, 30, 380], device=device)[:b, None]
+               + torch.arange(s, device=device)[None]).to(torch.int32)
+        scale = 1.0 / math.sqrt(hd)
+        clean = gqa_decode_attention(q, ck, cv, pos, scale=scale)
+        ck[1], cv[1] = float("nan"), float("nan")
+        got = gqa_decode_attention(q, ck, cv, pos, scale=scale)
+        want = gqa_decode_attention_ref(q, ck, cv, pos, scale=scale)
+        fin, wfin = torch.isfinite(got), torch.isfinite(want)
+        keep = [i for i in range(b) if i != 1]
+        err = (got[keep] - want[keep]).abs().max().item()
+        if not torch.equal(fin, wfin) or fin[1].any() or err > TOLERANCE:
+            raise AssertionError(f"gqa_decode_attention S={s} on a NaN slot: pattern equal "
+                                 f"{torch.equal(fin, wfin)}, NaN row finite {fin[1].any()}, "
+                                 f"clean rows err {err}")
+        if not torch.equal(got[keep], clean[keep]):
+            raise AssertionError(f"gqa_decode_attention S={s}: a NaN slot moved the clean rows")
+        out["gqa_decode_attention"].append(dict(B=b, S=s, T=MAX_LEN, nan_slot=1,
+                                                nan_slot_all_nonfinite=True,
+                                                clean_rows_unchanged=True, max_abs_err=err))
+    return out
+
+
+def resilience_card_vs_cpu(device):
+    """Reduced olmo-1b (``scaled_init`` weights) under one fault plan, on the
+    card and the CPU: a NaN-poisoned KV slot (request 1 at round 1) beside
+    ``logit_limit`` quarantine. Each request's outcome (status, reason,
+    tokens) and stream must be identical."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+    from repro_torch.resilience import FaultInjector, NaNCacheFault, ResilienceConfig
+    from repro_torch.serve.engine import BatchedServer
+
+    cfg = reduced(get_config("olmo-1b"))
+    params = scaled_init(get_model(cfg))
+    res = {}
+    for limit in (None, RESILIENCE_LIMIT):
+        got = {}
+        for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            server = BatchedServer(get_model(cfg), kernel_ctx(), params, slots=4, max_len=64,
+                                   burst=4, device=dev,
+                                   resilience=ResilienceConfig(logit_limit=limit),
+                                   injector=FaultInjector(NaNCacheFault(rid=1, at_round=1)))
+            out = server.run(requests(cfg, lens=(5, 11, 40), max_new=10))
+            got[where] = (out, {rid: (o.status, o.reason, o.tokens)
+                                for rid, o in server.outcomes.items()})
+        if got["card"] != got["cpu"]:
+            raise AssertionError(f"reduced olmo-1b, logit_limit {limit}: outcomes or streams "
+                                 f"differ card vs CPU: {got}")
+        res[str(limit)] = dict(outcomes=got["card"][1], streams=got["card"][0])
+    return dict(config="olmo-1b reduced, NaNCacheFault(rid=1, at_round=1)", identical=True,
+                by_logit_limit=res)
+
+
+def check_trace_files(jsonl: Path, chrome: Path) -> dict:
+    """The serve trace's JSONL (read back with the schema check) and its
+    Chrome export: header schema, version and run metadata with the
+    resilience block, and every track's spans balanced."""
+    from repro_torch.obs import TRACE_SCHEMA, TRACE_VERSION, read_trace
+
+    header, events = read_trace(str(jsonl))
+    if (header["schema"], header["version"]) != (TRACE_SCHEMA, TRACE_VERSION) or \
+            "resilience" not in header["run"] or header["meta"].get("aborted") is not False:
+        raise AssertionError(f"trace header: {header['schema']} v{header['version']}, run "
+                             f"keys {sorted(header['run'])}, meta {header['meta']}")
+    depth = {}
+    for ev in events:
+        if ev["ph"] in ("B", "E"):
+            depth[ev["track"]] = depth.get(ev["track"], 0) + (1 if ev["ph"] == "B" else -1)
+            if depth[ev["track"]] < 0:
+                raise AssertionError(f"trace: span ends before it begins on {ev['track']}")
+    doc = json.loads(chrome.read_text())
+    per_tid = {}
+    for ev in doc["traceEvents"]:
+        if ev["ph"] in ("B", "E"):
+            per_tid[ev["tid"]] = per_tid.get(ev["tid"], 0) + (1 if ev["ph"] == "B" else -1)
+    if any(depth.values()) or any(per_tid.values()) or \
+            doc["metadata"]["schema"] != TRACE_SCHEMA:
+        raise AssertionError(f"trace spans unbalanced: jsonl {depth}, chrome {per_tid}")
+    return dict(jsonl=jsonl.name, chrome=chrome.name, events=len(events), tracks=sorted(depth), balanced=True,
+                names=sorted({ev["name"] for ev in events}))
+
+
+def resilience_phases(device, accurate, accurate_tokens_per_s=None):
+    """Fault-tolerant, observed serving on full-width olmo-1b (16 layers),
+    captured, kernel mode, FxP8, the six requests:
+
+    * clean: ``resilience=`` and ``observer=`` attached serve the plain
+      server's streams and f32 margins (``accurate``) bit for bit, every
+      outcome ``ok``; launches exact by instantiation (the fault flag adds
+      glue, no kernel launch); the JSONL and Chrome traces written and
+      checked (``check_trace_files``);
+    * a NaN cache fault (request 1 at round 2): every other request's
+      stream and margins equal the clean run's; the poisoned request's
+      outcome and stream as a reduced card-vs-CPU run of the same plan
+      shows them (``resilience_card_vs_cpu``: in kernel mode a NaN is
+      quantized to 0, so the stream changes and the request completes);
+    * a NaN weight fault on the approx point of an adaptive bank (the CLI's
+      flow, budget 0.75): only that point's graphs are captured again (and
+      counted); a pinned-accurate server on the same bank then serves the
+      accurate streams bit for bit, a pinned-approx one all-zero logits
+      (token 0, margin 0);
+    * speculation: a NaN weight fault on the draft point leaves greedy
+      speculation equal to accurate-only serving, every request admitted to
+      the end; a verify fault flag set on one lane at one round quarantines
+      it (``verify_nonfinite``) while the others serve the accurate streams;
+    * shedding and deadlines on the clean server (its graphs captured):
+      ``queue_limit`` 3 sheds 3 requests ``queue_full`` and the survivors
+      serve the accurate streams; an oversized request is shed
+      ``too_long``; a ``DelayFault`` past every deadline expires the active
+      requests at the boundary and sheds the queued ones;
+    * kernels 1 and 2 on NaN-poisoned rows against their plain versions
+      (``nan_rows_check``).
+
+    Reports tokens/s with the flag (against ``accurate_tokens_per_s``, no
+    gate) and the weight fault's re-capture seconds."""
+    import torch
+
+    from repro_torch.core import prepare_params
+    from repro_torch.models import get_model
+    from repro_torch.obs import ServingObserver
+    from repro_torch.resilience import (DelayFault, FaultInjector, NaNCacheFault,
+                                        NaNWeightFault, ResilienceConfig, oversized_request)
+    from repro_torch.runtime import ControllerConfig, ModeController
+    from repro_torch.serve.engine import BatchedServer
+    from repro_torch.spec import SpecConfig
+
+    cfg = olmo()
+    model = get_model(cfg)
+    ctx = kernel_ctx()
+    label = "olmo-1b resilient"
+    report = dict(config=f"{label}: full width, {cfg.num_layers} layers, kernel mode, FxP8, "
+                         f"slots {SLOTS}, burst {BURST}, max_len {MAX_LEN}",
+                  accurate_only_tokens_per_s=accurate_tokens_per_s)
+    report["nan_rows"] = nan_rows_check(device)
+    weights = prepare_params(model.init(torch.Generator(device=device).manual_seed(SEED)),
+                             ctx.policy, "kernel", specs=model.specs())
+    free_card()
+
+    def serve(**kw):
+        return BatchedServer(model, ctx, weights, slots=SLOTS, max_len=MAX_LEN, burst=BURST,
+                             device=device, prepare_weights=False, **kw)
+
+    def statuses(server):
+        return {rid: (o.status, o.reason, o.tokens) for rid, o in server.outcomes.items()}
+
+    # clean, observed
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    jsonl, chrome = out_dir / "resilience_trace.jsonl", out_dir / "resilience_trace.json"
+    observer = ServingObserver(trace_sink=str(jsonl))
+    clean = serve(resilience=ResilienceConfig(), observer=observer)
+    zero_launches()
+    reqs = requests(cfg)
+    out, first_run = timed_run(clean, reqs)
+    launches, _ = graph_accounting(f"{label} clean", clean, cfg, reqs)
+    clean_margins = [r.margins for r in reqs]
+    if out != accurate[0] or clean_margins != accurate[1]:
+        raise AssertionError(f"{label}: streams or margins differ from the plain server's")
+    if any(o.status != "ok" for o in clean.outcomes.values()):
+        raise AssertionError(f"{label}: clean outcomes {statuses(clean)}")
+    observer.trace.write_jsonl(str(jsonl))
+    observer.trace.write_chrome(str(chrome))
+    report["trace"] = check_trace_files(jsonl, chrome)
+    report["metrics_counters"] = observer.snapshot()["metrics"]["counters"]
+    steady_reqs = requests(cfg)
+    steady, steady_run = timed_run(clean, steady_reqs)
+    if steady != out or [r.margins for r in steady_reqs] != clean_margins:
+        raise AssertionError(f"{label}: the steady repeat differs")
+    report.update(clean=dict(first_run=first_run, steady_run=steady_run, launches=launches,
+                             tokens_per_s=steady_run["tokens_per_s"], identical=True),
+                  launches=launches)
+
+    # shedding and deadlines on the clean server: its graphs are captured
+    clean.observer = None
+    clean.resilience = ResilienceConfig(queue_limit=3)
+    shed_out = clean.run(requests(cfg) + [oversized_request(9, MAX_LEN)])
+    want = {rid: ("shed", "queue_full", 0) for rid in (3, 4, 5)}
+    want[9] = ("shed", "too_long", 0)
+    got = statuses(clean)
+    if {r: got[r] for r in want} != want or any(shed_out[r] != out[r] for r in (0, 1, 2)):
+        raise AssertionError(f"{label}: queue_limit / too_long: {got}")
+    clean.resilience = ResilienceConfig(default_deadline_s=0.5)
+    clean.injector = FaultInjector(DelayFault(at_round=1, seconds=1.0))
+    dl_out = clean.run(requests(cfg))
+    got = statuses(clean)
+    active, queued = (0, 1, 2, 3), (4, 5)
+    if not (all(got[r][:2] == ("expired", "deadline") and 0 < got[r][2] < MAX_NEW
+                for r in active)
+            and all(got[r] == ("shed", "deadline_expired", 0) for r in queued)
+            and all(dl_out[r] == out[r][:len(dl_out[r])] for r in active)):
+        raise AssertionError(f"{label}: deadline expiry under DelayFault: {got}")
+    report["shedding_and_deadlines"] = dict(queue_limit=3, too_long=9, deadline_s=0.5,
+                                            delay_s=1.0, outcomes=got)
+    del clean
+    free_card()
+
+    # NaN cache fault on request 1 at round 2
+    server = serve(resilience=ResilienceConfig(),
+                   injector=FaultInjector(NaNCacheFault(rid=1, at_round=2)))
+    zero_launches()
+    nreqs = requests(cfg)
+    nout, _ = timed_run(server, nreqs)
+    graph_accounting(f"{label} NaN cache", server, cfg, nreqs)
+    others = [r for r in out if r != 1]
+    if any(nout[r] != out[r] or nreqs[r].margins != reqs[r].margins for r in others):
+        raise AssertionError(f"{label}: a NaN slot changed another request's stream or margins")
+    report["nan_cache"] = dict(fault="NaNCacheFault(rid=1, at_round=2)",
+                               others_identical=True, outcomes=statuses(server),
+                               poisoned_stream_changed=nout[1] != out[1],
+                               poisoned_prefix_kept=nout[1][:1 + 2 * BURST]
+                               == out[1][:1 + 2 * BURST])
+    report["nan_cache"]["card_vs_cpu"] = resilience_card_vs_cpu(device)
+    del server, weights
+    free_card()
+
+    # NaN weight fault on one point of an adaptive bank
+    _, params, bank, _ = make_bank(device, cfg, hifi=False)
+    del params
+    free_card()
+    widths = point_bytes(bank)
+    ctrl = ModeController(bank, ControllerConfig(cycle_budget=0.75))
+    server = BatchedServer(model, ctx, bank.tree("accurate"), slots=SLOTS, max_len=MAX_LEN,
+                           burst=BURST, device=device, controller=ctrl,
+                           resilience=ResilienceConfig())
+    server.run(requests(cfg))
+    graphs_before = frozenset(server.programs.graphs)
+    capture_before = dict(server.programs.capture_seconds)
+    server.injector = FaultInjector(NaNWeightFault(at_round=1, point=bank.names[0]))
+    zero_launches()
+    wreqs = requests(cfg)
+    wout = server.run(wreqs)
+    recaptured = {n: server.programs.capture_seconds[n] for n in server.programs.recaptures}
+    if not recaptured or any(not n.endswith(f" @{bank.names[0]}") for n in recaptured):
+        raise AssertionError(f"{label}: re-captured graphs {sorted(recaptured)}")
+    graph_accounting(f"{label} NaN weights", server, cfg, wreqs, widths=widths,
+                     captured_before=graphs_before - set(recaptured))
+    del server
+    pinned = {}
+    for point in bank.names:
+        ps = BatchedServer(model, ctx, bank.tree(point), slots=SLOTS, max_len=MAX_LEN,
+                           burst=BURST, device=device,
+                           controller=ModeController(bank, ControllerConfig(pin=point)))
+        preqs = requests(cfg)
+        pinned[point] = (ps.run(preqs), [r.margins for r in preqs])
+        del ps
+    if pinned["accurate"] != (out, clean_margins):
+        raise AssertionError(f"{label}: the accurate point changed after the approx point's "
+                             "weight fault")
+    zero = {r: [0] * MAX_NEW for r in out}
+    if pinned[bank.names[0]][0] != zero or any(
+            m != [0.0] * MAX_NEW for m in pinned[bank.names[0]][1]):
+        raise AssertionError(f"{label}: the poisoned point does not serve all-zero logits")
+    report["nan_weights"] = dict(
+        fault=f"NaNWeightFault(at_round=1, point={bank.names[0]!r})",
+        recaptured_graphs=sorted(recaptured), recapture_s=recaptured,
+        first_capture_s={n: capture_before[n] for n in recaptured},
+        recapture_s_total=sum(recaptured.values()), outcomes={r: len(v) for r, v in wout.items()},
+        accurate_point_unchanged=True, poisoned_point_zero_logits=True)
+    del bank
+    free_card()
+
+    # speculation: a draft-point weight fault, and a verify fault flag
+    _, params, bank, _ = make_bank(device, cfg, hifi=False)
+    del params
+    spec = BatchedServer(model, ctx, bank.tree("accurate"), slots=SLOTS, max_len=MAX_LEN,
+                         device=device, bank=bank, speculate=SpecConfig(draft_len=DRAFT_LEN),
+                         resilience=ResilienceConfig(),
+                         injector=FaultInjector(NaNWeightFault(at_round=1, point=bank.names[0])))
+    sreqs = requests(cfg)
+    sout = spec.run(sreqs)
+    if sout != out or margins(sreqs) != margins(reqs) or any(
+            o.status != "ok" for o in spec.outcomes.values()):
+        raise AssertionError(f"{label}: a draft fault changed greedy speculation: "
+                             f"{statuses(spec)}")
+    spec.injector = None
+    inner, calls = spec.spec.round, [0]
+
+    def flagged(*args, **kw):
+        res = list(inner(*args, **kw))
+        if calls[0] == 1:
+            res[4] = res[4].copy()
+            res[4][1] = True
+        calls[0] += 1
+        return tuple(res)
+
+    spec.spec.round = flagged
+    vreqs = requests(cfg)
+    vout = spec.run(vreqs)
+    got = statuses(spec)
+    if got[1][:2] != ("faulted", "verify_nonfinite") or any(
+            vout[r] != out[r] for r in out if r != 1) or vout[1] != out[1][:len(vout[1])]:
+        raise AssertionError(f"{label}: verify fault flag: {got}")
+    report["speculation"] = dict(draft_fault="NaNWeightFault(at_round=1, point='approx')",
+                                 draft_fault_streams_accurate=True, draft_fault_all_ok=True,
+                                 verify_fault="flag set on request 1's lane at round 1",
+                                 verify_fault_outcomes=got)
+    del spec, bank
+    free_card()
+    log(f"{label}: clean {steady_run['tokens_per_s']:.2f} tok/s (plain "
+        f"{accurate_tokens_per_s}); weight-fault re-capture "
+        f"{report['nan_weights']['recapture_s_total']:.3f} s over {len(recaptured)} graphs")
+    return report
+
+
 def free_card():
     import torch
 
@@ -3183,14 +3609,14 @@ def phase(name: str, fn, *args, **kw):
     return out
 
 
-PHASE_GROUPS = ("kernels", "olmo", "bank", "parity", "deepseek", "archs", "scan")
+PHASE_GROUPS = ("kernels", "olmo", "bank", "resilience", "parity", "deepseek", "archs", "scan")
 
 
 def main(argv=()) -> int:
     """Every phase, with no arguments; ``--phases`` runs the named groups of
     ``PHASE_GROUPS`` only (a quicker check while working on one path; "bank"
-    needs "olmo"), writes their report and prints no ``kernels`` and no
-    ``ok`` line."""
+    and "resilience" need "olmo"), writes their report and prints no
+    ``kernels`` and no ``ok`` line."""
     import argparse
 
     import torch
@@ -3202,7 +3628,7 @@ def main(argv=()) -> int:
     groups = None if args.phases is None else set(args.phases.split(","))
     if groups is not None and not groups <= set(PHASE_GROUPS):
         ap.error(f"--phases takes groups of {PHASE_GROUPS}")
-    if groups is not None and "bank" in groups:
+    if groups is not None and groups & {"bank", "resilience"}:
         groups.add("olmo")
 
     def want(group: str) -> bool:
@@ -3280,6 +3706,13 @@ def main(argv=()) -> int:
             serving["olmo-1b"]["tokens_per_s"])
         emit({"serving": serving["olmo-1b speculative"]})
         free_card()
+    if want("resilience"):
+        # fault-tolerant, observed serving, held against the plain run above
+        serving["olmo-1b resilient"] = phase(
+            "resilient olmo-1b", resilience_phases, device, (streams, olmo_margins),
+            serving["olmo-1b"]["tokens_per_s"])
+        emit({"serving": serving["olmo-1b resilient"]})
+        free_card()
     if want("olmo") and groups is None:
         order = phase("replay order", replay_order, device)
         emit({"replay_order": order})
@@ -3339,8 +3772,16 @@ def main(argv=()) -> int:
             (2, 70))
         emit({"card_vs_cpu": parity["deepseek-v3-671b forward"]})
         free_card()
+        serving["deepseek-v3-671b speculative"] = phase(
+            "speculative deepseek-v3-671b", spec_bitwise, device, "deepseek-v3-671b", deepseek())
+        emit({"serving": serving["deepseek-v3-671b speculative"]})
+        free_card()
     if want("archs"):
         arch_phases(device, serving, forward, parity)
+        free_card()
+        serving["qwen3-8b speculative"] = phase("speculative qwen3-8b", spec_bitwise, device,
+                                                "qwen3-8b", arch_config("qwen3-8b"))
+        emit({"serving": serving["qwen3-8b speculative"]})
         free_card()
     if want("scan"):
         scan_phases(device, serving, forward, parity)

@@ -1,13 +1,12 @@
 """Normalization unit (port of ``repro.core.normalization``): always f32.
 
-On a CUDA device the layernorm runs as ``torch.nn.functional.layer_norm``,
-one block a row whatever the number of rows: a row's bits then do not
-depend on how many rows share the call. (ATen's generic reductions, the
-CPU path's ``mean`` and ``var``, lay their threads out by the number of
-rows.) A speculative verify normalizes k+1 rows a slot where token-by-token
-decoding normalizes one, and greedy speculation must give each position the
-decode's bits. The rmsnorm keeps the reductions: the archs that use it are
-not yet held to that identity on the card.
+On a CUDA device the layernorm and the rmsnorm run as
+``torch.nn.functional.layer_norm`` and ``rms_norm``, one reduction a row
+whatever the number of rows: a row's bits then do not depend on how many
+rows share the call. (ATen's generic reductions, the CPU path's ``mean``
+and ``var``, lay their threads out by the number of rows.) A speculative
+verify normalizes k+1 rows a slot where token-by-token decoding normalizes
+one, and greedy speculation must give each position the decode's bits.
 """
 from __future__ import annotations
 
@@ -18,6 +17,9 @@ __all__ = ["rmsnorm", "layernorm", "nonparametric_ln"]
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
+    if xf.is_cuda:
+        out = torch.nn.functional.rms_norm(xf, xf.shape[-1:], weight.to(torch.float32), eps)
+        return out.to(x.dtype)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.reciprocal(torch.sqrt(var + eps))
     return (out * weight.to(torch.float32)).to(x.dtype)

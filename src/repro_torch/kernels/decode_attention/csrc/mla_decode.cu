@@ -22,10 +22,12 @@
 //
 // A decode step has too few (query, head block) blocks to fill the card
 // (B = 4 slots: 16 blocks, one an SM at 224 KB of shared memory), so the host
-// splits the keys of each block across `splits` blocks; each writes its
-// running max, sum and unnormalised output to a workspace and a second
-// kernel (attn::merge_splits, shared with the GQA kernel) merges them. A
-// prefill bucket has blocks to spare and runs unsplit. Against the plain
+// splits the keys of each block across `splits` blocks (split i takes key
+// tiles i, i + splits, ...; the count is taken from one query step, so a
+// speculative verify's rows split as their single-row decodes do); each
+// writes its running max, sum and unnormalised output to a workspace and a
+// second kernel (attn::merge_splits, shared with the GQA kernel) merges
+// them. A prefill bucket (16 query rows or more) runs unsplit. Against the plain
 // two-pass softmax the f32 reduction order differs, which costs a few ulps.
 #include <cuda_runtime.h>
 #include <math.h>

@@ -169,10 +169,22 @@ _MLA_HEADS_PER_BLOCK, _MLA_TILE, _MLA_TARGET_BLOCKS = 32, 32, 132
 _MLA_MAX_ROW = 576
 
 
+# from this many query rows on (the prefill buckets) the MLA kernel has
+# blocks to spare and runs unsplit; below it (decode steps, a speculative
+# verify's k + 1 rows) the keys split
+MLA_UNSPLIT_S = 16
+
+
 def mla_splits(b: int, s: int, h: int, t: int) -> int:
-    """Blocks the MLA kernel splits each (query, head block)'s keys over."""
-    return _splits(b * s * -(-h // _MLA_HEADS_PER_BLOCK), -(-t // _MLA_TILE),
-                   _MLA_TARGET_BLOCKS)
+    """Blocks the MLA kernel splits each (query, head block)'s keys over
+    (split i takes tiles i, i + splits, ...). Below ``MLA_UNSPLIT_S`` query
+    rows, counted from the blocks of one query step, whatever ``s``: a
+    query's result then does not depend on the rows it rides with, so a
+    multi-token verify gives each position the bits of its single-token
+    decode, as ``gqa_splits`` does."""
+    if s >= MLA_UNSPLIT_S:
+        return 1
+    return _splits(b * -(-h // _MLA_HEADS_PER_BLOCK), -(-t // _MLA_TILE), _MLA_TARGET_BLOCKS)
 
 
 def _mla_launch(q_lat, q_rope, c_kv, k_rope, positions, scale: float):

@@ -138,8 +138,9 @@ __device__ __forceinline__ void rows(const float* __restrict__ q_lat,
 
   const int t_end = qpos >= 0 ? min(T, qpos + 1) : T;
   const int n_tiles = (t_end + BK - 1) / BK;
-  const int per = (n_tiles + splits - 1) / splits;
-  const int tile0 = split * per, tile1 = min(n_tiles, tile0 + per);
+  // split `split` takes every splits-th key tile from tile `split` on, as
+  // the GQA split path does: a query's tiles go to the same splits in the
+  // same order whatever rows share the call
 
   const float* cb = c_kv + (size_t)b * T * R;
   const float* kb = k_rope + (size_t)b * T * RD;
@@ -178,7 +179,7 @@ __device__ __forceinline__ void rows(const float* __restrict__ q_lat,
       }
     }
   }
-  if (tile0 < tile1) stage(tile0, tiles);
+  if (split < n_tiles) stage(split, tiles);
   attn::cp_async_commit();
   attn::cp_async_wait_all();
   __syncthreads();
@@ -219,11 +220,10 @@ __device__ __forceinline__ void rows(const float* __restrict__ q_lat,
   for (int n = 0; n < 2 * NP; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   const int fv0 = swz(2 * c), fv1 = swz(2 * c + 1);
 
-  for (int kt = tile0; kt < tile1; ++kt) {
-    const int i = kt - tile0;
+  for (int kt = split, i = 0; kt < n_tiles; kt += splits, ++i) {
     attn::cp_async_wait_all();  // this tile's copies have landed
     __syncthreads();            // for every thread; every warp is done with tile i - 1 (and Q)
-    if (kt + 1 < tile1) stage(kt + 1, tiles + ((i + 1) & 1) * BK * W);
+    if (kt + splits < n_tiles) stage(kt + splits, tiles + ((i + 1) & 1) * BK * W);
     attn::cp_async_commit();
     const float* kv = tiles + (i & 1) * BK * W;
     const int k0 = kt * BK;

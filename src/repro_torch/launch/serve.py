@@ -30,12 +30,20 @@ tokens drafted at ``--draft-point`` (default: the cheapest point; with
 ``--adaptive`` the controller picks), verified at accurate FxP8. Both refuse
 ``--per-call``: the bank is the prepared path. Each prints the reference's
 ``telemetry:`` / ``speculative:`` summary line.
+
+The reference's resilience group (``--deadline-ms``, ``--queue-limit``,
+``--shed-policy``, ``--degrade``, ``--degrade-floor``; any of them serves
+under a ``resilience.ResilienceConfig`` and prints the outcomes) and its
+observability group (``--metrics``, ``--metrics-out``, ``--trace-out``,
+``--chrome-trace``, ``--profile``). ``--profile DIR`` wraps the run in
+``torch.profiler`` and writes its Chrome trace to ``DIR/torch_profile.json``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
@@ -115,6 +123,48 @@ def main(argv=None):
     ap.add_argument("--draft-point", default=None,
                     help="--speculative: bank point to draft at (default: the "
                          "cheapest; with --adaptive the controller picks)")
+    res_args = ap.add_argument_group(
+        "resilience",
+        "fault-tolerant serving (repro_torch.resilience): deadlines, bounded admission "
+        "with load shedding, per-slot fault quarantine, graceful precision degradation; "
+        "any flag here serves under the resilient contract (structured outcomes "
+        "instead of raising)")
+    res_args.add_argument("--deadline-ms", type=float, default=None,
+                          help="per-request deadline in ms from run entry: expired queued "
+                               "requests are shed, expired running requests are evicted "
+                               "with partial output at the next burst boundary")
+    res_args.add_argument("--queue-limit", type=int, default=None,
+                          help="bounded admission queue: overflow is shed per "
+                               "--shed-policy with reason queue_full")
+    res_args.add_argument("--shed-policy", default="reject_newest",
+                          choices=["reject_newest", "reject_largest", "deadline_aware"],
+                          help="queue-overflow victim selection")
+    res_args.add_argument("--degrade", action="store_true",
+                          help="graceful degradation: cap the whole batch down the bank's "
+                               "depth ladder under deadline misses / queue pressure, "
+                               "promote back with hysteresis (needs a bank: --adaptive or "
+                               "--speculative)")
+    res_args.add_argument("--degrade-floor", default=None, metavar="POINT",
+                          help="--degrade: cheapest bank point the cap may reach "
+                               "(default: the cheapest rung)")
+    obs_args = ap.add_argument_group(
+        "observability",
+        "SLO metrics + structured serve trace (repro_torch.obs); hooks run only at host "
+        "sync points, so token streams are bit-identical with or without them")
+    obs_args.add_argument("--metrics", action="store_true",
+                          help="print the metrics snapshot (TTFT / inter-token / queue-wait "
+                               "percentiles, counters, gauges)")
+    obs_args.add_argument("--metrics-out", default=None, metavar="PATH",
+                          help="write the metrics + per-request snapshot JSON")
+    obs_args.add_argument("--trace-out", default=None, metavar="PATH",
+                          help="write the versioned JSONL serve trace (carmen-serve-trace "
+                               "v1; the reference's PE-array simulator replays it)")
+    obs_args.add_argument("--chrome-trace", default=None, metavar="PATH",
+                          help="write a Chrome-trace JSON (load in Perfetto or "
+                               "chrome://tracing)")
+    obs_args.add_argument("--profile", default=None, metavar="DIR",
+                          help="wrap the run in torch.profiler (kernel-level; complements "
+                               "the serve trace): DIR/torch_profile.json")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -156,18 +206,60 @@ def main(argv=None):
         from repro_torch.spec import SpecConfig
 
         speculate = SpecConfig(draft_len=args.draft_len, draft_point=args.draft_point)
+    resilience = None
+    if args.deadline_ms is not None or args.queue_limit is not None or args.degrade:
+        from repro_torch.resilience import ResilienceConfig
+
+        resilience = ResilienceConfig(
+            queue_limit=args.queue_limit, shed_policy=args.shed_policy,
+            default_deadline_s=args.deadline_ms / 1000.0 if args.deadline_ms is not None
+            else None)
+    if args.degrade:
+        if bank is None:
+            raise SystemExit("--degrade needs a multi-point bank: add --adaptive or "
+                             "--speculative")
+        from repro_torch.resilience import DegradationConfig, DegradationPolicy
+        from repro_torch.runtime import ControllerConfig, ModeController
+
+        # without --adaptive the inner controller pins the reference point:
+        # degradation is then the only thing moving the ladder
+        inner = controller or ModeController(bank, ControllerConfig(pin=bank.reference))
+        controller = DegradationPolicy(inner, DegradationConfig(floor=args.degrade_floor))
+    observer = None
+    want_trace = bool(args.trace_out or args.chrome_trace)
+    if args.metrics or args.metrics_out or want_trace:
+        from repro_torch.obs import ServingObserver
+
+        # the JSONL trace is flushed to its sink even if the run raises
+        observer = ServingObserver(trace=want_trace, trace_sink=args.trace_out)
     max_len = args.max_len or (args.prompt_len + args.max_new
                                + (args.draft_len if args.speculative else 0) + 2)
     server = BatchedServer(model, ctx, params, slots=args.slots, max_len=max_len,
                            burst=args.burst, device=device, prepare_weights=not args.per_call,
-                           controller=controller, bank=bank, speculate=speculate)
+                           controller=controller, bank=bank, speculate=speculate,
+                           observer=observer, resilience=resilience)
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32),
                     args.max_new, temperature=args.temperature,
                     seed=None if args.seed is None else args.seed + i)
             for i in range(args.requests)]
+    profiler = None
+    if args.profile:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=acts)
+        profiler.start()
     t0 = time.perf_counter()
-    results = server.run(reqs)
+    try:
+        results = server.run(reqs)
+    finally:
+        if profiler is not None:
+            profiler.stop()
+            os.makedirs(args.profile, exist_ok=True)
+            path = os.path.join(args.profile, "torch_profile.json")
+            profiler.export_chrome_trace(path)
+            print(f"torch profiler trace written to {path}")
     dt = time.perf_counter() - t0
     total = sum(len(v) for v in results.values())
     weights = "adaptive" if args.adaptive else ("per-call" if args.per_call else "prepared")
@@ -176,10 +268,41 @@ def main(argv=None):
           f"({total / max(dt, 1e-9):.1f} tok/s, device={device}, burst={args.burst}, "
           f"{server.host_transfers} host round-trips, {server.graph_replays} graph replays, "
           f"{serving}{weights} {args.mode} weights, temperature {args.temperature})")
+    if resilience is not None:
+        statuses: dict = {}
+        for o in server.outcomes.values():
+            statuses[o.status] = statuses.get(o.status, 0) + 1
+        met = sum(1 for o in server.outcomes.values() if o.deadline_met)
+        print(f"outcomes: {statuses}; deadline_met {met}/{len(server.outcomes)}")
+        shed = {rid: o.reason for rid, o in sorted(server.outcomes.items())
+                if o.status in ("shed", "faulted", "expired")}
+        if shed:
+            print(f"shed/evicted reasons: {shed}")
+        if args.degrade:
+            print(f"degradation: cap={controller.cap} demotions={controller.demotions} "
+                  f"promotions={controller.promotions}")
     if server.telemetry is not None:
         print("telemetry:", json.dumps(server.telemetry.summary()))
     if server.spec_telemetry is not None:
         print("speculative:", json.dumps(server.spec_telemetry.summary()))
+    if observer is not None:
+        for out in (args.metrics_out, args.trace_out, args.chrome_trace):
+            if out and os.path.dirname(out):
+                os.makedirs(os.path.dirname(out), exist_ok=True)
+        if args.metrics or args.metrics_out:
+            snap = observer.snapshot()
+            if args.metrics:
+                print("metrics:", json.dumps(snap["metrics"]))
+            if args.metrics_out:
+                with open(args.metrics_out, "w") as f:
+                    json.dump(snap, f, indent=1)
+                print(f"metrics snapshot written to {args.metrics_out}")
+        if args.trace_out:
+            observer.trace.write_jsonl(args.trace_out)
+            print(f"serve trace (JSONL) written to {args.trace_out}")
+        if args.chrome_trace:
+            observer.trace.write_chrome(args.chrome_trace)
+            print(f"chrome trace written to {args.chrome_trace}")
     for rid in sorted(results):
         print(f"  req {rid}: {results[rid][:8]}...")
     return results

@@ -282,6 +282,44 @@ def _combine(y, top_i, rank, kept, capacity: int):
     return out
 
 
+# cuBLAS picks its kernel by a product's shape, so on the card an f32
+# product's row would take other bits beside other rows. The per-token f32
+# products (the MoE router and experts, the MLA absorption) therefore run
+# one shape for every short call: a product of fewer than STABLE_ROWS rows
+# pads them to STABLE_ROWS; an expert product whose capacity is below
+# STABLE_CAPACITY runs one call per capacity slot (its rows the batch rows),
+# so top-1 routing's capacity 1 at decode and k + 1 at a verify of up to 7
+# drafts run the same shape (a top-8 router's capacity is 8 at both). A
+# decode step's rows and a speculative verify's rows then get the same bits,
+# and greedy speculation stays bit-identical to token-by-token decoding.
+# The CPU runs them as one product.
+STABLE_ROWS = 32
+STABLE_CAPACITY = 8
+
+
+def rows_einsum(eq: str, x, w, lead: int = 2):
+    """``torch.einsum(eq, x, w)`` whose ``lead`` leading axes of ``x`` are
+    rows (their product M); on CUDA an M below ``STABLE_ROWS`` runs padded
+    with zero rows to ``STABLE_ROWS``, as a (1, STABLE_ROWS) batch."""
+    m = math.prod(x.shape[:lead])
+    if not x.is_cuda or m >= STABLE_ROWS:
+        return torch.einsum(eq, x, w)
+    flat = x.reshape(m, *x.shape[lead:])
+    padded = torch.cat([flat, flat.new_zeros((STABLE_ROWS - m, *flat.shape[1:]))])
+    out = torch.einsum(eq, padded.reshape(1, STABLE_ROWS, *padded.shape[1:]), w)
+    return out[0, :m].reshape(*x.shape[:lead], *out.shape[2:])
+
+
+def expert_einsum(eq: str, hh, w):
+    """``torch.einsum(eq, hh, w)`` over an expert dispatch ``hh`` (B, E, C,
+    ...); on CUDA a capacity C below ``STABLE_CAPACITY`` runs one product per
+    capacity slot, each over the B batch rows."""
+    c = hh.shape[2]
+    if not hh.is_cuda or c >= STABLE_CAPACITY:
+        return torch.einsum(eq, hh, w)
+    return torch.cat([torch.einsum(eq, hh[:, :, j:j + 1], w) for j in range(c)], dim=2)
+
+
 def moe_ffn(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, dropless: bool = False):
     """Batched-per-row MoE, single device. ``dropless`` (the cached-decode
     path) widens short blocks' capacity so no routed token is dropped.
@@ -294,8 +332,8 @@ def moe_ffn(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, dropless: bool 
         # a token's top-k experts are distinct, so per-expert load is at most s
         capacity = max(capacity, s)
 
-    router_logits = torch.einsum("bsd,de->bse", x.to(torch.float32),
-                                 p["router"].to(torch.float32))
+    router_logits = rows_einsum("bsd,de->bse", x.to(torch.float32),
+                                p["router"].to(torch.float32))
     probs = torch.softmax(router_logits, dim=-1)
     top_p, top_i = top_k_stable(probs, k)  # (B, S, K)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
@@ -308,12 +346,12 @@ def moe_ffn(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, dropless: bool 
     cd = cfg.compute_dtype
 
     def expert_mm(hh, w):
-        return torch.einsum("becd,edf->becf", hh.to(cd), w.to(cd))
+        return expert_einsum("becd,edf->becf", hh.to(cd), w.to(cd))
 
     up = expert_mm(x_disp, p["up"])
     gate = expert_mm(x_disp, p["gate"])
     hidden = ctx.activate(gate, cfg.act) * up
-    y = torch.einsum("becf,efd->becd", hidden.to(cd), p["down"].to(cd))
+    y = expert_einsum("becf,efd->becd", hidden.to(cd), p["down"].to(cd))
 
     kept = (rank < capacity).to(torch.float32) * top_p  # (B, S, K); drops -> 0
     out = _combine(y.to(cd), top_i, rank, kept, capacity).to(x.dtype)

@@ -25,7 +25,7 @@ from repro_torch.core.normalization import rmsnorm
 from repro_torch.kernels.decode_attention import mla_decode_attention, mla_decode_attention_ref
 from repro_torch.kernels.mla_flash import mla_flash_attention
 
-from .blocks import Q_CHUNK, cache_row_write, rope
+from .blocks import Q_CHUNK, cache_row_write, rope, rows_einsum
 from .params import ParamSpec
 
 
@@ -93,8 +93,8 @@ def mla_attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name
     c_kv, k_rope = _kv_latent(p, x, cfg, ctx, name)  # (B, S, R), (B, S, rdim)
     k_rope = rope(k_rope[..., None, :], positions, cfg.rope_theta)[..., 0, :]
 
-    q_lat = torch.einsum("bshn,rhn->bshr", q_nope.to(torch.float32),
-                         p["wk_b"].to(torch.float32))
+    q_lat = rows_einsum("bshn,rhn->bshr", q_nope.to(torch.float32),
+                        p["wk_b"].to(torch.float32))
     q_rope = q_rope.to(torch.float32)
     scale = 1.0 / math.sqrt(nope + rdim)
     if cache is None:
@@ -113,7 +113,7 @@ def mla_attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name
             mla_decode_attention_ref
         o_lat = attend(q_lat, q_rope, c_kv, k_rope, positions, scale=scale)
 
-    out = torch.einsum("bshr,rhv->bshv", o_lat, p["wv_b"].to(torch.float32)).to(x.dtype)
+    out = rows_einsum("bshr,rhv->bshv", o_lat, p["wv_b"].to(torch.float32)).to(x.dtype)
     wo = p["wo"].reshape(h * vdim, cfg.d_model)
     return ctx.linear(out.reshape(b, s, h * vdim), wo, name=f"{name}.o"), new_cache
 

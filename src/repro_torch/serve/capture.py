@@ -124,7 +124,10 @@ class GraphRunner:
     ``replays`` counts each graph's replays, ``captured_launches`` its kernel
     launches by instantiation (counted at capture), ``warmup_launches``
     those of its warm-up and ``capture_seconds`` the wall time of warm-up
-    plus capture."""
+    plus capture. :meth:`drop` discards graphs whose inputs were replaced
+    (a poisoned weight tree); the next call of such a program captures it
+    again, counted in ``recaptures`` (its ``capture_seconds`` then holds
+    the re-capture's time)."""
 
     def __init__(self, device: torch.device, capture: bool = True):
         self.device = device
@@ -135,6 +138,7 @@ class GraphRunner:
         self.captured_launches: Dict[str, Dict[str, int]] = {}
         self.warmup_launches: Dict[str, Dict[str, int]] = {}
         self.capture_seconds: Dict[str, float] = {}
+        self.recaptures: Dict[str, int] = {}
         if device.type == "cuda":
             self.stream = torch.cuda.Stream(device=device)
         if self.capture:
@@ -162,6 +166,15 @@ class GraphRunner:
             self.graphs[name].replay()
             self.replays[name] = self.replays.get(name, 0) + 1
             return _to_host(self._outs[name])
+
+    def drop(self, keep: Callable[[str], bool]) -> list:
+        """Discard every graph whose name ``keep`` rejects; returns their
+        names. Their pool memory is scratch, so nothing else changes."""
+        gone = [name for name in self.graphs if not keep(name)]
+        for name in gone:
+            del self.graphs[name]
+            self._outs.pop(name, None)
+        return gone
 
     def _capture(self, name: str, fn: Callable, cache, state) -> None:
         from repro_torch.kernels import launch_counts
@@ -191,6 +204,8 @@ class GraphRunner:
             raise RuntimeError(f"graph {name!r}: {live} bytes allocated inside the capture "
                                "outlive it in the shared graph pool")
         _captured_counters.update(built[1])
+        if name in self.capture_seconds:
+            self.recaptures[name] = self.recaptures.get(name, 0) + 1
         self.graphs[name], self._outs[name] = graph, out
         self.warmup_launches[name] = _diff(mid, before)
         self.captured_launches[name] = _diff(after, mid)

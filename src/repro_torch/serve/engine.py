@@ -36,7 +36,20 @@ paths, each a device program:
   rounds over a bank (``bank=``, or the controller's), each round one
   draft program, one verify program and one transfer; prompts prefill at
   the verify point, and greedy output is bit-identical to serving every
-  token at that point.
+  token at that point;
+* **fault-tolerant serving** (``repro_torch.resilience``): with a
+  ``ResilienceConfig`` oversized or empty prompts and queue overflow are
+  shed with structured reasons instead of raising, deadlines evict at burst
+  boundaries, and slots whose logits go non-finite (or past
+  ``logit_limit``) are quarantined. The detection flag lives in the slot
+  state and rides the burst's one transfer; every request ends in exactly
+  one ``self.outcomes[rid]``. ``injector`` fires deterministic faults before
+  chosen rounds;
+* **observability** (``repro_torch.obs``): a ``ServingObserver`` records
+  SLO metrics and a structured trace at the host sync points the loop
+  already pays for, so the device programs are untouched and the streams
+  are bit-identical with the observer on or off; ``snapshot()`` exports
+  everything a run accumulated.
 
 Sampling is the reference's (:func:`_sample_slots`): each request's PRNG key
 (``Request.seed``, default its ``rid``) is folded with the index of the token
@@ -57,14 +70,12 @@ its graphs, with no re-capture and no copy of any bank.
 
 Slots that are free or drained keep decoding every burst, as in the
 reference; their cache index runs on and the KV write clamps at ``max_len``.
-Resilience (and with it the slot state's fault flag), observability and mesh
-serving are not yet ported: the speculative round's fault flags are computed
-and transferred, and nothing acts on them, as in the reference without
-``resilience``.
+Mesh serving is not yet ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -136,6 +147,7 @@ def top2_margin(logits):
 #   rem   (slots,)   int32   remaining token budget; 0 = slot inactive
 #   key   (slots, 2) int64   per-request PRNG base key (two uint32 words)
 #   temp  (slots,)   float32 per-request temperature (<= 0: greedy)
+#   fault (slots,)   bool    non-finite/saturated logits seen since admission
 
 
 def _init_slot_state(slots: int, device=None):
@@ -147,6 +159,7 @@ def _init_slot_state(slots: int, device=None):
         "key": torch.stack([torch.zeros((slots,), dtype=torch.int64, device=device),
                             torch.arange(slots, dtype=torch.int64, device=device)], dim=-1),
         "temp": torch.zeros((slots,), dtype=torch.float32, device=device),
+        "fault": torch.zeros((slots,), dtype=torch.bool, device=device),
     }
 
 
@@ -159,6 +172,7 @@ def _admit_state(state, slot, tok, base_key, temp, max_new):
     state["rem"].index_copy_(0, s, (max_new.reshape(1) - 1).to(torch.int32))
     state["key"].index_copy_(0, s, base_key.reshape(1, 2).to(torch.int64))
     state["temp"].index_copy_(0, s, temp.reshape(1).to(torch.float32))
+    state["fault"].index_fill_(0, s, False)
     return state
 
 
@@ -173,13 +187,22 @@ def _finish_prefill(cache, state, row, last, slot, base_key, temp, max_new):
     return tok, top2_margin(last)
 
 
-def make_decode_burst(model: ModelApi, ctx: EngineContext, burst: int, sampled: bool = True):
+def make_decode_burst(model: ModelApi, ctx: EngineContext, burst: int, sampled: bool = True,
+                      logit_limit: Optional[float] = None):
     """The decode hot loop: ``burst`` single-token steps.
 
     ``(tree, cache, state) -> (tokens (B, burst) int32, margins (B, burst)
-    f32)``; the cache and ``state``'s tok, count and rem are updated in place.
-    Slots keep computing after their budget drains; the caller clips each
-    slot's run to ``state['rem']`` on entry.
+    f32, faults (B, burst) bool)``; the cache and ``state``'s tok, count, rem
+    and fault are updated in place. Slots keep computing after their budget
+    drains; the caller clips each slot's run to ``state['rem']`` on entry.
+
+    ``faults`` is the per-slot numeric-fault flag, cumulative across the
+    burst: step ``j`` is True iff some step ``<= j`` (or an earlier burst
+    since the slot's admission, through ``state['fault']``) produced a
+    non-finite logit, or with ``logit_limit`` a logit beyond
+    ``±logit_limit``, in that slot's lane. Detection is always in the
+    program and rides its one transfer; the host commits only the steps
+    before the first flagged one. Token math is untouched.
 
     ``sampled=False`` is the all-greedy variant: no threefry fold or
     categorical per step, bit-identical to the sampled variant at
@@ -190,11 +213,16 @@ def make_decode_burst(model: ModelApi, ctx: EngineContext, burst: int, sampled: 
 
     def decode_burst(tree, cache, state):
         keys, temps = state["key"], state["temp"]
-        tok, count, rem = state["tok"], state["count"], state["rem"]
-        toks, margins = [], []
+        tok, count, rem, fault = state["tok"], state["count"], state["rem"], state["fault"]
+        toks, margins, faults = [], [], []
         for _ in range(burst):
             logits, cache = model.decode_step(tree, tok, cache, ctx)
             last = logits[:, -1, :].to(torch.float32)
+            bad = ~torch.isfinite(last).all(dim=-1)
+            if logit_limit is not None:
+                bad = bad | (last.abs() > logit_limit).any(dim=-1)
+            fault = fault | bad
+            faults.append(fault)
             if sampled:
                 nxt = _sample_slots(last, keys, count, temps)
             else:
@@ -207,7 +235,8 @@ def make_decode_burst(model: ModelApi, ctx: EngineContext, burst: int, sampled: 
         state["tok"].copy_(tok)
         state["count"].copy_(count)
         state["rem"].copy_(rem)
-        return torch.stack(toks, dim=1), torch.stack(margins, dim=1)
+        state["fault"].copy_(fault)
+        return torch.stack(toks, dim=1), torch.stack(margins, dim=1), torch.stack(faults, dim=1)
 
     return decode_burst
 
@@ -282,6 +311,10 @@ class Request:
     max_new: int
     temperature: float = 0.0      # <= 0: greedy
     seed: Optional[int] = None    # PRNG stream seed; defaults to rid
+    # deadline in seconds from run entry, checked at burst boundaries (after
+    # the burst's transfer); None: no deadline (ResilienceConfig's
+    # default_deadline_s may fill it in, run-locally)
+    deadline_s: Optional[float] = None
     generated: Optional[List[int]] = None
     margins: Optional[List[float]] = None  # top-2 logit margin per generated token
 
@@ -320,7 +353,8 @@ class BatchedServer:
     ``capture=False`` runs the same programs eagerly on the card, every
     launch issued from the host (the uncaptured yardstick).
 
-    ``controller`` (a ``runtime.ModeController``) serves runtime-adaptive
+    ``controller`` (a ``runtime.ModeController``, or a
+    ``resilience.DegradationPolicy`` around one) serves runtime-adaptive
     precision from its bank; ``params`` may then stay raw (they are not
     prepared), and ``telemetry`` accumulates the run's record.
     ``speculate`` (a ``spec.SpecConfig``) serves self-speculative rounds
@@ -328,17 +362,30 @@ class BatchedServer:
     ``device``; with a controller, it picks the draft point a round.
     ``spec_rounds`` counts the rounds of the last run (one verify forward
     and one transfer each; ``decode_steps`` then counts the draft steps).
+
+    ``resilience`` (a ``resilience.ResilienceConfig``) switches the server
+    from fail-stop to shed/quarantine/degrade, as the reference's does:
+    oversized or empty prompts and queue overflow are shed with structured
+    reasons, deadlines are enforced at burst boundaries, and slots whose
+    logits are flagged are quarantined; ``run()`` then returns partial
+    streams for expired and faulted requests and omits shed ones. Outcomes
+    (``self.outcomes``) are recorded with or without it. ``injector`` (a
+    ``resilience.FaultInjector``) fires deterministic faults before chosen
+    rounds. ``observer`` (an ``obs.ServingObserver``) records metrics and a
+    trace; ``snapshot()`` exports the last run.
     """
 
     def __init__(self, model: ModelApi, ctx: EngineContext, params, slots: int = 4,
                  max_len: int = 256, burst: int = 8, device=None, prepare_weights: bool = True,
-                 capture: bool = True, controller=None, bank=None, speculate=None):
+                 capture: bool = True, controller=None, bank=None, speculate=None,
+                 observer=None, resilience=None, injector=None):
         if burst < 1:
             raise ValueError(f"burst must be >= 1, got {burst}")
         self.model, self.ctx = model, ctx
         self.slots, self.max_len, self.burst = slots, max_len, burst
         self.device = resolve_device(device)
         self.controller, self.speculate = controller, speculate
+        self.observer, self.resilience, self.injector = observer, resilience, injector
         self._bank = bank if bank is not None or controller is None else controller.bank
         params = _to_device(params, self.device)
         self.telemetry = None
@@ -379,7 +426,11 @@ class BatchedServer:
         self._slot_tok = np.zeros((slots,), np.int32)
         self._slot_count = np.zeros((slots,), np.int32)
         self._slot_temp = np.zeros((slots,), np.float32)
-        self._bursts = {s: make_decode_burst(model, ctx, burst, sampled=s) for s in (False, True)}
+        # the fault flag's logit limit is fixed per server: a constant of
+        # the burst programs (and of their graphs)
+        limit = resilience.logit_limit if resilience is not None else None
+        self._bursts = {s: make_decode_burst(model, ctx, burst, sampled=s, logit_limit=limit)
+                        for s in (False, True)}
         staged = self.programs.staged
         # the prefill's host inputs; each bucket has its own prompt buffer
         self._prompts: Dict[int, Staged] = {}
@@ -398,6 +449,12 @@ class BatchedServer:
                                               device=self.device)}
             self._scan_prompt = staged((1, max_len), torch.int32)
         self.active: Dict[int, Request] = {}
+        self._visited = set()  # programs built on this server (uncaptured)
+        self._run_complete: Optional[bool] = None  # None: never ran
+        self.outcomes: Dict[int, object] = {}  # rid -> RequestOutcome
+        self._fault_counts = {"shed": 0, "expired": 0, "faulted": 0, "deadline_misses": 0}
+        self._deadlines: Dict[int, Optional[float]] = {}
+        self._round_idx = 0
         self._reset_counters()
 
     def _reset_counters(self):
@@ -436,23 +493,73 @@ class BatchedServer:
             return self.spec.verify_point
         return self.controller.point if self.controller is not None else None
 
-    def _admission_error(self, req: Request) -> None:
-        prompt = _checked_prompt(req)
+    def _builds(self, name: str, key) -> bool:
+        """Whether running program ``name`` first builds a device program:
+        on the card, whether its graph is about to be captured (a first
+        visit, or a re-capture after :meth:`weights_replaced`); uncaptured,
+        the reference's rule, the first visit of ``key`` (a prefill bucket,
+        a burst variant) on this server."""
+        if self.programs.capture:
+            return name not in self.programs.graphs
+        if key in self._visited:
+            return False
+        self._visited.add(key)
+        return True
+
+    def weights_replaced(self, point: Optional[str]) -> None:
+        """The tree of bank point ``point`` (None: the static tree) was
+        replaced: drop the graphs that read it, to be captured again at
+        their next call; every other graph replays untouched."""
+        if point is None:
+            self.programs.drop(lambda name: " @" in name or name == "prefill finish")
+        else:
+            self.programs.drop(lambda name: not name.endswith(f" @{point}"))
+
+    # -- admission: validation + run-local deadline resolution ----------------
+
+    def _admission_error(self, req: Request) -> Optional[str]:
+        """Validate one request at admission. A resilient server gets a
+        structured shed reason (or None when admissible); without
+        ``resilience`` the fail-stop contract raises instead."""
         scratch = self.spec.draft_len if self.spec is not None else 0
-        if len(prompt) + req.max_new + scratch > self.max_len:
-            extra = f" + draft_len ({scratch})" if self.spec is not None else ""
-            why = (" — the verify forward needs draft_len rows of scratch headroom"
-                   if self.spec is not None else " — the KV cache would overflow mid-decode")
-            raise ValueError(
-                f"request {req.rid}: prompt ({len(prompt)}) + max_new ({req.max_new}){extra} "
-                f"exceeds max_len ({self.max_len}){why}"
-            )
+        prompt = np.asarray(req.prompt, np.int32)
+        too_long = len(prompt) + req.max_new + scratch > self.max_len
+        if self.resilience is None:
+            _checked_prompt(req)
+            if too_long:
+                extra = f" + draft_len ({scratch})" if self.spec is not None else ""
+                why = (" — the verify forward needs draft_len rows of scratch headroom"
+                       if self.spec is not None else " — the KV cache would overflow mid-decode")
+                raise ValueError(
+                    f"request {req.rid}: prompt ({len(prompt)}) + max_new ({req.max_new}){extra} "
+                    f"exceeds max_len ({self.max_len}){why}"
+                )
+            return None
+        if prompt.size == 0:
+            return "empty_prompt"
+        if too_long:
+            return "too_long"
+        return None
+
+    def _resolve_deadline(self, req: Request) -> Optional[float]:
+        """The deadline this run enforces for ``req``: its own, else the
+        resilience default. The Request is never written."""
+        if req.deadline_s is not None:
+            return req.deadline_s
+        res = self.resilience
+        return res.default_deadline_s if res is not None else None
+
+    def _deadline(self, req: Request) -> Optional[float]:
+        """Run-local resolved deadline (run-relative seconds); the request's
+        own field for rids this run never registered."""
+        return self._deadlines.get(req.rid, req.deadline_s)
 
     def _emit(self, req: Request, toks, margins) -> None:
         req.generated.extend(int(t) for t in toks)
         req.margins.extend(float(m) for m in margins)
-        self.emissions.setdefault(req.rid, []).append(
-            (time.perf_counter() - self._t0, len(toks)))
+        if len(toks):
+            self.emissions.setdefault(req.rid, []).append(
+                (time.perf_counter() - self._t0, len(toks)))
 
     @torch.no_grad()
     def _prefill_slot(self, slot: int, req: Request) -> None:
@@ -470,6 +577,14 @@ class BatchedServer:
                             ("temp", req.temperature), ("max_new", req.max_new)):
             args[name].fill(value)
         tree, point = self._serving_tree(), self._serving_point()
+        bucket = bucket_length(plen, self.max_len)
+        graph = program_name(f"prefill {bucket}" if self.batched_prefill else "prefill step",
+                             point)
+        obs = self.observer
+        if self._builds(graph, ("prefill", bucket)) and obs is not None:
+            obs.compile_event("prefill", bucket=bucket)
+        if obs is not None:
+            obs.prefill_begin(req.rid, bucket, point)
         if self.batched_prefill:
             out = self._bucketed_prefill(prompt, tree, point)
         else:
@@ -481,6 +596,8 @@ class BatchedServer:
         self._slot_start[slot] = plen
         self._slot_tok[slot], self._slot_count[slot] = req.generated[0], 1
         self._slot_temp[slot] = req.temperature
+        if obs is not None:
+            obs.prefill_end(req.rid, plen, point)
         if self.telemetry is not None:
             self.telemetry.record_prefill(point, plen)
         self.prefill_seconds += time.perf_counter() - t0
@@ -536,33 +653,59 @@ class BatchedServer:
     @torch.no_grad()
     def _burst_round(self, slot_of: Dict[int, int]) -> Dict:
         """One decode burst over all slots, one program and one transfer;
-        each active slot's run is clipped to its budget on the host. Returns
-        the round summary the controller observes: the point it ran at, the
-        tokens emitted, the engine steps and the min top-2 margin over the
-        committed tokens."""
+        each active slot's run is clipped to its budget on the host, and a
+        flagged lane's (with fault isolation) to the steps before its first
+        flagged logit. Returns the round summary the scheduler acts on: the
+        point it ran at, the tokens emitted, the engine steps, the min top-2
+        margin over the clean committed tokens and the rids whose lanes
+        faulted."""
         t0 = time.perf_counter()
+        obs = self.observer
+        if self.injector is not None:
+            self.injector.before_round(self, self._round_idx, slot_of)
+        self._round_idx += 1
         sampled = any(r.temperature > 0.0 for r in self.active.values())
         burst_fn = self._bursts[sampled]
         tree, point = self._serving_tree(), self._serving_point()
+        name = program_name(f"burst {'sampled' if sampled else 'greedy'}", point)
+        if self._builds(name, ("burst", sampled)) and obs is not None:
+            obs.compile_event("burst", sampled=sampled)
+        if obs is not None:
+            obs.burst_begin(point)
 
         def program(cache, state):
-            toks, margins = burst_fn(tree, cache, state)
-            return torch.stack([toks.to(torch.float32), margins])
+            toks, margins, faults = burst_fn(tree, cache, state)
+            return torch.stack([toks.to(torch.float32), margins, faults.to(torch.float32)])
 
-        name = program_name(f"burst {'sampled' if sampled else 'greedy'}", point)
         out = self.programs.run(name, program, self.cache, self._state).numpy()
         self.decode_steps += self.burst
         self.host_transfers += 1
+        toks, margins, faults = out[0], out[1], out[2] > 0
+        isolate = self.resilience is not None and self.resilience.fault_isolation
         emitted, burst_margins = 0, []
+        by_rid: Dict[int, List[int]] = {}
+        faulted: List[int] = []
         for rid, req in self.active.items():
             s = slot_of[rid]
             n = min(self.burst, req.max_new - len(req.generated))
-            self._emit(req, out[0, s, :n], out[1, s, :n])
+            if isolate and faults[s].any():
+                # the flag is cumulative: the clean steps are its leading
+                # False run; everything from the first flagged logit on is
+                # discarded
+                n = min(n, int((~faults[s]).sum()))
+                faulted.append(rid)
+            by_rid[rid] = [int(t) for t in toks[s, :n]]
+            self._emit(req, toks[s, :n], margins[s, :n])
+            self._slot_start[s] += n
             emitted += n
-            burst_margins.append(float(out[1, s, :n].min()))
+            if rid not in faulted:
+                burst_margins.append(float(margins[s, :n].min()))
+        if obs is not None:
+            obs.burst_end(point, self.burst, by_rid)
         self.decode_seconds += time.perf_counter() - t0
         return {"point": point, "emitted": emitted, "steps": self.burst,
-                "min_margin": min(burst_margins) if burst_margins else None}
+                "min_margin": min(burst_margins) if burst_margins else None,
+                "faulted": faulted, "fault_reason": "decode_nonfinite"}
 
     @torch.no_grad()
     def _spec_round(self, slot_of: Dict[int, int]) -> Dict:
@@ -571,35 +714,65 @@ class BatchedServer:
         Each active request gains between 1 and ``draft_len + 1`` tokens,
         clipped to its ``max_new``; the cache comes back rolled back to the
         committed length a slot, and each slot's pending token and count are
-        set on the host, to go in with the next round's uploads."""
+        set on the host, to go in with the next round's uploads.
+
+        With fault isolation, from the flags of the round's one transfer: a
+        *draft*-faulted lane already fell back to the verify point's
+        position-0 distribution inside the verify (no draft accepted, the
+        accurate rows written over the drafted ones): it commits normally
+        and stays admitted. A *verify*-faulted lane commits nothing and the
+        scheduler quarantines it."""
         t0 = time.perf_counter()
+        obs = self.observer
+        if self.injector is not None:
+            self.injector.before_round(self, self._round_idx, slot_of)
+        self._round_idx += 1
         draft_point = self.controller.point if self.controller is not None else None
+        if obs is not None:
+            obs.burst_begin(draft_point or self.spec.default_draft_point, kind="spec")
         # the all-greedy variants only where no slot, active or not, samples:
         # a drained slot still drafts, as in the reference's round
-        emitted, accepted, margins, _, _, point = self.spec.round(
+        emitted, accepted, margins, draft_fault, verify_fault, point = self.spec.round(
             self._slot_tok, self.cache, self._state, self._slot_count, self._slot_start,
             draft_point=draft_point, sampled=bool((self._slot_temp > 0.0).any()))
         self.host_transfers += 1
         self.spec_rounds += 1
         self.decode_steps += self.spec.draft_len
+        isolate = self.resilience is not None and self.resilience.fault_isolation
         accs, emits, round_margins = [], [], []
+        by_rid: Dict[int, List[int]] = {}
+        faulted: List[int] = []
+        draft_faults: List[int] = []
         for rid, req in self.active.items():
             s = slot_of[rid]
+            if isolate and bool(verify_fault[s]):
+                by_rid[rid] = []
+                faulted.append(rid)
+                continue
+            if isolate and bool(draft_fault[s]):
+                draft_faults.append(rid)
             n = min(int(accepted[s]) + 1, req.max_new - len(req.generated))
+            by_rid[rid] = [int(t) for t in emitted[s, :n]]
             self._emit(req, emitted[s, :n], margins[s, :n])
             self._slot_start[s] += int(accepted[s]) + 1
             accs.append(int(accepted[s]))
             emits.append(n)
             round_margins.append(float(margins[s, :n].min()))
             self._slot_tok[s], self._slot_count[s] = emitted[s, n - 1], len(req.generated)
+        if obs is not None:
+            extra = {"draft_faults": draft_faults} if draft_faults else {}
+            obs.burst_end(point, self.spec.draft_len + 1, by_rid, kind="spec",
+                          accepted=accs, **extra)
         self.spec.telemetry.record_round(point, self.spec.verify_point, accs, emits)
         self.decode_seconds += time.perf_counter() - t0
         # a round is draft_len single-token steps and one multi-token verify:
         # that is what the budget EMA and decode_steps cover
         return {"point": point, "emitted": sum(emits), "steps": self.spec.draft_len + 1,
-                "min_margin": min(round_margins) if round_margins else None}
+                "min_margin": min(round_margins) if round_margins else None,
+                "faulted": faulted, "fault_reason": "verify_nonfinite"}
 
-    def _observe(self, point, tokens, steps, queue_depth, free_slots, min_margin):
+    def _observe(self, point, tokens, steps, queue_depth, free_slots, min_margin,
+                 deadline_misses=0, shed=0):
         from repro_torch.runtime import StepSignals
 
         self.telemetry.record_burst(point, tokens=tokens, steps=steps, min_margin=min_margin)
@@ -609,6 +782,8 @@ class BatchedServer:
             free_slots=free_slots,
             min_margin=min_margin,
             steps=steps,
+            deadline_misses=deadline_misses,
+            shed=shed,
         ))
 
     def _telemetry_records(self) -> List[Dict]:
@@ -622,47 +797,290 @@ class BatchedServer:
 
     def run(self, requests: List[Request]) -> Dict[int, List[int]]:
         """Serve requests to completion; returns rid -> generated tokens.
+
         Per-token top-2 margins land on each request's ``.margins``. The
-        counters, the telemetry, the controller and the speculative round
-        counter all start fresh on every call."""
-        for req in requests:  # reject before any state mutates
-            self._admission_error(req)
+        counters, the telemetry, the controller, the speculative round
+        counter, the outcomes and the observer all start fresh on every call
+        (``_begin_run``), and ``snapshot()`` exports what one run
+        accumulated, whether it completed or died mid-flight. With
+        ``resilience`` the returned dict carries partial streams for expired
+        and faulted requests and omits shed ones.
+        """
+        res = self.resilience
+        shed_pre: List[Tuple[Request, str]] = []
+        admitted: List[Request] = []
+        # deadlines resolve into run-local state, never onto the caller's
+        # Request objects
+        deadlines = {req.rid: self._resolve_deadline(req) for req in requests}
+        for req in requests:  # reject or shed before any state mutates
+            reason = self._admission_error(req)
+            if reason is not None:
+                shed_pre.append((req, reason))
+                continue
+            admitted.append(req)
+        if res is not None and res.queue_limit is not None:
+            from repro_torch.resilience.outcome import shed_overflow
+
+            admitted, dropped = shed_overflow(admitted, res.queue_limit, res.shed_policy,
+                                              deadline_of=lambda r: deadlines[r.rid])
+            shed_pre.extend((r, "queue_full") for r in dropped)
+        self._begin_run(requests)
+        self._deadlines = deadlines
+        obs = self.observer
+        for req, reason in shed_pre:
+            self._shed(req, reason)
+        aborted = True
+        try:
+            queue = list(admitted)
+            results: Dict[int, List[int]] = {}
+            slot_of: Dict[int, int] = {}
+            free = list(range(self.slots))
+            shed_since = len(shed_pre)  # sheds since the last controller observation
+            while queue or self.active:
+                if res is not None:  # shed queued work that can no longer win
+                    queue, n_shed = self._expire_queue(queue)
+                    shed_since += n_shed
+                while queue and free:
+                    req, slot = queue.pop(0), free.pop(0)
+                    if obs is not None:
+                        obs.request_admitted(req.rid, slot)
+                    self._prefill_slot(slot, req)
+                    self._after_prefill(slot, req, results, slot_of, free)
+                if not self.active:
+                    continue
+                queue_depth, free_slots = len(queue), len(free)
+                if self.spec is not None:
+                    summary = self._spec_round(slot_of)
+                else:
+                    summary = self._burst_round(slot_of)
+                misses = self._settle_round(summary, results, slot_of, free)
+                if self.controller is not None:
+                    self._observe(summary["point"], summary["emitted"], summary["steps"],
+                                  queue_depth, free_slots, summary["min_margin"],
+                                  deadline_misses=misses, shed=shed_since)
+                    shed_since = 0
+            aborted = False
+        finally:
+            self._end_run(aborted)
+        return results
+
+    # -- per-round bookkeeping --------------------------------------------------
+
+    def _after_prefill(self, slot: int, req: Request, results: Dict,
+                       slot_of: Dict[int, int], free: List[int]) -> None:
+        """Post-prefill triage: quarantine a non-finite prefill, retire a
+        request whose budget the prefill token already satisfied, otherwise
+        activate the slot."""
+        res = self.resilience
+        if res is not None and res.fault_isolation and not math.isfinite(req.margins[0]):
+            # non-finite prefill logits: the sampled token is garbage;
+            # quarantine before anything is committed (the slot's rows are
+            # written over at its next admission)
+            req.generated, req.margins = [], []
+            results[req.rid] = req.generated
+            self._finish(req, "faulted", reason="prefill_nonfinite")
+            free.append(slot)
+            return
+        if len(req.generated) >= req.max_new:  # prefill already done
+            results[req.rid] = req.generated
+            self._finish(req, "ok")
+            free.append(slot)
+            return
+        self.active[req.rid] = req
+        slot_of[req.rid] = slot
+
+    def _settle_round(self, summary: Dict, results: Dict, slot_of: Dict[int, int],
+                      free: List[int]) -> int:
+        """After one burst or speculative round: quarantine faulted lanes,
+        evict deadline misses (on host time, after the round's transfer),
+        retire finished requests. Returns the number of deadline misses (the
+        controller's signal)."""
+        for rid in summary["faulted"]:
+            req = self.active.pop(rid)
+            results[rid] = req.generated
+            self._finish(req, "faulted", reason=summary["fault_reason"])
+            free.append(slot_of.pop(rid))
+        misses = 0
+        if self.resilience is not None:
+            now = time.perf_counter() - self._t0
+            for rid, req in list(self.active.items()):
+                d = self._deadline(req)
+                if d is not None and now >= d:
+                    self.active.pop(rid)
+                    results[rid] = req.generated
+                    self._finish(req, "expired", reason="deadline")
+                    free.append(slot_of.pop(rid))
+                    misses += 1
+        for rid in [r for r, q in self.active.items() if len(q.generated) >= q.max_new]:
+            req = self.active.pop(rid)
+            results[rid] = req.generated
+            self._finish(req, "ok")
+            free.append(slot_of.pop(rid))
+        return misses
+
+    # -- resilience: outcome bookkeeping ----------------------------------------
+
+    def _finish(self, req: Request, status: str, reason: Optional[str] = None) -> None:
+        """Record the terminal outcome of an admitted request."""
+        from repro_torch.resilience.outcome import RequestOutcome
+
+        tokens = len(req.generated or [])
+        self.outcomes[req.rid] = RequestOutcome(
+            rid=req.rid, status=status, reason=reason, tokens=tokens,
+            deadline_s=self._deadline(req), wall_s=time.perf_counter() - self._t0)
+        obs = self.observer
+        if status == "ok":
+            if obs is not None:
+                obs.request_completed(req.rid)
+        elif status == "expired":
+            self._fault_counts["expired"] += 1
+            self._fault_counts["deadline_misses"] += 1
+            if obs is not None:
+                obs.request_expired(req.rid, tokens)
+        else:
+            self._fault_counts["faulted"] += 1
+            if obs is not None:
+                obs.request_faulted(req.rid, tokens, reason)
+
+    def _shed(self, req: Request, reason: str) -> None:
+        """Record a request rejected at admission (it never held a slot)."""
+        from repro_torch.resilience.outcome import RequestOutcome
+
+        self.outcomes[req.rid] = RequestOutcome(
+            rid=req.rid, status="shed", reason=reason, tokens=0,
+            deadline_s=self._deadline(req), wall_s=time.perf_counter() - self._t0)
+        self._fault_counts["shed"] += 1
+        if self.observer is not None:
+            self.observer.request_shed(req.rid, reason)
+
+    def _expire_queue(self, queue: List[Request]):
+        """Shed queued requests whose deadline already passed: admitting them
+        would spend a prefill on work that cannot finish in time."""
+        now = time.perf_counter() - self._t0
+        kept, n_shed = [], 0
+        for req in queue:
+            d = self._deadline(req)
+            if d is not None and now >= d:
+                self._shed(req, "deadline_expired")
+                n_shed += 1
+            else:
+                kept.append(req)
+        return kept, n_shed
+
+    # -- run lifecycle: symmetric reset / export --------------------------------
+
+    def _begin_run(self, requests: List[Request]) -> None:
+        """Reset every per-run accumulator ``snapshot()`` exports. Slots
+        stranded by an aborted earlier run are dropped here (their rows are
+        written over at the next admission)."""
         self._reset_counters()
         self.active.clear()
+        self.outcomes = {}
+        self._round_idx = 0
+        self._fault_counts = {"shed": 0, "expired": 0, "faulted": 0, "deadline_misses": 0}
+        self._deadlines = {}
+        self._run_requests = list(requests)
         if self.telemetry is not None:
             self.telemetry.reset()
         if self.controller is not None:
             self.controller.reset()
+            self.controller.on_switch = (self.observer.controller_switch
+                                         if self.observer is not None else None)
         if self.spec is not None:
             self.spec.reset()
-        queue = list(requests)
-        results: Dict[int, List[int]] = {}
-        slot_of: Dict[int, int] = {}
-        free = list(range(self.slots))
-        while queue or self.active:
-            while queue and free:
-                req, slot = queue.pop(0), free.pop(0)
-                self._prefill_slot(slot, req)
-                if len(req.generated) >= req.max_new:
-                    results[req.rid] = req.generated
-                    free.append(slot)
-                else:
-                    self.active[req.rid] = req
-                    slot_of[req.rid] = slot
-            if not self.active:
-                continue
-            queue_depth, free_slots = len(queue), len(free)
-            if self.spec is not None:
-                summary = self._spec_round(slot_of)
+            self.spec.observer = self.observer
+        self._run_complete = False
+        if self.observer is not None:
+            self.observer.run_begin(self._run_meta(), requests)
+
+    def _end_run(self, aborted: bool) -> None:
+        self._run_complete = not aborted
+        if aborted:
+            # every request the run touched but never resolved gets an
+            # ``aborted`` outcome with its partial token count
+            from repro_torch.resilience.outcome import RequestOutcome
+
+            wall = time.perf_counter() - self._t0
+            for req in self._run_requests:
+                if req.rid not in self.outcomes:
+                    self.outcomes[req.rid] = RequestOutcome(
+                        rid=req.rid, status="aborted", tokens=len(req.generated or []),
+                        deadline_s=self._deadline(req), wall_s=wall)
+        if self.observer is not None:
+            self.observer.run_end(aborted, self.host_transfers, self._telemetry_records())
+
+    def _run_meta(self) -> Dict:
+        """The trace header's metadata for one run."""
+        meta = {
+            "family": self.model.cfg.family,
+            "mode": self.ctx.mode,
+            "slots": self.slots,
+            "burst": self.burst,
+            "max_len": self.max_len,
+            "adaptive": self.controller is not None,
+            "speculative": self.spec is not None,
+        }
+        if self.spec is not None:
+            meta["draft_len"] = self.spec.draft_len
+            meta["verify_point"] = self.spec.verify_point
+        if self.resilience is not None:
+            meta["resilience"] = {
+                "queue_limit": self.resilience.queue_limit,
+                "shed_policy": self.resilience.shed_policy,
+                "fault_isolation": self.resilience.fault_isolation,
+                "default_deadline_s": self.resilience.default_deadline_s,
+            }
+        engine = self._engine_cost_meta()
+        if engine is not None:
+            meta["engine"] = engine
+        return meta
+
+    def _engine_cost_meta(self) -> Optional[Dict]:
+        """The trace header's ``engine`` block: per-point cycle estimates and
+        the per-weight (shape, depth, bits) table, what the reference's
+        PE-array simulator replays a trace with. Computed once per server."""
+        if not hasattr(self, "_engine_meta_cache"):
+            from repro_torch.runtime.telemetry import estimate_point_cycles, layer_cost_table
+
+            specs = self.model.specs()
+            if self._bank is not None:
+                bank = self._bank
+                policies = {p.name: p.policy for p in bank.points}
+                self._engine_meta_cache = {
+                    "points": {n: bank.cycles_per_token[n] for n in bank.names},
+                    "reference": bank.reference,
+                    "cycle_model": bank.cycle_model,
+                    "layers": layer_cost_table(bank.tree(bank.reference), policies, specs=specs),
+                }
+            elif self.ctx.policy is not None:
+                # static prepared serving: a single-point "bank"
+                self._engine_meta_cache = {
+                    "points": {"static": estimate_point_cycles(self.params, self.ctx.policy,
+                                                               specs=specs)},
+                    "reference": "static",
+                    "cycle_model": "analytic",
+                    "layers": layer_cost_table(self.params, {"static": self.ctx.policy},
+                                               specs=specs),
+                }
             else:
-                summary = self._burst_round(slot_of)
-            for rid in [r for r, q in self.active.items() if len(q.generated) >= q.max_new]:
-                results[rid] = self.active.pop(rid).generated
-                free.append(slot_of.pop(rid))
-            if self.controller is not None:
-                self._observe(summary["point"], summary["emitted"], summary["steps"],
-                              queue_depth, free_slots, summary["min_margin"])
-        return results
+                self._engine_meta_cache = None
+        return self._engine_meta_cache
+
+    def snapshot(self) -> Dict:
+        """Everything one ``run()`` accumulated, as one JSON-able record:
+        ``completed`` is False for a run that died mid-flight and None if the
+        server never ran."""
+        return {
+            "completed": self._run_complete,
+            "host_transfers": self.host_transfers,
+            "telemetry": self._telemetry_records(),
+            "observability": (self.observer.snapshot()
+                              if self.observer is not None else None),
+            "resilience": {
+                "outcomes": {rid: o.to_dict() for rid, o in self.outcomes.items()},
+                "counters": dict(self._fault_counts),
+            },
+        }
 
 
 def _to_device(tree, device):

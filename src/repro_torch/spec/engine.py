@@ -70,6 +70,10 @@ class SpeculativeDecoder:
                          for s in (False, True)}
         self.telemetry = SpecTelemetry.for_bank(bank, self.cfg.draft_len)
         self.programs = programs
+        # an optional obs.ServingObserver: the draft and verify dispatch
+        # spans and the rollback commit land on the serving trace (the
+        # server wires it a run)
+        self.observer = None
         self._inputs = None  # Staged host inputs, made at the first round
         self._drafts = None  # device draft tokens and probs
         self._round = 0
@@ -150,12 +154,22 @@ class SpeculativeDecoder:
 
         st = {"slots": state, "drafts": self._drafts}
         variant = "sampled" if sampled else "greedy"
+        obs = self.observer
+        if obs is not None:
+            obs.spec_stage_begin("draft", point)
         self.programs.run(f"draft {variant} @{point}", draft, cache, st,
                           inputs=list(inp.values()))
+        if obs is not None:
+            obs.spec_stage_end("draft", point)
+            obs.spec_stage_begin("verify", self.verify_point)
         out = self.programs.run(f"verify {variant} @{self.verify_point}", verify, cache,
                                 st).numpy()
+        if obs is not None:
+            obs.spec_stage_end("verify", self.verify_point)
         emitted = out[:, :k + 1].astype(np.int64)
         margins = out[:, k + 1:2 * k + 2]
         accepted = out[:, 2 * k + 2].astype(np.int64)
         draft_fault, verify_fault = out[:, 2 * k + 3] > 0, out[:, 2 * k + 4] > 0
+        if obs is not None:
+            obs.spec_commit(accepted)
         return emitted, accepted, margins, draft_fault, verify_fault, point

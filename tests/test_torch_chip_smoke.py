@@ -153,6 +153,8 @@ class _CpuCapture:
                 if not self.emulate:
                     return super().run(name, fn, cache, state, inputs)
                 if name not in self.graphs:
+                    if name in self.capture_seconds:  # dropped, captured again
+                        self.recaptures[name] = self.recaptures.get(name, 0) + 1
                     before = launch_counts()
                     fn(cap._clone(cache), cap._clone(state))
                     mid = launch_counts()
@@ -454,3 +456,87 @@ def test_bank_servers_launch_accounting(smoke, counted, monkeypatch):
     with pytest.raises(AssertionError, match="spec tampered"):
         smoke.graph_accounting("spec tampered", spec, cfg, reqs,
                                captured_before=frozenset(spec.programs.graphs), widths=widths)
+
+
+def test_resilience_phase_accounting(smoke, counted, monkeypatch, tmp_path):
+    """``resilience_phases``' bookkeeping, rehearsed on reduced olmo-1b under
+    the stand-in capture: a resilient, observed server launches exactly
+    what the plain server launches (the fault flag is glue), its JSONL and
+    Chrome traces pass ``check_trace_files``; the fault flag's outcomes and
+    counters (a NaN slot, ``logit_limit`` quarantine) are exact and leave
+    the unflagged requests' streams alone; a NaN weight fault on one point
+    of an adaptive bank re-captures that point's graphs only, counted by
+    point, the launch gates still exact with the re-captured graphs
+    issued again, and the other point's streams unchanged."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import FXP8
+    from repro_torch.models import get_model
+    from repro_torch.obs import ServingObserver
+    from repro_torch.resilience import (FaultInjector, NaNCacheFault, NaNWeightFault,
+                                        ResilienceConfig)
+    from repro_torch.runtime import ControllerConfig, ModeController, build_bank, default_points
+    from repro_torch.serve import engine
+
+    monkeypatch.setattr(engine, "GraphRunner", _CpuCapture)
+    cfg = reduced(get_config("olmo-1b"))
+    model = get_model(cfg)
+    params = smoke.scaled_init(model)
+    kw = dict(slots=2, max_len=64, burst=4, device="cpu")
+    lens = (3, 9, 17, 5)
+    make = lambda **k: engine.BatchedServer(model, smoke.kernel_ctx(), params, **kw, **k)  # noqa
+    plain = make()
+    smoke.zero_launches()
+    reqs = smoke.requests(cfg, lens=lens, max_new=10)
+    out = plain.run(reqs)
+    plain_launches, plain_replayed = smoke.graph_accounting("plain", plain, cfg, reqs)
+    jsonl, chrome = tmp_path / "t.jsonl", tmp_path / "t.json"
+    observer = ServingObserver(trace_sink=str(jsonl))
+    resilient = make(resilience=ResilienceConfig(), observer=observer)
+    smoke.zero_launches()
+    reqs = smoke.requests(cfg, lens=lens, max_new=10)
+    assert resilient.run(reqs) == out
+    assert smoke.graph_accounting("resilient", resilient, cfg, reqs) == (plain_launches,
+                                                                         plain_replayed)
+    assert resilient.programs.captured_launches == plain.programs.captured_launches
+    observer.trace.write_jsonl(str(jsonl))
+    observer.trace.write_chrome(str(chrome))
+    checked = smoke.check_trace_files(jsonl, chrome)
+    assert checked["balanced"] and {"prefill", "burst", "run"} <= set(checked["names"])
+    assert {o.status for o in resilient.outcomes.values()} == {"ok"}
+    # the flag's bookkeeping: a NaN slot beside logit_limit quarantine
+    flagged = make(resilience=ResilienceConfig(logit_limit=smoke.RESILIENCE_LIMIT),
+                   injector=FaultInjector(NaNCacheFault(rid=1, at_round=1)))
+    reqs = smoke.requests(cfg, lens=lens, max_new=10)
+    fout = flagged.run(reqs)
+    faulted = {r for r, o in flagged.outcomes.items() if o.status == "faulted"}
+    assert flagged._fault_counts["faulted"] == len(faulted)
+    for rid, o in flagged.outcomes.items():
+        assert o.tokens == len(fout[rid])
+        if rid != 1:
+            assert fout[rid] == out[rid][:len(fout[rid])]
+        if rid not in faulted:
+            assert o.status == "ok" and len(fout[rid]) == 10
+    # a NaN weight fault on one point: its graphs only are captured again
+    bank = build_bank(params, "kernel", default_points(FXP8, hifi_fmt=None), specs=model.specs())
+    widths = smoke.point_bytes(bank)
+    server = make(controller=ModeController(bank, ControllerConfig(pin="approx")))
+    server.run(smoke.requests(cfg, lens=lens, max_new=10))
+    before = frozenset(server.programs.graphs)
+    server.injector = FaultInjector(NaNWeightFault(at_round=1, point="approx"))
+    smoke.zero_launches()
+    reqs = smoke.requests(cfg, lens=lens, max_new=10)
+    server.run(reqs)
+    again = set(server.programs.recaptures)
+    assert again and all(n.endswith(" @approx") for n in again)
+    assert "burst greedy @approx" in again
+    smoke.graph_accounting("weight fault", server, cfg, reqs, widths=widths,
+                           captured_before=before - again)
+    with pytest.raises(AssertionError, match="issued from the host"):
+        smoke.graph_accounting("weight fault tampered", server, cfg, reqs, widths=widths,
+                               captured_before=before)
+    pinned = make(controller=ModeController(bank, ControllerConfig(pin="accurate")))
+    reqs = smoke.requests(cfg, lens=lens, max_new=10)
+    accurate = make(controller=ModeController(
+        build_bank(params, "kernel", default_points(FXP8, hifi_fmt=None), specs=model.specs()),
+        ControllerConfig(pin="accurate")))
+    assert pinned.run(reqs) == accurate.run(smoke.requests(cfg, lens=lens, max_new=10))

@@ -41,7 +41,11 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.runtime.bank", "repro_torch.runtime.controller",
             "repro_torch.runtime.telemetry", "repro_torch.sim.calibrate",
             "repro_torch.spec.config", "repro_torch.spec.decoding", "repro_torch.spec.engine",
-            "repro_torch.spec.rollback", "repro_torch.spec.telemetry"} <= set(mods)
+            "repro_torch.spec.rollback", "repro_torch.spec.telemetry",
+            "repro_torch.resilience", "repro_torch.resilience.outcome",
+            "repro_torch.resilience.degrade", "repro_torch.resilience.inject",
+            "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
+            "repro_torch.obs.observer"} <= set(mods)
     code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"

@@ -46,6 +46,7 @@ from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     TC_MIN_S,
     TENSOR_CORES,
     gqa_plan,
+    mla_splits,
 )
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref  # noqa: E402
 from repro_torch.kernels.int_dot import IMAD, NARROW, WGMMA, plan, to_k_major  # noqa: E402
@@ -567,19 +568,102 @@ def test_gqa_verify_rows_equal_single_row_calls(cuda, starts):
 @pytest.mark.gpu
 def test_mla_decode_at_verify_rows(cuda):
     """A verify's MLA call at deepseek-v3 widths (B4 S5, H128, R512, r64,
-    T512) within tolerance of the plain version."""
+    T512) within tolerance of the plain version, and each query row bit for
+    bit the single-row call of its position (the key splits counted from
+    one query step, split i taking tiles i, i + splits, ...)."""
     b, s, h, r, rd, t = VERIFY_B, VERIFY_S, 128, 512, 64, 512
     gen = torch.Generator(device=cuda).manual_seed(55)
     ql = torch.randn((b, s, h, r), generator=gen, device=cuda)
     qr = torch.randn((b, s, h, rd), generator=gen, device=cuda)
     ck = torch.randn((b, t, r), generator=gen, device=cuda)
     kr = torch.randn((b, t, rd), generator=gen, device=cuda)
-    pos = (torch.randint(0, t - s + 1, (b, 1), generator=gen, device=cuda)
+    pos = (torch.tensor([125, 253, 30, 500], device=cuda)[:, None]
            + torch.arange(s, device=cuda)[None]).to(torch.int32)
     scale = 1.0 / math.sqrt(128 + rd)
+    assert mla_splits(b, s, h, t) == mla_splits(b, 1, h, t) > 1
     got = mla_decode_attention(ql, qr, ck, kr, pos, scale=scale)
     want = mla_decode_attention_ref(ql, qr, ck, kr, pos, scale=scale)
     assert (got - want).abs().max().item() <= TOLERANCE
+    for j in range(s):
+        alone = mla_decode_attention(ql[:, j:j + 1].contiguous(), qr[:, j:j + 1].contiguous(),
+                                     ck, kr, pos[:, j:j + 1].contiguous(), scale=scale)
+        assert torch.equal(alone[:, 0], got[:, j]), j
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [4096, 7168, 5120, 1536, 512, 128])
+def test_rmsnorm_rows_independent_of_the_rows_beside_them(cuda, d):
+    """A row's rmsnorm bits do not depend on how many rows share the call (a
+    decode step's 1 and 4 rows, a verify's 5 and 20, a bucket of 512), and
+    agree with the CPU formula within f32 rounding (qwen3-8b, deepseek-v3,
+    llama4, its q_a and kv_a norms, a head's q/k norm)."""
+    from repro_torch.core.normalization import rmsnorm
+
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn((4, 128, d), generator=gen, device=cuda) * 3
+    w = torch.randn((d,), generator=gen, device=cuda)
+    assert (rmsnorm(x, w).cpu() - rmsnorm(x.cpu(), w.cpu())).abs().max().item() <= 1e-4
+    one = rmsnorm(x[:1, :1].contiguous(), w)
+    four = rmsnorm(x[:, :1].contiguous(), w)
+    assert torch.equal(four[:1], one)
+    assert torch.equal(rmsnorm(x[:1, :VERIFY_S].contiguous(), w)[:, :1], one)
+    assert torch.equal(rmsnorm(x[:, :VERIFY_S].contiguous(), w)[:, :1], four)
+    assert torch.equal(rmsnorm(x.reshape(512, d), w).reshape(4, 128, d)[:, :1], four)
+
+
+@pytest.mark.gpu
+def test_f32_products_rows_independent_of_the_rows_beside_them(cuda):
+    """The per-token f32 products a decode step (4 rows) and a verify (20
+    rows) run through cuBLAS give each row the same bits: deepseek-v3's MLA
+    absorption (wk_b, wv_b over 128 heads) and router (7168 x 256)."""
+    from repro_torch.models.blocks import rows_einsum
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    cases = [("bshn,rhn->bshr", (VERIFY_B, VERIFY_S, 128, 128), (512, 128, 128)),
+             ("bshr,rhv->bshv", (VERIFY_B, VERIFY_S, 128, 512), (512, 128, 128)),
+             ("bsd,de->bse", (VERIFY_B, VERIFY_S, 7168), (7168, 256))]
+    for eq, xs, ws in cases:
+        x = torch.randn(xs, generator=gen, device=cuda)
+        w = torch.randn(ws, generator=gen, device=cuda) * 0.05
+        block = rows_einsum(eq, x, w)
+        assert (block.cpu() - torch.einsum(eq, x.cpu(), w.cpu())).abs().max().item() <= 1e-3
+        for j in range(VERIFY_S):
+            assert torch.equal(rows_einsum(eq, x[:, j:j + 1].contiguous(), w)[:, 0],
+                               block[:, j]), (eq, j)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "llama4-maverick-400b-a17b"])
+def test_moe_rows_independent_of_the_rows_beside_them(cuda, arch):
+    """The routed MoE at a model's widths (16 experts, its top-k, no shared
+    experts): a verify's 5 tokens a slot on 4 slots give each token the
+    output its single-token decode gives, bit for bit (router, dispatch at
+    capacity 8 (deepseek) or 1 vs 5 (llama4, padded to 8), expert products,
+    combine)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+
+    base = get_config(arch)
+    cfg = dataclasses.replace(
+        base, dtype="float32",
+        moe=dataclasses.replace(base.moe, num_experts=16, num_shared_experts=0))
+    ctx = EngineContext(mode="kernel", policy=PrecisionPolicy.accurate(),
+                        compute_dtype=torch.float32, attn_impl="decode_kernel")
+    d, f, e = cfg.d_model, cfg.moe.d_ff_expert, 16
+    gen = torch.Generator(device=cuda).manual_seed(e)
+    p = {"router": torch.randn((d, e), generator=gen, device=cuda) * 0.02,
+         "up": torch.randn((e, d, f), generator=gen, device=cuda) * 0.02,
+         "gate": torch.randn((e, d, f), generator=gen, device=cuda) * 0.02,
+         "down": torch.randn((e, f, d), generator=gen, device=cuda) * 0.02}
+    x = torch.randn((VERIFY_B, VERIFY_S, d), generator=gen, device=cuda)
+    with torch.no_grad():
+        block, _ = blocks.moe_ffn(p, x, cfg, ctx, name="layer.moe", dropless=True)
+        for j in range(VERIFY_S):
+            alone, _ = blocks.moe_ffn(p, x[:, j:j + 1].contiguous(), cfg, ctx,
+                                      name="layer.moe", dropless=True)
+            assert torch.equal(alone[:, 0], block[:, j]), j
 
 
 @pytest.mark.gpu

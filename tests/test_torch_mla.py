@@ -151,10 +151,16 @@ def test_cache_free_path_matches_reference(layer):
 
 def test_key_splits_fill_the_card_only_when_blocks_are_few():
     """One block an SM (224 KB of shared memory at full width): the splits aim
-    at the H100's 132 SMs."""
+    at the H100's 132 SMs, counted from one query step's blocks below 16
+    query rows (a verify splits as its decode steps do); prefill buckets
+    from 16 rows on run unsplit."""
     assert mla_splits(4, 1, 128, 512) == 8  # decode: 16 (query, 32-head) blocks, 2 tiles each
+    assert mla_splits(4, 5, 128, 512) == 8  # a verify of k + 1 = 5 rows: as its decode
     assert mla_splits(1, 1, 128, 40) == 2  # never more splits than key tiles
+    assert mla_splits(1, 4, 128, 512) == 16  # bucket 4: 4 blocks a step, one tile a split
     assert mla_splits(1, 512, 128, 512) == 1  # a prefill bucket fills the card
-    assert mla_splits(1, 16, 128, 512) == 3  # bucket 16: 64 blocks
-    assert mla_splits(1, 64, 128, 512) == 1  # bucket 64: 256 blocks
+    assert mla_splits(1, 16, 128, 512) == 1  # bucket 16: unsplit
+    assert mla_splits(1, 64, 128, 512) == 1  # bucket 64: unsplit
     assert mla_splits(2, 3, 4, 33) == 2
+    for b, s in [(4, 1), (4, 5), (2, 9), (1, 15)]:
+        assert mla_splits(b, s, 128, 512) == mla_splits(b, 1, 128, 512)

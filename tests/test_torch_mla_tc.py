@@ -49,11 +49,11 @@ def width(r, rd):
 
 
 def tile_range(qpos, t, splits, part):
-    """The key tiles [first, last) of split ``part`` of a query at qpos."""
+    """The key tiles of split ``part`` of a query at qpos: tiles part,
+    part + splits, ... of its visible ones."""
     t_end = t if qpos < 0 else min(t, qpos + 1)
     n_tiles = -(-t_end // TILE)
-    per = -(-n_tiles // splits)
-    return part * per, min(n_tiles, part * per + per)
+    return range(part, n_tiles, splits)
 
 
 def mla_loop(q, k, r, qpos, scale, tiles):
@@ -70,7 +70,7 @@ def mla_loop(q, k, r, qpos, scale, tiles):
     l = torch.zeros((h, 1))
     o = torch.zeros((h, r))
     scale2 = np.float32(scale) * np.float32(LOG2E)
-    for tile in range(*tiles):
+    for tile in tiles:
         k0 = tile * TILE
         kt = k[k0:k0 + TILE]
         kt = torch.cat([kt, torch.zeros((TILE - kt.shape[0], w))])  # zero past T
@@ -192,17 +192,41 @@ def test_cache_loop_matches_plain_version_and_reference(b, s, h, r, rd, t):
 @pytest.mark.parametrize("b,s,t", [(4, 1, 512), (1, 16, 512)], ids=["decode", "prefill16"])
 def test_cache_loop_at_serving_shapes(b, s, t):
     """Deepseek-v3 widths at a decode step over the serving cache (each slot
-    at its last row; the keys split over 8 blocks) and at the prefill bucket
-    16 from row 0 (one tile, three key splits of which two have no tile)."""
+    at its last row; the keys split over 8 blocks, split i taking tiles i
+    and i + 8) and at the prefill bucket 16 from row 0 (one tile, unsplit)."""
     h, r, rd = 128, 512, 64
     ql, qr, ck, kr = _inputs(b, s, h, r, rd, t, seed=s)
     pos = (np.full((b, 1), t - 1) if s == 1 else np.arange(s)[None]).astype(np.int32)
     scale = 1.0 / math.sqrt(128 + rd)
     args = [torch.from_numpy(a) for a in (ql, qr, ck, kr, pos)]
     got, splits = emulate_cache(*args, scale)
-    assert splits == (8 if s == 1 else 3)
+    assert splits == (8 if s == 1 else 1)
     plain = mla_decode_attention_ref(*args, scale=scale)
     assert (got - plain).abs().max().item() <= TOLERANCE
+
+
+@pytest.mark.parametrize("start", [120, 254])
+def test_split_keys_give_a_row_the_bits_of_its_single_row_decode(start):
+    """A speculative verify runs a slot's k + 1 = 5 query rows in one call;
+    each row must get the bits the single-row decode of its position gets
+    (greedy speculation is bit-identical to decoding token by token). A
+    block holds one query row, so a row's tiles and their order follow from
+    its position and the split count alone: the count is taken from one
+    query step, so the verify (B4 S5) splits as the decode (B4 S1) does.
+    Counted from S, the verify ran unsplit and the decode over 8 splits.
+    The windows cross 128 and 256 keys. Deepseek-v3 widths, one slot
+    emulated."""
+    b, h, r, rd, t, s = 4, 128, 512, 64, 512, 5
+    ql, qr, ck, kr = (torch.from_numpy(a[0]) for a in _inputs(1, s, h, r, rd, t, seed=start))
+    splits = mla_splits(b, s, h, t)
+    assert splits == mla_splits(b, 1, h, t) == 8
+    scale = 1.0 / math.sqrt(128 + rd)
+    rows = [mla_query(ql[j], qr[j], ck, kr, start + j, scale, splits) for j in range(s)]
+    for j in range(s):
+        decode = mla_query(ql[j], qr[j], ck, kr, start + j, scale, mla_splits(b, 1, h, t))
+        assert torch.equal(rows[j], decode)
+    # the split count does move the bits: unsplit, a row differs
+    assert not torch.equal(mla_query(ql[0], qr[0], ck, kr, start, scale, 1), rows[0])
 
 
 FLASH_CASES = [  # b, s, h, r, rd, causal

@@ -161,7 +161,7 @@ def test_sampled_streams_differ_from_greedy(olmo):
 
 
 def _slot_state(jstate, state):
-    for name in ("tok", "count", "rem", "temp"):
+    for name in ("tok", "count", "rem", "temp", "fault"):
         np.testing.assert_array_equal(state[name].numpy(), np.asarray(jstate[name]), err_msg=name)
     np.testing.assert_array_equal(state["key"].numpy(),
                                   np.asarray(jstate["key"]).astype(np.int64))
@@ -199,12 +199,13 @@ def _programs_match_reference(setup, lens, max_len):
         np.testing.assert_allclose(margin.numpy(), np.asarray(jmargin), **LOGIT_TOL)
         _slot_state(jstate, state)
     for sampled in (False, True):
-        jcache, jstate, jtoks, jmargins, _ = ref_engine.make_decode_burst(
+        jcache, jstate, jtoks, jmargins, jfaults = ref_engine.make_decode_burst(
             ref_model, jctx, 4, sampled=sampled)(jtree, jcache, jstate)
         with torch.no_grad():
-            toks, margins = engine.make_decode_burst(model, ctx, 4, sampled=sampled)(
+            toks, margins, faults = engine.make_decode_burst(model, ctx, 4, sampled=sampled)(
                 tree, cache, state)
         np.testing.assert_array_equal(toks.numpy(), np.asarray(jtoks))
+        np.testing.assert_array_equal(faults.numpy(), np.asarray(jfaults))
         np.testing.assert_allclose(margins.numpy(), np.asarray(jmargins), **LOGIT_TOL)
         _slot_state(jstate, state)
     for key, seg in cache.items():

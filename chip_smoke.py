@@ -1574,14 +1574,25 @@ def hybrid_groups(cfg) -> int:
     return cfg.num_layers // cfg.hybrid.attn_every
 
 
-def launches_per_forward(cfg, per_call: bool = False) -> dict:
+def launches_per_forward(cfg, per_call: bool = False, mode: str = "kernel") -> dict:
     """Kernel launches one decode forward of ``cfg`` implies, by kernel. Per
     call, every dot is a MAC-array launch and the gate's activation its own
-    multi-AF launch. A Mamba2 layer runs two fused dots (in_proj, out_proj);
+    multi-AF launch. In the ``exact`` and ``carmen`` modes (dense archs) the
+    dots are f32 products and the activation plain torch, so only the cache
+    attention launches; in ``int8`` mode every dot, prepared or per call, is
+    a MAC-array launch. A Mamba2 layer runs two fused dots (in_proj, out_proj);
     zamba2's shared block seven (q k v o, up gate down) and one GQA launch a
     group; a seamless decoder layer eight (self q k v o, cross q o: the
     cross K/V are cached, up down) and one GQA launch (cross-attention is
     plain)."""
+    if mode != "kernel":
+        if cfg.family != "dense":
+            raise NotImplementedError("the exact, carmen and int8 modes are driven for the "
+                                      "dense family only")
+        want = {"gqa_decode_attention": cfg.num_layers}
+        if mode == "int8":
+            want["cordic_mac"] = 7 * cfg.num_layers + 1
+        return want
     if cfg.family == "ssm":
         return {"fused_dot_af": 2 * cfg.num_layers + 1}
     if cfg.family == "hybrid":
@@ -1654,14 +1665,15 @@ def add_counts(total: dict, more: dict) -> dict:
     return total
 
 
-def serving_instantiations(cfg, server, reqs, per_call: bool = False) -> dict:
+def serving_instantiations(cfg, server, reqs, per_call: bool = False,
+                           mode: str = "kernel") -> dict:
     """Launches by instantiation that serving ``reqs`` implies: one forward
     per request over its prompt's bucket (the scan: one single-row forward
     per prompt token), and the run's decode steps over the server's slots,
     one query row each."""
     from repro_torch.serve.kvcache import bucket_length
 
-    per_forward = launches_per_forward(cfg, per_call)
+    per_forward = launches_per_forward(cfg, per_call, mode)
     want = by_instantiation(per_forward, server.slots, 1, server.decode_steps)
     if scan_prefill(cfg):
         return add_counts(want, by_instantiation(per_forward, 1, 1,
@@ -1686,9 +1698,12 @@ def plain_products_per_forward(cfg, cache_free: bool = False) -> int:
 
 def model_forwards(server) -> int:
     """The model forwards a run made: prefills (one each when bucketed, one
-    per prompt token through the scan), decode steps (a speculative round's
-    draft steps among them) and a speculative round's verify."""
-    prefill = server.prefill_calls if server.batched_prefill else server.prefill_steps
+    per prompt token through the scan), the streaming frontend's chunks (one
+    forward a chunk when bucketed; the scan's are its steps), decode steps
+    (a speculative round's draft steps among them) and a speculative round's
+    verify."""
+    prefill = (server.prefill_calls + server.prefill_chunks if server.batched_prefill
+               else server.prefill_steps)
     return prefill + server.decode_steps + server.spec_rounds
 
 
@@ -1707,22 +1722,25 @@ def point_bytes(bank) -> dict:
     return out
 
 
-def program_launches(name: str, server, cfg, per_call: bool = False, widths=None) -> dict:
+def program_launches(name: str, server, cfg, per_call: bool = False, widths=None,
+                     mode: str = "kernel") -> dict:
     """Launches by instantiation that one capture of program ``name``
-    implies: a prefill bucket ``b``, one forward over ``b`` rows; the scan
-    prefill's step, one forward over one row, its finish none; a burst,
+    implies: a prefill bucket ``b`` or a frontend chunk bucket ``b``
+    (``"prefill_chunk b"``), one forward over ``b`` rows; the scan prefill's
+    step, one forward over one row, its finish and the chunked prefill's
+    admit none; a burst,
     ``burst`` forwards over the slots; a speculative draft (either variant),
     ``draft_len`` forwards over the slots, its verify one forward of
     ``draft_len + 1`` query rows a slot. A name ``"<program> @<point>"`` runs at that bank
     point, its dots on the banks of ``widths[point]`` bytes."""
-    per_forward = launches_per_forward(cfg, per_call)
+    per_forward = launches_per_forward(cfg, per_call, mode)
     base, _, point = name.partition(" @")
     w = (widths or {}).get(point, 1)
     if base.startswith("burst"):
         return by_instantiation(per_forward, server.slots, 1, server.burst, w)
     if base == "prefill step":
         return by_instantiation(per_forward, 1, 1, 1, w)
-    if base == "prefill finish":
+    if base in ("prefill finish", "prefill admit"):
         return {}
     if base.startswith("draft"):
         return by_instantiation(per_forward, server.slots, 1, server.spec.draft_len, w)
@@ -1794,7 +1812,7 @@ def replayed_launches(runner) -> dict:
 
 
 def graph_accounting(label, server, cfg, reqs, per_call: bool = False,
-                     captured_before=frozenset(), widths=None) -> tuple:
+                     captured_before=frozenset(), widths=None, mode: str = "kernel") -> tuple:
     """The launch counts of a captured run of ``reqs``, exact, from the
     wrappers. A wrapper counts a launch when the host issues it: in a graph's
     warm-up and at its capture, never at a replay. So:
@@ -1819,12 +1837,12 @@ def graph_accounting(label, server, cfg, reqs, per_call: bool = False,
     from repro_torch.kernels import kernel_totals
 
     runner = server.programs
-    per_forward = launches_per_forward(cfg, per_call)
+    per_forward = launches_per_forward(cfg, per_call, mode)
     issued = {}
     for name, captured in runner.captured_launches.items():
         if name in captured_before:
             continue
-        want = program_launches(name, server, cfg, per_call, widths)
+        want = program_launches(name, server, cfg, per_call, widths, mode)
         check_instantiations(f"{label}: graph {name!r} at capture", captured, want)
         check_instantiations(f"{label}: graph {name!r} warm-up", runner.warmup_launches[name],
                              want)
@@ -1836,7 +1854,7 @@ def graph_accounting(label, server, cfg, reqs, per_call: bool = False,
                               times=model_forwards(server))
     if widths is None:
         check_instantiations(f"{label}: replayed", replayed,
-                             serving_instantiations(cfg, server, reqs, per_call))
+                             serving_instantiations(cfg, server, reqs, per_call, mode))
     else:
         check_point_replays(label, server, reqs)
     # one transfer a prefill and a burst or round; one replay each (a round
@@ -1854,16 +1872,19 @@ def graph_accounting(label, server, cfg, reqs, per_call: bool = False,
     return launches, replayed
 
 
-def uncaptured_accounting(label, server, cfg, reqs, per_call: bool = False) -> dict:
+def uncaptured_accounting(label, server, cfg, reqs, per_call: bool = False,
+                          mode: str = "kernel") -> dict:
     """The launch counts of an uncaptured run (every launch issued from the
     host), by kernel and by instantiation, exactly as serving ``reqs``
     implies; no graph replayed."""
     from repro_torch.kernels import kernel_totals
 
     counts = wrapper_counts()
-    launches = check_launches(label, kernel_totals(counts), launches_per_forward(cfg, per_call),
+    launches = check_launches(label, kernel_totals(counts),
+                              launches_per_forward(cfg, per_call, mode),
                               times=model_forwards(server))
-    check_instantiations(label, counts, serving_instantiations(cfg, server, reqs, per_call))
+    check_instantiations(label, counts, serving_instantiations(cfg, server, reqs, per_call,
+                                                               mode))
     if server.graph_replays:
         raise AssertionError(f"{label}: {server.graph_replays} graph replays uncaptured")
     return launches
@@ -2568,9 +2589,10 @@ def forward_card_vs_cpu(device, label, cfg, params, batch):
     return report
 
 
-def card_vs_cpu(device, label, cfg, params, lens, max_len, prepare_weights=True):
+def card_vs_cpu(device, label, cfg, params, lens, max_len, prepare_weights=True, ctx=None):
     """The same weights served on the card (kernels) and the CPU (plain
-    versions); the greedy streams must be identical."""
+    versions), in kernel mode unless ``ctx`` says otherwise; the greedy
+    streams must be identical."""
     import torch
 
     from repro_torch.models import get_model
@@ -2580,8 +2602,8 @@ def card_vs_cpu(device, label, cfg, params, lens, max_len, prepare_weights=True)
     reqs = lambda: requests(cfg, lens=lens, max_new=8)  # noqa: E731
     out, logits = {}, {}
     for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
-        server = BatchedServer(model, kernel_ctx(), params, slots=2, max_len=max_len, burst=4,
-                               device=dev, prepare_weights=prepare_weights)
+        server = BatchedServer(model, ctx or kernel_ctx(), params, slots=2, max_len=max_len,
+                               burst=4, device=dev, prepare_weights=prepare_weights)
         out[where] = server.run(reqs())
         prompt = torch.as_tensor(reqs()[1].prompt[None], device=dev)
         row = model.make_cache(1, max_len, device=dev)
@@ -3521,6 +3543,755 @@ def resilience_phases(device, accurate, accurate_tokens_per_s=None):
     return report
 
 
+# -- the streaming frontend (chunked prefill) and the exact / carmen / int8 modes -------------
+
+# the frontend's prefill budget a tick (the CLI's --chunk-tokens default)
+CHUNK_TOKENS = 32
+# the Poisson arrivals of the frontend's arrival run: requests a second and
+# the arrival process's seed (the CLI's --arrival-rate, --arrival-seed)
+ARRIVAL_RATE, ARRIVAL_SEED = 20.0, 0
+# the request whose prefill the decoding slots' inter-token gaps are
+# measured across: the 300-token prompt
+LONG_RID = PROMPT_LENS.index(300)
+# a chunked stream's f32 top-2 margins against run()'s: a chunk whose query
+# rows take the other GQA path than its monolithic bucket could agree to
+# reduction-order ulps, not bits (reported either way; measured bitwise at
+# olmo-1b). Not gated for MoE archs: a chunk of at most 64 rows routes
+# dropless, as the reference's decode step does, where a long prompt's
+# bucket drops tokens past its experts' capacity
+MARGIN_ATOL = 1e-4
+MODES = ("exact", "carmen", "int8")
+# the uncaptured yardstick of a mode serves each request this many tokens
+# (the heads of the captured streams): carmen and int8 run the multi-AF
+# block as plain torch ops, ~10 tok/s issued from the host
+MODE_UNCAPTURED_HEAD = 9
+# the GQA and MLA chunk rows: query rows a chunk and chunk starts on the row cache
+CHUNK_S, CHUNK_STARTS = (1, 4, 16, 32), (64, 130, 288)
+MLA_CHUNK_S, MLA_CHUNK_STARTS = (4, 16, 32), (130, 288)
+
+
+def check_chunk_attention(device):
+    """The GQA cache attention (olmo-1b widths) and the MLA cache attention
+    (deepseek-v3 widths) on a chunked prefill's rows: one request's row
+    cache (B1, T512), S query rows from a nonzero start (GQA: 1, 4, 16, 32
+    from 64, 130 and 288; MLA: 4, 16, 32 from 130 and 288), each within
+    TOLERANCE of its plain version; on split keys (below 16 rows) each row
+    bit for bit the single-row call of its position. Times, bounds and
+    SDPA's time as ``check_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (
+        TOLERANCE, gqa_decode_attention, gqa_decode_attention_ref, mla_decode_attention,
+        mla_decode_attention_ref)
+    from repro_torch.kernels.decode_attention.ops import SPLIT_KEYS, gqa_plan, mla_splits
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    rows, max_err, t = [], 0.0, MAX_LEN
+
+    def rows_bitwise(name, call, args, rowwise):
+        """Each query row of ``call(*args)`` bitwise the call on that row
+        alone (the arguments at ``rowwise`` sliced to it)."""
+        block = call(*args)
+        for j in range(args[0].shape[1]):
+            alone = call(*(a[:, j:j + 1].contiguous() if i in rowwise else a
+                           for i, a in enumerate(args)))
+            if not torch.equal(alone[:, 0], block[:, j]):
+                raise AssertionError(f"{name}: chunk row {j} differs from its single-row call")
+
+    def checked(name, got, want, label):
+        err = (got - want).abs().max().item()
+        if not err <= TOLERANCE:
+            raise AssertionError(f"{name} vs plain: max|diff| {err} > {TOLERANCE} at {label}")
+        return err
+
+    for start in CHUNK_STARTS:
+        for s in CHUNK_S:
+            h = kv = 16
+            hd = 128
+            q, ck, cv, _ = attention_case(1, s, t, h, kv, hd, gen, device)
+            pos = (start + torch.arange(s, device=device, dtype=torch.int32))[None].contiguous()
+            scale = 1.0 / math.sqrt(hd)
+            call = lambda q=q, ck=ck, cv=cv, pos=pos: gqa_decode_attention(  # noqa: E731
+                q, ck, cv, pos, scale=scale)
+            err = checked("gqa_decode_attention", call(),
+                          gqa_decode_attention_ref(q, ck, cv, pos, scale=scale),
+                          f"S={s} from {start}")
+            max_err = max(max_err, err)
+            path, splits = gqa_plan(1, s, h, t, kv)
+            if path == SPLIT_KEYS:
+                rows_bitwise("gqa_decode_attention",
+                             lambda *a: gqa_decode_attention(*a, scale=scale), (q, ck, cv, pos),
+                             (0, 3))
+            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, ck, cv))
+            mask = (torch.arange(t, device=device)[None, None, :] <= pos[:, :, None])[:, None]
+            b_ms, b_by, b3_ms = attention_bounds(q, kv, t, pos)
+            rows.append(dict(kernel="gqa_decode_attention", B=1, S=s, T=t, H=h, KV=kv, hd=hd,
+                             start=start, path=path, splits=splits, tolerance=TOLERANCE,
+                             max_abs_err=err, rows_equal_single_row_calls=path == SPLIT_KEYS,
+                             ms=graph_ms(call, 100),
+                             plain_ms=timed_ms(lambda: gqa_decode_attention_ref(
+                                 q, ck, cv, pos, scale=scale), iters=20),
+                             sdpa_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                                 qt, kt, vt, attn_mask=mask, scale=scale), 100),
+                             bound_ms=b_ms, bound_by=b_by, bound_tf32_ms=b3_ms))
+            log(f"gqa chunk S={s} from {start} [{path}, {splits} splits]: "
+                f"{rows[-1]['ms']:.4f} ms (plain {rows[-1]['plain_ms']:.3f}, sdpa "
+                f"{rows[-1]['sdpa_ms']:.4f}, bound {b_ms:.4f} {b_by}) err {err:.2e}")
+    cfg = get_config("deepseek-v3-671b")
+    m = cfg.mla
+    h, r, rd = cfg.num_heads, m.kv_lora_rank, m.qk_rope_head_dim
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + rd)
+    for start in MLA_CHUNK_STARTS:
+        for s in MLA_CHUNK_S:
+            args = (torch.randn((1, s, h, r), generator=gen, device=device),
+                    torch.randn((1, s, h, rd), generator=gen, device=device),
+                    torch.randn((1, t, r), generator=gen, device=device),
+                    torch.randn((1, t, rd), generator=gen, device=device),
+                    (start + torch.arange(s, device=device, dtype=torch.int32))[None].contiguous())
+            call = lambda args=args: mla_decode_attention(*args, scale=scale)  # noqa: E731
+            got = call()
+            err = checked("mla_decode_attention", got,
+                          mla_decode_attention_ref(*args, scale=scale), f"S={s} from {start}")
+            max_err = max(max_err, err)
+            if s < 16:
+                rows_bitwise("mla_decode_attention",
+                             lambda *a: mla_decode_attention(*a, scale=scale), args, (0, 1, 4))
+            ql, qr, ck, kr, pos = args
+            seen = start + s
+            flops = 2.0 * h * (r + rd + r) * sum(start + j + 1 for j in range(s))
+            nbytes = (seen * (r + rd) + ql.numel() + qr.numel() + got.numel() + s) * 4
+            b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+            q_cat = torch.cat([ql, qr], -1).transpose(1, 2).contiguous()
+            k_cat, v = torch.cat([ck, kr], -1)[:, None], ck[:, None]
+            mask = (torch.arange(t, device=device)[None, None, :] <= pos[:, :, None])[:, None]
+            rows.append(dict(kernel="mla_decode_attention", B=1, S=s, T=t, H=h, R=r, r=rd,
+                             start=start, splits=mla_splits(1, s, h, t), tolerance=TOLERANCE,
+                             max_abs_err=err, rows_equal_single_row_calls=s < 16,
+                             ms=graph_ms(call, 100),
+                             plain_ms=timed_ms(lambda: mla_decode_attention_ref(
+                                 *args, scale=scale), iters=5),
+                             sdpa_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                                 q_cat, k_cat, v, attn_mask=mask, scale=scale,
+                                 enable_gqa=True), 20),
+                             bound_ms=b_ms, bound_by=b_by,
+                             bound_tf32_ms=bound_tf32(nbytes, flops)))
+            log(f"mla chunk S={s} from {start} [{rows[-1]['splits']} splits]: "
+                f"{rows[-1]['ms']:.4f} ms (plain {rows[-1]['plain_ms']:.3f}, sdpa "
+                f"{rows[-1]['sdpa_ms']:.4f}, bound {b_ms:.4f} {b_by}) err {err:.2e}")
+    return rows, max_err
+
+
+def chunk_rows_as_prefill(device) -> list:
+    """A chunk's rows against the same rows of run()'s prefill bucket (B1,
+    512 rows from row 0, the tensor cores), GQA at olmo-1b widths and MLA at
+    deepseek-v3 widths: rows from 130 and 288 at 16 rows (the bucket
+    ``BatchedServer.chunk_span`` gives a chunk of a prompt whose own bucket
+    is 16 or more) bit for bit the prefill's, gated; at 4 rows (split keys,
+    the chunk's own bucket) the difference is reported."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import gqa_decode_attention, mla_decode_attention
+    from repro_torch.serve.engine import _TC_ROWS
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    t = MAX_LEN
+    q, ck, cv, pos = attention_case(1, t, t, 16, 16, 128, gen, device, start=0)
+    m = get_config("deepseek-v3-671b").mla
+    h = get_config("deepseek-v3-671b").num_heads
+    mla = [torch.randn(shape, generator=gen, device=device)
+           for shape in ((1, t, h, m.kv_lora_rank), (1, t, h, m.qk_rope_head_dim),
+                         (1, t, m.kv_lora_rank), (1, t, m.qk_rope_head_dim))]
+    mla_scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    cases = (("gqa_decode_attention", (q,),
+              lambda q, p: gqa_decode_attention(q, ck, cv, p, scale=1.0 / math.sqrt(128))),
+             ("mla_decode_attention", mla[:2],
+              lambda ql, qr, p: mla_decode_attention(ql, qr, mla[2], mla[3], p,
+                                                     scale=mla_scale)))
+    rows = []
+    for name, qs, call in cases:
+        whole = call(*qs, pos)
+        for start in (130, 288):
+            for s in (_TC_ROWS, 4):
+                part = call(*(x[:, start:start + s].contiguous() for x in (*qs, pos)))
+                want = whole[:, start:start + s]
+                rows.append(dict(kernel=name, start=start, S=s, bitwise=torch.equal(part, want),
+                                 max_abs_diff=(part - want).abs().max().item(),
+                                 gated=s >= _TC_ROWS))
+                if s >= _TC_ROWS and not rows[-1]["bitwise"]:
+                    raise AssertionError(f"{name}: {s} chunk rows from {start} differ from the "
+                                         f"prefill's by {rows[-1]['max_abs_diff']}")
+    log("chunk rows as the prefill's: " + ", ".join(
+        f"{r['kernel'].split('_')[0]} S{r['S']}@{r['start']} "
+        f"{'bitwise' if r['bitwise'] else r['max_abs_diff']}" for r in rows))
+    return rows
+
+
+def check_fused_fxp16_af(device):
+    """The fused dot+AF as ``--fxp16`` serves it: FxP16 banks, x at FxP16
+    and the AF epilogue at FxP16 and its full depth, swish and identity, at
+    olmo-1b's up/gate shape, at decode, a chunk's 32 rows and the largest
+    bucket, against its plain version, bitwise; times and bounds."""
+    import torch
+
+    from repro_torch.core import FXP16, full_depth
+    from repro_torch.kernels.cordic_fused import fused_dot_af, fused_dot_af_ref
+    from repro_torch.kernels.int_dot import plan
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    k, n = 2048, 8192
+    banks = prepared_weight(k, n, FXP16, gen, device, copies=9)
+    w = banks[0]
+    rows = []
+    for m in (SLOTS, CHUNK_TOKENS, BUCKET):
+        x = torch.randn((m, k), generator=gen, device=device)
+        for af in ("swish", "identity"):
+            kw = dict(af_mode=af, af_depth=full_depth(FXP16), af_fmt=FXP16)
+            got = fused_dot_af(x, w.data, w.point, **kw)
+            want = fused_dot_af_ref(x, w.data, w.point, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"fused_dot_af FxP16 AF {af} != plain at M={m}: "
+                                     f"{(got != want).sum().item()} elements differ")
+            it = iter(range(1 << 30))
+            call = lambda: fused_dot_af(x, banks[next(it) % len(banks)].data,  # noqa: E731
+                                        w.point, **kw)
+            b_ms, b_by = fused_bound(m, k, n, af, full_depth(FXP16), FXP16, w_bytes=2)
+            rows.append(dict(model="olmo-1b --fxp16", M=m, K=k, N=n, af=af, af_fmt="fxp16",
+                             af_depth=full_depth(FXP16), path=path_name(plan(m, n, k, 2, 2)),
+                             bitwise_equal=True, max_abs_err=0.0,
+                             ms=graph_ms(call, 30 if m <= 32 else 10),
+                             plain_ms=timed_ms(lambda: fused_dot_af_ref(x, w.data, w.point, **kw),
+                                               iters=3, warmup=1),
+                             bound_ms=b_ms, bound_by=b_by))
+            log(f"fused FxP16 AF M={m} {af}: {rows[-1]['ms']:.4f} ms (plain "
+                f"{rows[-1]['plain_ms']:.3f}, bound {b_ms:.4f} {b_by})")
+    del banks
+    return rows
+
+
+def check_int8_mac(device):
+    """The MAC-array kernel as the int8 mode launches it: int8 banks from
+    ``int8.quantize_weight`` (per-channel scales, K-major), per-token x
+    scales, olmo-1b's shapes at decode, a chunk's 32 rows and the largest
+    bucket, bitwise against its plain version (``time_mac``, with
+    ``torch._int_mm`` as the library yardstick); and ``int8_dot`` on the card
+    launches the kernel (its wrapper counts one launch a call) and equals
+    its plain version on the CPU, bitwise."""
+    import torch
+
+    from repro_torch.core.backends.int8 import (
+        int8_dot, k_major_bank, quantize_tokens, quantize_weight)
+    from repro_torch.kernels.cordic_mac import mac_matmul
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    rows = []
+    for k, n in FUSED_SHAPES:
+        copies = max(1, min(48, math.ceil(3e8 / (k * n))))
+        ws = [quantize_weight(torch.randn((k, n), generator=gen, device=device) * 0.3)
+              for _ in range(copies)]
+        banks = [k_major_bank(q) for q, _ in ws]
+        w_scale = ws[0][1]
+        for m in (SLOTS, CHUNK_TOKENS, BUCKET):
+            x = torch.randn((m, k), generator=gen, device=device) * 2
+            x_q, x_scale = quantize_tokens(x)
+            rows.append(time_mac("int8 mode", x_q, banks, x_scale, w_scale, False))
+            before = mac_matmul.launches
+            got = int8_dot(x, banks[0], w_scale=w_scale)
+            if mac_matmul.launches != before + 1:
+                raise AssertionError("int8_dot on the card did not launch the MAC-array kernel")
+            want = int8_dot(x.cpu(), banks[0].cpu(), w_scale=w_scale.cpu())
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"int8_dot card != CPU at M={m} K={k} N={n}")
+        del banks, ws
+    return rows
+
+
+def record_chunks(server) -> list:
+    """Wrap ``server``'s chunk program so that each call records its
+    ``(rows, start, prompt length)``; returns the list the calls append to."""
+    chunk, admit = server.chunk_fns()
+    calls = []
+
+    def recorded(prompt, start, n):
+        calls.append((n, start, len(prompt)))
+        return chunk(prompt, start, n)
+
+    server._chunk_fns = (recorded, admit)
+    return calls
+
+
+def frontend_run(server, reqs, monolithic=False, arrivals=None, late=(),
+                 chunk_tokens=None):
+    """Serve ``reqs`` through the streaming frontend (``ContinuousScheduler``,
+    ``chunk_tokens`` rows a tick (default ``CHUNK_TOKENS``), or whole
+    prompts), each request submitted
+    ``arrivals[i]`` seconds after the start (default: all at once), and the
+    requests ``late`` after the first tick; the scheduler ticked on this
+    thread as the CLI's ``--frontend`` ticks it. Returns ``(streams, report,
+    scheduler)``; the report's TTFT counts from each request's submit; with
+    ``late`` requests it also holds ``long_prompt_gaps``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.frontend import ContinuousScheduler, FrontendConfig
+
+    at = [0.0] * len(reqs) if arrivals is None else list(arrivals)
+    pending = sorted(zip(at, range(len(reqs))))
+    sched = ContinuousScheduler(server, FrontendConfig(chunk_tokens=chunk_tokens or CHUNK_TOKENS,
+                                                       monolithic_prefill=monolithic))
+    submitted, late, interleaved = {}, list(late), bool(late)
+
+    def submit(req):
+        submitted[req.rid] = time.perf_counter() - server._t0
+        sched.submit(req)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sched:
+        while pending or late or not sched.idle:
+            now = time.perf_counter() - t0
+            while pending and pending[0][0] <= now:
+                submit(reqs[pending.pop(0)[1]])
+            did = sched.step()
+            if late and sched.stats["ticks"]:
+                for req in late:
+                    submit(req)
+                late = []
+            if not did and pending:
+                time.sleep(min(0.001, max(0.0, pending[0][0] - now)))
+        out = dict(sched.results)
+    wall = time.perf_counter() - t0
+    tokens = sum(len(v) for v in out.values())
+    ttft = [(server.emissions[rid][0][0] - submitted[rid]) * 1e3 for rid in out]
+    itl = [(t1 - t0_) / n * 1e3 for em in server.emissions.values()
+           for (t0_, _), (t1, n) in zip(em, em[1:]) for _ in range(n)]
+    report = dict(wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+                  ttft_ms_mean=float(np.mean(ttft)), ttft_ms_p50=float(np.median(ttft)),
+                  ttft_ms_max=float(np.max(ttft)), intertoken_ms_mean=float(np.mean(itl)),
+                  intertoken_ms_p90=float(np.percentile(itl, 90)),
+                  ticks=sched.stats["ticks"], bursts=sched.stats["bursts"],
+                  prefill_rows=sched.stats["prefill_rows"],
+                  max_prefill_rows_between_bursts=sched.stats["max_prefill_rows_between_bursts"],
+                  graph_replays=server.graph_replays, host_transfers=server.host_transfers)
+    if interleaved:
+        report["long_prompt_gaps"] = long_prompt_gaps(server)
+    return out, report, sched
+
+
+def long_prompt_gaps(server) -> dict:
+    """The decoding slots' emission gaps while request ``LONG_RID`` (the
+    300-token prompt) was prefilling: from its admission (the observer's
+    clock) to its first token. ``max_gap_ms`` is the longest wait of any
+    decoding request between two of its emissions in that window,
+    ``per_token_ms_mean`` each gap over the tokens it delivered."""
+    admit = server.observer.requests[LONG_RID].admit - server._t0
+    first = server.emissions[LONG_RID][0][0]
+    gaps = [(t1 - t0, n) for rid, em in server.emissions.items() if rid != LONG_RID
+            for (t0, _), (t1, n) in zip(em, em[1:]) if t1 > admit and t0 < first]
+    if not gaps:
+        raise AssertionError(f"no request decoded while request {LONG_RID} prefilled")
+    return dict(window_ms=(first - admit) * 1e3, gaps=len(gaps),
+                max_gap_ms=max(g for g, _ in gaps) * 1e3,
+                per_token_ms_mean=sum(g for g, _ in gaps) / sum(n for _, n in gaps) * 1e3)
+
+
+def same_as_run(label, out, reqs, run, gate_margins: bool = True) -> dict:
+    """``out`` (a frontend run's streams, ``reqs`` its requests) against a
+    ``run()`` of the same requests (``run``: its streams and margins):
+    streams identical, margins within ``MARGIN_ATOL`` when ``gate_margins``
+    (bitwise or not reported either way)."""
+    streams, run_margins = run
+    if out != streams:
+        raise AssertionError(f"{label}: streams differ from run()'s: {out} vs {streams}")
+    diffs = [abs(a - b) for got, want in zip(margins(reqs), run_margins)
+             for a, b in zip(got, want)]
+    worst = max(diffs)
+    if gate_margins and not worst <= MARGIN_ATOL:
+        raise AssertionError(f"{label}: top-2 margins differ from run()'s by {worst}")
+    return dict(streams_identical=True, margins_identical=worst == 0.0,
+                margins_max_abs_diff=worst, margins_gated=gate_margins,
+                margins_differing=sum(d != 0.0 for d in diffs), margins_compared=len(diffs))
+
+
+def frontend_accounting(label, server, cfg, reqs, chunks, captured_before=frozenset()) -> dict:
+    """The launch counts of a chunked frontend run, exact, from the wrappers,
+    as ``graph_accounting`` holds a ``run()``: each graph captured in this
+    run issued, at its warm-up and its capture, what its program implies (a
+    chunk bucket ``b``: one forward over ``b`` rows; the admit: none), and
+    nothing else was issued from the host; the replays' launches are the
+    chunks' forwards at their buckets (the scan: a single-row step a prompt
+    row) and the decode steps over the slots. The chunks (``chunks``: the
+    chunk program's recorded ``(rows, start, prompt length)``) cover each
+    prompt from row 0 in order, at most ``CHUNK_TOKENS`` rows each, each at
+    the bucket the server's ``chunk_span`` gives it; one replay a chunk (a
+    scan row), one replay and one transfer an admit and a burst."""
+    from collections import Counter
+
+    from repro_torch.kernels import kernel_totals
+
+    runner = server.programs
+    per_forward = launches_per_forward(cfg)
+    issued = {}
+    for name, captured in runner.captured_launches.items():
+        if name in captured_before:
+            continue
+        want = program_launches(name, server, cfg)
+        check_instantiations(f"{label}: graph {name!r} at capture", captured, want)
+        check_instantiations(f"{label}: graph {name!r} warm-up", runner.warmup_launches[name],
+                             want)
+        add_counts(issued, {k: 2 * v for k, v in captured.items()})
+    check_instantiations(f"{label}: issued from the host (warm-ups and captures)",
+                         wrapper_counts(), issued)
+    lens = [len(r.prompt) for r in reqs]
+    jobs = []
+    for n, start, _ in chunks:
+        if not 0 < n <= CHUNK_TOKENS:
+            raise AssertionError(f"{label}: a chunk of {n} rows")
+        if start == 0:
+            jobs.append(0)
+        if start != jobs[-1]:
+            raise AssertionError(f"{label}: a chunk from row {start}, expected {jobs[-1]}")
+        jobs[-1] += n
+    if sorted(jobs) != sorted(lens):
+        raise AssertionError(f"{label}: chunks cover prompts of {jobs}, the requests' are {lens}")
+    want = by_instantiation(per_forward, server.slots, 1, server.decode_steps)
+    bursts = server.decode_steps // server.burst
+    replays = Counter()
+    for name, n in runner.replays.items():
+        replays[name.partition(" @")[0]] += n
+    if server.batched_prefill:
+        buckets = Counter(server.chunk_span(plen, start, n)[1] for n, start, plen in chunks)
+        for b, c in buckets.items():
+            add_counts(want, by_instantiation(per_forward, b, b, c))
+        chunk_replays = Counter({int(k.split()[-1]): v for k, v in replays.items()
+                                 if k.startswith("prefill_chunk")})
+        if chunk_replays != buckets or replays["prefill admit"] != len(reqs):
+            raise AssertionError(f"{label}: chunk replays {dict(chunk_replays)} and "
+                                 f"{replays['prefill admit']} admits, the chunks imply "
+                                 f"{dict(buckets)} and {len(reqs)}")
+        steps = 0
+    else:
+        steps = sum(lens)
+        add_counts(want, by_instantiation(per_forward, 1, 1, steps))
+        if replays["prefill step"] != steps or replays["prefill finish"] != len(reqs):
+            raise AssertionError(f"{label}: {replays['prefill step']} step and "
+                                 f"{replays['prefill finish']} finish replays for {steps} "
+                                 f"prompt rows and {len(reqs)} prompts")
+    replayed = replayed_launches(runner)
+    launches = check_launches(f"{label}: replayed", kernel_totals(replayed), per_forward,
+                              times=model_forwards(server))
+    check_instantiations(f"{label}: replayed", replayed, want)
+    prefill_replays = (len(chunks) if server.batched_prefill else steps) + len(reqs)
+    if not (server.host_transfers == len(reqs) + bursts
+            and server.graph_replays == prefill_replays + bursts
+            and server.prefill_steps == steps):
+        raise AssertionError(f"{label}: {server.graph_replays} graph replays and "
+                             f"{server.host_transfers} transfers for {len(chunks)} chunks, "
+                             f"{len(reqs)} prompts, {bursts} bursts and {steps} scan steps")
+    return launches
+
+
+def chunked_identity(label, server, cfg, run) -> tuple:
+    """The six requests through the frontend at ``CHUNK_TOKENS`` on a
+    captured ``server`` (weights and graphs of its own): exact launch
+    accounting (``frontend_accounting``), the interleaving bound, and the
+    streams and margins against ``run`` (``same_as_run``; margins gated for
+    archs without MoE, see ``MARGIN_ATOL``). Returns the
+    report, with the frontend run's ``launches``, and the list the chunk
+    program records its calls in (``record_chunks``)."""
+    from repro_torch.obs import ServingObserver
+
+    server.observer = ServingObserver(trace=False)
+    chunks = record_chunks(server)
+    zero_launches()
+    reqs = requests(cfg)
+    out, rep, _ = frontend_run(server, reqs)
+    rep["launches"] = frontend_accounting(label, server, cfg, reqs, chunks)
+    rep["chunks"] = len(chunks)
+    rep["chunk_buckets"] = sorted({name for name in server.programs.graphs
+                                   if name.startswith("prefill_chunk")})
+    rep.update(same_as_run(label, out, reqs, run, gate_margins=cfg.moe is None))
+    bound_rows = rep["max_prefill_rows_between_bursts"]
+    if not 0 < bound_rows <= CHUNK_TOKENS:
+        raise AssertionError(f"{label}: {bound_rows} prefill rows between two bursts")
+    return rep, chunks
+
+
+def chunked_frontend(device, label, cfg, weights, run) -> dict:
+    """``chunked_identity`` on a captured server of ``weights`` (a serving
+    phase's prepared tree; ``run`` its streams and margins)."""
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import BatchedServer
+
+    server = BatchedServer(get_model(cfg), kernel_ctx(), weights, slots=SLOTS, max_len=MAX_LEN,
+                           burst=BURST, device=device)
+    rep, _ = chunked_identity(f"{label} frontend", server, cfg, run)
+    del server
+    free_card()
+    return rep
+
+
+def frontend_phases(device, olmo_run):
+    """Full-width olmo-1b (16 layers, the weights of ``serve olmo-1b``)
+    through the streaming frontend, prepared kernel mode, captured: the six
+    requests submitted at once at ``CHUNK_TOKENS`` (chunked), against the
+    captured ``run()`` of ``olmo_run`` (streams identical, margins within
+    ``MARGIN_ATOL``, reported bitwise or not); the interleaving bound; exact
+    launches by instantiation (each chunk bucket's graph × its replays), one
+    transfer a prefill and a burst; a steady repeat (no capture, bitwise
+    the first); the monolithic arm (``--monolithic-prefill``: run()'s
+    programs, streams and margins bitwise run()'s), captured and repeated;
+    the interleaving contrast, chunked and monolithic: ``SLOTS - 1``
+    requests decoding when the 300-token prompt arrives after the first
+    tick, with the decoding slots' emission gaps while it prefills
+    (``long_prompt_gaps``); Poisson arrivals (``ARRIVAL_RATE``,
+    ``ARRIVAL_SEED``): TTFT from each submit, launches exact; and half the
+    chunk budget, captured = uncaptured bitwise. Under arrivals and at half
+    the budget the chunk boundaries move; the streams and margins are still
+    run()'s (``same_as_run``): each row runs on the attention kernel path
+    run()'s bucket gives it (``BatchedServer.chunk_span``). Each run reports
+    tokens/s, TTFT and inter-token latency."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import BatchedServer
+
+    cfg = olmo()
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    server = BatchedServer(model, kernel_ctx(), params, slots=SLOTS, max_len=MAX_LEN,
+                           burst=BURST, device=device)
+    del params
+    report = dict(config="olmo-1b full width, 16 layers, dtype float32, kernel mode (prepared), "
+                         "FxP8 accurate, attn_impl=decode_kernel, greedy, streaming frontend",
+                  chunk_tokens=CHUNK_TOKENS, slots=SLOTS, max_len=MAX_LEN, burst=BURST,
+                  prompt_lens=list(PROMPT_LENS), max_new=MAX_NEW)
+    report["chunked"], chunks = chunked_identity("olmo-1b frontend", server, cfg, olmo_run)
+    report["launches"] = report["chunked"]["launches"]
+    first = report["chunked"]
+    # steady: every chunk graph already captured
+    chunks.clear()
+    captured = frozenset(server.programs.graphs)
+    zero_launches()
+    reqs = requests(cfg)
+    out, steady, _ = frontend_run(server, reqs)
+    frontend_accounting("olmo-1b frontend steady", server, cfg, reqs, chunks, captured)
+    steady.update(same_as_run("olmo-1b frontend steady", out, reqs, olmo_run))
+    if (steady["margins_max_abs_diff"], steady["margins_differing"]) != (
+            first["margins_max_abs_diff"], first["margins_differing"]):
+        raise AssertionError("olmo-1b frontend: the steady repeat's margins differ from the "
+                             "first frontend run's")
+    report["chunked_steady"] = steady
+    # the monolithic arm: run()'s programs, so run()'s streams and margins, bitwise
+    for which in ("monolithic", "monolithic_steady"):
+        captured = frozenset(server.programs.graphs)
+        zero_launches()
+        reqs = requests(cfg)
+        out, rep, _ = frontend_run(server, reqs, monolithic=True)
+        graph_accounting(f"olmo-1b frontend {which}", server, cfg, reqs,
+                         captured_before=captured)
+        rep.update(same_as_run(f"olmo-1b frontend {which}", out, reqs, olmo_run))
+        if not rep["margins_identical"]:
+            raise AssertionError(f"olmo-1b frontend {which}: margins differ from run()'s")
+        report[which] = rep
+    # the interleaving contrast: SLOTS - 1 requests decoding when the
+    # 300-token prompt arrives (after the first tick), chunked and
+    # monolithic; each arm twice, the second timed (no capture in it)
+    early = [rid for rid in range(len(PROMPT_LENS)) if rid != LONG_RID][:SLOTS - 1]
+    for arm in ("chunked", "monolithic"):
+        for _ in range(2):
+            reqs = requests(cfg)
+            out, rep, _ = frontend_run(server, [reqs[rid] for rid in early],
+                                       monolithic=arm == "monolithic", late=[reqs[LONG_RID]])
+            want = {rid: olmo_run[0][rid] for rid in early + [LONG_RID]}
+            if out != want:
+                raise AssertionError(f"olmo-1b frontend interleaved {arm}: streams differ from "
+                                     "run()'s")
+        rep["requests"] = early + [LONG_RID]
+        report[f"interleaved_{arm}"] = rep
+    # Poisson arrivals
+    arrivals = np.cumsum(np.random.default_rng(ARRIVAL_SEED).exponential(
+        1.0 / ARRIVAL_RATE, size=len(PROMPT_LENS)))
+    captured = frozenset(server.programs.graphs)
+    chunks.clear()
+    zero_launches()
+    reqs = requests(cfg)
+    out, arrived, _ = frontend_run(server, reqs, arrivals=arrivals)
+    frontend_accounting("olmo-1b frontend arrivals", server, cfg, reqs, chunks, captured)
+    arrived.update(same_as_run("olmo-1b frontend arrivals", out, reqs, olmo_run),
+                   arrival_rate=ARRIVAL_RATE, arrival_seed=ARRIVAL_SEED,
+                   arrivals_s=arrivals.tolist(), chunk_schedule=list(chunks))
+    report["poisson_arrivals"] = arrived
+    # another deterministic schedule, half the chunk budget: captured and
+    # uncaptured (every launch from the host) bitwise equal, and run()'s
+    runs = {}
+    eager = BatchedServer(model, kernel_ctx(), server.params, slots=SLOTS, max_len=MAX_LEN,
+                          burst=BURST, device=device, capture=False)
+    for label, srv in (("captured", server), ("uncaptured", eager)):
+        reqs = requests(cfg)
+        out, rep, _ = frontend_run(srv, reqs, chunk_tokens=CHUNK_TOKENS // 2)
+        runs[label] = (out, margins(reqs), rep, reqs)
+    if runs["captured"][:2] != runs["uncaptured"][:2]:
+        raise AssertionError("olmo-1b frontend at chunk budget "
+                             f"{CHUNK_TOKENS // 2}: captured streams or margins differ from "
+                             "the uncaptured run's")
+    report["half_chunk_budget"] = dict(runs["captured"][2], chunk_tokens=CHUNK_TOKENS // 2,
+                                       captured_equals_uncaptured=True,
+                                       uncaptured_tokens_per_s=runs["uncaptured"][2][
+                                           "tokens_per_s"],
+                                       **same_as_run("olmo-1b frontend half chunk budget",
+                                                     runs["captured"][0],
+                                                     runs["captured"][3], olmo_run))
+    del eager
+    report["graphs"] = graphs_report(server.programs)
+    log(f"olmo-1b frontend: {steady['tokens_per_s']:.2f} tok/s chunked (monolithic "
+        f"{report['monolithic_steady']['tokens_per_s']:.2f}); gaps across the 300-token "
+        f"prefill max {report['interleaved_chunked']['long_prompt_gaps']['max_gap_ms']:.2f} ms "
+        f"(monolithic "
+        f"{report['interleaved_monolithic']['long_prompt_gaps']['max_gap_ms']:.2f}); arrivals "
+        f"TTFT mean {arrived['ttft_ms_mean']:.2f} ms")
+    del server
+    free_card()
+    return report
+
+
+def mode_ctx(mode: str, fmt=None):
+    """The serving CLI's context for ``--mode mode``: exact has no policy."""
+    import torch
+
+    from repro_torch.core import FXP8, EngineContext, PrecisionPolicy
+
+    return EngineContext(mode=mode, policy=None if mode == "exact"
+                         else PrecisionPolicy.accurate(fmt or FXP8),
+                         compute_dtype=torch.float32, attn_impl="decode_kernel")
+
+
+def serve_mode(device, mode, cfg, params, per_call=False, uncaptured=True) -> tuple:
+    """``params`` served in ``mode`` on the card, the six requests: a captured
+    run with exact launch accounting, a steady repeat and (``uncaptured``)
+    the uncaptured yardstick on the streams' first ``MODE_UNCAPTURED_HEAD``
+    tokens, streams and f32 margins bitwise across them. Returns ``(report,
+    (streams, margins))``."""
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import BatchedServer
+
+    model = get_model(cfg)
+    label = f"olmo-1b {cfg.num_layers} layers {mode}{' per-call' if per_call else ''}"
+    make = lambda capture=True: BatchedServer(  # noqa: E731
+        model, mode_ctx(mode), params, slots=SLOTS, max_len=MAX_LEN, burst=BURST,
+        device=device, prepare_weights=not per_call, capture=capture)
+    server = make()
+    zero_launches()
+    reqs = requests(cfg)
+    first, first_run = timed_run(server, reqs)
+    launches, _ = graph_accounting(label, server, cfg, reqs, per_call, mode=mode)
+    run = (first, margins(reqs))
+    captured = frozenset(server.programs.graphs)
+    zero_launches()
+    again_reqs = requests(cfg)
+    again, steady = timed_run(server, again_reqs)
+    graph_accounting(f"{label} steady", server, cfg, again_reqs, per_call, captured, mode=mode)
+    if (again, margins(again_reqs)) != run:
+        raise AssertionError(f"{label}: a repeat's streams or margins differ")
+    report = dict(mode=mode, layers=cfg.num_layers, weights="per-call" if per_call else
+                  "prepared", first_run=first_run, steady_run=steady,
+                  tokens_per_s=steady["tokens_per_s"],
+                  decode_ms_per_step=steady["decode_ms_per_step"], launches=launches,
+                  launches_per_forward=launches_per_forward(cfg, per_call, mode),
+                  repeat_identical=True, distinct_tokens=len({t for v in first.values()
+                                                              for t in v}),
+                  streams_head={rid: v[:8] for rid, v in first.items()})
+    del server
+    free_card()
+    if uncaptured:
+        eager = make(capture=False)
+        zero_launches()
+        head = min(MODE_UNCAPTURED_HEAD, MAX_NEW)
+        eager_reqs = requests(cfg, max_new=head)
+        eager_out, report["uncaptured_run"] = timed_run(eager, eager_reqs)
+        uncaptured_accounting(f"{label} uncaptured", eager, cfg, eager_reqs, per_call, mode)
+        if (eager_out, margins(eager_reqs)) != ({rid: v[:head] for rid, v in first.items()},
+                                                [m[:head] for m in run[1]]):
+            raise AssertionError(f"{label}: captured streams or margins differ from the "
+                                 "uncaptured run's")
+        report["uncaptured_identical"] = True
+        del eager
+        free_card()
+    log(f"{label}: {report['tokens_per_s']:.2f} tok/s captured"
+        + (f" (uncaptured {report['uncaptured_run']['tokens_per_s']:.2f})" if uncaptured
+           else ""))
+    return report, run
+
+
+def modes_phases(device) -> dict:
+    """The exact, carmen and int8 modes at full-width olmo-1b (16 layers,
+    seeded weights, FxP8 accurate), prepared: captured = repeat =
+    uncaptured, bitwise (``serve_mode``), the int8 mode's MAC-array launches
+    exact; prepared = per call, bitwise, at ``PER_CALL_LAYERS`` layers; the
+    same modes on reduced olmo-1b card vs CPU, streams identical; and CI's
+    flow, ``--mode carmen --adaptive --metrics``, through the CLI's
+    ``main`` at full width."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+
+    report = {}
+    cfg = olmo()
+    params = get_model(cfg).init(torch.Generator(device=device).manual_seed(SEED))
+    for mode in MODES:
+        report[mode], _ = serve_mode(device, mode, cfg, params)
+        emit({"mode": report[mode]})
+    del params
+    free_card()
+    cut = olmo(PER_CALL_LAYERS)
+    params = get_model(cut).init(torch.Generator(device=device).manual_seed(SEED))
+    for mode in MODES:
+        prepared, run = serve_mode(device, mode, cut, params, uncaptured=False)
+        per_call, per_call_run = serve_mode(device, mode, cut, params, per_call=True,
+                                            uncaptured=False)
+        if per_call_run != run:
+            raise AssertionError(f"olmo-1b {PER_CALL_LAYERS} layers {mode}: per-call streams or "
+                                 "margins differ from the prepared run's")
+        report[f"{mode} {PER_CALL_LAYERS} layers"] = dict(
+            prepared=prepared, per_call=per_call, per_call_identical=True,
+            launches=add_counts(dict(prepared["launches"]), per_call["launches"]))
+    del params
+    free_card()
+    rcfg = reduced(get_config("olmo-1b"))
+    rparams = scaled_init(get_model(rcfg))
+    for mode in MODES:
+        report[f"{mode} card vs cpu"] = card_vs_cpu(
+            device, f"olmo-1b reduced, {mode}", rcfg, rparams, (5, 11, 40), 64, ctx=mode_ctx(mode))
+    from repro_torch.launch import serve as cli
+
+    buf = io.StringIO()
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = cli.main(["--mode", "carmen", "--adaptive", "--metrics"])
+    text = buf.getvalue()
+    lines = {line.split(" ", 1)[0]: line.split(" ", 1)[1] for line in text.splitlines()
+             if line.startswith(("telemetry: ", "metrics: ", "bank: ", "served "))}
+    if sorted(out) != list(range(6)) or any(len(v) != 16 for v in out.values()) \
+            or {"metrics:", "telemetry:", "bank:", "served"} - set(lines):
+        raise AssertionError(f"the CLI's --mode carmen --adaptive --metrics: {text[-2000:]}")
+    report["cli carmen adaptive metrics"] = dict(
+        argv="--mode carmen --adaptive --metrics", wall_s=time.perf_counter() - t0,
+        served=lines["served"], bank=lines["bank:"],
+        telemetry=json.loads(lines["telemetry:"]), metrics=json.loads(lines["metrics:"]),
+        launches_issued_from_host=nonzero(wrapper_counts()))
+    free_card()
+    return report
+
+
 def free_card():
     import torch
 
@@ -3569,19 +4340,25 @@ def scan_config(name: str):
 def scan_phases(device, serving: dict, forward: dict, parity: dict) -> None:
     """The recurrent and encoder-decoder archs (``SCAN_ARCH_LAYERS``), each
     served at full width as ``serve_full_width`` serves olmo-1b, through the
-    scan prefill; mamba2 also sampled; each one's ``SCAN_FORWARD`` forward on
+    scan prefill; mamba2 also sampled and through the streaming frontend
+    (``chunked_frontend``: its step graph replayed a chunk row); each one's
+    ``SCAN_FORWARD`` forward on
     the serving weights, the card freed between archs; then each reduced,
     card vs CPU. Adds each report to the dicts and prints it."""
     for name in SCAN_ARCH_LAYERS:
         cfg = scan_config(name)
-        serving[name], streams, _, weights = phase(f"serve {name}", serve_full_width, device,
-                                                    name, cfg)
+        serving[name], streams, run_margins, weights = phase(
+            f"serve {name}", serve_full_width, device, name, cfg)
         serving[name]["weights"] = weight_reckoning(cfg)
         emit({"serving": serving[name]})
         if name == "mamba2-780m":
             serving[f"{name} sampled"] = phase(f"serve {name} sampled", serve_sampled, device,
                                                cfg, weights, streams)
             emit({"serving": serving[f"{name} sampled"]})
+            # the scan's chunked prefill: its step graph replayed a chunk row
+            serving[f"{name} frontend"] = phase(f"frontend {name}", chunked_frontend, device,
+                                                name, cfg, weights, (streams, run_margins))
+            emit({"serving": serving[f"{name} frontend"]})
         forward[name] = phase(f"forward {name}", forward_phase, device, name, cfg, weights,
                               SCAN_FORWARD[name])
         emit({"forward": forward[name]})
@@ -3609,14 +4386,15 @@ def phase(name: str, fn, *args, **kw):
     return out
 
 
-PHASE_GROUPS = ("kernels", "olmo", "bank", "resilience", "parity", "deepseek", "archs", "scan")
+PHASE_GROUPS = ("kernels", "olmo", "bank", "resilience", "frontend", "modes", "parity", "deepseek",
+                "archs", "scan")
 
 
 def main(argv=()) -> int:
     """Every phase, with no arguments; ``--phases`` runs the named groups of
-    ``PHASE_GROUPS`` only (a quicker check while working on one path; "bank"
-    and "resilience" need "olmo"), writes their report and prints no
-    ``kernels`` and no ``ok`` line."""
+    ``PHASE_GROUPS`` only (a quicker check while working on one path; "bank",
+    "resilience" and "frontend" need "olmo"), writes their report and prints
+    no ``kernels`` and no ``ok`` line."""
     import argparse
 
     import torch
@@ -3628,7 +4406,7 @@ def main(argv=()) -> int:
     groups = None if args.phases is None else set(args.phases.split(","))
     if groups is not None and not groups <= set(PHASE_GROUPS):
         ap.error(f"--phases takes groups of {PHASE_GROUPS}")
-    if groups is not None and groups & {"bank", "resilience"}:
+    if groups is not None and groups & {"bank", "resilience", "frontend"}:
         groups.add("olmo")
 
     def want(group: str) -> bool:
@@ -3669,12 +4447,19 @@ def main(argv=()) -> int:
         softmax_rows = phase("check_softmax", check_softmax, device)
         flash_rows, flash_err = phase("check_flash", check_flash, device)
         mla_flash_rows, mla_flash_err = phase("check_mla_flash", check_mla_flash, device)
+        chunk_rows, chunk_err = phase("check_chunk_attention", check_chunk_attention, device)
+        chunk_as_prefill = phase("chunk_rows_as_prefill", chunk_rows_as_prefill, device)
+        fxp16_af_rows = phase("check_fused_fxp16_af", check_fused_fxp16_af, device)
+        int8_rows = phase("check_int8_mac", check_int8_mac, device)
         checks = {"fused_dot_af": fused_rows, "fused_dot_af_fxp16": hifi_rows,
                   "plan_alternatives": plan_rows, "cordic_mac": mac_rows,
                   "gqa_decode_attention": attn_rows, "gqa_path_alternatives": gqa_plan_rows,
                   "mla_decode_attention": mla_rows,
                   "af_elementwise": af_rows, "af_softmax": softmax_rows,
-                  "flash_attention": flash_rows, "mla_flash_attention": mla_flash_rows}
+                  "flash_attention": flash_rows, "mla_flash_attention": mla_flash_rows,
+                  "chunk_attention": chunk_rows, "chunk_rows_as_prefill": chunk_as_prefill,
+                  "fused_dot_af_fxp16_af": fxp16_af_rows,
+                  "cordic_mac_int8_mode": int8_rows}
         emit({"kernel_checks": checks})
         free_card()
         paths["softmax activate"] = phase("softmax_path", softmax_path, device)
@@ -3713,6 +4498,15 @@ def main(argv=()) -> int:
             serving["olmo-1b"]["tokens_per_s"])
         emit({"serving": serving["olmo-1b resilient"]})
         free_card()
+    if want("frontend"):
+        # the streaming frontend, held against the plain run above
+        serving["olmo-1b frontend"] = phase("frontend olmo-1b", frontend_phases, device,
+                                            (streams, olmo_margins))
+        emit({"serving": serving["olmo-1b frontend"]})
+        free_card()
+    if want("modes"):
+        for key, rep in phase("modes olmo-1b", modes_phases, device).items():
+            (parity if "card vs cpu" in key else serving)[f"olmo-1b {key}"] = rep
     if want("olmo") and groups is None:
         order = phase("replay order", replay_order, device)
         emit({"replay_order": order})
@@ -3752,7 +4546,7 @@ def main(argv=()) -> int:
         bank_parity_phases(device, parity)
         free_card()
     if want("deepseek"):
-        serving["deepseek-v3-671b"], _, _, weights = phase(
+        serving["deepseek-v3-671b"], ds_streams, ds_margins, weights = phase(
             "serve deepseek-v3-671b", serve_full_width, device, "deepseek-v3-671b", deepseek())
         emit({"serving": serving["deepseek-v3-671b"]})
         free_card()
@@ -3760,6 +4554,10 @@ def main(argv=()) -> int:
         forward["deepseek-v3-671b"] = phase("forward deepseek-v3-671b", forward_phase, device,
                                             "deepseek-v3-671b", deepseek(), weights, (1, BUCKET))
         emit({"forward": forward["deepseek-v3-671b"]})
+        serving["deepseek-v3-671b frontend"] = phase(
+            "frontend deepseek-v3-671b", chunked_frontend, device, "deepseek-v3-671b",
+            deepseek(), weights, (ds_streams, ds_margins))
+        emit({"serving": serving["deepseek-v3-671b frontend"]})
         del weights
         free_card()
         parity["deepseek-v3-671b"] = phase("deepseek-v3-671b card vs cpu", deepseek_card_vs_cpu,
@@ -3799,7 +4597,7 @@ def main(argv=()) -> int:
 
     def launches(name):
         by_path = {label: rep["launches"][name] for label, rep in paths.items()
-                   if rep["launches"].get(name)}
+                   if rep.get("launches", {}).get(name)}
         return sum(by_path.values()), by_path
 
     def kernel_rows():

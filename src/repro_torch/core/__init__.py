@@ -18,6 +18,7 @@ from .precision_policy import (
     PrecisionPolicy,
     assign_depths,
     pin_critical,
+    sensitivity_scan,
 )
 from .normalization import layernorm, nonparametric_ln, rmsnorm
 
@@ -29,5 +30,5 @@ __all__ = [
     "carmen_matmul_fast", "cordic_dot", "cordic_matmul", "mac_cycles",
     "EngineContext", "PreparedWeight", "prepare_params",
     "CRITICAL_KEYWORDS", "LayerPrecision", "PrecisionPolicy", "assign_depths", "pin_critical",
-    "layernorm", "nonparametric_ln", "rmsnorm",
+    "sensitivity_scan", "layernorm", "nonparametric_ln", "rmsnorm",
 ]

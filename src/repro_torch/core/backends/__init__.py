@@ -1,10 +1,10 @@
 """Backend registry + the one-time ``prepare_params`` pass (port of
 ``repro.core.backends``).
 
-Only the ``kernel`` backend is ported so far; ``exact``, ``carmen`` and
-``int8`` raise "not yet ported". The classification rules (which leaves reach
-``EngineContext.dot``, their policy names and stacked axes) and the tied
-``lm_head`` materialization are the reference's.
+The engine's four execution modes (``exact`` / ``carmen`` / ``int8`` /
+``kernel``) are registered backends. The classification rules (which leaves
+reach ``EngineContext.dot``, their policy names and stacked axes) and the
+tied ``lm_head`` materialization are the reference's.
 """
 from __future__ import annotations
 
@@ -15,15 +15,18 @@ import torch
 
 from ..precision_policy import PrecisionPolicy
 from .base import Backend, PreparedWeight, unit_fmt
+from .carmen import CarmenBackend, carmen_dot, quantize_activations, sd_round_traced
+from .exact import ExactBackend
+from .int8 import Int8Backend, effective_bits, int8_dot, quantize_weight
 from .kernel import KernelBackend
 
 __all__ = [
     "Backend", "PreparedWeight", "get_backend", "register", "resolve",
-    "iter_dot_weights", "prepare_params", "unit_fmt",
+    "iter_dot_weights", "prepare_params", "unit_fmt", "carmen_dot", "int8_dot",
+    "quantize_activations", "sd_round_traced", "effective_bits", "quantize_weight",
 ]
 
 _REGISTRY: Dict[str, Backend] = {}
-_NOT_YET_PORTED = ("exact", "carmen", "int8")
 
 
 def register(backend: Backend) -> Backend:
@@ -32,11 +35,10 @@ def register(backend: Backend) -> Backend:
 
 
 def get_backend(name: str) -> Backend:
-    if name in _REGISTRY:
+    try:
         return _REGISTRY[name]
-    if name in _NOT_YET_PORTED:
-        raise NotImplementedError(f"engine mode {name!r} is not yet ported")
-    raise ValueError(f"unknown engine mode {name!r}")
+    except KeyError:
+        raise ValueError(f"unknown engine mode {name!r}") from None
 
 
 def resolve(w, mode: str) -> Backend:
@@ -46,7 +48,8 @@ def resolve(w, mode: str) -> Backend:
     return get_backend(mode)
 
 
-register(KernelBackend())
+for _b in (ExactBackend(), CarmenBackend(), Int8Backend(), KernelBackend()):
+    register(_b)
 
 
 _DOT_WEIGHT_NAMES = frozenset({
@@ -139,11 +142,16 @@ def prepare_params(params, policy: Optional[PrecisionPolicy], mode: str, *,
     """Materialize per-layer prepared weight banks for serving.
 
     Replaces every engine-routed matmul weight with the ``mode`` backend's
-    prepared form at the policy's per-layer (fmt, depth). Tied-embedding
-    models get an explicit prepared ``lm_head`` (the transposed embedding);
-    the embedding itself stays float for the table lookup.
+    prepared form at the policy's per-layer (fmt, depth): signed-digit
+    integers for ``kernel``, the f32 signed-digit grid for ``carmen``, int8
+    qvalues + per-channel scales for ``int8``, the tree itself for
+    ``exact``. Tied-embedding models get an explicit prepared ``lm_head``
+    (the transposed embedding); the embedding itself stays float for the
+    table lookup.
     """
     backend = get_backend(mode)
+    if mode == "exact":
+        return params
     policy = policy or PrecisionPolicy.accurate()
     if memo is None:
         memo = {}

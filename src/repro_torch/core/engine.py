@@ -60,24 +60,31 @@ class EngineContext:
         return out
 
     def activate(self, x, af: str):
-        """Standalone activation through the multi-AF block: in kernel mode the
-        elementwise AF kernel, or for ``"softmax"`` the row-softmax kernel over
-        the last axis (their plain versions on CPU tensors), at the policy's
-        ``af`` depth and format. The other modes are not yet ported."""
+        """Activation through the CARMEN multi-AF block, or the exact float
+        reference in ``exact`` mode. In kernel mode it is the elementwise AF
+        kernel, or for ``"softmax"`` the row-softmax kernel over the last axis
+        (their plain versions on CPU tensors); ``carmen`` and ``int8`` run
+        ``multi_af_float`` as the reference does. The multi-AF modes run at
+        the policy's ``af`` depth and format."""
         if af == "identity":
             return x
+        if self.mode == "exact":
+            from .activations import af_ref
+
+            return af_ref(x, af).to(x.dtype)
+        lp = self.layer_precision("af")
         if self.mode == "kernel":
             from repro_torch.kernels.cordic_af import multi_af
 
-            lp = self.layer_precision("af")
             return multi_af(x, af, depth=int(lp.depth), fmt=lp.fmt).to(x.dtype)
-        raise NotImplementedError(
-            f"standalone activation in engine mode {self.mode!r} is not yet ported"
-        )
+        from .activations import multi_af_float
+
+        return multi_af_float(x, af, lp.depth, lp.fmt).to(x.dtype)
 
     def linear_af(self, x, w, b=None, *, af: str, name: str = ""):
         """Linear followed by an activation, fused into one kernel pass when
-        the backend offers ``dot_af`` (kernel backend, prepared weights)."""
+        the backend offers ``dot_af`` (kernel backend, prepared weights);
+        otherwise the linear, then :meth:`activate`."""
         backend = resolve(w, self.mode)
         dot_af = getattr(backend, "dot_af", None)
         if b is None and dot_af is not None:

@@ -4,21 +4,25 @@
 reference's JSON format, so a policy file loads in both packages.
 ``assign_depths`` turns per-layer sensitivities (``repro_torch.runtime``'s
 calibration scan) into a policy that meets a cycle-reduction budget;
-``pin_critical`` keeps the critical layers at full depth. The JVP
-``sensitivity_scan`` is not yet ported.
+``pin_critical`` keeps the critical layers at full depth;
+``sensitivity_scan`` is the reference's JVP estimate, through
+``torch.func.jvp``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Callable, Dict, Mapping, Optional, Sequence
+
+import torch
 
 from . import cordic
 from .fxp import FXP8, FxPFormat
 
 __all__ = [
     "CRITICAL_KEYWORDS", "LayerPrecision", "PrecisionPolicy", "assign_depths", "pin_critical",
+    "sensitivity_scan",
 ]
 
 # layer-name fragments that always run at full depth
@@ -113,6 +117,27 @@ def pin_critical(policy: PrecisionPolicy, *,
         else:
             overrides[name] = lp
     return PrecisionPolicy(policy.default, overrides)
+
+
+def sensitivity_scan(apply_fn: Callable, params, batch, layer_taps: Sequence[str], *,
+                     fmt: FxPFormat = FXP8) -> Dict[str, float]:
+    """Per-layer accuracy sensitivity on a calibration batch.
+
+    ``apply_fn(params, batch, noise)`` must add ``noise[name] * eps`` at each
+    tapped layer output (``noise`` maps names to scalar tensors). Returns
+    name -> the norm of the output's derivative along a perturbation of one
+    LSB of ``fmt`` at that tap, over the norm of the clean output. The
+    reference's ``rng`` argument is unused there and not taken here."""
+    base = apply_fn(params, batch, {})
+    base_norm = torch.linalg.vector_norm(base.to(torch.float32)) + 1e-9
+    zero = torch.zeros((), dtype=torch.float32)
+    lsb = torch.full((), fmt.scale, dtype=torch.float32)
+    out: Dict[str, float] = {}
+    for name in layer_taps:
+        _, jvp = torch.func.jvp(lambda eps, name=name: apply_fn(params, batch, {name: eps}),
+                                (zero,), (lsb,))
+        out[name] = float(torch.linalg.vector_norm(jvp.to(torch.float32)) / base_norm)
+    return out
 
 
 def assign_depths(sensitivities: Mapping[str, float], *, fmt: FxPFormat = FXP8,

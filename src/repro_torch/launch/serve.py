@@ -1,33 +1,39 @@
-"""Batched serving CLI (port of the kernel-mode subset of
-``repro.launch.serve``).
+"""Batched serving CLI (port of ``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --reduced \\
-        --requests 4 --slots 2 --max-new 8 --device cpu [--temperature 1.3 --seed 40]
+        --requests 4 --slots 2 --max-new 8 --device cpu --mode carmen \\
+        [--temperature 1.3 --seed 40]
 
-Runs on the card by default (``--device cuda``) through the Hopper kernels,
-each prefill bucket and decode burst one captured CUDA graph; ``--device
-cpu`` runs the kernels' plain versions eagerly. ``kernel``-mode weights,
-prepared once (the fused dot+AF kernel) or, with ``--per-call``, re-rounded
-at every dot (the MAC-array kernel and the standalone multi-AF). Greedy
-unless ``--temperature`` is above 0; request ``i`` samples from seed
-``--seed + i`` (default: its index). Weights are random, drawn from seed
-0. The full-width config is served at ``dtype="float32"`` to match the f32
-engine context.
+Runs on the card by default (``--device cuda``), each prefill bucket and
+decode burst one captured CUDA graph; ``--device cpu`` runs the kernels'
+plain versions eagerly. ``--mode`` picks the engine mode, ``exact`` by
+default as in the reference: ``exact`` (the f32 product, TF32 off),
+``carmen`` (the f32 product of fake-quantized activations and signed-digit
+grids), ``int8`` (int8 x int8 dots through the MAC-array kernel) or
+``kernel`` (the fused CORDIC dot+AF kernel). Weights are prepared once or,
+with ``--per-call``, re-rounded at every dot (in kernel mode the MAC-array
+kernel and the standalone multi-AF). Every mode's cache attention runs the
+GQA and MLA cache kernels (``attn_impl="decode_kernel"``). Greedy unless
+``--temperature`` is above 0; request ``i`` samples from seed ``--seed + i``
+(default: its index). Weights are random, drawn from seed 0. The full-width
+config is served at ``dtype="float32"`` to match the f32 engine context.
 
-The FxP8 policy is accurate unless ``--policy-file`` loads one (a file that
-either package saved) or ``--calibrate`` runs the startup sensitivity scan
+The policy (not in ``exact`` mode) is accurate at FxP8 (``--fxp16``: FxP16)
+unless ``--policy-file`` loads one (a file that either package saved) or
+``--calibrate`` runs the startup sensitivity scan
 (``repro_torch.runtime.calibration_scan``, per call, through the cache-free
 flash kernels) and ``assign_depths`` meets ``--cycle-reduction``;
 ``--save-policy`` writes the policy served. A depth-demoted group gets its
 own point vector from ``prepare_params``.
 
 ``--adaptive`` serves from a multi-point bank (``runtime.build_bank``: the
-cheap point, accurate FxP8 and ``hifi``, accurate FxP16) under a
-``runtime.ModeController`` steering toward ``--cycle-budget``;
-``--calibration`` prices the points with a ``sim.calibrate`` export.
-``--speculative`` serves self-speculative rounds (``spec``): ``--draft-len``
-tokens drafted at ``--draft-point`` (default: the cheapest point; with
-``--adaptive`` the controller picks), verified at accurate FxP8. Both refuse
+cheap point, accurate and ``hifi``, accurate FxP16; int8 has no hifi point,
+it caps at 8 effective bits) under a ``runtime.ModeController`` steering
+toward ``--cycle-budget``; ``--calibration`` prices the points with a
+``sim.calibrate`` export. ``--speculative`` serves self-speculative rounds
+(``spec``): ``--draft-len`` tokens drafted at ``--draft-point`` (default: the
+cheapest point; with ``--adaptive`` the controller picks), verified at the
+accurate point. Both need ``--mode carmen|int8|kernel`` and refuse
 ``--per-call``: the bank is the prepared path. Each prints the reference's
 ``telemetry:`` / ``speculative:`` summary line.
 
@@ -37,6 +43,23 @@ under a ``resilience.ResilienceConfig`` and prints the outcomes) and its
 observability group (``--metrics``, ``--metrics-out``, ``--trace-out``,
 ``--chrome-trace``, ``--profile``). ``--profile DIR`` wraps the run in
 ``torch.profiler`` and writes its Chrome trace to ``DIR/torch_profile.json``.
+
+Streaming frontend (``repro_torch.serve.frontend``): ``--frontend`` serves
+the synthetic workload through the continuous-batching scheduler instead of
+``run()``: requests arrive over time (``--arrival-rate`` req/s, seeded
+Poisson from ``--arrival-seed``; 0 = all at once), admission, eviction and
+shed sweeps run every tick, and prefill is chunked to ``--chunk-tokens``
+rows a tick (``--monolithic-prefill``: whole prompts, the A/B contrast).
+Deadlines become submit-relative. Two live drivers ride the same scheduler::
+
+    # JSONL requests on stdin -> streamed {"rid", "token"} JSONL on stdout
+    echo '{"rid": 0, "prompt": [5, 17, 3], "max_new": 8}' | \\
+        ... --stdin-requests
+
+    # minimal HTTP service on 127.0.0.1: POST /generate {"prompt": [...], "max_new": N}
+    ... --http-port 8080
+
+``--mesh`` (tensor-parallel serving) is not ported.
 """
 from __future__ import annotations
 
@@ -77,15 +100,202 @@ def resolve_policy(args, model, params, fmt, device) -> PrecisionPolicy:
     return policy
 
 
+def _frontend_config(args):
+    from repro_torch.serve.frontend import FrontendConfig
+
+    return FrontendConfig(chunk_tokens=args.chunk_tokens,
+                          monolithic_prefill=args.monolithic_prefill)
+
+
+def _serve_synthetic(args, server, reqs):
+    """The synthetic workload through the scheduler, ticked on this thread:
+    a seeded arrival process decides *when* each request is submitted, and
+    between arrivals the scheduler keeps admitting, prefilling and decoding."""
+    from repro_torch.serve.frontend import ContinuousScheduler
+
+    rng = np.random.default_rng(args.arrival_seed)
+    if args.arrival_rate > 0:
+        arrive = np.cumsum(rng.exponential(1.0 / args.arrival_rate, size=len(reqs)))
+    else:
+        arrive = np.zeros(len(reqs))
+    pending = list(zip(arrive.tolist(), reqs))
+    sched = ContinuousScheduler(server, _frontend_config(args))
+    with sched:
+        t0 = time.perf_counter()
+        while pending or not sched.idle:
+            now = time.perf_counter() - t0
+            while pending and pending[0][0] <= now:
+                sched.submit(pending.pop(0)[1])
+            if not sched.step() and pending:
+                # idle but arrivals remain: sleep until the next one is due
+                time.sleep(min(0.01, max(0.0, pending[0][0] - now)))
+        results = dict(sched.results)
+    print(f"frontend: ticks={sched.stats['ticks']} bursts={sched.stats['bursts']} "
+          f"prefill_rows={sched.stats['prefill_rows']} max_prefill_rows_between_bursts="
+          f"{sched.stats['max_prefill_rows_between_bursts']} "
+          f"(chunk budget {args.chunk_tokens})")
+    return results
+
+
+def _serve_stdin(args, server, stdin=None):
+    """JSONL requests on stdin, streamed JSONL tokens on stdout. Each line
+    in is one request; each token lands as its own line out, then a final
+    ``done`` line with the outcome status."""
+    import sys
+    import threading
+
+    from repro_torch.serve.frontend import AsyncFrontend
+
+    fe = AsyncFrontend(server, _frontend_config(args)).start()
+    results = {}
+    out_lock = threading.Lock()
+
+    def pump(handle):
+        for tok in handle:
+            with out_lock:
+                print(json.dumps({"rid": handle.rid, "token": int(tok)}), flush=True)
+        with out_lock:
+            print(json.dumps({"rid": handle.rid, "done": True, "status": handle.status or "ok",
+                              "tokens": len(handle.tokens)}), flush=True)
+            results[handle.rid] = list(handle.tokens)
+
+    pumps = []
+    auto_rid = 0
+    try:
+        for line in (stdin if stdin is not None else sys.stdin):
+            line = line.strip()
+            if not line:
+                continue
+            d = json.loads(line)
+            rid = int(d.get("rid", auto_rid))
+            auto_rid = max(auto_rid, rid) + 1
+            req = Request(rid, np.asarray(d["prompt"], np.int32),
+                          int(d.get("max_new", args.max_new)),
+                          temperature=float(d.get("temperature", args.temperature)),
+                          seed=d.get("seed", args.seed), deadline_s=d.get("deadline_s"))
+            try:
+                handle = fe.submit(req)
+            except ValueError as e:
+                with out_lock:
+                    print(json.dumps({"rid": rid, "done": True, "status": "rejected",
+                                      "error": str(e)}), flush=True)
+                continue
+            t = threading.Thread(target=pump, args=(handle,), daemon=True)
+            t.start()
+            pumps.append(t)
+        for t in pumps:
+            t.join()
+    finally:
+        fe.stop()
+    return results
+
+
+def _serve_http(args, server, ready=None):
+    """Minimal stdlib HTTP service over the async frontend, on 127.0.0.1.
+    POST /generate with ``{"prompt": [...], "max_new": N, ...}`` blocks
+    until the request settles and returns the full token stream (a broken
+    connection mid-wait cancels the request: eviction at the next tick).
+    GET /healthz for liveness. ``ready`` (a ``threading.Event``), if given,
+    is set once the socket listens and holds the server as ``ready.server``
+    (its ``shutdown()`` stops the loop)."""
+    import itertools
+    import select
+    import socket
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from repro_torch.serve.frontend import AsyncFrontend
+
+    fe = AsyncFrontend(server, _frontend_config(args)).start()
+    results = {}
+    counter = itertools.count()
+    lock = threading.Lock()
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):  # keep stdout for the serving summary
+            pass
+
+        def do_GET(self):
+            if self.path != "/healthz":
+                self.send_error(404)
+                return
+            self._reply(200, {"ok": True})
+
+        def do_POST(self):
+            if self.path != "/generate":
+                self.send_error(404)
+                return
+            n = int(self.headers.get("Content-Length", 0))
+            try:
+                d = json.loads(self.rfile.read(n) or b"{}")
+                with lock:
+                    rid = int(d.get("rid", next(counter) + 100000))
+                req = Request(rid, np.asarray(d["prompt"], np.int32),
+                              int(d.get("max_new", args.max_new)),
+                              temperature=float(d.get("temperature", args.temperature)),
+                              seed=d.get("seed", args.seed), deadline_s=d.get("deadline_s"))
+                handle = fe.submit(req)
+            except (KeyError, ValueError, TypeError, json.JSONDecodeError) as e:
+                self._reply(400, {"error": str(e)})
+                return
+            # block until settled, but watch the socket: a client that
+            # disconnects mid-generation cancels the request
+            while not handle._done.wait(0.25):
+                readable, _, _ = select.select([self.connection], [], [], 0)
+                if readable and not self.connection.recv(1, socket.MSG_PEEK):
+                    handle.cancel()
+                    handle._done.wait(5.0)
+                    return
+            toks = list(handle.tokens)
+            with lock:
+                results[rid] = toks
+            self._reply(200, {"rid": rid, "tokens": toks, "status": handle.status or "ok"})
+
+        def _reply(self, code, payload):
+            body = json.dumps(payload).encode()
+            try:
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            except (BrokenPipeError, ConnectionResetError):
+                pass  # the client went away; the request already settled
+
+    srv = ThreadingHTTPServer(("127.0.0.1", args.http_port), Handler)
+    print(f"serving on http://127.0.0.1:{srv.server_address[1]} (POST /generate, "
+          "GET /healthz); Ctrl-C to stop", flush=True)
+    if ready is not None:
+        ready.server = srv
+        ready.set()
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        print("\nshutting down")
+    finally:
+        srv.server_close()
+        fe.stop()
+    return results
+
+
+def _serve_frontend(args, server, reqs):
+    if args.http_port is not None:
+        return _serve_http(args, server)
+    if args.stdin_requests:
+        return _serve_stdin(args, server)
+    return _serve_synthetic(args, server, reqs)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", choices=sorted(ARCHS), default="olmo-1b")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--mode", choices=["kernel"], default="kernel",
-                    help="engine mode (only the kernel backend is ported)")
+    ap.add_argument("--mode", choices=["exact", "carmen", "int8", "kernel"], default="exact")
     ap.add_argument("--per-call", action="store_true",
                     help="skip prepare_params: re-quantize weights every step "
                          "(the seed behaviour; for A/B benchmarking)")
+    ap.add_argument("--fxp16", action="store_true",
+                    help="FxP16 operand format (default FxP8)")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
@@ -165,22 +375,54 @@ def main(argv=None):
     obs_args.add_argument("--profile", default=None, metavar="DIR",
                           help="wrap the run in torch.profiler (kernel-level; complements "
                                "the serve trace): DIR/torch_profile.json")
+    fe_args = ap.add_argument_group(
+        "streaming frontend",
+        "continuous-batching scheduler (repro_torch.serve.frontend): requests arrive over "
+        "time, admission/eviction sweeps run every tick, prefill is chunked so long prompts "
+        "never stall decoding slots")
+    fe_args.add_argument("--frontend", action="store_true",
+                         help="serve the synthetic workload through the continuous-batching "
+                              "scheduler instead of run() (deadlines become submit-relative)")
+    fe_args.add_argument("--chunk-tokens", type=int, default=32,
+                         help="prefill budget: prompt rows advanced per admission tick "
+                              "(bounds how long a newly admitted prompt can stall decoding "
+                              "slots)")
+    fe_args.add_argument("--monolithic-prefill", action="store_true",
+                         help="disable chunking: prefill whole prompts in one tick (the A/B "
+                              "contrast arm)")
+    fe_args.add_argument("--arrival-rate", type=float, default=0.0,
+                         help="--frontend: synthetic request arrivals per second (seeded "
+                              "Poisson process; 0 = all submitted at once)")
+    fe_args.add_argument("--arrival-seed", type=int, default=0,
+                         help="--frontend: seed for the arrival process")
+    fe_args.add_argument("--stdin-requests", action="store_true",
+                         help='read JSONL requests from stdin ({"rid", "prompt", "max_new", '
+                              '...}) and stream {"rid", "token"} JSONL to stdout')
+    fe_args.add_argument("--http-port", type=int, default=None,
+                         help="serve a minimal HTTP API on 127.0.0.1: POST /generate with a "
+                              "JSON request body; Ctrl-C to stop")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    # the exact and carmen products are f32; TF32 would round their operands
+    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch)
     cfg = reduce_cfg(cfg) if args.reduced else dataclasses.replace(cfg, dtype="float32")
     model = get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(0)
     params = model.init(gen)
-    policy = resolve_policy(args, model, params, FXP8, device)
+    fmt = FXP16 if args.fxp16 else FXP8
+    policy = None if args.mode == "exact" else resolve_policy(args, model, params, fmt, device)
     ctx = EngineContext(mode=args.mode, policy=policy, compute_dtype=torch.float32,
                         attn_impl="decode_kernel")
     controller = bank = speculate = None
     if args.adaptive or args.speculative:
+        what = "--adaptive/--speculative"
+        if args.mode == "exact":
+            raise SystemExit(f"{what} needs --mode carmen|int8|kernel")
         if args.per_call:
-            raise SystemExit("--per-call contradicts --adaptive/--speculative: the "
-                             "multi-point bank IS the prepared path")
+            raise SystemExit(f"--per-call contradicts {what}: the multi-point "
+                             "bank IS the prepared path")
         from repro_torch.runtime import ControllerConfig, ModeController, build_bank, default_points
 
         calibration = None
@@ -189,8 +431,11 @@ def main(argv=None):
 
             calibration = load_calibration(args.calibration)
             print(f"cycle calibration: {calibration['id']} (from {args.calibration})")
-        bank = build_bank(params, args.mode, default_points(FXP8, base_policy=policy,
-                                                            hifi_fmt=FXP16),
+        # int8 caps at 8 effective bits: an FxP16 point would cost 1.75x the
+        # cycles for bit-identical arithmetic, so the ladder drops it
+        hifi = None if args.mode == "int8" else FXP16
+        bank = build_bank(params, args.mode, default_points(fmt, base_policy=policy,
+                                                            hifi_fmt=hifi),
                           specs=model.specs(), calibration=calibration)
         print(f"bank: points={bank.names} shared_leaves={bank.shared_leaves}/"
               f"{bank.unique_leaves} rel_cycles="
@@ -252,7 +497,10 @@ def main(argv=None):
         profiler.start()
     t0 = time.perf_counter()
     try:
-        results = server.run(reqs)
+        if args.frontend or args.stdin_requests or args.http_port is not None:
+            results = _serve_frontend(args, server, reqs)
+        else:
+            results = server.run(reqs)
     finally:
         if profiler is not None:
             profiler.stop()

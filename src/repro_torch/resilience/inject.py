@@ -17,9 +17,10 @@ Fault kinds:
   graphs keep reading the cache they were captured with, so the cache is
   never rebound (the reference rebinds ``server.cache``).
 * :class:`NaNWeightFault` — poison prepared-weight leaves (optionally
-  filtered by a path substring) at one execution point: f32 leaves become
-  NaN, integer banks become zeros — what the reference's kernel-mode dot
-  makes of a NaN weight (its float→int cast maps NaN to 0). The poisoned
+  filtered by a path substring) at one execution point: f32 leaves (the
+  carmen grid, the int8 scales) become NaN, integer banks (kernel and int8
+  qvalues) become zeros — what the reference's kernel-mode dot makes of a
+  NaN weight (its float→int cast maps NaN to 0). The poisoned
   point gets private copies of the leaves it matches (a bank's points share
   leaves, which must stay clean at the other points), and the server drops
   that point's graphs, to be re-captured at its next visit; every other
@@ -96,7 +97,10 @@ def poison_tree(tree, match: Optional[str] = None):
             return node
         if isinstance(node, PreparedWeight):
             hit += 1
-            return dataclasses.replace(node, data=_zeros_strided(node.data))
+            data = (torch.full_like(node.data, float("nan")) if node.data.is_floating_point()
+                    else _zeros_strided(node.data))
+            scale = None if node.scale is None else torch.full_like(node.scale, float("nan"))
+            return dataclasses.replace(node, data=data, scale=scale)
         if isinstance(node, torch.Tensor) and node.is_floating_point():
             hit += 1
             return torch.full_like(node, float("nan"))

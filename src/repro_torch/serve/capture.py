@@ -16,7 +16,8 @@ What capture keeps true:
 
 * **Inputs are copied, never rebound.** A program reads its host inputs from
   static device buffers (:class:`Staged`), filled before each replay by one
-  copy each from pinned host memory. The fused and MAC-array launches encode
+  copy each from pinned host memory; a buffer's host side is written again
+  only once its last copy has run. The fused and MAC-array launches encode
   their TMA descriptors on the host from the addresses they see, and the
   graph replays those addresses.
 * **Outputs live outside the graph pool.** The output buffer is the warm-up
@@ -102,20 +103,31 @@ def pool_bytes(pool) -> int:
 
 class Staged:
     """A static device buffer that a program reads, and the host tensor it is
-    filled from (pinned on a CUDA device; on the CPU the two are one)."""
+    filled from (pinned on a CUDA device; on the CPU the two are one).
+
+    An upload is an asynchronous copy that reads the host tensor when the
+    stream reaches it, so a fill first waits for the buffer's last upload to
+    have run: programs without output (the frontend's chunks) are queued
+    back to back, with no transfer between them to wait on."""
 
     def __init__(self, shape, dtype, device: torch.device):
         self.device_buf = torch.zeros(shape, dtype=dtype, device=device)
         self.host = (torch.zeros(shape, dtype=dtype, pin_memory=True)
                      if device.type == "cuda" else self.device_buf)
+        self._uploaded = None  # the CUDA event after the last upload
 
     def fill(self, value) -> None:
         """Write ``value`` (a scalar, array or tensor of the buffer's shape) to the host side."""
+        if self._uploaded is not None:
+            self._uploaded.synchronize()
+            self._uploaded = None
         self.host.copy_(torch.as_tensor(value, dtype=self.host.dtype))
 
     def upload(self) -> None:
         if self.host is not self.device_buf:
             self.device_buf.copy_(self.host, non_blocking=True)
+            self._uploaded = torch.cuda.Event()
+            self._uploaded.record()
 
 
 class GraphRunner:
@@ -166,6 +178,16 @@ class GraphRunner:
             self.graphs[name].replay()
             self.replays[name] = self.replays.get(name, 0) + 1
             return _to_host(self._outs[name])
+
+    def eager(self, fn: Callable):
+        """Run ``fn()`` uncaptured, in order with the programs: on the
+        runner's stream on a CUDA device (the streaming frontend zeroes its
+        static prefill buffers so)."""
+        if self.device.type != "cuda":
+            return fn()
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            return fn()
 
     def drop(self, keep: Callable[[str], bool]) -> list:
         """Discard every graph whose name ``keep`` rejects; returns their

@@ -20,6 +20,12 @@ paths, each a device program:
   bit for bit. Two programs for every prompt length: the step (replayed
   once per prompt token; it reads its token at a device-side counter and
   has no output) and the finish (the prefill's one transfer);
+* **chunked prefill** (:func:`make_prefill_chunk`, :func:`make_scan_chunk`,
+  :func:`make_chunk_admit`, :meth:`BatchedServer.chunk_fns`), the streaming
+  frontend's (``serve/frontend.py``): a prompt advances through a static
+  private row cache at most ``chunk_tokens`` rows a scheduler tick, one
+  program a chunk bucket (the scan's step a chunk row), and an admit
+  program finishes it with the prefill's one transfer;
 * **decode bursts** (:func:`make_decode_burst`): ``burst`` single-token steps
   keep the pending tokens, counts, budgets, PRNG keys and temperatures on the
   device; one host transfer per burst brings tokens and top-2 margins back,
@@ -84,6 +90,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import EngineContext, prepare_params
+from repro_torch.kernels.decode_attention.ops import MLA_UNSPLIT_S, TC_MIN_S
 from repro_torch.models import ModelApi
 
 from . import threefry
@@ -93,6 +100,15 @@ from .kvcache import bucket_length, scatter_rows, with_cache_positions
 # families whose decode caches are pure attention/MLA KV rows (scatterable,
 # index-rewindable); recurrent-state families prefill through the scan
 _BATCHED_PREFILL_FAMILIES = ("dense", "vlm", "moe")
+
+# the fewest query rows a GQA or MLA cache-attention call runs on the tensor
+# cores (fewer: split keys); the two paths give a row bits that differ by
+# ulps, so a chunked prompt keeps each row on the path run()'s bucket takes
+_TC_ROWS = max(TC_MIN_S, MLA_UNSPLIT_S)
+
+
+# programs that read no weights: one graph serves every point
+_WEIGHTLESS = ("prefill finish", "prefill admit")
 
 
 def program_name(base: str, point: Optional[str] = None) -> str:
@@ -304,6 +320,53 @@ def make_scan_prefill(model: ModelApi, ctx: EngineContext):
     return step, finish
 
 
+def make_prefill_chunk(model: ModelApi, ctx: EngineContext):
+    """One chunked-prefill step for the attention/MLA families.
+
+    ``(tree, row, last, tokens (1, Cb), start, clen)``: ``row`` is the
+    request's private single-row cache; ``tokens`` are ``clen`` prompt rows
+    from row ``start`` on, padded to a power-of-two bucket ``Cb``. The write
+    index is set to ``start`` (the rows committed by earlier chunks; a chunk
+    that would pass ``max_len`` starts earlier and recomputes some of them,
+    :meth:`BatchedServer.chunk_span`), then one S = Cb decode step: each
+    query attends the committed rows and its own chunk prefix under the
+    per-query-causal mask, the key set the monolithic prefill gives it; then
+    the write index is rewound to ``start + clen``, so the padded tail is
+    scratch the next chunk writes over. ``last`` (1, V) f32 takes the logits
+    at the chunk's last real row: once the prompt is exhausted, the sampling
+    input of token 0 (:func:`make_chunk_admit`). ``row`` and ``last`` change
+    in place; ``start`` and ``clen`` are one-element tensors on the device.
+    """
+
+    def chunk(tree, row, last, tokens, start, clen):
+        with_cache_positions(row, start.reshape(1))
+        logits, _ = model.decode_step(tree, tokens, row, ctx)
+        clen = clen.reshape(1)
+        last.copy_(logits.index_select(1, (clen - 1).to(torch.int64))[:, 0, :])
+        with_cache_positions(row, start.reshape(1) + clen)
+
+    return chunk
+
+
+def make_scan_chunk(model: ModelApi, ctx: EngineContext):
+    """Chunked prefill for the recurrent-state families: the scan prefill's
+    single-token step (:func:`make_scan_prefill`), run once per real row of
+    the chunk, with the row cache and the last logits as the carry across
+    chunks. The reference scans the padded chunk and masks the steps past
+    ``clen``; a masked step changes nothing, so running only the real rows
+    gives the same carry, bit for bit. It is the scan prefill's step, so one
+    ``"prefill step"`` graph a point serves both."""
+    return make_scan_prefill(model, ctx)[0]
+
+
+def make_chunk_admit():
+    """Finish a chunked prefill: sample token 0 from the last logits, scatter
+    the finished row into its slot, admit the slot state (the shared
+    :func:`_finish_prefill` tail). ``(cache, state, row, last, slot,
+    base_key, temp, max_new) -> (tok (1, 1), margin (1,))``."""
+    return _finish_prefill
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -448,6 +511,8 @@ class BatchedServer:
                           "last": torch.zeros((1, model.cfg.vocab_size), dtype=torch.float32,
                                               device=self.device)}
             self._scan_prompt = staged((1, max_len), torch.int32)
+        self._chunk_fns = None  # (chunk, admit), built by the streaming frontend
+        self._frontend_meta = None  # set by the streaming frontend
         self.active: Dict[int, Request] = {}
         self._visited = set()  # programs built on this server (uncaptured)
         self._run_complete: Optional[bool] = None  # None: never ran
@@ -461,6 +526,7 @@ class BatchedServer:
         self.host_transfers = 0
         self.prefill_calls = 0
         self.prefill_steps = 0
+        self.prefill_chunks = 0
         self.decode_steps = 0
         self.spec_rounds = 0
         self.prefill_seconds = 0.0
@@ -511,7 +577,7 @@ class BatchedServer:
         replaced: drop the graphs that read it, to be captured again at
         their next call; every other graph replays untouched."""
         if point is None:
-            self.programs.drop(lambda name: " @" in name or name == "prefill finish")
+            self.programs.drop(lambda name: " @" in name or name in _WEIGHTLESS)
         else:
             self.programs.drop(lambda name: not name.endswith(f" @{point}"))
 
@@ -634,6 +700,10 @@ class BatchedServer:
             self.programs.run(program_name("prefill step", point), step, self._row, self._scan,
                               inputs=[tokens] if j == 0 else ())
             self.prefill_steps += 1
+        return self._run_scan_finish()
+
+    def _run_scan_finish(self) -> torch.Tensor:
+        args = self._args
 
         def finish(cache, state):
             a = {name: s.device_buf for name, s in args.items()}
@@ -649,6 +719,159 @@ class BatchedServer:
                                  {"slots": self.cache, "row": self._row},
                                  {"slots": self._state, "scan": self._scan},
                                  inputs=list(args.values()))
+
+    # -- chunked prefill: the streaming frontend's prefill programs -------------
+
+    def chunk_fns(self):
+        """The chunked-prefill programs ``(chunk, admit)``, the streaming
+        frontend's prefill hot path; ``run()`` never calls them.
+
+        ``chunk(prompt, start, n)`` advances the prefill carry by rows
+        ``[start, start + n)`` of ``prompt`` (an int32 array), at the serving
+        point: for the attention/MLA families one captured graph a chunk
+        bucket and point, ``"prefill_chunk <Cb> @<point>"``
+        (:func:`make_prefill_chunk`, rows and bucket by :meth:`chunk_span`);
+        for the recurrent families the scan prefill's step graph, replayed
+        once per row. ``admit(slot, req) ->
+        (tok, margin)`` finishes the prefill (:func:`make_chunk_admit`; the
+        recurrent families' scan finish): the chunked prefill's one
+        transfer, a graph that reads no weights.
+
+        The frontend prefills one request at a time, so one static carry
+        serves every job: a private ``(1, max_len)`` row cache and a ``(1,
+        V)`` last-logits buffer (the scan prefill's own for the recurrent
+        families), made here, before any capture, and zeroed in place by
+        :meth:`fresh_row`. A chunk's tokens, start and length go in
+        through ``Staged`` buffers."""
+        if self._chunk_fns is None:
+            if getattr(self, "mesh", None) is not None:
+                raise ValueError("chunked prefill is single-device for now: the streaming "
+                                 "frontend rejects mesh= (ROADMAP: sharded streaming)")
+            if self.batched_prefill:
+                self._prefill_chunk = make_prefill_chunk(self.model, self.ctx)
+                self._chunk_admit = make_chunk_admit()
+                self._chunk_row = self.model.make_cache(1, self.max_len, dtype=torch.float32,
+                                                        device=self.device)
+                self._chunk_last = torch.zeros((1, self.model.cfg.vocab_size),
+                                               dtype=torch.float32, device=self.device)
+                self._args["start"] = self.programs.staged((), torch.int32)
+                self._chunk_fns = (self._attn_chunk, self._attn_admit)
+            else:
+                self._scan_chunk_step = make_scan_chunk(self.model, self.ctx)
+                # the job's prompt rows so far, the scan prompt buffer's host image
+                self._scan_tokens = np.zeros((1, self.max_len), np.int32)
+                self._chunk_fns = (self._scan_chunk, self._scan_admit)
+        return self._chunk_fns
+
+    def chunk_span(self, plen: int, start: int, n: int) -> Tuple[int, int]:
+        """Where prompt rows ``[start, start + n)`` of a ``plen``-row prompt
+        run as one chunk: ``(first, bucket)``, the chunk program's first row
+        and its power-of-two row count. Two rules keep each row the one the
+        monolithic prefill computes:
+
+        * a prompt whose own bucket reaches the cache attention's
+          tensor-core rows (``_TC_ROWS``) runs every chunk at least that
+          wide, so each of its rows is computed on the tensor cores, as
+          run()'s bucket computes it; on split keys its bits would differ
+          by ulps, and in kernel mode an ulp can move an FxP8 activation a
+          grid step and so the stream;
+        * the chunk ends within the row cache: where ``start + bucket``
+          would pass ``max_len``, it starts at ``max_len - bucket`` and
+          recomputes committed rows (the KV write would otherwise clamp its
+          start and shift every row of the chunk onto its neighbour's).
+
+        The recurrent families step once a row: ``(start, bucket_length(n))``."""
+        bucket = bucket_length(n, self.max_len)
+        if not self.batched_prefill:
+            return start, bucket
+        if bucket_length(plen, self.max_len) >= _TC_ROWS:
+            bucket = max(bucket, _TC_ROWS)
+        return min(start, self.max_len - bucket), bucket
+
+    def fresh_row(self):
+        """Zero the prefill carry in place for a new job and return it, ``(row
+        cache, last logits)``: the reference starts each prefill from a fresh
+        cache (a job cancelled mid-prefill leaves its rows behind)."""
+        self.chunk_fns()
+        if self.batched_prefill:
+            row, carry = self._chunk_row, {"last": self._chunk_last}
+        else:
+            row, carry = self._row, self._scan
+        self.programs.eager(lambda: (_zero(row), _zero(carry)))
+        return row, (self._chunk_last if self.batched_prefill else self._scan["last"])
+
+    def _fill_admit_args(self, slot: int, req: Request) -> None:
+        seed = req.seed if req.seed is not None else req.rid
+        for name, value in (("slot", slot), ("key", threefry.prng_key(seed)),
+                            ("temp", req.temperature), ("max_new", req.max_new)):
+            self._args[name].fill(value)
+
+    @torch.no_grad()
+    def _attn_chunk(self, prompt: np.ndarray, start: int, n: int) -> None:
+        first, bucket = self.chunk_span(len(prompt), start, n)
+        rows = prompt[first:start + n]
+        tree, point = self._serving_tree(), self._serving_point()
+        if bucket not in self._prompts:
+            self._prompts[bucket] = self.programs.staged((1, bucket), torch.int32)
+        buf, args = self._prompts[bucket], self._args
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :len(rows)] = rows
+        buf.fill(padded)
+        args["start"].fill(first)
+        args["plen"].fill(len(rows))  # the chunk's real rows
+
+        def program(row, carry):
+            self._prefill_chunk(tree, row, carry["last"], buf.device_buf,
+                                args["start"].device_buf, args["plen"].device_buf)
+
+        self.programs.run(program_name(f"prefill_chunk {bucket}", point), program,
+                          self._chunk_row, {"last": self._chunk_last},
+                          inputs=[buf, args["start"], args["plen"]])
+        self.prefill_chunks += 1
+
+    @torch.no_grad()
+    def _attn_admit(self, slot: int, req: Request):
+        self._fill_admit_args(slot, req)
+        args = self._args
+
+        def admit(cache, state):
+            a = {name: s.device_buf for name, s in args.items()}
+            tok, margin = self._chunk_admit(cache["slots"], state["slots"], cache["row"],
+                                            state["last"], a["slot"], a["key"], a["temp"],
+                                            a["max_new"])
+            return torch.stack([tok.reshape(1).to(torch.float32), margin])
+
+        out = self.programs.run("prefill admit", admit,
+                                {"slots": self.cache, "row": self._chunk_row},
+                                {"slots": self._state, "last": self._chunk_last},
+                                inputs=[args[k] for k in ("slot", "key", "temp", "max_new")])
+        return self._admitted(slot, req, out)
+
+    @torch.no_grad()
+    def _scan_chunk(self, prompt: np.ndarray, start: int, n: int) -> None:
+        tree, point = self._serving_tree(), self._serving_point()
+        self._scan_tokens[0, start:start + n] = prompt[start:start + n]
+        buf = self._scan_prompt
+        buf.fill(self._scan_tokens)
+
+        def step(row, scan):
+            self._scan_chunk_step(tree, row, scan, buf.device_buf)
+
+        for j in range(n):
+            self.programs.run(program_name("prefill step", point), step, self._row, self._scan,
+                              inputs=[buf] if j == 0 else ())
+            self.prefill_steps += 1
+
+    @torch.no_grad()
+    def _scan_admit(self, slot: int, req: Request):
+        self._fill_admit_args(slot, req)
+        return self._admitted(slot, req, self._run_scan_finish())
+
+    def _admitted(self, slot: int, req: Request, out: torch.Tensor):
+        self._slot_start[slot] = len(req.prompt)
+        self._slot_tok[slot], self._slot_count[slot] = int(out[0, 0]), 1
+        self._slot_temp[slot] = req.temperature
+        return int(out[0, 0]), float(out[1, 0])
 
     @torch.no_grad()
     def _burst_round(self, slot_of: Dict[int, int]) -> Dict:
@@ -937,6 +1160,12 @@ class BatchedServer:
             self._fault_counts["deadline_misses"] += 1
             if obs is not None:
                 obs.request_expired(req.rid, tokens)
+        elif status == "aborted":
+            # a streaming-frontend cancellation or shutdown; run() itself
+            # never produces this status
+            self._fault_counts["aborted"] = self._fault_counts.get("aborted", 0) + 1
+            if obs is not None:
+                obs.request_cancelled(req.rid, tokens)
         else:
             self._fault_counts["faulted"] += 1
             if obs is not None:
@@ -1030,6 +1259,8 @@ class BatchedServer:
                 "fault_isolation": self.resilience.fault_isolation,
                 "default_deadline_s": self.resilience.default_deadline_s,
             }
+        if self._frontend_meta is not None:
+            meta["frontend"] = dict(self._frontend_meta)
         engine = self._engine_cost_meta()
         if engine is not None:
             meta["engine"] = engine
@@ -1052,7 +1283,7 @@ class BatchedServer:
                     "cycle_model": bank.cycle_model,
                     "layers": layer_cost_table(bank.tree(bank.reference), policies, specs=specs),
                 }
-            elif self.ctx.policy is not None:
+            elif self.ctx.mode != "exact" and self.ctx.policy is not None:
                 # static prepared serving: a single-point "bank"
                 self._engine_meta_cache = {
                     "points": {"static": estimate_point_cycles(self.params, self.ctx.policy,

@@ -137,8 +137,9 @@ def test_policy_file_loads_in_the_other_package(tmp_path, writer):
 
 def test_serve_cli_calibrates_saves_and_serves(tmp_path, capsys):
     path = tmp_path / "p.json"
-    results = serve.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu", "--calibrate",
-                          "--save-policy", str(path), "--requests", "2", "--max-new", "3"])
+    results = serve.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu", "--mode", "kernel",
+                          "--calibrate", "--save-policy", str(path), "--requests", "2",
+                          "--max-new", "3"])
     out = capsys.readouterr().out
     assert "calibration scan:" in out and f"policy saved to {path}" in out
     policy = JPolicy.load(str(path))
@@ -146,6 +147,6 @@ def test_serve_cli_calibrates_saves_and_serves(tmp_path, capsys):
                                     for lp in policy.overrides.values())
     assert sorted(results) == [0, 1] and all(len(t) == 3 for t in results.values())
     # the saved policy serves the same streams through --policy-file
-    again = serve.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu", "--policy-file",
-                        str(path), "--requests", "2", "--max-new", "3"])
+    again = serve.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu", "--mode", "kernel",
+                        "--policy-file", str(path), "--requests", "2", "--max-new", "3"])
     assert again == results

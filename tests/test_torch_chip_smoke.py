@@ -180,6 +180,7 @@ def counted(monkeypatch):
     by the instantiation the wrapper's plan would launch."""
     from repro_torch import kernels
     from repro_torch.kernels.cordic_fused import ops as fused_ops
+    from repro_torch.kernels.cordic_mac import ops as mac_ops
     from repro_torch.kernels.decode_attention import ops as attn_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.int_dot import PATH_NAMES, plan
@@ -199,6 +200,9 @@ def counted(monkeypatch):
     counting(attn_ops, "gqa_decode_attention_ref", attn_ops.gqa_decode_attention,
              lambda q, *a: "tc" if q.shape[1] >= attn_ops.TC_MIN_S else "split")
     counting(flash_ops, "flash_attention_ref", flash_ops.flash_attention, lambda *a: "tc")
+    counting(mac_ops, "mac_matmul_ref", mac_ops.mac_matmul,
+             lambda x, w, *a: PATH_NAMES[plan(x.shape[0], w.shape[1], w.shape[0],
+                                              x.element_size(), w.element_size()).path])
 
 
 SCAN_ARCHS = ["mamba2-780m", "zamba2-7b", "seamless-m4t-large-v2"]
@@ -341,8 +345,9 @@ def dataclass_widths(cfg):
 
 def test_scan_phases_names_and_reports(smoke, monkeypatch, capsys):
     """``scan_phases`` with its phases stubbed: each scan arch served, mamba2
-    also sampled, each one's forward on its serving weights, then each
-    reduced card vs CPU; a failing phase prints ``failed_phase``."""
+    also sampled and through the streaming frontend on its serving weights,
+    each one's forward on its serving weights, then each reduced card vs
+    CPU; a failing phase prints ``failed_phase``."""
     calls = []
 
     def serve(device, label, cfg):
@@ -356,6 +361,8 @@ def test_scan_phases_names_and_reports(smoke, monkeypatch, capsys):
         calls.append(("forward", label, w["weights of"], batch)) or {"config": "forward"}))
     monkeypatch.setattr(smoke, "scan_card_vs_cpu", lambda d, name: (
         calls.append(("parity", name)) or {"config": name}))
+    monkeypatch.setattr(smoke, "chunked_frontend", lambda d, label, cfg, w, run: (
+        calls.append(("frontend", label, w["weights of"], run)) or {"config": "frontend"}))
     monkeypatch.setattr(smoke, "free_card", lambda: None)
     serving, forward, parity = {}, {}, {}
     smoke.scan_phases("cpu", serving, forward, parity)
@@ -366,7 +373,9 @@ def test_scan_phases_names_and_reports(smoke, monkeypatch, capsys):
     assert [(c[1], c[3]) for c in calls if c[0] == "forward"] == list(smoke.SCAN_FORWARD.items())
     assert all(c[1] == c[2] for c in calls if c[0] == "forward")
     assert [c[1] for c in calls if c[0] == "parity"] == names == list(parity)
-    assert sorted(serving) == sorted(names + ["mamba2-780m sampled"])
+    assert [c[1:] for c in calls if c[0] == "frontend"] == [
+        ("mamba2-780m", "mamba2-780m", ({0: [1]}, [[0.5]]))]
+    assert sorted(serving) == sorted(names + ["mamba2-780m sampled", "mamba2-780m frontend"])
     lines = [json.loads(line) for line in out.splitlines()]
     assert [next(iter(x)) for x in lines].count("card_vs_cpu") == len(names)
     for name in names:
@@ -540,3 +549,146 @@ def test_resilience_phase_accounting(smoke, counted, monkeypatch, tmp_path):
         build_bank(params, "kernel", default_points(FXP8, hifi_fmt=None), specs=model.specs()),
         ControllerConfig(pin="accurate")))
     assert pinned.run(reqs) == accurate.run(smoke.requests(cfg, lens=lens, max_new=10))
+
+
+@pytest.fixture
+def small_smoke(smoke, monkeypatch):
+    """The smoke's serving sizes cut to the CPU's: 2 slots, 64 rows, burst 4,
+    four prompts (the third, 40 rows, the long one) of 6 new tokens, chunks
+    of 8 rows; no card to synchronize or free."""
+    for name, value in (("SLOTS", 2), ("MAX_LEN", 64), ("BURST", 4),
+                        ("PROMPT_LENS", (3, 17, 40, 9)), ("MAX_NEW", 6), ("CHUNK_TOKENS", 8),
+                        ("LONG_RID", 2)):
+        monkeypatch.setattr(smoke, name, value)
+    monkeypatch.setattr(smoke, "free_card", lambda: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    return smoke
+
+
+@pytest.mark.parametrize("name", ["olmo-1b", "mamba2-780m"])
+def test_frontend_chunk_launch_accounting(small_smoke, counted, monkeypatch, name):
+    """The streaming frontend on a reduced arch under the stand-in capture,
+    with the smoke's exact gates (``chunked_identity``): each chunk bucket a
+    graph (the scan: its step graph a chunk row), captured launches x
+    replays exactly the chunks' forwards and the decode steps by
+    instantiation, one transfer an admit and a burst, the interleaving
+    bound, streams equal to run()'s; a steady repeat issues nothing from the
+    host; a chunk the scheduler did not run fails the gate."""
+    smoke = small_smoke
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+    from repro_torch.serve import engine
+
+    monkeypatch.setattr(engine, "GraphRunner", _CpuCapture)
+    cfg = reduced(get_config(name))
+    model = get_model(cfg)
+    params = smoke.scaled_init(model)
+    make = lambda: engine.BatchedServer(  # noqa: E731
+        model, smoke.kernel_ctx(), params, slots=2, max_len=64, burst=4, device="cpu")
+    reqs = smoke.requests(cfg)
+    run = (make().run(reqs), smoke.margins(reqs))
+    server = make()
+    rep, chunks = smoke.chunked_identity(name, server, cfg, run)
+    assert rep["streams_identical"] and rep["margins_max_abs_diff"] <= smoke.MARGIN_ATOL
+    assert 0 < rep["max_prefill_rows_between_bursts"] <= 8
+    assert sum(n for n, _, _ in chunks) == sum(smoke.PROMPT_LENS)
+    per_forward = smoke.launches_per_forward(cfg)
+    assert rep["launches"] == {k: v * smoke.model_forwards(server)
+                               for k, v in per_forward.items()}
+    if server.batched_prefill:
+        assert server.prefill_chunks == len(chunks) > len(reqs)
+        # a chunk of a prompt whose bucket is 16 or more runs 16 wide
+        assert set(rep["chunk_buckets"]) == {f"prefill_chunk {b}" for b in (1, 2, 4, 8, 16)} & set(
+            server.programs.graphs)
+        assert {server.chunk_span(p, s, n)[1] for n, s, p in chunks if p > 8} == {16}
+        assert server.programs.captured_launches["prefill admit"] == {}
+    else:
+        assert server.programs.replays["prefill step"] == sum(smoke.PROMPT_LENS)
+    captured = frozenset(server.programs.graphs)
+    chunks.clear()
+    smoke.zero_launches()
+    again = smoke.requests(cfg)
+    out, _, _ = smoke.frontend_run(server, again)
+    smoke.frontend_accounting(f"{name} steady", server, cfg, again, chunks, captured)
+    assert not any(smoke.wrapper_counts().values())
+    assert smoke.same_as_run(f"{name} steady", out, again, run)["streams_identical"]
+    chunks.append((1, 0, 1))
+    with pytest.raises(AssertionError, match="tampered"):
+        smoke.frontend_accounting(f"{name} tampered", server, cfg, again, chunks, captured)
+
+
+@pytest.mark.parametrize("mode", ["exact", "carmen", "int8"])
+def test_mode_serving_launch_accounting(small_smoke, counted, monkeypatch, mode):
+    """The exact, carmen and int8 modes on reduced olmo-1b under the
+    stand-in capture, with the smoke's gates (``serve_mode``): captured =
+    repeat = uncaptured, bitwise; launches exact (every int8 dot a
+    MAC-array launch, on the narrow loop at decode and the int8 tensor
+    cores past 16 rows; the cache attention in every mode); prepared = per
+    call."""
+    smoke = small_smoke
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+    from repro_torch.serve import engine
+
+    monkeypatch.setattr(engine, "GraphRunner", _CpuCapture)
+    cfg = reduced(get_config("olmo-1b"))
+    params = smoke.scaled_init(get_model(cfg))
+    report, run = smoke.serve_mode("cpu", mode, cfg, params)
+    forwards, rest = divmod(report["launches"]["gqa_decode_attention"], cfg.num_layers)
+    assert rest == 0 and forwards > len(smoke.PROMPT_LENS)
+    if mode == "int8":
+        assert report["launches"]["cordic_mac"] == (7 * cfg.num_layers + 1) * forwards
+    else:
+        assert set(report["launches"]) == {"gqa_decode_attention"}
+    assert report["uncaptured_identical"] and report["repeat_identical"]
+    per_call, per_call_run = smoke.serve_mode("cpu", mode, cfg, params, per_call=True,
+                                              uncaptured=False)
+    assert per_call_run == run and per_call["launches"] == report["launches"]
+
+
+def _reduced_olmo(layers=None):
+    from repro_torch.configs import get_config, reduced
+
+    return reduced(get_config("olmo-1b"), **({"layers": layers} if layers else {}))
+
+
+def test_frontend_and_modes_phases_rehearsed(small_smoke, counted, monkeypatch):
+    """``frontend_phases`` and ``modes_phases`` end to end on reduced olmo-1b
+    under the stand-in capture: chunked, its steady repeat, the monolithic
+    arm (run()'s margins bitwise) and Poisson arrivals all serve run()'s
+    streams; each mode's reports, prepared = per call, card vs CPU (here CPU
+    vs CPU) and the CLI's carmen --adaptive --metrics flow."""
+    smoke = small_smoke
+    from repro_torch.launch import serve as cli
+    from repro_torch.models import get_model
+    from repro_torch.serve import engine
+
+    monkeypatch.setattr(engine, "GraphRunner", _CpuCapture)
+    monkeypatch.setattr(smoke, "olmo", _reduced_olmo)
+    cfg = _reduced_olmo()
+    model = get_model(cfg)
+    server = engine.BatchedServer(model, smoke.kernel_ctx(),
+                                  model.init(torch.Generator().manual_seed(smoke.SEED)),
+                                  slots=2, max_len=64, burst=4, device="cpu")
+    reqs = smoke.requests(cfg)
+    run = (server.run(reqs), smoke.margins(reqs))
+    report = smoke.frontend_phases("cpu", run)
+    for key in ("chunked", "chunked_steady", "monolithic", "monolithic_steady"):
+        assert report[key]["streams_identical"], key
+    assert report["monolithic"]["margins_identical"]
+    for arm in ("chunked", "monolithic"):
+        assert report[f"interleaved_{arm}"]["long_prompt_gaps"]["gaps"] > 0
+    assert report["poisson_arrivals"]["arrival_rate"] == smoke.ARRIVAL_RATE
+    assert report["half_chunk_budget"]["captured_equals_uncaptured"]
+    assert report["half_chunk_budget"]["streams_identical"]
+    assert report["poisson_arrivals"]["streams_identical"]
+    assert report["launches"] == report["chunked"]["launches"]
+    main = cli.main
+    monkeypatch.setattr(cli, "main", lambda argv: main(argv + ["--device", "cpu", "--reduced"]))
+    modes = smoke.modes_phases("cpu")
+    for mode in smoke.MODES:
+        assert modes[mode]["uncaptured_identical"]
+        assert modes[f"{mode} {smoke.PER_CALL_LAYERS} layers"]["per_call_identical"]
+        assert modes[f"{mode} card vs cpu"]["streams_identical"]
+    cli_report = modes["cli carmen adaptive metrics"]
+    assert cli_report["telemetry"]["reference"] == "accurate" and cli_report["metrics"]

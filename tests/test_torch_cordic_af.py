@@ -111,9 +111,22 @@ def test_engine_activate_kernel_mode_matches_reference(name, af):
         assert got is xt
 
 
-def test_engine_activate_other_modes_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        EngineContext(mode="carmen").activate(torch.zeros(4), "swish")
+@pytest.mark.parametrize("mode", ["exact", "carmen", "int8"])
+def test_engine_activate_other_modes_not_yet_ported(mode):
+    """The other modes are ported: ``exact`` runs the float reference,
+    ``carmen`` and ``int8`` the multi-AF block's float wrapper, as in the
+    reference (its FxP8 fixed point bitwise, its float reference to f32
+    ulps)."""
+    x = _inputs((2, 4, 3, 96), seed=12)
+    jctx = JCtx(mode=mode, policy=JPolicy.accurate(J8), compute_dtype=jnp.float32)
+    ctx = EngineContext(mode=mode, policy=PrecisionPolicy.accurate(FXP8),
+                        compute_dtype=torch.float32)
+    want = np.asarray(jctx.activate(jnp.asarray(x), "swish"))
+    got = ctx.activate(torch.from_numpy(x), "swish").numpy()
+    if mode == "exact":
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------

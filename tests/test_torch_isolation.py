@@ -45,7 +45,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.resilience", "repro_torch.resilience.outcome",
             "repro_torch.resilience.degrade", "repro_torch.resilience.inject",
             "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
-            "repro_torch.obs.observer"} <= set(mods)
+            "repro_torch.obs.observer", "repro_torch.core.backends.exact",
+            "repro_torch.core.backends.carmen", "repro_torch.core.backends.int8",
+            "repro_torch.serve.frontend"} <= set(mods)
     code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"

@@ -715,3 +715,178 @@ def test_verify_step_logits_equal_token_by_token_decode(cuda):
                          for j in range(VERIFY_S)], dim=1)
         blk, _ = model.decode_step(params, block, cache, ctx)
     assert torch.equal(seq, blk), (seq - blk).abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# the streaming frontend's chunk rows and the int8 mode
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", [64, 130, 288])
+@pytest.mark.parametrize("s", [1, 4, 16, 32])
+def test_gqa_chunk_rows_from_nonzero_start(cuda, start, s):
+    """A chunked prefill's GQA call at olmo-1b widths: one request's row
+    cache (B1, T512), S query rows from a nonzero start, within tolerance of
+    the plain version (the tensor-core tile loop skips the tiles past the
+    block's last query position); on split keys (S < 16) each row bit for
+    bit the single-row call of its position."""
+    b, h, kv, hd, t = 1, 16, 16, 128, 512
+    gen = torch.Generator(device=cuda).manual_seed(start * 100 + s)
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda)
+    ck = torch.randn((b, t, kv, hd), generator=gen, device=cuda)
+    cv = torch.randn((b, t, kv, hd), generator=gen, device=cuda)
+    pos = (start + torch.arange(s, device=cuda, dtype=torch.int32))[None].contiguous()
+    scale = 1.0 / math.sqrt(hd)
+    got = gqa_decode_attention(q, ck, cv, pos, scale=scale)
+    want = gqa_decode_attention_ref(q, ck, cv, pos, scale=scale)
+    assert (got - want).abs().max().item() <= TOLERANCE
+    path, _ = gqa_plan(b, s, h, t, kv)
+    assert path == (TENSOR_CORES if s >= TC_MIN_S else SPLIT_KEYS)
+    if path == SPLIT_KEYS:
+        for j in range(s):
+            alone = gqa_decode_attention(q[:, j:j + 1].contiguous(), ck, cv,
+                                         pos[:, j:j + 1].contiguous(), scale=scale)
+            assert torch.equal(alone[:, 0], got[:, j]), j
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", [130, 288])
+@pytest.mark.parametrize("s", [4, 16, 32])
+def test_mla_chunk_rows_from_nonzero_start(cuda, start, s):
+    """A chunked prefill's MLA call at deepseek-v3 widths (B1, H128, R512,
+    r64, T512) from a nonzero start, within tolerance of the plain version;
+    below 16 rows (the key splits of ``mla_splits``) each row bit for bit
+    the single-row call of its position."""
+    b, h, r, rd, t = 1, 128, 512, 64, 512
+    gen = torch.Generator(device=cuda).manual_seed(start * 10 + s)
+    ql = torch.randn((b, s, h, r), generator=gen, device=cuda)
+    qr = torch.randn((b, s, h, rd), generator=gen, device=cuda)
+    ck = torch.randn((b, t, r), generator=gen, device=cuda)
+    kr = torch.randn((b, t, rd), generator=gen, device=cuda)
+    pos = (start + torch.arange(s, device=cuda, dtype=torch.int32))[None].contiguous()
+    scale = 1.0 / math.sqrt(128 + rd)
+    got = mla_decode_attention(ql, qr, ck, kr, pos, scale=scale)
+    want = mla_decode_attention_ref(ql, qr, ck, kr, pos, scale=scale)
+    assert (got - want).abs().max().item() <= TOLERANCE
+    if s < 16:
+        for j in range(s):
+            alone = mla_decode_attention(ql[:, j:j + 1].contiguous(),
+                                         qr[:, j:j + 1].contiguous(), ck, kr,
+                                         pos[:, j:j + 1].contiguous(), scale=scale)
+            assert torch.equal(alone[:, 0], got[:, j]), j
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 32, 512])
+@pytest.mark.parametrize("k,n", [(2048, 8192), (8192, 2048), (2048, 50304), (1000, 300)])
+def test_int8_dot_through_mac_matmul_bitwise(cuda, m, k, n):
+    """The int8 mode's dot on the card: per-token x scales, a K-major int8
+    bank with per-channel scales (``Int8Backend.prepare``'s layout), one
+    MAC-array launch a call, bitwise equal to the plain version on the CPU;
+    a per-call (float) weight takes the same path."""
+    from repro_torch.core.backends.int8 import int8_dot, k_major_bank, quantize_weight
+    from repro_torch.kernels.int_dot import is_k_major
+
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=cuda) * 2
+    w = torch.randn((k, n), generator=gen, device=cuda) * 0.3
+    wq, ws = quantize_weight(w)
+    bank = k_major_bank(wq)
+    assert is_k_major(bank) and ws.shape == (1, n)
+    before = mac_matmul.launches
+    got = int8_dot(x, bank, w_scale=ws)
+    assert mac_matmul.launches == before + 1
+    want = int8_dot(x.cpu(), wq.cpu(), w_scale=ws.cpu())
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(int8_dot(x, w).cpu(), int8_dot(x.cpu(), w.cpu()))
+    with pytest.raises(ValueError, match="K-major"):
+        int8_dot(x, wq, w_scale=ws)  # an N-major bank is refused, not copied
+
+
+@pytest.mark.gpu
+def test_captured_chunk_graph_replayed_after_a_burst_graph(cuda):
+    """Reduced olmo-1b through the streaming frontend on the card, captured:
+    requests submitted after two ticks replay the chunk graph captured
+    before the burst graph (16 rows: every chunk of a prompt of 9 rows or
+    more, ``BatchedServer.chunk_span``) and capture a new one (the 5-row
+    prompt's bucket of 8) after it, from the one pool; streams and f32
+    margins bitwise equal to the uncaptured frontend's and to run()'s; every
+    prefill one admit transfer."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+    from repro_torch.serve import BatchedServer, Request
+    from repro_torch.serve.capture import pool_live_bytes
+    from repro_torch.serve.frontend import ContinuousScheduler, FrontendConfig
+
+    cfg = reduced(get_config("olmo-1b"))
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    ctx = EngineContext(mode="kernel", policy=PrecisionPolicy.accurate(),
+                        compute_dtype=torch.float32, attn_impl="decode_kernel")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (12, 26, 5)]
+
+    def serve(capture):
+        server = BatchedServer(model, ctx, params, slots=2, max_len=64, burst=4, device=cuda,
+                               capture=capture)
+        reqs = [Request(i, p, 8) for i, p in enumerate(prompts)]
+        sched = ContinuousScheduler(server, FrontendConfig(chunk_tokens=8))
+        with sched:
+            sched.submit(reqs[0])
+            sched.step()
+            sched.step()  # a burst graph ran before any chunk of the next request
+            for r in reqs[1:]:
+                sched.submit(r)
+            out = sched.drain()
+        return server, out, [r.margins for r in reqs]
+
+    server, out, margins = serve(True)
+    names = list(server.programs.graphs)  # in capture order
+    assert names.index("prefill_chunk 16") < names.index("burst greedy") < names.index(
+        "prefill_chunk 8")
+    # 12 rows: 8 + 4; 26 rows: 8 + 8 + 8 + 2; 5 rows: one chunk
+    assert server.programs.replays["prefill_chunk 16"] == 2 + 4
+    assert server.programs.replays["prefill_chunk 8"] == 1
+    assert pool_live_bytes(server.programs.pool) == 0
+    assert server.host_transfers == len(prompts) + server.decode_steps // server.burst
+    _, eager_out, eager_margins = serve(False)
+    assert out == eager_out and margins == eager_margins
+    run_reqs = [Request(i, p, 8) for i, p in enumerate(prompts)]
+    run = BatchedServer(model, ctx, params, slots=2, max_len=64, burst=4, device=cuda).run(
+        run_reqs)
+    assert out == run and margins == [r.margins for r in run_reqs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["gqa", "mla"])
+@pytest.mark.parametrize("start", [130, 288])
+def test_chunk_rows_bitwise_the_prefill_bucket_rows(cuda, kernel, start):
+    """The cache attention of a chunk at the bucket ``chunk_span`` gives it
+    (16 rows from ``start``: the tensor cores) gives each row the bits of
+    the same row in run()'s prefill bucket (512 rows from row 0), GQA at
+    olmo-1b widths and MLA at deepseek-v3 widths; so a chunked prompt's rows
+    are its monolithic prefill's, whatever the chunk boundaries."""
+    from repro_torch.serve.engine import _TC_ROWS
+
+    t = 512
+    gen = torch.Generator(device=cuda).manual_seed(start)
+    if kernel == "gqa":
+        ck, cv = (torch.randn((1, t, 16, 128), generator=gen, device=cuda) for _ in range(2))
+        qs = [torch.randn((1, t, 16, 128), generator=gen, device=cuda)]
+
+        def call(q, pos):
+            return gqa_decode_attention(q, ck, cv, pos, scale=1.0 / math.sqrt(128))
+    else:
+        ck = torch.randn((1, t, 512), generator=gen, device=cuda)
+        kr = torch.randn((1, t, 64), generator=gen, device=cuda)
+        qs = [torch.randn((1, t, 128, d), generator=gen, device=cuda) for d in (512, 64)]
+
+        def call(ql, qr, pos):
+            return mla_decode_attention(ql, qr, ck, kr, pos, scale=1.0 / math.sqrt(192))
+    pos = torch.arange(t, device=cuda, dtype=torch.int32)[None].contiguous()
+    whole = call(*qs, pos)
+    part = call(*(x[:, start:start + _TC_ROWS].contiguous() for x in (*qs, pos)))
+    assert torch.equal(part, whole[:, start:start + _TC_ROWS])

@@ -144,10 +144,14 @@ def test_chunked_weight_rounding_equals_whole(monkeypatch):
 
 
 def test_other_modes_are_not_yet_ported(trees):
+    """Every mode is ported now: ``exact`` serves the tree as it is, carmen
+    and int8 prepare every engine-routed leaf (tests/test_torch_backends.py
+    holds their values against the reference); an unknown mode raises."""
     *_, model, params = trees
-    for mode in ("exact", "carmen", "int8"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            prepare_params(params, None, mode)
+    assert prepare_params(params, None, "exact") is params
+    for mode in ("carmen", "int8"):
+        prepared = prepare_params(params, None, mode, specs=model.specs())
+        assert prepared["lm_head"].backend == mode
     with pytest.raises(ValueError, match="unknown engine mode"):
         prepare_params(params, None, "bogus")
 

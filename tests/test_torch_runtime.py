@@ -442,7 +442,8 @@ def test_cli_serves_adaptive_on_cpu(capsys, tmp_path):
 
     path = tmp_path / "cal.json"
     path.write_text(json.dumps(CALIBRATION))
-    out = main(["--arch", "olmo-1b", "--reduced", "--requests", "3", "--slots", "2",
+    out = main(["--arch", "olmo-1b", "--reduced", "--mode", "kernel", "--requests", "3",
+                "--slots", "2",
                 "--max-new", "6", "--burst", "2", "--device", "cpu", "--adaptive",
                 "--cycle-budget", "0.75", "--calibration", str(path)])
     assert sorted(out) == [0, 1, 2] and all(len(v) == 6 for v in out.values())
@@ -451,4 +452,5 @@ def test_cli_serves_adaptive_on_cpu(capsys, tmp_path):
     tele = json.loads(text.split("telemetry: ", 1)[1].splitlines()[0])
     assert tele["reference"] == "accurate" and tele["steps"] >= 1
     with pytest.raises(SystemExit, match="per-call"):
-        main(["--arch", "olmo-1b", "--reduced", "--device", "cpu", "--adaptive", "--per-call"])
+        main(["--arch", "olmo-1b", "--reduced", "--device", "cpu", "--mode", "kernel", "--adaptive",
+              "--per-call"])

@@ -160,8 +160,8 @@ def test_request_validation(setup):
 def test_serving_cli_runs_on_cpu(capsys):
     from repro_torch.launch.serve import main
 
-    out = main(["--reduced", "--requests", "3", "--slots", "2", "--max-new", "4",
-                "--burst", "2", "--device", "cpu"])
+    out = main(["--reduced", "--mode", "kernel", "--requests", "3", "--slots", "2", "--max-new",
+                "4", "--burst", "2", "--device", "cpu"])
     assert sorted(out) == [0, 1, 2] and all(len(v) == 4 for v in out.values())
     assert "host round-trips" in capsys.readouterr().out
 
@@ -169,8 +169,8 @@ def test_serving_cli_runs_on_cpu(capsys):
 def test_serving_cli_per_call_runs_on_cpu(capsys):
     from repro_torch.launch.serve import main
 
-    args = ["--reduced", "--requests", "3", "--slots", "2", "--max-new", "4", "--burst", "2",
-            "--device", "cpu"]
+    args = ["--reduced", "--mode", "kernel", "--requests", "3", "--slots", "2", "--max-new", "4",
+            "--burst", "2", "--device", "cpu"]
     prepared = main(args)
     assert "prepared kernel weights" in capsys.readouterr().out
     out = main(args + ["--per-call"])
@@ -299,7 +299,8 @@ def test_serving_cli_serves_interleaved_moe_on_cpu(capsys):
     CLI; its parity with the reference is in test_torch_llama4.py."""
     from repro_torch.launch.serve import main
 
-    out = main(["--arch", "llama4-maverick-400b-a17b", "--reduced", "--requests", "3",
+    out = main(["--arch", "llama4-maverick-400b-a17b", "--reduced", "--mode", "kernel",
+                "--requests", "3",
                 "--slots", "2", "--max-new", "4", "--burst", "2", "--device", "cpu"])
     assert sorted(out) == [0, 1, 2] and all(len(v) == 4 for v in out.values())
     assert "host round-trips" in capsys.readouterr().out
@@ -308,7 +309,8 @@ def test_serving_cli_serves_interleaved_moe_on_cpu(capsys):
 def test_serving_cli_serves_deepseek_on_cpu(capsys):
     from repro_torch.launch.serve import main
 
-    out = main(["--arch", "deepseek-v3-671b", "--reduced", "--requests", "3", "--slots", "2",
+    out = main(["--arch", "deepseek-v3-671b", "--reduced", "--mode", "kernel", "--requests", "3",
+                "--slots", "2",
                 "--max-new", "4", "--burst", "2", "--device", "cpu"])
     assert sorted(out) == [0, 1, 2] and all(len(v) == 4 for v in out.values())
     assert "host round-trips" in capsys.readouterr().out

@@ -245,7 +245,8 @@ def test_deepseek_sampled_streams_and_programs_match_reference(deepseek):
 def test_serving_cli_samples_on_cpu(capsys):
     from repro_torch.launch.serve import main
 
-    args = ["--reduced", "--requests", "3", "--slots", "2", "--max-new", "6", "--burst", "2",
+    args = ["--reduced", "--mode", "kernel", "--requests", "3", "--slots", "2", "--max-new", "6",
+            "--burst", "2",
             "--device", "cpu"]
     greedy = main(args)
     sampled = main(args + ["--temperature", "1.3", "--seed", "40"])

@@ -383,13 +383,15 @@ def test_cli_serves_speculative_on_cpu(capsys):
 
     from repro_torch.launch.serve import main
 
-    out = main(["--arch", "olmo-1b", "--reduced", "--requests", "3", "--slots", "2",
+    out = main(["--arch", "olmo-1b", "--reduced", "--mode", "kernel", "--requests", "3",
+                "--slots", "2",
                 "--max-new", "6", "--device", "cpu", "--speculative", "--draft-len", "4"])
     assert sorted(out) == [0, 1, 2] and all(len(v) == 6 for v in out.values())
     text = capsys.readouterr().out
     spec = json.loads(text.split("speculative: ", 1)[1].splitlines()[0])
     assert spec["draft_len"] == 4 and spec["rounds"] >= 1
-    out = main(["--arch", "olmo-1b", "--reduced", "--requests", "2", "--slots", "2",
+    out = main(["--arch", "olmo-1b", "--reduced", "--mode", "kernel", "--requests", "2",
+                "--slots", "2",
                 "--max-new", "6", "--device", "cpu", "--speculative", "--adaptive"])
     assert all(len(v) == 6 for v in out.values())
     text = capsys.readouterr().out

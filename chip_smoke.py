@@ -144,6 +144,19 @@ cache-free flash and MLA flash attentions), then:
    accurate-only serving bitwise on stock-width qwen3-8b (2 layers) and
    deepseek-v3 (4 layers), after the row-stable rmsnorm, MLA key splits and
    f32 products.
+13. ``sim_phases``: the PE-array simulator's calibration measured on the
+   card at the reference's sizes (each function one CUDA-graph replay),
+   saved and loaded back (gate: no fallback); the adaptive olmo-1b CLI
+   flow (kernel mode, budget 0.75) traced to JSONL and replayed on the
+   analytic array (gates: savings drift within 1e-9, every request and
+   token attributed) and on the card's calibration (reported).
+14. ``train_phases``: training at full-width olmo-1b (16 layers, f32,
+   batch 8 x seq 64, remat on): exact mode 20 steps, the loss falling;
+   remat on = off bitwise; a checkpoint at step 3 restored into a fresh
+   trainer = the uninterrupted steps 4-6 bitwise; carmen and int8 3 steps
+   each, finite; int8's MAC-array launches exact by instantiation, its
+   first launches bitwise the plain version on their inputs; ms a step,
+   tokens/s and peak GiB by mode.
 
 ``python3 chip_smoke.py --phases bank`` (groups of ``PHASE_GROUPS``) runs
 some groups only, with no ``kernels`` and no ``ok`` line.
@@ -4292,6 +4305,379 @@ def modes_phases(device) -> dict:
     return report
 
 
+SIM_CYCLE_BUDGET = 0.75
+SIM_DRIFT_TOL = 1e-9
+# the adaptive olmo-1b CLI flow the simulator replays (full width on the card)
+SIM_CLI = ("--mode", "kernel", "--adaptive", "--cycle-budget", str(SIM_CYCLE_BUDGET))
+
+
+def replay_summary(result) -> dict:
+    """What ``sim_phases`` reports of one replay."""
+    sav = result.savings
+    return dict(array=dict(n_pes=result.config["n_pes"],
+                           sec_per_cycle=result.config["sec_per_cycle"]),
+                totals=result.totals, phases=result.phases, counts=result.counts,
+                est_cycle_savings_frac=sav["est_cycle_savings_frac"],
+                reported_savings_frac=(sav["reported"] or {}).get("est_cycle_savings_frac"),
+                rel_diff_vs_reported=sav["rel_diff_vs_reported"], measured=result.measured,
+                points={p: {k: acc[k] for k in ("cycles", "steps", "tokens", "wall_s")}
+                        for p, acc in result.points.items()})
+
+
+def sim_phases(device) -> dict:
+    """The PE-array simulator on the card: ``run_calibration`` at the
+    reference's non-smoke sizes (each function timed as a CUDA-graph
+    replay), its export saved and loaded back; the adaptive olmo-1b CLI
+    flow (kernel mode, cycle budget ``SIM_CYCLE_BUDGET``) writing a JSONL
+    trace; that trace replayed on the analytic array and on the card's
+    calibration. Gates: the fit does not fall back, the analytic replay's
+    savings agree with the served telemetry within ``SIM_DRIFT_TOL``, and it
+    attributes every request and every token served. The calibration's
+    constants and the calibrated replay are reported, not gated."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as cli
+    from repro_torch.sim import load_calibration, replay_trace, run_calibration, save_calibration
+    from repro_torch.sim.analyze import report_dict, savings_drift
+
+    out_dir = ROOT / "chiprun_out" / "sim"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    cal = run_calibration(device=device)
+    measure_s = time.perf_counter() - t0
+    path = save_calibration(cal, str(out_dir / "calibration.json"))
+    loaded = load_calibration(path)
+    if loaded != json.loads(json.dumps(cal)):
+        raise AssertionError("the calibration export does not load back as saved")
+    if cal["fit"]["mac_slope_fallback"]:
+        raise AssertionError(f"the calibration fit fell back: no depth signal in "
+                             f"{cal['source']['mac']['times_by_depth']}")
+    trace = out_dir / "adaptive.jsonl"
+    argv = [*SIM_CLI, "--trace-out", str(trace)]
+    buf = io.StringIO()
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        served = cli.main(argv)
+    cli_s = time.perf_counter() - t0
+    from repro_torch.kernels import kernel_totals
+
+    launches = kernel_totals(nonzero(wrapper_counts()))
+    telemetry = next(json.loads(line.split(" ", 1)[1]) for line in buf.getvalue().splitlines()
+                     if line.startswith("telemetry: "))
+    analytic = replay_trace(str(trace))
+    calibrated = replay_trace(str(trace), calibration=loaded)
+    for name, result in (("analytic", analytic), ("calibrated", calibrated)):
+        (out_dir / f"replay_{name}.json").write_text(json.dumps(report_dict(result), indent=1))
+    drift = savings_drift(analytic)
+    if drift is None or abs(drift) > SIM_DRIFT_TOL:
+        raise AssertionError(f"analytic replay's savings drift {drift} (tolerance "
+                             f"{SIM_DRIFT_TOL})")
+    tokens = sum(len(v) for v in served.values())
+    per_request = {str(rid): len(v) for rid, v in served.items()}
+    got = {rid: acc["tokens"] for rid, acc in analytic.requests.items()}
+    if got != per_request or analytic.measured["tokens"] != tokens:
+        raise AssertionError(f"the replay attributes tokens {got} (total "
+                             f"{analytic.measured['tokens']}); served {per_request}")
+    report = dict(
+        calibration=dict(id=cal["id"], constants=cal["constants"], fit=cal["fit"],
+                         measure_s=measure_s, source=cal["source"]),
+        cli=dict(argv=" ".join(argv[:-2]), wall_s=cli_s, requests=len(served), tokens=tokens,
+                 telemetry=telemetry),
+        launches=launches,
+        replay=dict(analytic=replay_summary(analytic), calibrated=replay_summary(calibrated)),
+        savings_drift=drift, requests_attributed=len(got))
+    log(f"sim: calibration {cal['id']} in {measure_s:.1f} s, constants {cal['constants']}; "
+        f"replay savings analytic {analytic.savings['est_cycle_savings_frac']:.6f} "
+        f"calibrated {calibrated.savings['est_cycle_savings_frac']:.6f} (reported "
+        f"{telemetry.get('est_cycle_savings_frac')})")
+    return report
+
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 8, 64, 1e-3  # the train CLI's defaults
+TRAIN_CKPT_STEP = 3
+TRAIN_RESTART_STEPS = 3
+TRAIN_MODE_STEPS = 3
+TRAIN_RECORD_CALLS = 3
+
+
+def train_config():
+    """The training phase's model: full-width olmo-1b, 16 layers, f32."""
+    return olmo()
+
+
+def train_step_fn(cfg, mode: str, steps: int, remat: bool = True):
+    """The train CLI's step for ``--mode mode --steps steps`` at full width
+    (warm-up 10, cosine over ``steps``, remat on)."""
+    from repro_torch.launch.train import engine_ctx
+    from repro_torch.models import get_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import TrainConfig, make_train_step
+
+    tcfg = TrainConfig(optimizer=opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=10, total_steps=steps),
+                       remat=remat)
+    return make_train_step(get_model(cfg), engine_ctx(mode), tcfg)
+
+
+def train_steps(step_fn, params, state, pipe, start: int, stop: int, on_step=None):
+    """Steps ``start..stop-1``: returns ``(params, state, losses, ms)``, the
+    loss tensors and each step's wall ms (synchronized)."""
+    import torch
+
+    losses, ms = [], []
+    for i in range(start, stop):
+        batch = pipe.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"])
+        if on_step is not None:
+            on_step(i, params, state, metrics)
+    return params, state, losses, ms
+
+
+def train_rate(ms: list) -> dict:
+    """ms a step (mean past the first step) and tokens/s."""
+    steady = ms[1:] or ms
+    mean = sum(steady) / len(steady)
+    return dict(ms_per_step=mean, first_step_ms=ms[0], tokens_per_s=TRAIN_BATCH * TRAIN_SEQ
+                / (mean / 1e3), step_ms=ms)
+
+
+def peak_gib() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def same_tree(a, b) -> bool:
+    import torch
+
+    from repro_torch.train._tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y.to(x.device)) for x, y in zip(la, lb))
+
+
+def int8_train_launches(cfg, steps: int, remat: bool = True) -> dict:
+    """Kernel 6's launches in ``steps`` int8 train steps: every dot of the
+    forward (q k v o, gate up down a layer, and lm_head), again for every
+    layer's dots when ``remat`` recomputes the layer in the backward, and
+    one backward launch (float(acc) at unit scales) for each dot whose
+    output reaches the loss through a gradient: all but the gate's, which
+    feeds only the multi-AF block (its integer casts pass none). At
+    batch x seq rows every launch takes the int8 tensor-core path."""
+    layer_dots = 7 * cfg.num_layers
+    forward = layer_dots + 1
+    backward = forward - cfg.num_layers
+    per_step = forward + (layer_dots if remat else 0) + backward
+    return {"cordic_mac/wgmma": per_step * steps}
+
+
+def train_profile(cfg, mode: str, pipe, fresh) -> dict:
+    """One train step of ``mode`` from ``fresh()`` weights, after a warm-up
+    step, under ``torch.profiler``: wall and device-busy ms and where the
+    device time goes (library matmuls, the port's kernels, the rest: torch's
+    elementwise and reduction kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn = train_step_fn(cfg, mode, TRAIN_STEPS)
+    params, state = fresh()
+    batch = pipe.batch(0)
+    step_fn(params, state, batch)
+    torch.cuda.synchronize()
+    on_card = torch.device(pipe.device).type == "cuda"
+    # device activity alone: a carmen step issues ~40,000 kernels, and host
+    # events would double what the profiler must record
+    with profile(activities=[ProfilerActivity.CUDA if on_card else ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del out, params, state
+    rows = kernel_breakdown(prof)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    port = port_kernel_ms(rows)
+    gemm_ms = sum(us for us, k, _ in rows
+                  if not any(p in k for p in PORT_KERNELS)
+                  and any(f in k.lower() for f in GEMM_KERNELS)) / 1e3
+    port_ms = sum(v["device_ms"] for v in port.values())
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / wall_ms if wall_ms else 0.0,
+                device_kernels=sum(r[2] for r in rows), library_matmul_ms=gemm_ms,
+                port_kernels=port, other_kernels_ms=busy_ms - gemm_ms - port_ms,
+                top_kernels=[dict(name=k[:100], device_ms=us / 1e3, calls=n)
+                             for us, k, n in rows[:10]])
+
+
+def train_phases(device) -> dict:
+    """Training at full-width olmo-1b (``train_config``; ``TokenPipeline``
+    seq ``TRAIN_SEQ``, batch ``TRAIN_BATCH``, lr ``TRAIN_LR``: the train
+    CLI's defaults, remat on). Gates: exact mode, ``TRAIN_STEPS`` steps,
+    every loss finite and the last below the first; its first step bitwise
+    the same step with remat off (loss, gradient norm, parameters and
+    moments); a checkpoint at step ``TRAIN_CKPT_STEP`` (the reference's
+    layout, under ``build/``) restored into a fresh trainer gives the next
+    ``TRAIN_RESTART_STEPS`` steps bitwise the uninterrupted run's (losses
+    and parameters); carmen and int8, ``TRAIN_MODE_STEPS`` steps each,
+    finite losses; int8's MAC-array launches exactly ``int8_train_launches``
+    by instantiation, and no other kernel; each of its first
+    ``TRAIN_RECORD_CALLS`` launches bitwise its plain version on the same
+    inputs. Reports ms a step, tokens/s, each mode's peak GiB and where
+    one profiled step's device time goes (``train_profile``). Every
+    run starts from weights drawn anew from ``SEED``, and the phase holds
+    no other tree on the card, so a peak is the trainer's own: its inputs,
+    gradients and outputs while a step builds them (the exact run's peak
+    is taken past its first step, which shares the card with the remat-off
+    step it is compared with)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import kernel_totals
+    from repro_torch.kernels.cordic_mac import mac_matmul_ref, ops as mac_ops
+    from repro_torch.models import get_model
+    from repro_torch.train import checkpoint, optimizer as opt
+    from repro_torch.train._tree import tree_map
+
+    cfg = train_config()
+    model = get_model(cfg)
+    pipe = TokenPipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, device=device)
+
+    def fresh():
+        params = model.init(torch.Generator(device=device).manual_seed(SEED), torch.float32)
+        return params, opt.init_state(params)
+
+    report = {}
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    off = {}
+    off["params"], off["state"], (off["loss"],), _ = train_steps(
+        train_step_fn(cfg, "exact", TRAIN_STEPS, remat=False), *fresh(), pipe, 0, 1,
+        lambda i, p, s, m: off.update(grad_norm=m["grad_norm"]))
+    report["remat"] = dict(peak_gib_remat_off=peak_gib())
+
+    # exact mode, remat on: step 0 against the remat-off step, a checkpoint
+    # at TRAIN_CKPT_STEP, the parameters after the restart's last step kept
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    kept = {}
+
+    def on_step(i, p, s, m):
+        if i == 0:
+            same = (torch.equal(off["loss"], m["loss"])
+                    and torch.equal(off["grad_norm"], m["grad_norm"])
+                    and same_tree(off["params"], p) and same_tree(off["state"], s))
+            report["remat"].update(bitwise=same, loss=float(m["loss"]),
+                                   grad_norm=float(m["grad_norm"]),
+                                   peak_gib_both_steps=peak_gib())
+            off.clear()
+            if not same:
+                raise AssertionError("remat changed the first step: its loss, gradient norm, "
+                                     "parameters or moments differ from the remat-off step's")
+            torch.cuda.reset_peak_memory_stats()
+        if i + 1 == TRAIN_CKPT_STEP:
+            t0 = time.perf_counter()
+            writer = checkpoint.save(str(ckpt_dir), i + 1, p, background=True)
+            checkpoint.save(str(ckpt_dir / "opt"), i + 1, s)
+            writer.join()
+            kept["save_s"] = time.perf_counter() - t0
+        if i + 1 == TRAIN_CKPT_STEP + TRAIN_RESTART_STEPS:
+            kept["params"] = tree_map(lambda t: t.to("cpu"), p)
+
+    *_, losses, ms = train_steps(train_step_fn(cfg, "exact", TRAIN_STEPS), *fresh(), pipe, 0,
+                                 TRAIN_STEPS, on_step)
+    values = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in values) or not values[-1] < values[0]:
+        raise AssertionError(f"exact training: losses {values}")
+    report["exact"] = dict(steps=TRAIN_STEPS, losses=values, **train_rate(ms),
+                           peak_gib=peak_gib(), checkpoint_save_s=kept["save_s"])
+    free_card()
+    report["exact"]["profiled_step"] = train_profile(cfg, "exact", pipe, fresh)
+    free_card()
+
+    # the restart: a fresh trainer from the checkpoint, bitwise the run above
+    t0 = time.perf_counter()
+    like = model.init(torch.Generator(device=device).manual_seed(SEED), torch.float32)
+    restored = (checkpoint.restore(str(ckpt_dir), TRAIN_CKPT_STEP, like, device=device),
+                checkpoint.restore(str(ckpt_dir / "opt"), TRAIN_CKPT_STEP, opt.init_state(like),
+                                   device=device))
+    del like
+    restore_s = time.perf_counter() - t0
+    last, _, restart_losses, _ = train_steps(
+        train_step_fn(cfg, "exact", TRAIN_STEPS), *restored, pipe, TRAIN_CKPT_STEP,
+        TRAIN_CKPT_STEP + TRAIN_RESTART_STEPS)
+    del restored
+    want = losses[TRAIN_CKPT_STEP:TRAIN_CKPT_STEP + TRAIN_RESTART_STEPS]
+    if not all(torch.equal(a, b) for a, b in zip(restart_losses, want)) \
+            or not same_tree(kept["params"], last):
+        raise AssertionError(f"restart from step {TRAIN_CKPT_STEP}: losses "
+                             f"{[float(v) for v in restart_losses]} vs {[float(v) for v in want]}"
+                             " or parameters differ")
+    report["restart"] = dict(bitwise=True, from_step=TRAIN_CKPT_STEP,
+                             steps=TRAIN_RESTART_STEPS, restore_s=restore_s,
+                             checkpoint_gib=sum(f.stat().st_size for f in ckpt_dir.rglob("*.npy"))
+                             / 2**30)
+    del last, kept
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free_card()
+
+    # carmen and int8: a few steps each
+    for mode in ("carmen", "int8"):
+        torch.cuda.reset_peak_memory_stats()
+        recorded = []
+        launch = mac_ops._launch
+
+        def recording(*args, **kw):
+            out = launch(*args, **kw)
+            if len(recorded) < TRAIN_RECORD_CALLS:
+                recorded.append(([a.clone() if torch.is_tensor(a) else a for a in args],
+                                 out.clone()))
+            return out
+
+        zero_launches()
+        mac_ops._launch = recording
+        try:
+            *_, losses, ms = train_steps(train_step_fn(cfg, mode, TRAIN_MODE_STEPS), *fresh(),
+                                         pipe, 0, TRAIN_MODE_STEPS)
+        finally:
+            mac_ops._launch = launch
+        counts = nonzero(wrapper_counts())
+        values = [float(v) for v in losses]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"{mode} training: losses {values}")
+        rep = dict(steps=TRAIN_MODE_STEPS, losses=values, **train_rate(ms), peak_gib=peak_gib())
+        if mode == "int8":
+            want_counts = int8_train_launches(cfg, TRAIN_MODE_STEPS)
+            rep["launches_by_instantiation"] = check_instantiations("int8 training", counts,
+                                                                    want_counts)
+            rep["launches"] = kernel_totals(counts)
+            for (x_q, w_q, x_scale, w_scale, relu), out in recorded:
+                if not torch.equal(out, mac_matmul_ref(x_q, w_q, x_scale, w_scale,
+                                                       fuse_relu=relu)):
+                    raise AssertionError("int8 training: a MAC-array launch differs from its "
+                                         f"plain version at {tuple(x_q.shape)} x "
+                                         f"{tuple(w_q.shape)}")
+            rep["bitwise_plain_calls"] = [[list(a[0].shape), list(a[1].shape)]
+                                          for a, _ in recorded]
+        elif counts:
+            raise AssertionError(f"carmen training launched port kernels: {counts}")
+        report[mode] = rep
+        del recorded
+        free_card()
+        rep["profiled_step"] = train_profile(cfg, mode, pipe, fresh)
+        free_card()
+    log("train: " + ", ".join(
+        f"{m} {report[m]['ms_per_step']:.1f} ms/step {report[m]['tokens_per_s']:.0f} tok/s "
+        f"{report[m]['peak_gib']:.1f} GiB" for m in ("exact", "carmen", "int8")))
+    return report
+
+
 def free_card():
     import torch
 
@@ -4386,8 +4772,8 @@ def phase(name: str, fn, *args, **kw):
     return out
 
 
-PHASE_GROUPS = ("kernels", "olmo", "bank", "resilience", "frontend", "modes", "parity", "deepseek",
-                "archs", "scan")
+PHASE_GROUPS = ("kernels", "olmo", "bank", "resilience", "frontend", "modes", "sim", "train",
+                "parity", "deepseek", "archs", "scan")
 
 
 def main(argv=()) -> int:
@@ -4507,6 +4893,15 @@ def main(argv=()) -> int:
     if want("modes"):
         for key, rep in phase("modes olmo-1b", modes_phases, device).items():
             (parity if "card vs cpu" in key else serving)[f"olmo-1b {key}"] = rep
+    sim = training = None
+    if want("sim"):
+        sim = phase("sim olmo-1b", sim_phases, device)
+        emit({"sim": sim})
+        free_card()
+    if want("train"):
+        training = phase("train olmo-1b", train_phases, device)
+        emit({"train": training})
+        free_card()
     if want("olmo") and groups is None:
         order = phase("replay order", replay_order, device)
         emit({"replay_order": order})
@@ -4588,12 +4983,14 @@ def main(argv=()) -> int:
     if groups is not None:
         (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
             device=device_line, phases=sorted(groups), kernel_checks=checks, serving=serving,
-            forward=forward, card_vs_cpu=parity), indent=1))
+            forward=forward, card_vs_cpu=parity, sim=sim, train=training), indent=1))
         log(f"chip_smoke: groups {sorted(groups)} done")
         return 0
     paths.update(serving)
     paths.update({f"{label} forward": rep for label, rep in forward.items()})
     paths["olmo-1b calibration"] = calibration
+    paths["olmo-1b sim (adaptive CLI)"] = sim
+    paths["olmo-1b train int8"] = training["int8"]
 
     def launches(name):
         by_path = {label: rep["launches"][name] for label, rep in paths.items()
@@ -4643,7 +5040,7 @@ def main(argv=()) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=device_line, kernel_checks=checks, softmax_path=paths["softmax activate"],
         serving=serving, forward=forward, calibration=calibration, replay_order=order,
-        card_vs_cpu=parity, kernels=kernels), indent=1))
+        card_vs_cpu=parity, sim=sim, train=training, kernels=kernels), indent=1))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -88,7 +88,10 @@ def _q1_sat(raw, fmt: FxPFormat):
 
 def _mul_raw(a_raw, b_raw, depth: int, fmt: FxPFormat):
     a = _i32(a_raw)
-    b = torch.as_tensor(b_raw, dtype=torch.int32, device=a.device)
+    if isinstance(b_raw, torch.Tensor):
+        b = b_raw.to(device=a.device, dtype=torch.int32)
+    else:  # a host constant: filled on the device, so that a CUDA graph can capture it
+        b = torch.full((), int(b_raw), dtype=torch.int32, device=a.device)
     return cordic.cordic_mul(a, _q1_sat(b, fmt), depth, fmt)
 
 

@@ -11,9 +11,14 @@ rounders agree digit for digit.
 
 The f32 product of grid values is ``torch.matmul``, as the reference computes
 it with ``jnp.dot`` outside Pallas; a partial sum can pass 2**24, so it
-agrees with the reference to reduction-order ulps, not bits. The reference's
-straight-through backward (``_carmen_fwd`` / ``_carmen_bwd``) belongs to
-training and is not ported: the port serves.
+agrees with the reference to reduction-order ulps, not bits.
+
+Training (QAT) goes through the per-call product with the reference's
+straight-through backward (``_carmen_fwd`` / ``_carmen_bwd``), here the
+autograd Function :class:`CarmenSTE`: the forward is the quantized product,
+the backward the float one's, ``dx = g @ w.T`` and ``dw = x.T @ g`` in f32
+at the inputs' dtypes, and nothing flows to ``depth``. A call that records
+no gradient runs the forward alone.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from .. import cordic
 from ..fxp import FXP8, FxPFormat, dequantize, quantize, to_int32
 from .base import Backend, PreparedWeight, unit_fmt
 
-__all__ = ["CarmenBackend", "carmen_dot", "quantize_activations", "sd_round_traced"]
+__all__ = ["CarmenBackend", "CarmenSTE", "carmen_dot", "quantize_activations", "sd_round_traced"]
 
 
 def sd_round_traced(w, depth, w_fmt: FxPFormat) -> torch.Tensor:
@@ -58,11 +63,37 @@ def quantize_activations(x, x_fmt: FxPFormat) -> torch.Tensor:
     return torch.where(torch.isfinite(xf), q, xf)
 
 
+def _carmen_product(x, w, depth, x_fmt: FxPFormat, w_fmt: FxPFormat) -> torch.Tensor:
+    return torch.matmul(quantize_activations(x, x_fmt), sd_round_traced(w, depth, w_fmt))
+
+
+class CarmenSTE(torch.autograd.Function):
+    """The quantized product forward, the float product's gradient backward
+    (the reference's ``_carmen_matmul_ste``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, depth, x_fmt, w_fmt):
+        ctx.save_for_backward(x, w)
+        return _carmen_product(x, w, depth, x_fmt, w_fmt)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gf = g.to(torch.float32)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(gf, w.to(torch.float32).T).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(x.to(torch.float32).reshape(-1, x.shape[-1]).T,
+                              gf.reshape(-1, g.shape[-1])).to(w.dtype)
+        return dx, dw, None, None, None
+
+
 def carmen_dot(x, w, depth, x_fmt: FxPFormat = FXP8, w_fmt: Optional[FxPFormat] = None):
-    """The per-call carmen product of ``(..., K)`` by ``(K, N)``: f32 out."""
-    xq = quantize_activations(x, x_fmt)
-    wq = sd_round_traced(w, depth, w_fmt or unit_fmt(x_fmt))
-    return torch.matmul(xq, wq)
+    """The per-call carmen product of ``(..., K)`` by ``(K, N)``: f32 out,
+    differentiable through :class:`CarmenSTE`."""
+    w_fmt = w_fmt or unit_fmt(x_fmt)
+    return CarmenSTE.apply(torch.as_tensor(x), torch.as_tensor(w), depth, x_fmt, w_fmt)
 
 
 class CarmenBackend(Backend):

@@ -9,11 +9,14 @@ forward only computes the per-token activation scale.
 The int32 dot is the port's MAC-array kernel
 (:func:`repro_torch.kernels.cordic_mac.mac_matmul`: ``acc * x_scale *
 w_scale``, exactly what :func:`int8_dot` computes), which on a CPU tensor
-runs its plain version. Banks are K-major, as every integer bank:
-``(L, K, N)`` stacked banks with ``(L, 1, N)`` scales, viewed in the
-weight's logical shape. ``torch.round`` is half-to-even like ``jnp.round``
-and ``>>`` on int32 is arithmetic as in JAX; float -> integer casts
-saturate and send NaN to 0 (``fxp.to_int32``).
+runs its plain version. Under autograd (QAT) it runs through
+``mac_matmul_scaled_grad``, which gives the reference's gradient: none
+through the integer operands, only through the two scales, that is through
+the ``max(|.|)`` of ``x`` (per token) and of ``w`` (per output channel).
+Banks are K-major, as every integer bank: ``(L, K, N)`` stacked banks with
+``(L, 1, N)`` scales, viewed in the weight's logical shape. ``torch.round``
+is half-to-even like ``jnp.round`` and ``>>`` on int32 is arithmetic as in
+JAX; float -> integer casts saturate and send NaN to 0 (``fxp.to_int32``).
 """
 from __future__ import annotations
 
@@ -108,9 +111,17 @@ def int8_dot(x, w, *, effective_bits: int = 8, w_scale=None) -> torch.Tensor:
         wq = _drop_bits(wq, effective_bits)
     if per_call and wq.is_cuda:
         wq = to_k_major(wq)  # the kernel's bank layout
-    from repro_torch.kernels.cordic_mac import mac_matmul
+    from repro_torch.kernels.cordic_mac import mac_matmul, mac_matmul_scaled_grad
 
-    out = mac_matmul(xq, wq, x_scale, w_scale.reshape(1, -1))
+    w_scale = w_scale.reshape(1, -1)
+    # The Function only where a gradient is asked for: torch.func transforms
+    # (``sensitivity_scan``'s jvp) refuse an autograd.Function without
+    # ``setup_context``, and the reference's int8 dot is plain jnp, which
+    # jax.jvp goes through.
+    if torch.is_grad_enabled() and (x_scale.requires_grad or w_scale.requires_grad):
+        out = mac_matmul_scaled_grad(xq, wq, x_scale, w_scale)
+    else:
+        out = mac_matmul(xq, wq, x_scale, w_scale)
     return out.reshape(shape)
 
 

@@ -22,6 +22,14 @@ ops, as the reference leaves them to XLA outside its Pallas kernel.
 ``mac_matmul`` on a CPU tensor runs the plain version (:func:`mac_matmul_ref`);
 on a CUDA tensor it launches the kernel or raises. ``mac_matmul.launches``
 counts launches, ``mac_matmul.instantiations`` them by path.
+
+:func:`mac_matmul_scaled_grad` is ``mac_matmul`` under autograd, with the
+reference's gradient (``repro.core.backends.int8.int8_dot`` computes
+``acc.astype(f32) * x_scale * w_scale``): the integer operands carry none,
+the scales the VJP of that product, ``Σ_n g·acc·w_scale`` to ``x_scale``
+and ``Σ_m g·acc·x_scale`` to ``w_scale``. Its backward takes ``float(acc)``
+from a second launch of the kernel at unit scales (counted like any other);
+on CPU tensors both launches are the plain version.
 """
 from __future__ import annotations
 
@@ -124,6 +132,34 @@ def mac_matmul(x_q, w_q, x_scale, w_scale, *, fuse_relu: bool = False) -> torch.
 
 mac_matmul.launches = 0
 mac_matmul.instantiations = new_counts("cordic_mac")
+
+
+class MacMatmulScaledGrad(torch.autograd.Function):
+    """``mac_matmul`` forward; the backward of ``(acc * x_scale) * w_scale``
+    to the two scales."""
+
+    @staticmethod
+    def forward(ctx, x_q, w_q, x_scale, w_scale):
+        ctx.save_for_backward(x_q, w_q, x_scale, w_scale)
+        return mac_matmul(x_q, w_q, x_scale, w_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_q, w_q, x_scale, w_scale = ctx.saved_tensors
+        acc = mac_matmul(x_q, w_q, torch.ones_like(x_scale), torch.ones_like(w_scale))
+        d_x_scale = d_w_scale = None
+        if ctx.needs_input_grad[2]:
+            d_x_scale = torch.sum(g * w_scale.reshape(1, -1) * acc, dim=1,
+                                  keepdim=True).reshape(x_scale.shape)
+        if ctx.needs_input_grad[3]:
+            d_w_scale = torch.sum(g * (acc * x_scale.reshape(-1, 1)), dim=0,
+                                  keepdim=True).reshape(w_scale.shape)
+        return None, None, d_x_scale, d_w_scale
+
+
+def mac_matmul_scaled_grad(x_q, w_q, x_scale, w_scale):
+    """:func:`mac_matmul`, differentiable in ``x_scale`` and ``w_scale``."""
+    return MacMatmulScaledGrad.apply(x_q, w_q, x_scale, w_scale)
 
 
 def cordic_mac(x, w, *, depth: int, x_fmt: FxPFormat = FXP8, w_fmt: FxPFormat = FXP8_UNIT,

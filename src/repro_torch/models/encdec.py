@@ -25,7 +25,7 @@ from repro_torch.core.pooling import aad_pool_1d
 
 from . import blocks
 from .params import ParamSpec, stack_layers
-from .transformer import layer_view
+from .transformer import layer_trees, layer_view, remat_call
 
 
 def _enc_layer_specs(cfg: ModelConfig):
@@ -83,30 +83,35 @@ def _project_enc_kv(p, enc_out, cfg, ctx, name):
 
 
 def encode(params, frames, cfg: ModelConfig, ctx: EngineContext, *, remat: bool = False):
-    """frames: (B, T, D) stub embeddings -> (B, T/2, D) encoder states."""
-    del remat
+    """frames: (B, T, D) stub embeddings -> (B, T/2, D) encoder states.
+    ``remat`` checkpoints each layer when autograd records."""
     h = aad_pool_1d(frames.to(torch.float32), 2).to(cfg.compute_dtype)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
-    for i in range(cfg.encdec.encoder_layers):
-        p = layer_view(params["enc_layers"], i)
+
+    def layer(p, h):
         x = blocks.apply_norm(p["attn_norm"], h, cfg)
         out, _ = blocks.attention(p["attn"], x, cfg, ctx, positions=positions, name="enc.attn",
                                   causal=False)
         h = h + out
         x = blocks.apply_norm(p["mlp_norm"], h, cfg)
-        h = h + blocks.mlp(p["mlp"], x, cfg, ctx, name="enc.mlp")
+        return h + blocks.mlp(p["mlp"], x, cfg, ctx, name="enc.mlp")
+
+    for p in layer_trees(params["enc_layers"], cfg.encdec.encoder_layers):
+        h = remat_call(layer, remat, p, h)
     return blocks.apply_norm(params["enc_norm"], h, cfg)
 
 
 def forward(params, batch, cfg: ModelConfig, ctx: EngineContext, *, remat: bool = False):
     """Teacher-forced pass: ``batch["frontend_embeds"]`` (B, T, D) frames and
-    ``batch["tokens"]`` (B, S) decoder tokens -> (logits (B, S, V) f32, {})."""
+    ``batch["tokens"]`` (B, S) decoder tokens -> (logits (B, S, V) f32, {}).
+    ``remat`` checkpoints each encoder and decoder layer when autograd
+    records."""
     enc_out = encode(params, batch["frontend_embeds"], cfg, ctx, remat=remat)
     tokens = batch["tokens"]
     h = params["embed"][tokens].to(cfg.compute_dtype)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
-    for i in range(cfg.num_layers):
-        p = layer_view(params["dec_layers"], i)
+
+    def layer(p, h, enc_out):
         x = blocks.apply_norm(p["self_norm"], h, cfg)
         out, _ = blocks.attention(p["self_attn"], x, cfg, ctx, positions=positions,
                                   name="dec.self", causal=True)
@@ -115,7 +120,10 @@ def forward(params, batch, cfg: ModelConfig, ctx: EngineContext, *, remat: bool 
         ek, ev = _project_enc_kv(p["cross_attn"], enc_out, cfg, ctx, "dec.cross")
         h = h + _cross_attention(p["cross_attn"], x, ek, ev, cfg, ctx, "dec.cross")
         x = blocks.apply_norm(p["mlp_norm"], h, cfg)
-        h = h + blocks.mlp(p["mlp"], x, cfg, ctx, name="dec.mlp")
+        return h + blocks.mlp(p["mlp"], x, cfg, ctx, name="dec.mlp")
+
+    for p in layer_trees(params["dec_layers"], cfg.num_layers):
+        h = remat_call(layer, remat, p, h, enc_out)
     h = blocks.apply_norm(params["final_norm"], h, cfg)
     logits = ctx.linear(h, params["lm_head"], name="lm_head").to(torch.float32)
     return logits, {}

@@ -126,6 +126,33 @@ def layer_view(tree, i: int):
     return tree[i]
 
 
+def layer_trees(tree, n: int):
+    """Layers ``0..n-1`` of a stacked parameter tree as ``n`` trees of views,
+    each tensor split once by ``unbind``: under autograd the gradients of the
+    ``n`` layers are stacked back in one pass, where ``n`` separate
+    :func:`layer_view` indexings would each scatter into a zero tensor of the
+    whole stack."""
+    if isinstance(tree, dict):
+        parts = {k: layer_trees(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    return [layer_view(tree, i) for i in range(n)]
+
+
+def remat_call(fn, remat: bool, *args):
+    """``fn(*args)``, with activation checkpointing when ``remat`` and autograd
+    is recording: the reference's ``jax.checkpoint`` around a scanned layer,
+    as ``torch.utils.checkpoint`` (non-reentrant). The layer's forward is run
+    again in the backward pass on the same inputs, so the loss and the
+    gradients are bitwise those without it."""
+    if remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
 def _attn_block(p, h, cfg, ctx, positions, cache, name):
     x = blocks.apply_norm(p["attn_norm"], h, cfg)
     attend = mla.mla_attention if cfg.mla else blocks.attention
@@ -236,10 +263,11 @@ def _lm_head(params, h, cfg, ctx):
     return ctx.linear(h, w, name="lm_head").to(torch.float32)
 
 
-def _run_segments(params, h, cfg, ctx, positions, cache=None):
+def _run_segments(params, h, cfg, ctx, positions, cache=None, *, remat: bool = False):
     """Every layer, segment by segment, over layer views of the stacked
     parameters (and of ``cache``, whose write indices and recurrent state it
-    advances in place).
+    advances in place). ``remat`` checkpoints each layer (a hybrid group) of
+    a cache-free pass (:func:`remat_call`).
     Returns ``(h, lb_loss)``: the load-balancing loss summed over the MoE
     layers of a cache-free pass (None with a cache)."""
     lb_loss = torch.zeros((), dtype=torch.float32, device=h.device) if cache is None else None
@@ -248,13 +276,16 @@ def _run_segments(params, h, cfg, ctx, positions, cache=None):
         run = _LAYERS.get(kind)
         if kind == "hybrid":
             run = lambda *a: _hybrid_group(*a, params["shared_attn"])  # noqa: E731
+        if cache is None:
+            for p in layer_trees(params[key], n):
+                h, _, aux = remat_call(run, remat, p, h, cfg, ctx, positions, None)
+                if "lb_loss" in aux:
+                    lb_loss = lb_loss + aux["lb_loss"]
+            continue
         for layer in range(n):
-            c = layer_view(cache[key], layer) if cache is not None else None
+            c = layer_view(cache[key], layer)
             h, new_c, aux = run(layer_view(params[key], layer), h, cfg, ctx, positions, c)
-            if cache is not None:
-                _store_index(cache[key], layer, new_c)
-            elif "lb_loss" in aux:
-                lb_loss = lb_loss + aux["lb_loss"]
+            _store_index(cache[key], layer, new_c)
     return h, lb_loss
 
 
@@ -278,17 +309,16 @@ def forward(params, batch, cfg: ModelConfig, ctx: EngineContext, *, remat: bool 
     embeddings, so S' = P + S and the logits cover both; without them it
     raises ``KeyError``. Positions are ``arange(S')``; attention runs causal
     over the sequence itself (``ctx.attn_impl``: ``"flash"`` the flash
-    kernels, ``"xla"`` the reference's chunked chains). ``remat``
-    (activation checkpointing) is accepted for the reference's signature; it
-    takes effect only with autograd, which this pass does not record yet.
+    kernels, ``"xla"`` the reference's chunked chains; training runs
+    ``"xla"``, since neither flash kernel has a backward). ``remat``
+    checkpoints each layer when autograd records (:func:`remat_call`).
     """
-    del remat
     tokens = batch["tokens"]
     h = params["embed"][tokens].to(cfg.compute_dtype)
     if cfg.frontend == "vision":
         h = torch.cat([batch["frontend_embeds"].to(cfg.compute_dtype), h], dim=1)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=tokens.device)
-    h, lb_loss = _run_segments(params, h, cfg, ctx, positions)
+    h, lb_loss = _run_segments(params, h, cfg, ctx, positions, remat=remat)
     h = blocks.apply_norm(params["final_norm"], h, cfg)
     return _lm_head(params, h, cfg, ctx), {"lb_loss": lb_loss}
 

@@ -692,3 +692,45 @@ def test_frontend_and_modes_phases_rehearsed(small_smoke, counted, monkeypatch):
         assert modes[f"{mode} card vs cpu"]["streams_identical"]
     cli_report = modes["cli carmen adaptive metrics"]
     assert cli_report["telemetry"]["reference"] == "accurate" and cli_report["metrics"]
+
+
+def test_sim_and_train_phases_rehearsed(small_smoke, monkeypatch, tmp_path):
+    """``sim_phases`` and ``train_phases`` end to end on reduced olmo-1b on the
+    CPU: the calibration fit and its export, the adaptive CLI flow's trace
+    replayed with every request and token attributed; remat bitwise, the
+    loss falling, the restart bitwise, and kernel 6's launches in the int8
+    steps exactly ``int8_train_launches`` (each plain call counted by the
+    path its wrapper's plan takes), the recorded calls bitwise."""
+    smoke = small_smoke
+    from repro_torch import kernels
+    from repro_torch.kernels.cordic_mac import ops as mac_ops, ref as mac_ref
+    from repro_torch.kernels.int_dot import PATH_NAMES, plan
+
+    def cpu_launch(x_q, w_q, x_scale, w_scale, relu):
+        p = plan(x_q.shape[0], w_q.shape[1], w_q.shape[0], x_q.element_size(),
+                 w_q.element_size())
+        kernels.count_launch(mac_ops.mac_matmul, PATH_NAMES[p.path])
+        return mac_ref.mac_matmul_ref(x_q, w_q, x_scale, w_scale, fuse_relu=relu)
+
+    monkeypatch.setattr(mac_ops, "_launch", cpu_launch)
+    monkeypatch.setattr(mac_ops, "mac_matmul_ref",
+                        lambda *a, fuse_relu=False: mac_ops._launch(*a, fuse_relu))
+    for name in ("reset_peak_memory_stats", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    monkeypatch.setattr(smoke, "ROOT", tmp_path)
+    monkeypatch.setattr(smoke, "SIM_CLI", smoke.SIM_CLI + ("--reduced", "--device", "cpu"))
+    monkeypatch.setattr(smoke, "train_config", _reduced_olmo)
+    monkeypatch.setattr(smoke, "TRAIN_STEPS", 6)
+    sim = smoke.sim_phases("cpu")
+    assert not sim["calibration"]["fit"]["mac_slope_fallback"]
+    assert sim["savings_drift"] == pytest.approx(0.0, abs=smoke.SIM_DRIFT_TOL)
+    assert sim["requests_attributed"] == sim["cli"]["requests"] == 6
+    assert (tmp_path / "chiprun_out" / "sim" / "replay_calibrated.json").exists()
+    train = smoke.train_phases("cpu")
+    assert train["remat"]["bitwise"] and train["restart"]["bitwise"]
+    assert train["exact"]["losses"][-1] < train["exact"]["losses"][0]
+    cfg = _reduced_olmo()
+    assert train["int8"]["launches_by_instantiation"] == smoke.int8_train_launches(
+        cfg, smoke.TRAIN_MODE_STEPS)
+    assert len(train["int8"]["bitwise_plain_calls"]) == smoke.TRAIN_RECORD_CALLS
+    assert not (tmp_path / "build" / "train_ckpt").exists()

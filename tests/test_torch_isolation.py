@@ -47,7 +47,11 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
             "repro_torch.obs.observer", "repro_torch.core.backends.exact",
             "repro_torch.core.backends.carmen", "repro_torch.core.backends.int8",
-            "repro_torch.serve.frontend"} <= set(mods)
+            "repro_torch.serve.frontend", "repro_torch.sim.array", "repro_torch.sim.replay",
+            "repro_torch.sim.analyze", "repro_torch.data.pipeline", "repro_torch.quant",
+            "repro_torch.quant.qat", "repro_torch.train.optimizer",
+            "repro_torch.train.checkpoint", "repro_torch.train.train_loop",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
@@ -86,6 +90,17 @@ def test_server_without_device_raises_when_no_card(monkeypatch):
         BatchedServer(model, EngineContext(mode="kernel"), params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchedServer(model, EngineContext(mode="kernel"), params, device="cuda")
+
+
+def test_trainer_and_calibration_default_to_the_card(monkeypatch):
+    from repro_torch.launch import train
+    from repro_torch.sim import calibrate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calibrate.measure(smoke=True)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -49,7 +49,8 @@ from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     mla_splits,
 )
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref  # noqa: E402
-from repro_torch.kernels.int_dot import IMAD, NARROW, WGMMA, plan, to_k_major  # noqa: E402
+from repro_torch.kernels.int_dot import (IMAD, NARROW, PATH_NAMES, WGMMA, plan,  # noqa: E402
+                                         to_k_major)
 from repro_torch.kernels.mla_flash import mla_flash_attention, mla_flash_attention_ref  # noqa: E402
 
 FORMATS = {"fxp8": (fxp.FXP8, fxp.FXP8_UNIT), "fxp16": (fxp.FXP16, fxp.FXP16_UNIT)}
@@ -890,3 +891,64 @@ def test_chunk_rows_bitwise_the_prefill_bucket_rows(cuda, kernel, start):
     whole = call(*qs, pos)
     part = call(*(x[:, start:start + _TC_ROWS].contiguous() for x in (*qs, pos)))
     assert torch.equal(part, whole[:, start:start + _TC_ROWS])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(4, 512, 300), (512, 2048, 2048), (512, 2048, 8192)])
+def test_int8_dot_gradient_on_the_card_equals_the_plain_version(cuda, m, k, n):
+    """Kernel 6 under autograd (``mac_matmul_scaled_grad``, the int8 mode's
+    QAT dot): the forward is bitwise its plain version; the gradients of x
+    and w (through the two scales only, as the reference's) agree with the
+    plain version's on the CPU to f32 reduction order; the forward launches
+    the kernel once and the backward once more (float(acc) at unit scales),
+    by the path ``int_dot.plan`` gives the shape."""
+    from repro_torch.core.backends.int8 import int8_dot
+
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    x = torch.randn((m, k), generator=gen, device=cuda)
+    w = torch.randn((k, n), generator=gen, device=cuda) * 0.4
+    g = torch.randn((m, n), generator=gen, device=cuda)
+    path = PATH_NAMES[plan(m, n, k, 1, 1).path]
+    leaves = [t.clone().requires_grad_(True) for t in (x, w)]
+    before = dict(mac_matmul.instantiations)
+    out = int8_dot(*leaves)
+    assert mac_matmul.instantiations[path] == before[path] + 1
+    (out * g).sum().backward()
+    assert mac_matmul.instantiations[path] == before[path] + 2
+    assert sum(mac_matmul.instantiations.values()) == sum(before.values()) + 2
+    cpu = [t.cpu().requires_grad_(True) for t in (x, w)]
+    want = int8_dot(*cpu)
+    assert torch.equal(out.detach().cpu(), want.detach())
+    (want * g.cpu()).sum().backward()
+    for got, ref in zip(leaves, cpu):
+        scale = ref.grad.abs().max()
+        assert torch.equal(got.grad.cpu() != 0, ref.grad != 0)
+        assert (got.grad.cpu() - ref.grad).abs().max() <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_mac_matmul_scaled_grad_scales_and_unit_scale_launch(cuda):
+    """The scales' gradients of ``mac_matmul_scaled_grad`` on the card are
+    the VJP of ``(acc * x_scale) * w_scale`` with ``acc`` the exact integer
+    product (computed here in int64 on the CPU, not by the port); the
+    backward launches the kernel once more (at unit scales)."""
+    from repro_torch.kernels.cordic_mac import mac_matmul_scaled_grad
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x_q = to_k_major(torch.randint(-127, 128, (64, 256), generator=gen, device=cuda,
+                                   dtype=torch.int8).T).T
+    w_q = to_k_major(torch.randint(-127, 128, (256, 96), generator=gen, device=cuda,
+                                   dtype=torch.int8))
+    xs = (torch.rand((64, 1), generator=gen, device=cuda) + 0.5).requires_grad_(True)
+    ws = (torch.rand((1, 96), generator=gen, device=cuda) + 0.5).requires_grad_(True)
+    g = torch.randn((64, 96), generator=gen, device=cuda)
+    before = sum(mac_matmul.instantiations.values())
+    out = mac_matmul_scaled_grad(x_q, w_q, xs, ws)
+    (out * g).sum().backward()
+    assert sum(mac_matmul.instantiations.values()) == before + 2
+    acc = (x_q.cpu().to(torch.int64) @ w_q.cpu().to(torch.int64)).to(torch.float64)
+    gd, xd, wd = (t.detach().cpu().to(torch.float64) for t in (g, xs, ws))
+    want_xs = (gd * acc * wd).sum(dim=1, keepdim=True)
+    want_ws = (gd * acc * xd).sum(dim=0, keepdim=True)
+    for got, want in ((xs.grad, want_xs), (ws.grad, want_ws)):
+        assert (got.cpu().to(torch.float64) - want).abs().max() <= 1e-5 * want.abs().max()

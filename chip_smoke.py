@@ -157,6 +157,15 @@ cache-free flash and MLA flash attentions), then:
    each, finite; int8's MAC-array launches exact by instantiation, its
    first launches bitwise the plain version on their inputs; ms a step,
    tokens/s and peak GiB by mode.
+15. ``analysis_phase`` (right after 3's first run, on its prepared
+   weights): the cost analyzer (``launch/cost_analysis.py``) over one
+   uncaptured decode step and one 512-row prefill bucket of full-width
+   olmo-1b on the card and on meta tensors: the two records equal op for
+   op, the kernel calls equal the wrappers' launches and
+   ``launches_per_forward``; the predicted against the card's peak memory,
+   each kernel's bound (``kernels/costs.py``) against its profiled device
+   ms, the decode step's roofline terms and ``measured_share`` against 3's
+   captured decode step.
 
 ``python3 chip_smoke.py --phases bank`` (groups of ``PHASE_GROUPS``) runs
 some groups only, with no ``kernels`` and no ``ok`` line.
@@ -188,22 +197,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 tensor ops/s,
-# f32 CUDA-core flop/s. int32 operations/s: 64 int32 lanes per SM (half the
-# 128 f32 lanes, no fused multiply-add) x 132 SMs at the 1.98 GHz that gives
-# the f32 figure.
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1.979e15
-F32_FLOPS_PER_S = 67e12
-# dense bf16 on the tensor cores (same data sheet): bounds the work of bf16
-# operands, whatever units a kernel runs it on
-BF16_FLOPS_PER_S = 989e12
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# dense TF32 on the tensor cores (NVIDIA H100 SXM data sheet): the 3xTF32
-# kernels run three TF32 products for every f32 one (fewer where an operand
-# is bf16, whose lo part is 0), so their tensor-core bound is passes x flops
-# at this rate, beside the f32-FMA (or bf16) bound
-TF32_FLOPS_PER_S = 494.7e12
+# Every kernel's bound (the H100's data-sheet peaks and one cost formula a
+# kernel) comes from src/repro_torch/kernels/costs.py, which the cost
+# analyzer reads too: the 3xTF32 attention kernels run three TF32 products
+# for every f32 one (fewer where an operand is bf16, whose lo part is 0), so
+# their tensor-core bound is passes x flops at the TF32 rate, beside the
+# f32-FMA (or bf16) bound.
 
 SLOTS, MAX_LEN, BURST, BUCKET = 4, 512, 8, 512
 # the speculative phases' draft length; a verify runs draft_len + 1 query
@@ -350,19 +349,6 @@ def graph_ms(fn, iters: int) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / iters
-
-
-def bound(bytes_moved: float, ops: float, ops_per_s: float):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def bound_tf32(bytes_moved: float, flops: float, passes: float = 3.0) -> float:
-    """The least ms of an attention run on the TF32 tensor cores with
-    ``passes`` TF32 products per multiply-add (3 for f32 operands split into
-    hi + lo): the larger of its bytes and its TF32 flops."""
-    return max(bytes_moved / HBM_BYTES_PER_S, passes * flops / TF32_FLOPS_PER_S) * 1e3
 
 
 # name fragments of library matmul / attention kernels. No serving path may
@@ -539,27 +525,11 @@ def int_mm_ms(x, banks, iters: int) -> dict:
     return out
 
 
-def fused_bound(m: int, k: int, n: int, af: str, af_depth: int, fmt, w_bytes: int = 1):
-    """The fused dot+AF's least time: the larger of its bytes (x f32, the
-    bank, the point, out f32), its multiply-adds (int8: two operations each
-    on the tensor cores; int16, which no tensor core takes: one int32
-    multiply-add instruction each on the CUDA cores) and, past identity, the
-    CORDIC epilogue's int32 operations on every output."""
-    from repro_torch.core.activations import internal_depth
-
-    t_bytes, _ = bound(m * k * 4 + k * n * w_bytes + m * n * 4 + 20, 0.0, INT8_OPS_PER_S)
-    t_mma = (2.0 * m * n * k / INT8_OPS_PER_S if w_bytes == 1
-             else 1.0 * m * n * k / INT32_OPS_PER_S) * 1e3
-    t_af = 0.0
-    if af != "identity":
-        t_af = af_int_ops(af, internal_depth(af_depth, fmt)) * m * n / INT32_OPS_PER_S * 1e3
-    return max((t_bytes, "bytes"), (t_mma, "operations"), (t_af, "operations (AF int32)"))
-
-
 def check_fused(device):
     import torch
 
     from repro_torch.core import FXP8, FXP16
+    from repro_torch.kernels import costs
     from repro_torch.kernels.cordic_fused import FUSED_AFS, fused_dot_af, fused_dot_af_ref
     from repro_torch.kernels.int_dot import plan
 
@@ -601,7 +571,7 @@ def check_fused(device):
                 eager_ms = timed_ms(call, iters)
                 plain_ms = timed_ms(lambda: fused_dot_af_ref(x, w.data, w.point, **kw),
                                     iters=5, warmup=1)
-                b_ms, b_by = fused_bound(m, k, n, af, FXP8.frac + 1, FXP8)
+                b_ms, b_by = costs.fused_dot_af(m, n, k, 1, af, FXP8.frac + 1, FXP8).bound()
                 path = path_name(plan(m, n, k))
                 lib_ms = lib if af == "identity" else dict(k_major=None, n_major=None)
                 rows.append(dict(model=model_name, M=m, K=k, N=n, af=af, fmt="fxp8", path=path,
@@ -654,6 +624,7 @@ def check_fused_hifi(device):
     import torch
 
     from repro_torch.core import FXP8, FXP16
+    from repro_torch.kernels import costs
     from repro_torch.kernels.cordic_fused import fused_dot_af, fused_dot_af_ref
     from repro_torch.kernels.int_dot import plan
 
@@ -685,7 +656,8 @@ def check_fused_hifi(device):
                         it = iter(range(1 << 30))
                         call = lambda: fused_dot_af(  # noqa: E731
                             x, banks[next(it) % len(banks)].data, w.point, **kw)
-                        b_ms, b_by = fused_bound(m, k, n, af, FXP8.frac + 1, FXP8, w_bytes=2)
+                        b_ms, b_by = costs.fused_dot_af(m, n, k, 2, af, FXP8.frac + 1,
+                                                         FXP8).bound()
                         row.update(ms=graph_ms(call, iters), eager_ms=timed_ms(call, iters),
                                    plain_ms=timed_ms(lambda: fused_dot_af_ref(
                                        x, w.data, w.point, **kw), iters=3, warmup=1),
@@ -766,12 +738,13 @@ def attention_bounds(q, kv: int, t: int, pos):
     """(f32-FMA bound ms, by, 3xTF32 bound ms) of one GQA cache-attention
     call: the keys this run's positions need (each batch row's K/V up to its
     last query position, each query row's scores up to its own)."""
+    from repro_torch.kernels import costs
+
     b, s, h, hd = q.shape
     rows_needed = (pos.max(dim=1).values + 1).clamp(max=t).sum().item()
-    nbytes = rows_needed * kv * hd * 4 * 2 + 2 * q.numel() * 4 + pos.numel() * 4
-    flops = 4.0 * h * hd * (pos.long() + 1).clamp(max=t).sum().item()
-    b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
-    return b_ms, b_by, bound_tf32(nbytes, flops)
+    scored = (pos.long() + 1).clamp(max=t).sum().item()
+    cost = costs.gqa_decode_attention(b, s, h, t, kv, hd, keys=(rows_needed, scored))
+    return (*cost.bound(), cost.bound_tf32_ms())
 
 
 def check_attention(device):
@@ -948,6 +921,7 @@ def check_mla(device):
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import costs
     from repro_torch.kernels.decode_attention import (
         TOLERANCE, mla_decode_attention, mla_decode_attention_ref)
     from repro_torch.kernels.decode_attention.ops import mla_splits
@@ -1004,29 +978,20 @@ def check_mla(device):
         seen = (pos.long() + 1).clamp(min=0, max=t)
         mean = torch.where(pos < 0, t, seen)
         rows_qk, rows_v = seen.max(dim=1).values, mean.max(dim=1).values
-        flops = 2.0 * hh * (seen.sum().item() * (rr + rrd) + mean.sum().item() * rr)
-        nbytes = (rows_qk.sum().item() * (rr + rrd) + (rows_v - rows_qk).sum().item() * rr
-                  + ql.numel() + qr.numel() + got.numel()) * 4
-        b_ms, b_by = bound(nbytes + pos.numel() * 4, flops, F32_FLOPS_PER_S)
+        cost = costs.mla_decode_attention(b, s, hh, t, rr, rrd, keys=(
+            rows_qk.sum().item(), rows_v.sum().item(), seen.sum().item(), mean.sum().item()))
+        b_ms, b_by = cost.bound()
         positions = ("decode" if s == 1 else "from row 0" if start == 0
                      else "from a random row, a drained slot and a masked row")
         rows.append(dict(B=b, S=s, T=t, H=hh, R=rr, r=rrd, positions=positions,
                          splits=mla_splits(b, s, hh, t), tolerance=TOLERANCE, max_abs_err=err,
                          ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, sdpa_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by,
-                         bound_tf32_ms=bound_tf32(nbytes + pos.numel() * 4, flops),
+                         bound_ms=b_ms, bound_by=b_by, bound_tf32_ms=cost.bound_tf32_ms(),
                          tf32_passes=3))
         log(f"mla B={b} S={s} T={t} H={hh} R={rr} r={rrd} ({positions}): {ms:.4f} ms (eager "
             f"{eager_ms:.4f}, plain {plain_ms:.3f}, sdpa {lib_ms:.4f}, bound {b_ms:.4f} {b_by}) "
             f"err {err:.2e}")
     return rows, max_err
-
-
-def causal_pairs(b: int, sq: int, sk: int, causal: bool) -> int:
-    """(query, key) pairs a causal (or full) attention of one head scores."""
-    if not causal:
-        return b * sq * sk
-    return b * sum(min(i + 1, sk) for i in range(sq))
 
 
 def check_flash(device):
@@ -1043,6 +1008,7 @@ def check_flash(device):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import costs
     from repro_torch.kernels.flash_attention import (TOLERANCE, flash_attention,
                                                      flash_attention_ref)
 
@@ -1088,16 +1054,12 @@ def check_flash(device):
             kt, vt = kt.repeat_interleave(h // kv, 1), vt.repeat_interleave(h // kv, 1)
         lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
                           20)
-        elem = q.element_size()
-        pairs = h * causal_pairs(b, s, s, causal)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * elem
         # bf16 operands: bounded at the bf16 tensor-core rate; on the TF32
         # units the kernel runs one pass for Q.K^T (both bf16) and two for
         # P.V (P is f32 and split, V is bf16)
-        bf16 = dtype == torch.bfloat16
-        b_ms, b_by = bound(nbytes, 4.0 * d * pairs, BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
-        passes = 1.5 if bf16 else 3.0
-        b3_ms = bound_tf32(nbytes, 4.0 * d * pairs, passes)
+        cost = costs.flash_attention(b, s, h, kv, d, q.element_size(), causal)
+        b_ms, b_by = cost.bound()
+        passes, b3_ms = cost.tf32_passes, cost.bound_tf32_ms()
         rows.append(dict(B=b, S=s, H=h, KV=kv, D=d, dtype=str(dtype).removeprefix("torch."),
                          causal=causal, tolerance=tol, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          sdpa_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bound_tf32_ms=b3_ms,
@@ -1118,6 +1080,7 @@ def check_mla_flash(device):
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import costs
     from repro_torch.kernels.mla_flash import (TOLERANCE, mla_flash_attention,
                                                mla_flash_attention_ref)
 
@@ -1152,39 +1115,15 @@ def check_mla_flash(device):
         v = ck[:, None]
         lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
             q_cat, k_cat, v, is_causal=True, scale=scale, enable_gqa=True), 10)
-        pairs = h * causal_pairs(b, s, s, True)
-        nbytes = (ql.numel() + qr.numel() + ck.numel() + kr.numel() + got.numel()) * 4
-        b_ms, b_by = bound(nbytes, 2.0 * pairs * (r + rd + r), F32_FLOPS_PER_S)
+        cost = costs.mla_flash_attention(b, s, h, r, rd)
+        b_ms, b_by = cost.bound()
         rows.append(dict(B=b, S=s, H=h, R=r, r=rd, causal=True, tolerance=TOLERANCE,
                          max_abs_err=err, ms=ms, plain_ms=plain_ms, sdpa_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by,
-                         bound_tf32_ms=bound_tf32(nbytes, 2.0 * pairs * (r + rd + r)),
+                         bound_ms=b_ms, bound_by=b_by, bound_tf32_ms=cost.bound_tf32_ms(),
                          tf32_passes=3))
         log(f"mla_flash B={b} S={s} H={h} R={r} r={rd}: {ms:.4f} ms (plain {plain_ms:.3f}, sdpa "
             f"{lib_ms:.4f}, bound {b_ms:.4f} {b_by}) err {err:.2e}")
     return rows, max_err
-
-
-def af_int_ops(mode: str, depth: int) -> int:
-    """int32 operations per element of the multi-AF block at internal depth
-    ``depth``, counted from its CORDIC loops: a hyperbolic (exp) iteration is
-    2 shifts, 3 adds and a select, a linear divide iteration 2 shifts, 2 adds
-    and 2 compares, a linear multiply iteration 2 shifts, 2 adds and a
-    compare; the quantize/requantize/dequantize chain and each loop's setup
-    about a dozen more."""
-    exp = 6 * depth + 12
-    div, mul = 6 * depth, 5 * depth
-    chain = 12
-    sigmoid = exp + div + 4
-    per_mode = {
-        "relu": 1,
-        "tanh": exp + div + 6,
-        "sigmoid": sigmoid,
-        "swish": sigmoid + mul + 2,
-        "gelu": 5 * mul + exp + div + 12,
-        "selu": exp + 2 * mul + 4,
-    }
-    return chain + per_mode[mode]
 
 
 def check_af(device):
@@ -1194,6 +1133,7 @@ def check_af(device):
     from repro_torch.core import FXP8, FXP16
     from repro_torch.core.activations import internal_depth
     from repro_torch.core.cordic import full_depth
+    from repro_torch.kernels import costs
     from repro_torch.kernels.cordic_af import ELEMENTWISE_AFS, multi_af, multi_af_ref
 
     moe = get_config("deepseek-v3-671b").moe
@@ -1219,8 +1159,8 @@ def check_af(device):
                 ms = graph_ms(call, 20)
                 plain_ms = timed_ms(lambda: multi_af_ref(x, mode, depth=depth, fmt=fmt),
                                     iters=3, warmup=1)
-                ops = af_int_ops(mode, internal_depth(depth, fmt))
-                b_ms, b_by = bound(8.0 * n, float(ops) * n, INT32_OPS_PER_S)
+                ops = costs.af_int_ops(mode, internal_depth(depth, fmt))
+                b_ms, b_by = costs.af_elementwise(n, mode, depth, fmt).bound()
                 rows.append(dict(where=where, shape=list(shape), fmt=str(fmt), depth=depth,
                                  mode=mode, bitwise_equal=True, max_abs_err=0.0, ms=ms,
                                  plain_ms=plain_ms, int_ops_per_element=ops, bound_ms=b_ms,
@@ -1290,6 +1230,7 @@ def time_mac(label, x_q, banks, x_scale, w_scale, relu):
     """One bitwise check and the timings of one MAC-array shape."""
     import torch
 
+    from repro_torch.kernels import costs
     from repro_torch.kernels.cordic_mac import mac_matmul, mac_matmul_ref
     from repro_torch.kernels.int_dot import plan
 
@@ -1312,8 +1253,7 @@ def time_mac(label, x_q, banks, x_scale, w_scale, relu):
                         iters=5, warmup=1)
     lib = int_mm_ms(x_q, banks, iters) if not relu else dict(k_major=None, n_major=None)
     elem = x_q.element_size()
-    b_ms, b_by = bound(m * k * elem + k * n * elem + (m + n) * 4 + m * n * 4, 2.0 * m * n * k,
-                       INT8_OPS_PER_S)
+    b_ms, b_by = costs.cordic_mac(m, n, k, elem).bound()
     path = path_name(plan(m, n, k, elem, banks[0].element_size()))
     log(f"mac {label} M={m} K={k} N={n} [{path}]: {ms:.4f} ms (eager {eager_ms:.4f}, plain "
         f"{plain_ms:.3f}, int_mm K-major {lib['k_major']} N-major {lib['n_major']}, bound "
@@ -1321,15 +1261,6 @@ def time_mac(label, x_q, banks, x_scale, w_scale, relu):
     return dict(M=m, K=k, N=n, case=label, path=path, bitwise_equal=True, max_abs_err=0.0,
                 ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, int_mm_ms=lib["k_major"],
                 int_mm_n_major_ms=lib["n_major"], bound_ms=b_ms, bound_by=b_by)
-
-
-def softmax_int_ops(depth: int) -> int:
-    """int32 operations per element of the row softmax at internal depth
-    ``depth``, counted as the function needs them (once per element, as
-    ``af_int_ops`` counts them): the quantize/requantize/dequantize chain,
-    the CORDIC exp and divide loops, the shift, the two reductions' adds and
-    compares."""
-    return 12 + (6 * depth + 12) + 6 * depth + 8
 
 
 # (rows, n) of the softmax rows, each at FxP8 and FxP16: the softmax path's
@@ -1362,6 +1293,7 @@ def check_softmax(device):
     from repro_torch.core import FXP8, FXP16
     from repro_torch.core.activations import internal_depth, internal_fmt, softmax_shift
     from repro_torch.core.cordic import full_depth
+    from repro_torch.kernels import costs
     from repro_torch.kernels.cordic_af import af_softmax, af_softmax_ref
     from repro_torch.kernels.cordic_af.ops import launch_plan
 
@@ -1383,8 +1315,8 @@ def check_softmax(device):
                           20 if x.numel() > 1e6 else 100)
             plain_ms = timed_ms(lambda: af_softmax_ref(x, depth=depth, fmt=fmt), iters=3,
                                 warmup=1)
-            ops = softmax_int_ops(internal_depth(depth, fmt))
-            b_ms, b_by = bound(8.0 * x.numel(), float(ops) * x.numel(), INT32_OPS_PER_S)
+            ops = costs.softmax_int_ops(internal_depth(depth, fmt))
+            b_ms, b_by = costs.af_softmax(x.numel(), depth, fmt).bound()
             shift = softmax_shift(shape[1], internal_fmt(fmt).frac)
             parent_ms = PARENT_SOFTMAX_MS[(shape, str(fmt))]
             rows.append(dict(shape=list(shape), fmt=str(fmt), depth=depth, pre_shift=shift,
@@ -2137,6 +2069,123 @@ def serve_full_width(device, label, cfg, prepared_run=None, policy=None):
         f"{ {k: round(v['capture_s'], 2) for k, v in report['graphs'].items()} }, pool "
         f"{report['graph_pool_gib']:.2f} GiB")
     return report, first, margins(first_reqs), weights
+
+
+def analysis_phase(device, weights, serving) -> dict:
+    """The cost analyzer (``launch/cost_analysis.py``) on the path the fused
+    kernel and GQA decode carry: full-width olmo-1b (16 layers, f32, kernel
+    mode, the serving phase's prepared ``weights``), one uncaptured decode
+    step of ``SLOTS`` slots and one ``BUCKET``-row prefill bucket into a
+    ``MAX_LEN`` row cache (the decode step at its last row, so that every
+    query scores every key, as the formulas count at the cache length),
+    each eager on the card under the analyzer and the profiler (after one
+    warm-up step), and the same step on meta tensors.
+
+    Gates: the card's record and the meta record are equal op for op (op,
+    shapes, dtypes, flops, bytes, kernel and instantiation); the kernel
+    calls equal the wrappers' launch counts for the card step and
+    ``launches_per_forward`` by instantiation. Reported: the memory the
+    analyzer predicts against ``torch.cuda.max_memory_allocated``; each
+    kernel's bound from its formula against its device ms in the profile
+    (``port_kernel_ms``); and the decode step's roofline terms, their bound
+    over the captured decode step the serving phase timed
+    (``decode_ms_per_step``), and ``roofline.measured_share`` of that step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import prepare_params
+    from repro_torch.launch import cost_analysis, roofline
+    from repro_torch.launch.dryrun import record_costs
+    from repro_torch.models import get_model
+    from repro_torch.serve.kvcache import with_cache_positions
+
+    cfg = olmo()
+    model = get_model(cfg)
+    ctx = kernel_ctx()
+    meta_weights = prepare_params(model.abstract_params(), ctx.policy, "kernel",
+                                  specs=model.specs())
+    per_forward = launches_per_forward(cfg)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    report = dict(config="olmo-1b full width, 16 layers, dtype float32, kernel mode (prepared "
+                         "weights), FxP8 accurate, attn_impl=decode_kernel, uncaptured",
+                  slots=SLOTS, max_len=MAX_LEN, steps={})
+    for name, rows, s in (("decode", SLOTS, 1), (f"prefill {BUCKET}", 1, BUCKET)):
+        tokens = torch.randint(0, cfg.vocab_size, (rows, s), generator=gen,
+                               dtype=torch.int32).to(device)
+        model.decode_step(weights, tokens, model.make_cache(rows, MAX_LEN, device=device), ctx)
+        cache = model.make_cache(rows, MAX_LEN, device=device)
+        if s == 1:  # a decode step at a full cache: its queries score every key
+            with_cache_positions(cache, torch.full((rows,), MAX_LEN - 1, dtype=torch.int32,
+                                                   device=device))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        card = cost_analysis.Analyzer()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            card.run(model.decode_step, weights, tokens, cache, ctx)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        card_peak = torch.cuda.max_memory_allocated()
+        launched = nonzero(wrapper_counts())
+        del cache
+        meta = cost_analysis.Analyzer()
+        t0 = time.perf_counter()
+        meta.run(model.decode_step, meta_weights,
+                 torch.empty((rows, s), dtype=torch.int32, device="meta"),
+                 model.make_cache(rows, MAX_LEN, device="meta"), ctx)
+        meta_s = time.perf_counter() - t0
+        diff = cost_analysis.first_difference(card.records, meta.records)
+        if diff is not None:
+            raise AssertionError(f"analysis {name}: the card's and the meta record differ: "
+                                 f"{diff[:600]}")
+        costs = meta.costs()
+        want = by_instantiation(per_forward, rows * s, s)
+        if card.costs().kernels != launched or costs.kernels != want \
+                or costs.kernel_totals() != per_forward:
+            raise AssertionError(f"analysis {name}: kernel calls {costs.kernels}, the card's "
+                                 f"wrappers launched {launched}, launches_per_forward implies "
+                                 f"{want}")
+        port = port_kernel_ms(kernel_breakdown(prof))
+        kernels = []
+        for key, calls in sorted(costs.kernels.items()):
+            bound_ms = sum(r["bound_ms"] for r in meta.records
+                           if "kernel" in r and f"{r['kernel']}/{r['inst']}" == key)
+            seen = port.get(GLOBALS[key], {})
+            kernels.append(dict(instantiation=key, kernel=GLOBALS[key], calls=calls,
+                                bound_ms=bound_ms, device_ms=seen.get("device_ms"),
+                                profiled_calls=seen.get("calls"),
+                                bound_share=bound_ms / seen["device_ms"] if seen else None))
+        mem = meta.memory()
+        rec = dict(arch="olmo-1b", shape=f"serving {name}", seq_len=MAX_LEN if s == 1 else s,
+                   global_batch=rows, kind="decode" if s == 1 else "prefill", mesh="none",
+                   mode="kernel", status="ok")
+        record_costs(rec, costs)
+        step = dict(ops=len(meta.records), meta_analysis_s=meta_s, card_wall_ms=wall_ms,
+                    flops=costs.dot_flops, hbm_bytes=costs.hbm_bytes,
+                    hbm_bytes_upper=costs.hbm_bytes_upper, ops_by_kind=costs.ops_by_kind,
+                    kernel_calls=costs.kernels, records_equal=True,
+                    memory=dict(mem, predicted_peak_bytes=mem["argument_size_in_bytes"]
+                                + mem["temp_size_in_bytes"], card_allocated_before=before,
+                                card_max_allocated=card_peak,
+                                card_step_bytes=card_peak - before),
+                    kernels=kernels,
+                    other_port_kernels={k: v for k, v in port.items()
+                                        if k not in {g for g in GLOBALS.values()}})
+        if s == 1:  # against the captured decode step the serving phase timed
+            step_s = serving["decode_ms_per_step"] / 1e3
+            terms = roofline.terms(rec)
+            step.update(roofline=terms, measured_decode_ms=serving["decode_ms_per_step"],
+                        bound_over_measured=terms["step_s"] / step_s,
+                        measured_share=roofline.measured_share(rec, step_s))
+        report["steps"][name] = step
+        log(f"analysis {name}: {len(meta.records)} records equal card/meta, flops "
+            f"{costs.dot_flops:.4g}, hbm {costs.hbm_bytes:.4g} B, predicted peak "
+            f"{step['memory']['predicted_peak_bytes']}, card {card_peak}")
+    del meta_weights
+    free_card()
+    return report
 
 
 TEMPERATURE, SEED_BASE = 1.3, 40
@@ -3595,6 +3644,7 @@ def check_chunk_attention(device):
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import costs
     from repro_torch.kernels.decode_attention import (
         TOLERANCE, gqa_decode_attention, gqa_decode_attention_ref, mla_decode_attention,
         mla_decode_attention_ref)
@@ -3672,10 +3722,10 @@ def check_chunk_attention(device):
                 rows_bitwise("mla_decode_attention",
                              lambda *a: mla_decode_attention(*a, scale=scale), args, (0, 1, 4))
             ql, qr, ck, kr, pos = args
-            seen = start + s
-            flops = 2.0 * h * (r + rd + r) * sum(start + j + 1 for j in range(s))
-            nbytes = (seen * (r + rd) + ql.numel() + qr.numel() + got.numel() + s) * 4
-            b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+            seen, scored = start + s, sum(start + j + 1 for j in range(s))
+            cost = costs.mla_decode_attention(1, s, h, t, r, rd,
+                                              keys=(seen, seen, scored, scored))
+            b_ms, b_by = cost.bound()
             q_cat = torch.cat([ql, qr], -1).transpose(1, 2).contiguous()
             k_cat, v = torch.cat([ck, kr], -1)[:, None], ck[:, None]
             mask = (torch.arange(t, device=device)[None, None, :] <= pos[:, :, None])[:, None]
@@ -3688,8 +3738,7 @@ def check_chunk_attention(device):
                              sdpa_ms=graph_ms(lambda: F.scaled_dot_product_attention(
                                  q_cat, k_cat, v, attn_mask=mask, scale=scale,
                                  enable_gqa=True), 20),
-                             bound_ms=b_ms, bound_by=b_by,
-                             bound_tf32_ms=bound_tf32(nbytes, flops)))
+                             bound_ms=b_ms, bound_by=b_by, bound_tf32_ms=cost.bound_tf32_ms()))
             log(f"mla chunk S={s} from {start} [{rows[-1]['splits']} splits]: "
                 f"{rows[-1]['ms']:.4f} ms (plain {rows[-1]['plain_ms']:.3f}, sdpa "
                 f"{rows[-1]['sdpa_ms']:.4f}, bound {b_ms:.4f} {b_by}) err {err:.2e}")
@@ -3750,6 +3799,7 @@ def check_fused_fxp16_af(device):
     import torch
 
     from repro_torch.core import FXP16, full_depth
+    from repro_torch.kernels import costs
     from repro_torch.kernels.cordic_fused import fused_dot_af, fused_dot_af_ref
     from repro_torch.kernels.int_dot import plan
 
@@ -3771,7 +3821,7 @@ def check_fused_fxp16_af(device):
             it = iter(range(1 << 30))
             call = lambda: fused_dot_af(x, banks[next(it) % len(banks)].data,  # noqa: E731
                                         w.point, **kw)
-            b_ms, b_by = fused_bound(m, k, n, af, full_depth(FXP16), FXP16, w_bytes=2)
+            b_ms, b_by = costs.fused_dot_af(m, n, k, 2, af, full_depth(FXP16), FXP16).bound()
             rows.append(dict(model="olmo-1b --fxp16", M=m, K=k, N=n, af=af, af_fmt="fxp16",
                              af_depth=full_depth(FXP16), path=path_name(plan(m, n, k, 2, 2)),
                              bitwise_equal=True, max_abs_err=0.0,
@@ -4820,7 +4870,7 @@ def main(argv=()) -> int:
     emit({"device": device_line})
 
     checks, paths, serving, forward, parity = {}, {}, {}, {}, {}
-    calibration = order = None
+    calibration = order = analysis = None
     if want("kernels"):
         fused_rows, fused_err = phase("check_fused", check_fused, device)
         hifi_rows, _ = phase("check_fused_hifi", check_fused_hifi, device)
@@ -4855,6 +4905,9 @@ def main(argv=()) -> int:
         serving["olmo-1b"], streams, olmo_margins, weights = phase(
             "serve olmo-1b", serve_full_width, device, "olmo-1b", olmo())
         emit({"serving": serving["olmo-1b"]})
+        analysis = phase("analysis olmo-1b", analysis_phase, device, weights,
+                         serving["olmo-1b"])
+        emit({"analysis": analysis})
     if want("olmo") and groups is None:
         forward["olmo-1b"] = phase("forward olmo-1b", forward_phase, device, "olmo-1b", olmo(),
                                    weights, (2, BUCKET))
@@ -4983,7 +5036,8 @@ def main(argv=()) -> int:
     if groups is not None:
         (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
             device=device_line, phases=sorted(groups), kernel_checks=checks, serving=serving,
-            forward=forward, card_vs_cpu=parity, sim=sim, train=training), indent=1))
+            analysis=analysis, forward=forward, card_vs_cpu=parity, sim=sim, train=training),
+            indent=1))
         log(f"chip_smoke: groups {sorted(groups)} done")
         return 0
     paths.update(serving)
@@ -5039,8 +5093,8 @@ def main(argv=()) -> int:
     kernels = phase("kernels line", kernel_rows)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=device_line, kernel_checks=checks, softmax_path=paths["softmax activate"],
-        serving=serving, forward=forward, calibration=calibration, replay_order=order,
-        card_vs_cpu=parity, sim=sim, train=training, kernels=kernels), indent=1))
+        serving=serving, analysis=analysis, forward=forward, calibration=calibration,
+        replay_order=order, card_vs_cpu=parity, sim=sim, train=training, kernels=kernels), indent=1))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -14,3 +14,9 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch versions of the kernels on the CPU"
         )
     return dev
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor and for a meta one: the dry run's meta tensors
+    stand for the card, so they take the card's branches."""
+    return t.is_cuda or t.is_meta

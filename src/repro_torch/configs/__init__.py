@@ -20,14 +20,22 @@ from . import (
     zamba2_7b,
 )
 from .base import (
+    ALL_SHAPES,
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    SHAPES,
     TORCH_DTYPES,
+    TRAIN_4K,
     EncDecConfig,
     HybridConfig,
     MLAConfig,
     ModelConfig,
     MoEConfig,
+    ShapeConfig,
     SSMConfig,
     reduced,
+    shape_applicable,
 )
 
 ARCHS = {
@@ -53,7 +61,15 @@ def get_config(arch: str) -> ModelConfig:
 
 
 __all__ = [
+    "ALL_SHAPES",
     "ARCHS",
+    "DECODE_32K",
+    "LONG_500K",
+    "PREFILL_32K",
+    "SHAPES",
+    "ShapeConfig",
+    "TRAIN_4K",
+    "shape_applicable",
     "TORCH_DTYPES",
     "get_config",
     "reduced",

@@ -7,7 +7,7 @@ port maps it to a torch dtype through :data:`TORCH_DTYPES`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -111,6 +111,36 @@ class ModelConfig:
         if self.family == "audio":
             assert self.encdec is not None
 
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One benchmark cell shape. ``kind`` selects which step the dry run
+    traces: ``train``, ``prefill`` or ``decode``."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+ALL_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES = {s.name: s for s in ALL_SHAPES}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """The reference's skip rule: ``long_500k`` only for sub-quadratic mixers."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "quadratic full attention at 524k ctx — architecturally inapplicable"
+    return True, ""
 
 def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 128) -> ModelConfig:
     """Family-preserving small config for CPU smoke tests (the reference's rules)."""

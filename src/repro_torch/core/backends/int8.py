@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch._device import on_card
 from repro_torch.kernels.int_dot import has_aligned_rows, k_major_empty, to_k_major
 
 from .. import cordic
@@ -89,7 +90,7 @@ def quantize_tokens(x) -> Tuple[torch.Tensor, torch.Tensor]:
     amax = torch.amax(xf.abs(), dim=-1, keepdim=True)
     x_scale = _scale(amax)
     xq = _to_int8(torch.clamp(torch.round(xf / x_scale), -127, 127))
-    if xq.is_cuda and not has_aligned_rows(xq):
+    if on_card(xq) and not has_aligned_rows(xq):
         xq = to_k_major(xq.T).T  # (M, K_pad) storage viewed as (M, K)
     return xq, x_scale
 
@@ -109,7 +110,7 @@ def int8_dot(x, w, *, effective_bits: int = 8, w_scale=None) -> torch.Tensor:
         wq = w
     if effective_bits < 8:
         wq = _drop_bits(wq, effective_bits)
-    if per_call and wq.is_cuda:
+    if per_call and on_card(wq):
         wq = to_k_major(wq)  # the kernel's bank layout
     from repro_torch.kernels.cordic_mac import mac_matmul, mac_matmul_scaled_grad
 

@@ -1,6 +1,7 @@
 """Normalization unit (port of ``repro.core.normalization``): always f32.
 
-On a CUDA device the layernorm and the rmsnorm run as
+On a CUDA device (and on the dry run's meta tensors, which stand for the
+card) the layernorm and the rmsnorm run as
 ``torch.nn.functional.layer_norm`` and ``rms_norm``, one reduction a row
 whatever the number of rows: a row's bits then do not depend on how many
 rows share the call. (ATen's generic reductions, the CPU path's ``mean``
@@ -12,12 +13,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch._device import on_card
+
 __all__ = ["rmsnorm", "layernorm", "nonparametric_ln"]
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
-    if xf.is_cuda:
+    if on_card(xf):
         out = torch.nn.functional.rms_norm(xf, xf.shape[-1:], weight.to(torch.float32), eps)
         return out.to(x.dtype)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -27,7 +30,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
 
 def layernorm(x: torch.Tensor, weight, bias, eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(torch.float32)
-    if xf.is_cuda:
+    if on_card(xf):
         out = torch.nn.functional.layer_norm(
             xf, xf.shape[-1:], None if weight is None else weight.to(torch.float32),
             None if bias is None else bias.to(torch.float32), eps)

@@ -15,8 +15,8 @@ the step index alone.
   (``tests/test_torch_train.py`` says what it finds).
 * :class:`ClusterPipeline`: Gaussian-cluster classification sets for the
   paper's MLP accuracy experiments (numpy, the reference's arrays).
-
-``input_specs`` (the dry-run's abstract inputs) is not ported yet.
+* :func:`input_specs`: meta tensors of a cell's inputs, which the dry run
+  (``launch/dryrun.py``) traces.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.serve import threefry
 
 
@@ -80,3 +80,27 @@ class ClusterPipeline:
         # normalize into FxP-friendly range [-2, 2)
         x = np.clip(x / (np.abs(x).max() / 1.9), -1.99, 1.99)
         return x.astype(np.float32), y.astype(np.int32)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """Meta stand-ins for every model input of a cell, with the reference's
+    shapes and dtypes: int32 tokens (and targets when training), one new
+    token a row at decode, and f32 frontend embeddings (the vision stub's
+    tokens, the audio stub's encoder frames) outside decode."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(shp, dt=torch.int32):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.kind == "train":
+        batch = {"tokens": meta((b, s)), "targets": meta((b, s))}
+    elif shape.kind == "prefill":
+        batch = {"tokens": meta((b, s))}
+    else:  # decode: one new token against a seq_len-deep cache
+        batch = {"tokens": meta((b, 1))}
+    if cfg.frontend and shape.kind != "decode":
+        batch["frontend_embeds"] = meta((b, cfg.frontend_tokens, cfg.d_model), torch.float32)
+    if cfg.family == "audio" and shape.kind != "decode":
+        t = int(s * cfg.encdec.encoder_seq_factor)
+        batch["frontend_embeds"] = meta((b, t, cfg.d_model), torch.float32)
+    return batch

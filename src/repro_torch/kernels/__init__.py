@@ -6,10 +6,19 @@ all, and ``.instantiations`` by the ``__global__`` it launched, which the
 wrapper reads from the plan it already computes (``int_dot.plan``,
 ``decode_attention.ops.gqa_plan``). Under CUDA-graph capture a launch is
 issued once, at capture; the graph's replays issue none.
+
+On a meta tensor a wrapper takes the same plan, launches nothing and returns
+an empty meta result of the kernel's shape and dtype. Launched or not, it
+reports ``(kernel, instantiation, cost)`` (``costs.py``) to every active
+cost analyzer (``launch/cost_analysis.py``) through :func:`kernel_call`;
+the aten ops a wrapper dispatches between its entry and its return
+(reshapes, its output, scratch) are the kernel's own, and the analyzers
+skip them (:func:`entry`).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+import functools
+from typing import Callable, Dict, List
 
 # each kernel's instantiations: the int_dot paths (``int_dot.PATH_NAMES``),
 # the GQA plan's tensor-core and split-key paths, and the one __global__ of
@@ -36,6 +45,53 @@ def count_launch(wrapper: Callable, instantiation: str) -> None:
     host has just issued it."""
     wrapper.launches += 1
     wrapper.instantiations[instantiation] += 1
+
+
+# the active cost analyzers, innermost last (launch/cost_analysis.Analyzer)
+_listeners: List = []
+
+
+def kernel_call(wrapper: Callable, instantiation: str, cost: Callable, *,
+                launched: bool) -> None:
+    """One call of ``wrapper``'s ``instantiation``: counted as a launch where
+    the host has just issued it (``launched``), and reported to every active
+    analyzer either way with its work, ``cost()`` (a ``costs.KernelCost``;
+    computed only when an analyzer listens)."""
+    if launched:
+        count_launch(wrapper, instantiation)
+    if _listeners:
+        work = cost()
+        for listener in _listeners:
+            listener.kernel(wrapper.kernel, instantiation, work)
+
+
+def entry(kernel: str) -> Callable:
+    """Decorate the wrapper of ``kernel``: it gets its zeroed counts, and
+    while it runs the active analyzers skip the aten ops it dispatches and
+    then take its result as the kernel's output."""
+    def decorate(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            if not _listeners:
+                return fn(*args, **kwargs)
+            active = list(_listeners)
+            for listener in active:
+                listener.enter_kernel()
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                for listener in active:
+                    listener.exit_kernel()
+            for listener in active:
+                listener.kernel_output(out)
+            return out
+
+        run.kernel = kernel
+        run.launches = 0
+        run.instantiations = new_counts(kernel)
+        return run
+
+    return decorate
 
 
 def wrappers() -> Dict[str, Callable]:

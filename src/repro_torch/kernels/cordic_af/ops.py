@@ -15,7 +15,9 @@ waits in shared memory, or, past ``SLICE_BYTES_CAP`` a CTA, in the output
 row (the "staged" path).
 
 A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches the
-kernel or raises. ``multi_af.launches`` counts elementwise launches and
+kernel or raises; a meta tensor returns an empty meta result (the softmax
+plans nothing there: its plan asks the card). ``multi_af.launches`` counts
+elementwise launches and
 ``af_softmax.launches`` softmax launches. Both kernels are bitwise equal to
 their plain versions.
 """
@@ -31,7 +33,7 @@ import torch
 from repro_torch.core.activations import ELEMENTWISE_AFS, internal_fmt, softmax_shift
 from repro_torch.core.fxp import FXP8, FxPFormat
 
-from .. import _build, count_launch, new_counts
+from .. import _build, costs, entry, kernel_call
 from ..af_table import af_table_on
 from .ref import af_softmax_ref, multi_af_ref
 
@@ -170,13 +172,17 @@ def _launch(x, mode: str, depth: int, fmt: FxPFormat):
     out = torch.empty_like(flat)
     if flat.numel() == 0:
         return out.reshape(x.shape)
+    cost = functools.partial(costs.af_elementwise, flat.numel(), mode, depth, fmt)
+    if dev.type == "meta":
+        kernel_call(multi_af, "elementwise", cost, launched=False)
+        return out.reshape(x.shape)
     tab = af_table_on(dev, depth, fmt)
     with torch.cuda.device(dev):
         status = _lib().cordic_af_launch(
             flat.data_ptr(), out.data_ptr(), tab.data_ptr(), flat.numel(),
             af_index(mode), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "cordic_af_launch")
-    count_launch(multi_af, "elementwise")
+    kernel_call(multi_af, "elementwise", cost, launched=True)
     return out.reshape(x.shape)
 
 
@@ -186,6 +192,10 @@ def _launch_softmax(x2, depth: int, fmt: FxPFormat):
     rows, n = x2.shape
     if rows == 0 or n == 0:
         return out
+    cost = functools.partial(costs.af_softmax, x2.numel(), depth, fmt)
+    if dev.type == "meta":
+        kernel_call(af_softmax, "cluster", cost, launched=False)
+        return out
     tab = af_table_on(dev, depth, fmt)
     plan = launch_plan(rows, n, dev)
     with torch.cuda.device(dev):
@@ -194,23 +204,21 @@ def _launch_softmax(x2, depth: int, fmt: FxPFormat):
             plan.threads, plan.smem_bytes, int(plan.path == "staged"),
             softmax_shift(n, internal_fmt(fmt).frac), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "af_softmax_launch")
-    count_launch(af_softmax, "cluster")
+    kernel_call(af_softmax, "cluster", cost, launched=True)
     return out
 
 
+@entry("af_softmax")
 def af_softmax(x, *, depth: int, fmt: FxPFormat = FXP8) -> torch.Tensor:
     """Row-wise fixed-point softmax of a float ``(M, N)`` tensor -> f32 ``(M, N)``."""
     if x.ndim != 2:
         raise ValueError(f"af_softmax takes (M, N) rows, got {tuple(x.shape)}")
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         return af_softmax_ref(x, depth=depth, fmt=fmt)
     return _launch_softmax(x.to(torch.float32).contiguous(), int(depth), fmt)
 
 
-af_softmax.launches = 0
-af_softmax.instantiations = new_counts("af_softmax")
-
-
+@entry("af_elementwise")
 def multi_af(x, mode: Union[str, int], *, depth: int, fmt: FxPFormat = FXP8) -> torch.Tensor:
     """One AF of the multi-AF block on a float tensor of any shape.
 
@@ -222,10 +230,6 @@ def multi_af(x, mode: Union[str, int], *, depth: int, fmt: FxPFormat = FXP8) -> 
         x = torch.as_tensor(x)
         return af_softmax(x.reshape(-1, x.shape[-1]), depth=depth, fmt=fmt).reshape(x.shape)
     name = _mode_name(mode)
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         return multi_af_ref(x, name, depth=depth, fmt=fmt)
     return _launch(x, name, int(depth), fmt)
-
-
-multi_af.launches = 0
-multi_af.instantiations = new_counts("af_elementwise")

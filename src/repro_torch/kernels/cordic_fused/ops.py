@@ -11,8 +11,9 @@ weight bytes, splitting K where columns are few; FxP16 (int16) banks run the
 int32 CUDA-core loop. See the source's header note.
 
 A CPU tensor runs the plain version (:func:`fused_dot_af_ref`); a CUDA tensor
-launches the kernel or raises. ``fused_dot_af.launches`` counts calls that
-launch (one per call, the quantize pass of the prefill path included), and
+launches the kernel or raises; a meta tensor takes the plan and returns an
+empty meta result. ``fused_dot_af.launches`` counts calls that launch (one
+per call, the quantize pass of the prefill path included), and
 ``fused_dot_af.instantiations`` the same calls by path.
 """
 from __future__ import annotations
@@ -26,7 +27,7 @@ from repro_torch.core import activations as afs
 from repro_torch.core.backends.kernel import POINT_LEN
 from repro_torch.core.fxp import FXP8, FxPFormat
 
-from .. import _build, count_launch, new_counts
+from .. import _build, costs, entry, kernel_call
 from ..af_table import af_table_on
 from ..int_dot import PATH_NAMES, WGMMA, is_k_major, padded_k, plan, ptr, splitk_scratch
 from .ref import fused_dot_af_ref
@@ -63,6 +64,11 @@ def _launch(x2, w, point, mode: int, af_depth: int, af_fmt: FxPFormat, compute_r
     if m == 0 or n == 0:
         return out
     p = plan(m, n, k, w.element_size(), w.element_size())
+    cost = functools.partial(costs.fused_dot_af, m, n, k, w.element_size(), FUSED_AFS[mode],
+                             af_depth, af_fmt)
+    if dev.type == "meta":
+        kernel_call(fused_dot_af, PATH_NAMES[p.path], cost, launched=False)
+        return out
     ws, counts = splitk_scratch(m, n, p, dev)
     xq, ldq = None, 0
     if p.path == WGMMA:  # x quantized once, to int8 rows TMA can read
@@ -76,10 +82,11 @@ def _launch(x2, w, point, mode: int, af_depth: int, af_fmt: FxPFormat, compute_r
             out.data_ptr(), ptr(ws), ptr(counts), m, n, k, mode, int(compute_round),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "cordic_fused_launch")
-    count_launch(fused_dot_af, PATH_NAMES[p.path])
+    kernel_call(fused_dot_af, PATH_NAMES[p.path], cost, launched=True)
     return out
 
 
+@entry("fused_dot_af")
 def fused_dot_af(x, w, point, *, af_mode: str = "identity", af_depth: int = 8,
                  af_fmt: FxPFormat = FXP8, compute_round: bool = False):
     """Fused prepared dot + activation: float ``(..., K)`` x int ``(K, N)`` -> f32 ``(..., N)``.
@@ -92,7 +99,7 @@ def fused_dot_af(x, w, point, *, af_mode: str = "identity", af_depth: int = 8,
         raise ValueError(f"af_mode must be one of {FUSED_AFS}, got {af_mode!r}")
     if x.shape[-1] != w.shape[0]:
         raise ValueError(f"contraction mismatch: x {tuple(x.shape)} vs w {tuple(w.shape)}")
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         return fused_dot_af_ref(x, w, point, af_mode=af_mode, af_depth=af_depth,
                                 af_fmt=af_fmt, compute_round=compute_round)
     lead = x.shape[:-1]
@@ -100,7 +107,3 @@ def fused_dot_af(x, w, point, *, af_mode: str = "identity", af_depth: int = 8,
     out = _launch(x2, w, point, FUSED_AFS.index(af_mode), int(af_depth), af_fmt,
                   compute_round)
     return out.reshape(*lead, w.shape[1])
-
-
-fused_dot_af.launches = 0
-fused_dot_af.instantiations = new_counts("fused_dot_af")

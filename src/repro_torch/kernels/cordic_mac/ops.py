@@ -20,7 +20,8 @@ padded to the reference's 256-tiles. The two quantizations stay PyTorch
 ops, as the reference leaves them to XLA outside its Pallas kernel.
 
 ``mac_matmul`` on a CPU tensor runs the plain version (:func:`mac_matmul_ref`);
-on a CUDA tensor it launches the kernel or raises. ``mac_matmul.launches``
+on a CUDA tensor it launches the kernel or raises; on a meta tensor it takes
+the plan and returns an empty meta result. ``mac_matmul.launches``
 counts launches, ``mac_matmul.instantiations`` them by path.
 
 :func:`mac_matmul_scaled_grad` is ``mac_matmul`` under autograd, with the
@@ -42,7 +43,7 @@ import torch
 from repro_torch.core import cordic, fxp
 from repro_torch.core.fxp import FXP8, FXP8_UNIT, FxPFormat
 
-from .. import _build, count_launch, new_counts
+from .. import _build, costs, entry, kernel_call
 from ..int_dot import (PATH_NAMES, has_aligned_rows, is_k_major, plan, ptr, splitk_scratch,
                        to_k_major)
 from .ref import mac_matmul_ref
@@ -103,6 +104,10 @@ def _launch(x_q, w_q, x_scale, w_scale, fuse_relu: bool):
     if m == 0 or n == 0:
         return out
     p = plan(m, n, k, x_q.element_size(), w_q.element_size())
+    cost = functools.partial(costs.cordic_mac, m, n, k, x_q.element_size())
+    if dev.type == "meta":
+        kernel_call(mac_matmul, PATH_NAMES[p.path], cost, launched=False)
+        return out
     ws, counts = splitk_scratch(m, n, p, dev)
     with torch.cuda.device(dev):
         status = _lib().cordic_mac_launch(
@@ -111,10 +116,11 @@ def _launch(x_q, w_q, x_scale, w_scale, fuse_relu: bool):
             wsc.data_ptr(), out.data_ptr(), ptr(ws), ptr(counts), m, n, k, int(fuse_relu),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "cordic_mac_launch")
-    count_launch(mac_matmul, PATH_NAMES[p.path])
+    kernel_call(mac_matmul, PATH_NAMES[p.path], cost, launched=True)
     return out
 
 
+@entry("cordic_mac")
 def mac_matmul(x_q, w_q, x_scale, w_scale, *, fuse_relu: bool = False) -> torch.Tensor:
     """Blocked integer matmul with the requant (+ReLU) epilogue.
 
@@ -125,13 +131,9 @@ def mac_matmul(x_q, w_q, x_scale, w_scale, *, fuse_relu: bool = False) -> torch.
     """
     if x_q.ndim != 2 or w_q.ndim != 2 or x_q.shape[1] != w_q.shape[0]:
         raise ValueError(f"mac_matmul: shapes {tuple(x_q.shape)} x {tuple(w_q.shape)}")
-    if not x_q.is_cuda:
+    if not (x_q.is_cuda or x_q.is_meta):
         return mac_matmul_ref(x_q, w_q, x_scale, w_scale, fuse_relu=fuse_relu)
     return _launch(x_q, w_q, x_scale, w_scale, fuse_relu)
-
-
-mac_matmul.launches = 0
-mac_matmul.instantiations = new_counts("cordic_mac")
 
 
 class MacMatmulScaledGrad(torch.autograd.Function):

@@ -21,7 +21,8 @@
   block) blocks to fill the card (:func:`mla_splits`).
 
 A CPU tensor runs the plain version (``*_ref``); a CUDA tensor launches the
-kernel or raises. Each wrapper's ``launches`` counts its launches,
+kernel or raises; a meta tensor takes the plan and returns an empty meta
+result. Each wrapper's ``launches`` counts its launches,
 ``instantiations`` them by path. Against the plain versions the outputs
 agree to f32 reduction-order tolerance
 (:data:`TOLERANCE`): the kernels sum scores and P·V in another order and
@@ -36,7 +37,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import _build, count_launch, new_counts
+from .. import _build, costs, entry, kernel_call
 from .ref import gqa_decode_attention_ref, mla_decode_attention_ref
 
 HEAD_DIMS = (32, 64, 112, 128)
@@ -131,6 +132,11 @@ def _launch(q, ck, cv, positions, scale: float):
                          "and cv must be 16-byte aligned")
     out = torch.empty_like(q)
     path, splits = gqa_plan(b, s, h, t_len, kv)
+    inst = "tc" if path == TENSOR_CORES else "split"
+    cost = functools.partial(costs.gqa_decode_attention, b, s, h, t_len, kv, hd)
+    if dev.type == "meta":
+        kernel_call(gqa_decode_attention, inst, cost, launched=False)
+        return out
     ws = (torch.empty((b * s * h * splits * (hd + 4),), dtype=torch.float32, device=dev)
           if splits > 1 else None)
     with torch.cuda.device(dev):
@@ -139,20 +145,17 @@ def _launch(q, ck, cv, positions, scale: float):
             ws.data_ptr() if ws is not None else None, b, s, h, t_len, kv, hd, splits,
             int(path == TENSOR_CORES), float(scale), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "gqa_decode_launch")
-    count_launch(gqa_decode_attention, "tc" if path == TENSOR_CORES else "split")
+    kernel_call(gqa_decode_attention, inst, cost, launched=True)
     return out
 
 
+@entry("gqa_decode_attention")
 def gqa_decode_attention(q, ck, cv, positions, *, scale: float):
     """Cache-decode GQA attention: q (B, S, H, hd) against slot caches
     ck/cv (B, T, KV, hd) with per-query positions (B, S)."""
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         return gqa_decode_attention_ref(q, ck, cv, positions, scale=scale)
     return _launch(q, ck, cv, positions, scale)
-
-
-gqa_decode_attention.launches = 0
-gqa_decode_attention.instantiations = new_counts("gqa_decode_attention")
 
 
 # the MLA loop's four warps of a row group each keep 128 output columns in
@@ -216,6 +219,10 @@ def _mla_launch(q_lat, q_rope, c_kv, k_rope, positions, scale: float):
                          "pieces; c_kv and k_rope must be 16-byte aligned")
     out = torch.empty_like(q_lat)
     splits = mla_splits(b, s, h, t_len)
+    cost = functools.partial(costs.mla_decode_attention, b, s, h, t_len, r, rd)
+    if dev.type == "meta":
+        kernel_call(mla_decode_attention, "tc", cost, launched=False)
+        return out
     ws = (torch.empty((b * s * h * splits * (r + 4),), dtype=torch.float32, device=dev)
           if splits > 1 else None)
     with torch.cuda.device(dev):
@@ -225,18 +232,15 @@ def _mla_launch(q_lat, q_rope, c_kv, k_rope, positions, scale: float):
             b, s, h, t_len, r, rd, splits, float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "mla_decode_launch")
-    count_launch(mla_decode_attention, "tc")
+    kernel_call(mla_decode_attention, "tc", cost, launched=True)
     return out
 
 
+@entry("mla_decode_attention")
 def mla_decode_attention(q_lat, q_rope, c_kv, k_rope, positions, *, scale: float):
     """Absorbed-form MLA cache attention: q_lat (B, S, H, R) and q_rope
     (B, S, H, r) against the latent cache c_kv (B, T, R) and k_rope (B, T, r)
     with per-query positions (B, S). Returns the latent output (B, S, H, R) f32."""
-    if not q_lat.is_cuda:
+    if not (q_lat.is_cuda or q_lat.is_meta):
         return mla_decode_attention_ref(q_lat, q_rope, c_kv, k_rope, positions, scale=scale)
     return _mla_launch(q_lat, q_rope, c_kv, k_rope, positions, scale)
-
-
-mla_decode_attention.launches = 0
-mla_decode_attention.instantiations = new_counts("mla_decode_attention")

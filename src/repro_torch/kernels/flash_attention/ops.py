@@ -10,11 +10,11 @@ shared memory with an online softmax, resolves the kv head by index (no
 repeated K/V) and skips the tiles above the diagonal.
 
 A CPU tensor runs the plain version (``flash_attention_ref``); a CUDA tensor
-launches the kernel or raises. ``flash_attention.launches`` counts launches.
-Against the plain version the output agrees to f32 reduction-order
-tolerance (:data:`TOLERANCE`): the kernel sums scores and P·V in another
-order, rescales per tile, and its split products carry about f32's
-rounding.
+launches the kernel or raises; a meta tensor returns an empty meta result.
+``flash_attention.launches`` counts launches. Against the plain version the
+output agrees to f32 reduction-order tolerance (:data:`TOLERANCE`): the
+kernel sums scores and P·V in another order, rescales per tile, and its
+split products carry about f32's rounding.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from .. import _build, count_launch, new_counts
+from .. import _build, costs, entry, kernel_call
 from .ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)
@@ -64,24 +64,26 @@ def _launch(q, k, v, causal: bool):
         raise ValueError("flash_attention: the kernel copies in 16-byte pieces; q, k and v "
                          "must be 16-byte aligned")
     out = torch.empty_like(q)
+    cost = functools.partial(costs.flash_attention, b, sq, h, kv, d, q.element_size(),
+                             causal)
+    if dev.type == "meta":
+        kernel_call(flash_attention, "tc", cost, launched=False)
+        return out
     with torch.cuda.device(dev):
         status = _lib().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, kv, d,
             DTYPES[q.dtype], int(causal), 1.0 / math.sqrt(d),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "flash_attention_launch")
-    count_launch(flash_attention, "tc")
+    kernel_call(flash_attention, "tc", cost, launched=True)
     return out
 
 
+@entry("flash_attention")
 def flash_attention(q, k, v, *, causal: bool = True):
     """Cache-free attention in model layout: q (B, Sq, H, D) against k, v
     (B, Sk, KV, D), H % KV == 0, causal over the indices (query i sees keys
     j <= i). Returns (B, Sq, H, D) in q's dtype."""
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         return flash_attention_ref(q, k, v, causal=causal)
     return _launch(q, k, v, causal)
-
-
-flash_attention.launches = 0
-flash_attention.instantiations = new_counts("flash_attention")

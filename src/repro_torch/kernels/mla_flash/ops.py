@@ -10,7 +10,8 @@ shared-memory tile of the latent ``[c_kv | k_rope]`` (the reference's head
 broadcast).
 
 A CPU tensor runs the plain version (``mla_flash_attention_ref``); a CUDA
-tensor launches the kernel or raises. ``mla_flash_attention.launches``
+tensor launches the kernel or raises; a meta tensor returns an empty meta
+result. ``mla_flash_attention.launches``
 counts launches. Against the plain version the output agrees to f32
 reduction-order tolerance (:data:`TOLERANCE`).
 """
@@ -21,7 +22,7 @@ import functools
 
 import torch
 
-from .. import _build, count_launch, new_counts
+from .. import _build, costs, entry, kernel_call
 from .ref import mla_flash_attention_ref
 
 # max |kernel - plain| on unit-scale f32 inputs (the decode kernels' bar)
@@ -68,25 +69,26 @@ def _launch(q_lat, q_rope, c_kv, k_rope, scale: float, causal: bool):
         raise ValueError("mla_flash_attention: the kernel copies the latents in 16-byte "
                          "pieces; c_kv and k_rope must be 16-byte aligned")
     out = torch.empty_like(q_lat)
+    cost = functools.partial(costs.mla_flash_attention, b, s, h, r, rd, causal)
+    if dev.type == "meta":
+        kernel_call(mla_flash_attention, "tc", cost, launched=False)
+        return out
     with torch.cuda.device(dev):
         status = _lib().mla_flash_launch(
             q_lat.data_ptr(), q_rope.data_ptr(), c_kv.data_ptr(), k_rope.data_ptr(),
             out.data_ptr(), b, s, h, t_len, r, rd, int(causal), float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "mla_flash_launch")
-    count_launch(mla_flash_attention, "tc")
+    kernel_call(mla_flash_attention, "tc", cost, launched=True)
     return out
 
 
+@entry("mla_flash_attention")
 def mla_flash_attention(q_lat, q_rope, c_kv, k_rope, *, scale: float, causal: bool = True):
     """Cache-free MLA attention in the absorbed form: q_lat (B, S, H, R) and
     q_rope (B, S, H, r) against the sequence's own latent c_kv (B, T, R) and
     k_rope (B, T, r); ``scale`` is the model's score scale, applied once.
     Causal over the indices. Returns the latent output (B, S, H, R) f32."""
-    if not q_lat.is_cuda:
+    if not (q_lat.is_cuda or q_lat.is_meta):
         return mla_flash_attention_ref(q_lat, q_rope, c_kv, k_rope, scale=scale, causal=causal)
     return _launch(q_lat, q_rope, c_kv, k_rope, scale, causal)
-
-
-mla_flash_attention.launches = 0
-mla_flash_attention.instantiations = new_counts("mla_flash_attention")

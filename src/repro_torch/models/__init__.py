@@ -26,6 +26,16 @@ class ModelApi:
         """Random parameters on the generator's device."""
         return P.init(self.specs(), generator, dtype)
 
+    def abstract_params(self, dtype=torch.float32):
+        """Meta tensors of every parameter's shape (the dry run's stand-in)."""
+        return P.abstract(self.specs(), dtype)
+
+    def param_axes(self):
+        return P.axes_tree(self.specs())
+
+    def count_params(self) -> int:
+        return P.count_params(self.specs())
+
     def load_numpy(self, tree, device):
         """The reference's raw parameter tree (numpy leaves) on ``device``."""
         return P.load_numpy_params(tree, device, specs=self.specs())

@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch._device import on_card
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import EngineContext
 from repro_torch.core.normalization import layernorm, nonparametric_ln, rmsnorm
@@ -302,7 +303,7 @@ def rows_einsum(eq: str, x, w, lead: int = 2):
     rows (their product M); on CUDA an M below ``STABLE_ROWS`` runs padded
     with zero rows to ``STABLE_ROWS``, as a (1, STABLE_ROWS) batch."""
     m = math.prod(x.shape[:lead])
-    if not x.is_cuda or m >= STABLE_ROWS:
+    if not on_card(x) or m >= STABLE_ROWS:
         return torch.einsum(eq, x, w)
     flat = x.reshape(m, *x.shape[lead:])
     padded = torch.cat([flat, flat.new_zeros((STABLE_ROWS - m, *flat.shape[1:]))])
@@ -315,7 +316,7 @@ def expert_einsum(eq: str, hh, w):
     ...); on CUDA a capacity C below ``STABLE_CAPACITY`` runs one product per
     capacity slot, each over the B batch rows."""
     c = hh.shape[2]
-    if not hh.is_cuda or c >= STABLE_CAPACITY:
+    if not on_card(hh) or c >= STABLE_CAPACITY:
         return torch.einsum(eq, hh, w)
     return torch.cat([torch.einsum(eq, hh[:, :, j:j + 1], w) for j in range(c)], dim=2)
 
@@ -363,6 +364,10 @@ def moe_ffn(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, dropless: bool 
         aux = {"lb_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
     else:
         me = torch.mean(probs, dim=(0, 1))
-        counts = torch.bincount(top_i.reshape(-1), minlength=e).to(torch.float32)
+        # the routed count of each expert (a scatter-add, where bincount has
+        # no meta kernel for the dry run)
+        flat = top_i.reshape(-1).to(torch.int64)
+        counts = torch.zeros((e,), dtype=torch.int64, device=x.device).scatter_add_(
+            0, flat, torch.ones_like(flat)).to(torch.float32)
         aux = {"lb_loss": e * torch.sum(me * counts / (b * s * k))}
     return out, aux

@@ -5,7 +5,7 @@ A model declares its parameters as a nested dict of :class:`ParamSpec`
 from an explicit ``torch.Generator`` with the reference's shapes and scales;
 ``load_numpy_params`` takes the reference's raw parameter tree (nested dicts
 of numpy arrays) by path, which is how tests give both packages the same
-weights.
+weights. ``abstract`` gives meta tensors, which the dry run traces.
 """
 from __future__ import annotations
 
@@ -49,6 +49,21 @@ def stack_layers(spec_fn, n: int):
         lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes, s.init, s.scale), spec_fn()
     )
 
+
+
+def abstract(specs, dtype=torch.float32):
+    """Meta tensors of the specs' shapes in ``dtype``: the dry run's
+    zero-memory stand-in."""
+    return tree_map_specs(lambda s: torch.empty(s.shape, dtype=dtype, device="meta"), specs)
+
+
+def axes_tree(specs):
+    """Each parameter's logical axes, in the specs' tree."""
+    return tree_map_specs(lambda s: s.axes, specs)
+
+
+def count_params(specs) -> int:
+    return int(sum(math.prod(s.shape) for _, s in spec_leaves(specs)))
 
 def init(specs, generator: torch.Generator, dtype=torch.float32):
     """Materialize parameters on the generator's device."""

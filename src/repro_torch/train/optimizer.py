@@ -7,8 +7,8 @@ update with decoupled weight decay. A leaf whose gradient is ``None`` (torch
 gives no gradient where every path to a weight passes an integer cast, as
 the carmen and int8 modes' multi-AF gate does; JAX gives zeros there) is
 updated as with a zero gradient: its moments decay, and weight decay still
-moves it. ``abstract_state`` (the dry-run's abstract state) is not ported
-yet.
+moves it. ``abstract_state`` gives the state as meta tensors, which the dry
+run traces.
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ import torch
 
 from ._tree import leaves_like, tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["AdamWConfig", "AdamWState", "apply_updates", "global_norm", "init_state"]
+__all__ = ["AdamWConfig", "AdamWState", "abstract_state", "apply_updates", "global_norm",
+           "init_state"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +49,17 @@ def init_state(params) -> AdamWState:
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device), m=z,
                       v=tree_map(torch.clone, z))
 
+
+
+def abstract_state(params) -> AdamWState:
+    """Meta tensors of the state's shapes and dtypes (the dry run's
+    stand-in); ``m`` and ``v`` are trees of their own, as on the card."""
+    def zeros():
+        return tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta"),
+                        params)
+
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"), m=zeros(),
+                      v=zeros())
 
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
     """A host constant as an f32 tensor on ``like``'s device: a divisor (or

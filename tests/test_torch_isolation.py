@@ -51,7 +51,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.sim.analyze", "repro_torch.data.pipeline", "repro_torch.quant",
             "repro_torch.quant.qat", "repro_torch.train.optimizer",
             "repro_torch.train.checkpoint", "repro_torch.train.train_loop",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.kernels.costs",
+            "repro_torch.launch.cost_analysis", "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline", "repro_torch.launch.topcolls",
+            "repro_torch.launch.reanalyze"} <= set(mods)
     code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"

@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel library from the checkout's sources (the fused
-CORDIC dot+AF, the MAC-array matmul, the GQA and MLA cache-decode
-attentions, the standalone multi-AF block and its row softmax, the
-cache-free flash and MLA flash attentions), then:
+CORDIC dot+AF with its partial-sum and epilogue kernels, the MAC-array
+matmul, the GQA and MLA cache-decode attentions, the standalone multi-AF
+block and its row softmax, the cache-free flash and MLA flash attentions),
+then:
 
 1. prints the device, the toolchain and each kernel's registers and shared
    memory (``nvcc -Xptxas -v``);
@@ -103,7 +104,7 @@ cache-free flash and MLA flash attentions), then:
    serves olmo-1b (``scan_phases``), each prompt prefilled through the scan
    (a captured single-token step replayed once per prompt token, then a
    captured finish: one transfer a prefill), the exact launch gates counting
-   those replays: mamba2-780m (48 layers, also sampled), zamba2-7b (18 of 81
+   those replays: mamba2-780m (24 of 48 layers, also sampled), zamba2-7b (18 of 81
    layers: two groups of nine Mamba2 layers and the shared attention block,
    GQA at head_dim 112) and seamless-m4t-large-v2 (24 + 24 layers); their
    ``forward`` on the serving weights (mamba2 and zamba2 at (1, 512), two SSD
@@ -166,6 +167,23 @@ cache-free flash and MLA flash attentions), then:
    each kernel's bound (``kernels/costs.py``) against its profiled device
    ms, the decode step's roofline terms and ``measured_share`` against 3's
    captured decode step.
+16. ``check_tp_kernels``, ``check_tp_attention`` and ``tp_phases`` (group
+   ``tp``): kernel 1's split form for tensor-parallel row products (the
+   partial-sum instantiation on the narrow, wgmma and FxP16 imad paths,
+   then the epilogue kernel on the int32 sum) bitwise its plain twins and,
+   summed over two K halves, the fused kernel over the whole of K, at
+   olmo-1b's local row-parallel shapes; the GQA and MLA cache kernels on a
+   rank's half of the heads (and slots), their key splits planned from the
+   whole counts, bitwise the whole call's rows;
+   then tensor-parallel serving on spawned ranks that share the card
+   (gloo; the server uncaptured): full-width olmo-1b on a (1, 2) mesh, its
+   streams, f32 top-2 margins and a flash forward's logits bitwise the
+   same server's ``mesh=None`` run, each rank's launches exact by
+   instantiation; olmo-1b at 4 layers on (2, 1) (slots and the FSDP
+   shards over data) and on (1, 1) under NCCL; llama4's pair and
+   deepseek-v3 at (1, 2) with their routed experts cut. Prints a ``tp``
+   record (tok/s, collective bytes: a smoke reading, two ranks time-share
+   the card and gloo moves every collective through the host).
 
 ``python3 chip_smoke.py --phases bank`` (groups of ``PHASE_GROUPS``) runs
 some groups only, with no ``kernels`` and no ``ok`` line.
@@ -246,12 +264,14 @@ ARCH_FORWARD = {"qwen2.5-14b": (1, BUCKET), "internvl2-2b": (1, 256),
 # (qwen2.5-14b and llama4, H40/KV8) and 8 (yi-9b, H32/KV4)
 ARCH_HEADS = ((40, 8), (32, 4))
 # the recurrent and encoder-decoder archs, every width stock, f32, prefilled
-# through the scan (one single-token step a prompt token): mamba2-780m at all
-# 48 layers; zamba2-7b cut from 81 to 18 layers, two groups of nine Mamba2
+# through the scan (one single-token step a prompt token): mamba2-780m cut
+# from 48 to 24 layers (for the smoke's time, once the tp group came in:
+# its two 48-layer runs took 131 s of a 1030 s clean-export run);
+# zamba2-7b cut from 81 to 18 layers, two groups of nine Mamba2
 # layers with the shared block applied twice (1.84 B params, 7.35 GB of f32;
 # all 81 would be 6.75 B and 27.0 GB, which fits one card: the cut is for the
 # smoke's time only); seamless-m4t-large-v2 at all 24 + 24 layers
-SCAN_ARCH_LAYERS = {"mamba2-780m": None, "zamba2-7b": 18, "seamless-m4t-large-v2": None}
+SCAN_ARCH_LAYERS = {"mamba2-780m": 24, "zamba2-7b": 18, "seamless-m4t-large-v2": None}
 # every fused dot (K, N) of their main paths and the activations each runs:
 # mamba2's in_proj, out_proj and lm_head; zamba2's in_proj and out_proj, its
 # shared block's q/k/v/o, GLU up and gate (swish) and down, and its lm_head;
@@ -1597,7 +1617,8 @@ def by_instantiation(per_kernel: dict, rows: int, s: int, times: int = 1,
     from repro_torch.kernels.int_dot import NARROW_MAX_M
 
     dot = "imad" if w_bytes > 1 else "narrow" if rows <= NARROW_MAX_M else "wgmma"
-    inst = {"fused_dot_af": dot, "cordic_mac": dot, "mla_decode_attention": "tc",
+    inst = {"fused_dot_af": dot, "cordic_mac": dot, "fused_dot_partial": dot,
+            "fused_epilogue": "elementwise", "mla_decode_attention": "tc",
             "gqa_decode_attention": "tc" if s >= TC_MIN_S else "split",
             "af_elementwise": "elementwise", "af_softmax": "cluster", "flash_attention": "tc",
             "mla_flash_attention": "tc"}
@@ -1629,16 +1650,27 @@ def serving_instantiations(cfg, server, reqs, per_call: bool = False,
     return want
 
 
+def batch_groups(n: int) -> int:
+    """The products a batched f32 product over ``n`` experts or MLA heads
+    runs as on the card (``blocks.batch_grouped``: groups of
+    ``BATCH_GROUP``, so a mesh rank's share of them gets the same bits)."""
+    from repro_torch.models.blocks import BATCH_GROUP
+
+    return n // BATCH_GROUP if n % BATCH_GROUP == 0 and n != BATCH_GROUP else 1
+
+
 def plain_products_per_forward(cfg, cache_free: bool = False) -> int:
     """Products the reference leaves to XLA outside any kernel, which the port
     leaves to torch.einsum: MLA's wk_b/wv_b absorptions, the MoE router and
-    its three expert einsums; a Mamba2 layer's conv window, state update and
-    readout at decode, its SSD's four chunk products in a cache-free pass;
-    seamless's two cross-attention products a decoder layer."""
+    its three expert einsums (the absorptions and expert products each in
+    ``batch_groups`` products); a Mamba2 layer's conv window, state update
+    and readout at decode, its SSD's four chunk products in a cache-free
+    pass; seamless's two cross-attention products a decoder layer."""
     mamba = {"ssm": cfg.num_layers, "hybrid": cfg.num_layers}.get(cfg.family, 0)
     cross = 2 * cfg.num_layers if cfg.family == "audio" else 0
-    return (2 * cfg.num_layers * bool(cfg.mla) + 4 * moe_layers(cfg)
-            + (4 if cache_free else 3) * mamba + cross)
+    experts = batch_groups(cfg.moe.num_experts) if cfg.moe else 1
+    return (2 * cfg.num_layers * bool(cfg.mla) * batch_groups(cfg.num_heads)
+            + (1 + 3 * experts) * moe_layers(cfg) + (4 if cache_free else 3) * mamba + cross)
 
 
 def model_forwards(server) -> int:
@@ -4805,6 +4837,405 @@ def scan_phases(device, serving: dict, forward: dict, parity: dict) -> None:
         emit({"card_vs_cpu": parity[name]})
 
 
+# ---------------------------------------------------------------------------
+# tp: tensor-parallel serving on a (data, model) mesh of ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# the tp group: two gloo ranks on the one card (NCCL refuses two ranks on one
+# device); 16 new tokens of the smoke's six prompts a run, uncaptured (gloo
+# collectives cannot be captured)
+TP_MAX_NEW = 16
+TP_CUT_LAYERS = 4  # olmo-1b at (2, 1) and at (1, 1) under NCCL
+# (2, 1) all-gathers every FSDP shard over gloo each step (~0.37 GB at 4
+# layers, ~1.2 s a step on the card): its first two prompts, 8 new tokens
+# and no collective snapshot keep the phase near 30 s
+TP_FSDP_MAX_NEW = 8
+TP_FSDP_PROMPTS = PROMPT_LENS[:2]
+# the MoE archs at (1, 2), each rank holding half of the routed experts:
+# llama4's pair with 32 of 128 (13.6 GB of f32 a rank at set-up, the mesh=None
+# run 27 GB), deepseek-v3 at the smoke's 4 layers with 64 of 256 (one MoE layer)
+TP_LLAMA4_EXPERTS = 32
+TP_DEEPSEEK_EXPERTS = 64
+# olmo-1b's row-parallel shards on a model axis of 2: wo (1024 of K, 2048)
+# and down (4096 of K, 2048), at decode, the 16-row bucket and M 512
+TP_KERNEL_SHAPES = ((1024, 2048), (4096, 2048))
+TP_KERNEL_MS = (SLOTS, 16, BUCKET)
+
+
+def check_tp_kernels(device):
+    """Kernel 1's split form (``fused_dot_partial`` then ``fused_epilogue``)
+    against its plain twins, bitwise, at olmo-1b's local row-parallel shapes
+    on the narrow and wgmma paths and FxP16 (imad), and the split identity
+    itself: the epilogue of the int32 sum of two K halves' partials equals
+    the fused kernel over the whole of K. The epilogue also runs every AF
+    with bf16 rounding on and off, on full-range int32 sums. Times the card
+    kernels, the plain versions, the bounds (``costs.py``) and
+    ``torch._int_mm`` on the shard (the partial's library yardstick)."""
+    import torch
+
+    from repro_torch.core import FXP8, FXP16
+    from repro_torch.kernels import costs
+    from repro_torch.kernels.cordic_fused import (FUSED_AFS, fused_dot_af, fused_dot_partial,
+                                                  fused_dot_partial_ref, fused_epilogue,
+                                                  fused_epilogue_ref)
+    from repro_torch.kernels.int_dot import plan, to_k_major
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rows, max_err = [], 0.0
+    cases = [(FXP8, k, n, m) for k, n in TP_KERNEL_SHAPES for m in TP_KERNEL_MS]
+    cases += [(FXP16, k, n, SLOTS) for k, n in TP_KERNEL_SHAPES]
+    for fmt, k, n, m in cases:
+        whole = prepared_weight(2 * k, n, fmt, gen, device)[0]
+        halves = [to_k_major(whole.data[i * k:(i + 1) * k]) for i in range(2)]
+        x = torch.randn((m, 2 * k), generator=gen, device=device)
+        xs = [x[:, i * k:(i + 1) * k].contiguous() for i in range(2)]
+        parts = [fused_dot_partial(xs[i], halves[i], whole.point) for i in range(2)]
+        for i in range(2):
+            if not torch.equal(parts[i], fused_dot_partial_ref(xs[i], halves[i], whole.point)):
+                raise AssertionError(f"fused_dot_partial != plain at {fmt} M={m} K={k} N={n}")
+        acc = parts[0] + parts[1]  # int32 adds wrap as the cross-rank sum does
+        kw = dict(af_mode="identity", af_depth=fmt.frac + 1, af_fmt=fmt)
+        got = fused_epilogue(acc, whole.point, **kw)
+        if not torch.equal(got, fused_epilogue_ref(acc, whole.point, **kw)):
+            raise AssertionError(f"fused_epilogue != plain at {fmt} M={m} N={n}")
+        if not torch.equal(got, fused_dot_af(x, whole.data, whole.point, **kw)):
+            raise AssertionError(f"split sum != fused over the whole of K at {fmt} M={m} "
+                                 f"K={2 * k} N={n}")
+        w, x0, elem = halves[0], xs[0], halves[0].element_size()
+        iters = 60 if m <= 32 else 20
+        ms = graph_ms(lambda: fused_dot_partial(x0, w, whole.point), iters)
+        plain_ms = timed_ms(lambda: fused_dot_partial_ref(x0, w, whole.point), 5, 1)
+        b_ms, b_by = costs.fused_dot_partial(m, n, k, elem).bound()
+        lib = None
+        if elem == 1:
+            xq = torch.clamp(torch.round(x0 * 64), -128, 127).to(torch.int8)
+            lib = int_mm_ms(xq, [w], iters)["k_major"]
+        e_ms = graph_ms(lambda: fused_epilogue(acc, whole.point, **kw), iters)
+        e_plain = timed_ms(lambda: fused_epilogue_ref(acc, whole.point, **kw), 5, 1)
+        e_b, e_by = costs.fused_epilogue(m, n, "identity", fmt.frac + 1, fmt).bound()
+        path = path_name(plan(m, n, k, elem, elem))
+        rows.append(dict(M=m, K=k, N=n, fmt=str(fmt), path=path, bitwise_equal=True,
+                         split_equals_fused=True, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, int_mm_ms=lib, epilogue_ms=e_ms,
+                         epilogue_plain_ms=e_plain, epilogue_bound_ms=e_b,
+                         epilogue_bound_by=e_by))
+        log(f"tp partial {fmt} M={m} K={k} N={n} [{path}]: {ms:.4f} ms (plain {plain_ms:.3f}, "
+            f"int_mm {lib}, bound {b_ms:.4f} {b_by}); epilogue {e_ms:.4f} ms (plain "
+            f"{e_plain:.3f}, bound {e_b:.4f})")
+    # the epilogue on full-range int32 sums: every AF, bf16 rounding on and off
+    acc = torch.randint(-2**31, 2**31 - 1, (SLOTS, 2048), generator=gen, device=device,
+                        dtype=torch.int64).to(torch.int32)
+    for fmt in (FXP8, FXP16):
+        point = prepared_weight(64, 64, fmt, gen, device)[0].point
+        for af in FUSED_AFS:
+            for compute_round in (False, True):
+                kw = dict(af_mode=af, af_depth=fmt.frac + 1, af_fmt=fmt,
+                          compute_round=compute_round)
+                if not torch.equal(fused_epilogue(acc, point, **kw),
+                                   fused_epilogue_ref(acc, point, **kw)):
+                    raise AssertionError(f"fused_epilogue != plain: {fmt} {af} "
+                                         f"compute_round={compute_round}")
+        rows.append(dict(M=SLOTS, N=2048, fmt=str(fmt), af="all 7", compute_round="both",
+                         full_range_int32=True, bitwise_equal=True))
+    torch.cuda.synchronize()
+    return rows, max_err
+
+
+def check_tp_attention(device):
+    """The cache-attention kernels on a mesh rank's share of a decode step,
+    their key splits planned from the whole batch and head counts
+    (``plan_dims``): GQA at olmo-1b's decode (B4 S1 T512 H16 KV16 hd128) on
+    the second half of the heads (a model rank of 2) and on the second half
+    of the slots and heads (a (2, 2) rank), MLA at deepseek-v3's (B4 S1 T512
+    H128 R512 r64) on the second half of the heads. Each local call's rows
+    must equal the whole call's rows of those slots and heads bit for bit;
+    whether they still would with splits planned from the local shapes is
+    recorded. Times the local calls, their plain versions and bounds."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import costs
+    from repro_torch.kernels.decode_attention import (gqa_decode_attention,
+                                                      gqa_decode_attention_ref,
+                                                      mla_decode_attention,
+                                                      mla_decode_attention_ref)
+    from repro_torch.kernels.decode_attention.ops import gqa_plan, mla_splits
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    rows = []
+    b, t, h, hd = SLOTS, MAX_LEN, 16, 128
+    q, ck, cv, pos = attention_case(b, 1, t, h, h, hd, gen, device)
+    scale = 1.0 / math.sqrt(hd)
+    whole = gqa_decode_attention(q, ck, cv, pos, scale=scale)
+    for label, sl in (("heads 8-15 of 16", slice(0, b)), ("slots 2-3, heads 8-15", slice(2, 4))):
+        lq, lk, lv, lp = (x[sl].contiguous() for x in (q, ck, cv, pos))
+        lq, lk, lv = (x[:, :, 8:].contiguous() for x in (lq, lk, lv))
+        lb = lq.shape[0]
+        plan = (b, h, h)
+        got = gqa_decode_attention(lq, lk, lv, lp, scale=scale, plan_dims=plan)
+        if not torch.equal(got, whole[sl, :, 8:]):
+            raise AssertionError(f"GQA on a rank's share ({label}) != the whole call's rows")
+        unplanned = torch.equal(gqa_decode_attention(lq, lk, lv, lp, scale=scale),
+                                whole[sl, :, 8:])
+        call = lambda: gqa_decode_attention(lq, lk, lv, lp, scale=scale,  # noqa: E731
+                                            plan_dims=plan)
+        b_ms, b_by = costs.gqa_decode_attention(lb, 1, 8, t, 8, hd).bound()
+        rows.append(dict(kernel="gqa_decode_attention", share=label, B=lb, H=8, KV=8, T=t,
+                         splits_global=gqa_plan(b, 1, h, t, h).splits,
+                         splits_local=gqa_plan(lb, 1, 8, t, 8).splits,
+                         bitwise_whole_rows=True, bitwise_without_plan=unplanned,
+                         ms=graph_ms(call, 60),
+                         plain_ms=timed_ms(lambda: gqa_decode_attention_ref(
+                             lq, lk, lv, lp, scale=scale), 5, 1),
+                         bound_ms=b_ms, bound_by=b_by))
+        log(f"tp attention GQA {label}: {rows[-1]['ms']:.4f} ms, splits "
+            f"{rows[-1]['splits_global']} (local plan {rows[-1]['splits_local']})")
+    cfg = get_config("deepseek-v3-671b")
+    m, h = cfg.mla, cfg.num_heads
+    r, rd = m.kv_lora_rank, m.qk_rope_head_dim
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + rd)
+    ql = torch.randn((b, 1, h, r), generator=gen, device=device)
+    qr = torch.randn((b, 1, h, rd), generator=gen, device=device)
+    ckv = torch.randn((b, t, r), generator=gen, device=device)
+    kr = torch.randn((b, t, rd), generator=gen, device=device)
+    pos = torch.full((b, 1), t - 1, dtype=torch.int32, device=device)
+    whole = mla_decode_attention(ql, qr, ckv, kr, pos, scale=scale)
+    lql, lqr = ql[:, :, h // 2:].contiguous(), qr[:, :, h // 2:].contiguous()
+    got = mla_decode_attention(lql, lqr, ckv, kr, pos, scale=scale, plan_dims=(b, h))
+    if not torch.equal(got, whole[:, :, h // 2:]):
+        raise AssertionError("MLA on a rank's heads != the whole call's rows")
+    unplanned = torch.equal(mla_decode_attention(lql, lqr, ckv, kr, pos, scale=scale),
+                            whole[:, :, h // 2:])
+    call = lambda: mla_decode_attention(lql, lqr, ckv, kr, pos, scale=scale,  # noqa: E731
+                                        plan_dims=(b, h))
+    b_ms, b_by = costs.mla_decode_attention(b, 1, h // 2, t, r, rd).bound()
+    rows.append(dict(kernel="mla_decode_attention", share=f"heads {h // 2}-{h - 1} of {h}",
+                     B=b, H=h // 2, T=t, splits_global=mla_splits(b, 1, h, t),
+                     splits_local=mla_splits(b, 1, h // 2, t), bitwise_whole_rows=True,
+                     bitwise_without_plan=unplanned, ms=graph_ms(call, 60),
+                     plain_ms=timed_ms(lambda: mla_decode_attention_ref(
+                         lql, lqr, ckv, kr, pos, scale=scale), 5, 1),
+                     bound_ms=b_ms, bound_by=b_by))
+    log(f"tp attention MLA {rows[-1]['share']}: {rows[-1]['ms']:.4f} ms, splits "
+        f"{rows[-1]['splits_global']} (local plan {rows[-1]['splits_local']})")
+    torch.cuda.synchronize()
+    return rows
+
+
+def tp_cfg(name: str, layers=None, experts=None):
+    """``name`` at stock widths, f32, cut to ``layers`` and ``experts``."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(name), dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if experts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, num_experts=experts))
+    return cfg
+
+
+def tp_launches_per_forward(cfg, model_split: int) -> dict:
+    """``launches_per_forward`` on a model axis of ``model_split``: every
+    row-parallel dot (attention ``o``, the dense and shared MLPs' ``down``)
+    is one partial-sum and one epilogue launch in place of a fused one (the
+    archs the smoke meshes split every head and MLP width at 2)."""
+    want = launches_per_forward(cfg)
+    if model_split == 1:
+        return want
+    moe = moe_layers(cfg)
+    rows = 2 * (cfg.num_layers - moe)
+    if moe:
+        rows += (1 + bool(cfg.moe.num_shared_experts)) * moe
+    want["fused_dot_af"] -= rows
+    want["fused_dot_partial"] = rows
+    want["fused_epilogue"] = rows
+    return want
+
+
+def tp_instantiations(cfg, server, reqs, model_split: int) -> dict:
+    """Launches by instantiation of one rank's uncaptured meshed run: one
+    forward a request over its bucket, and the decode steps over the rank's
+    local slots."""
+    from repro_torch.serve.kvcache import bucket_length
+
+    per_forward = tp_launches_per_forward(cfg, model_split)
+    want = by_instantiation(per_forward, server._local_slots, 1, server.decode_steps)
+    for r in reqs:
+        b = bucket_length(len(r.prompt), server.max_len)
+        add_counts(want, by_instantiation(per_forward, b, b))
+    return want
+
+
+def digest(t) -> str:
+    """sha256 of a tensor's bytes (a bitwise comparison across processes)."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def tp_serve(cfg, mesh, device, forward_batch=None, max_new=None, snapshot=True, lens=None):
+    """Serve ``cfg`` on ``mesh`` (None: one device) uncaptured on the card,
+    the smoke's prompts (or ``lens``) and ``max_new`` (default
+    ``TP_MAX_NEW``) new tokens,
+    from the seeded weights (this rank's shards of them); with
+    ``forward_batch`` (B, S) also a cache-free ``forward`` under
+    ``attn_impl="flash"``. Returns the streams, margins, run record,
+    launches and, meshed, the run's collective bytes and (``snapshot``) one
+    greedy burst's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import kernel_totals
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import BatchedServer
+    from repro_torch.sharding import collectives
+
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=device).manual_seed(SEED), mesh=mesh)
+    server = BatchedServer(model, kernel_ctx(), params, slots=SLOTS, max_len=MAX_LEN,
+                           burst=BURST, device=device, capture=False, mesh=mesh)
+    del params
+    setup_peak = torch.cuda.max_memory_allocated() / 2**30
+    reqs = requests(cfg, lens=lens, max_new=max_new or TP_MAX_NEW)
+    zero_launches()
+    collectives.reset_counts()
+    out, run = timed_run(server, reqs)
+    counts = wrapper_counts()
+    rep = dict(streams={int(k): v for k, v in out.items()}, margins=margins(reqs), run=run,
+               setup_peak_gib=setup_peak, launches=kernel_totals(nonzero(counts)),
+               by_instantiation=nonzero(counts), decode_steps=server.decode_steps)
+    m = mesh.size("model") if mesh is not None else 1
+    want = tp_instantiations(cfg, server, reqs, m)
+    if nonzero(counts) != nonzero(want):
+        raise AssertionError(f"{cfg.name} mesh {mesh}: launches {nonzero(counts)} != "
+                             f"{nonzero(want)}")
+    if mesh is not None:
+        rep["collectives_run"] = collectives.counts()
+        rep["sharding"] = server.shardings.snapshot()
+        if snapshot:
+            rep["collective_snapshot"] = server.collective_snapshot()
+    if forward_batch is not None:
+        ctx = dataclasses.replace(server.ctx, attn_impl="flash")  # the mesh and its FSDP specs
+        tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, forward_batch).astype(np.int64)).to(device)
+        zero_launches()
+        with torch.no_grad():
+            logits, _ = model.forward(server.params, {"tokens": tokens}, ctx)
+        torch.cuda.synchronize()
+        fw = kernel_totals(nonzero(wrapper_counts()))
+        want_fw = dict(forward_launches(cfg, "flash"))
+        if m > 1:
+            rows = tp_launches_per_forward(cfg, m)["fused_dot_partial"]
+            want_fw.update(fused_dot_af=want_fw["fused_dot_af"] - rows,
+                           fused_dot_partial=rows, fused_epilogue=rows)
+        if fw != want_fw:
+            raise AssertionError(f"{cfg.name} forward mesh {mesh}: launches {fw} != {want_fw}")
+        rep["forward"] = dict(batch=list(forward_batch), launches=fw, logits=digest(logits))
+    del server
+    free_card()
+    return rep
+
+
+def tp_rank(rank, world, shape, jobs):
+    """One spawned rank of a tp phase (``launch.mesh.spawn``): its ``shape``
+    mesh over the process group, then :func:`tp_serve` of each job in turn
+    (each frees the card before the next)."""
+    import torch
+
+    from repro_torch.launch.mesh import mesh_from_shape
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh_from_shape(shape)
+    device = torch.device("cuda", torch.cuda.current_device())
+    return [tp_serve(job["cfg"], mesh, device, job.get("forward"), job.get("max_new"),
+                     job.get("snapshot", True), job.get("lens")) for job in jobs]
+
+
+def tp_meshed(shape, runs, backend="gloo") -> dict:
+    """Serve every ``(label, base, job)`` of ``runs`` on one ``shape`` mesh of
+    spawned ranks sharing the card (one spawn for them all): each rank's
+    streams and f32 top-2 margins (and, for a job with a ``forward``, the
+    forward's logits) must equal its one-device run ``base`` bit for bit.
+    Returns label -> record."""
+    from repro_torch.launch.mesh import spawn
+
+    world = shape[0] * shape[1]
+    t0 = time.perf_counter()
+    per_rank = spawn(tp_rank, world, args=(shape, [job for _, _, job in runs]),
+                     backend=backend, device="cuda:0", timeout=900)
+    wall = time.perf_counter() - t0
+    out = {}
+    for i, (label, base, job) in enumerate(runs):
+        reps = [ranks[i] for ranks in per_rank]
+        for r, rep in enumerate(reps):
+            if rep["streams"] != base["streams"]:
+                raise AssertionError(f"{label}: rank {r}'s streams differ from mesh=None's")
+            if rep["margins"] != base["margins"]:
+                raise AssertionError(f"{label}: rank {r}'s top-2 margins differ from "
+                                     "mesh=None's")
+            if job.get("forward") and rep["forward"]["logits"] != base["forward"]["logits"]:
+                raise AssertionError(f"{label}: rank {r}'s forward logits differ from "
+                                     "mesh=None's")
+        out[label] = dict(config=label, mesh=list(shape), backend=backend, ranks=world,
+                          spawn_wall_s=wall, streams_equal=True, margins_bitwise=True,
+                          rank0={k: v for k, v in reps[0].items()
+                                 if k not in ("streams", "margins")},
+                          launches=reps[0]["launches"], tokens=reps[0]["run"]["tokens"],
+                          mesh_none_run=base["run"],
+                          rank_launches=[rep["by_instantiation"] for rep in reps])
+    return out
+
+
+def tp_phases(device) -> dict:
+    """Tensor-parallel serving on the card, each configuration against the
+    same server's mesh=None uncaptured run, streams and f32 top-2 margins
+    bitwise, each rank's launches exact by instantiation (column dots
+    fused, row dots partial-sum + epilogue): on a (1, 2) mesh of two gloo
+    ranks sharing the card, full-width olmo-1b (16 layers, also a flash
+    forward's logits bitwise), llama4's dense/MoE pair and deepseek-v3 (MLA,
+    4 layers) with their routed experts cut (``TP_*_EXPERTS``), all three
+    in one spawn; olmo-1b at 4 layers on (2, 1), its FSDP gathers cut to
+    ``TP_FSDP_PROMPTS`` and ``TP_FSDP_MAX_NEW`` tokens, and on (1, 1) under
+    NCCL (world size 1). Two ranks time-share the card and gloo moves every
+    collective through the host: the tok/s are a smoke reading, not a
+    tensor-parallel speed."""
+    out = {}
+    runs = []
+    for label, cfg, forward in (
+            ("olmo-1b (1,2)", olmo(), (1, BUCKET)),
+            ("llama4-maverick-400b-a17b (1,2)",
+             tp_cfg("llama4-maverick-400b-a17b", 2, TP_LLAMA4_EXPERTS), None),
+            ("deepseek-v3-671b (1,2)",
+             tp_cfg("deepseek-v3-671b", DEEPSEEK_LAYERS, TP_DEEPSEEK_EXPERTS), None)):
+        log(f"tp {label} mesh=None")
+        runs.append((label, tp_serve(cfg, None, device, forward_batch=forward),
+                     dict(cfg=cfg, forward=forward)))
+    log("tp (1,2): olmo-1b, llama4-maverick, deepseek-v3")
+    out.update(tp_meshed((1, 2), runs))
+    for label in ("llama4-maverick-400b-a17b (1,2)", "deepseek-v3-671b (1,2)"):
+        out[label]["weights"] = weight_reckoning(runs[[r[0] for r in runs].index(label)][2]["cfg"])
+    cut = olmo(TP_CUT_LAYERS)
+    fsdp = dict(max_new=TP_FSDP_MAX_NEW, lens=TP_FSDP_PROMPTS)
+    log("tp olmo-1b 4 layers (2,1)")
+    out.update(tp_meshed((2, 1), [("olmo-1b 4 layers (2,1)", tp_serve(cut, None, device, **fsdp),
+                                   dict(cfg=cut, snapshot=False, **fsdp))]))
+    log("tp olmo-1b 4 layers (1,1) nccl")
+    out.update(tp_meshed((1, 1), [("olmo-1b 4 layers (1,1) nccl", tp_serve(cut, None, device),
+                                   dict(cfg=cut))], backend="nccl"))
+    import torch
+
+    top = out["olmo-1b (1,2)"]
+    out["record"] = dict(
+        kind=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi(),
+        wall_s=top["rank0"]["run"]["wall_s"], tokens_per_s=top["rank0"]["run"]["tokens_per_s"],
+        mesh_none_tokens_per_s=top["mesh_none_run"]["tokens_per_s"],
+        collective_bytes_run=top["rank0"]["collectives_run"]["collective_bytes"],
+        collective_bytes_burst=top["rank0"]["collective_snapshot"]["collective_bytes"])
+    return out
+
+
 def phase(name: str, fn, *args, **kw):
     """Run one phase of ``main``: ``fn(*args, **kw)``. On an exception it
     prints one stdout line ``{"failed_phase": name, "error": "<type>:
@@ -4822,8 +5253,8 @@ def phase(name: str, fn, *args, **kw):
     return out
 
 
-PHASE_GROUPS = ("kernels", "olmo", "bank", "resilience", "frontend", "modes", "sim", "train",
-                "parity", "deepseek", "archs", "scan")
+PHASE_GROUPS = ("kernels", "olmo", "bank", "resilience", "frontend", "modes", "tp", "sim",
+                "train", "parity", "deepseek", "archs", "scan")
 
 
 def main(argv=()) -> int:
@@ -4946,6 +5377,22 @@ def main(argv=()) -> int:
     if want("modes"):
         for key, rep in phase("modes olmo-1b", modes_phases, device).items():
             (parity if "card vs cpu" in key else serving)[f"olmo-1b {key}"] = rep
+    tp = tp_rows = None
+    if want("tp"):
+        # kernel 1's split form, then tensor-parallel serving on ranks that
+        # share the card
+        tp_rows, tp_err = phase("check_tp_kernels", check_tp_kernels, device)
+        checks["fused_split"] = tp_rows
+        checks["attention_local_heads"] = phase("check_tp_attention", check_tp_attention, device)
+        emit({"kernel_checks": {"fused_split": tp_rows,
+                                "attention_local_heads": checks["attention_local_heads"]}})
+        free_card()
+        tp = phase("tp", tp_phases, device)
+        for key, rep in tp.items():
+            if key != "record":
+                serving[f"{key} tp"] = rep
+        emit({"tp": tp["record"]})
+        free_card()
     sim = training = None
     if want("sim"):
         sim = phase("sim olmo-1b", sim_phases, device)
@@ -5036,7 +5483,8 @@ def main(argv=()) -> int:
     if groups is not None:
         (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
             device=device_line, phases=sorted(groups), kernel_checks=checks, serving=serving,
-            analysis=analysis, forward=forward, card_vs_cpu=parity, sim=sim, train=training),
+            analysis=analysis, forward=forward, card_vs_cpu=parity, sim=sim, train=training,
+            tp=tp),
             indent=1))
         log(f"chip_smoke: groups {sorted(groups)} done")
         return 0
@@ -5062,6 +5510,11 @@ def main(argv=()) -> int:
                       ("decode", "Q1.6", "swish"))
         rep_sm = next(r for r in softmax_rows if (r["shape"], r["fmt"]) == ([SLOTS, 50304], "Q1.6"))
         rep_fl, rep_mf = flash_rows[0], mla_flash_rows[0]  # the forward phases' shapes
+        # kernel 1's split form at olmo-1b's down shard on a model axis of 2, decode
+        rep_tp = next(r for r in tp_rows if (r.get("M"), r.get("K"), r.get("N"), r["fmt"]) ==
+                      (SLOTS, 4096, 2048, "Q1.6"))
+        rep_epi = dict(ms=rep_tp["epilogue_ms"], plain_ms=rep_tp["epilogue_plain_ms"],
+                       bound_ms=rep_tp["epilogue_bound_ms"], bound_by=rep_tp["epilogue_bound_by"])
         kernels = []
         for name, file, replaces, err, rep, lib in (
                 ("fused_dot_af", "cordic_fused/csrc/cordic_fused.cu", "cordic_fused/kernel.py:104",
@@ -5079,7 +5532,11 @@ def main(argv=()) -> int:
                 ("flash_attention", "flash_attention/csrc/flash_attention.cu",
                  "flash_attention/kernel.py:34", flash_err, rep_fl, rep_fl["sdpa_ms"]),
                 ("mla_flash_attention", "mla_flash/csrc/mla_flash.cu", "mla_flash/kernel.py:36",
-                 mla_flash_err, rep_mf, rep_mf["sdpa_ms"])):
+                 mla_flash_err, rep_mf, rep_mf["sdpa_ms"]),
+                ("fused_dot_partial", "cordic_fused/csrc/cordic_fused.cu",
+                 "cordic_fused/kernel.py:104", tp_err, rep_tp, rep_tp["int_mm_ms"]),
+                ("fused_epilogue", "cordic_fused/csrc/cordic_fused.cu",
+                 "cordic_fused/kernel.py:77", tp_err, rep_epi, None)):
             total, by_path = launches(name)
             if not total:
                 raise AssertionError(f"{name}: no launch on any driven path")
@@ -5094,7 +5551,8 @@ def main(argv=()) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=device_line, kernel_checks=checks, softmax_path=paths["softmax activate"],
         serving=serving, analysis=analysis, forward=forward, calibration=calibration,
-        replay_order=order, card_vs_cpu=parity, sim=sim, train=training, kernels=kernels), indent=1))
+        replay_order=order, card_vs_cpu=parity, sim=sim, train=training, tp=tp, kernels=kernels),
+        indent=1))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

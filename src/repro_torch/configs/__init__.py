@@ -3,7 +3,9 @@
 Registered: every arch of the reference: the seven transformer decoders
 (dense, MLA + MoE, interleaved dense/MoE, and the vision-stub VLM), the
 recurrent mamba2-780m (SSD) and zamba2-7b (SSD + a shared attention block),
-and the encoder-decoder seamless-m4t-large-v2 (audio stub).
+and the encoder-decoder seamless-m4t-large-v2 (audio stub). The paper's own
+workloads, the MLP of fig3 and the VGG-16 schedule of fig4, are the modules
+``carmen_mlp`` and ``carmen_vgg16``; they are not archs.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from . import (
     yi_9b,
     zamba2_7b,
 )
+from . import carmen_mlp, carmen_vgg16  # the paper's own workloads  # noqa: F401
 from .base import (
     ALL_SHAPES,
     DECODE_32K,

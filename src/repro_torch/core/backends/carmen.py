@@ -120,3 +120,15 @@ class CarmenBackend(Backend):
             lp = ctx.layer_precision(name)
             out = carmen_dot(x2, w, lp.depth, lp.fmt, unit_fmt(lp.fmt))
         return out.reshape(shape).to(ctx.compute_dtype)
+
+    def partial_dot(self, ctx, x, w):
+        """A row-parallel shard's f32 product of fake-quantized activations
+        and the prepared grid (prepared weights only)."""
+        x_fmt = w.get("x_fmt")
+        x_fmt = FxPFormat(*x_fmt) if x_fmt else ctx.layer_precision("").fmt
+        x2 = x.reshape(-1, x.shape[-1])
+        out = torch.matmul(quantize_activations(x2, x_fmt), w.data)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+
+    def finish_partial(self, ctx, acc, w):
+        return acc.to(ctx.compute_dtype)

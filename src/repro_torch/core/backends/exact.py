@@ -2,8 +2,9 @@
 ``repro.core.backends.exact``).
 
 A plain product, which the reference too computes outside any Pallas kernel:
-``torch.matmul`` in ``compute_dtype``. There is no mesh, so the reference's
-``tp_reduce_bf16`` has nothing to reduce. On the card an f32 product is held
+``torch.matmul`` in ``compute_dtype``. Under a mesh a row-parallel product
+is this partial product in f32, summed over the model axis, then cast to
+``compute_dtype`` (``partial_dot`` / ``finish_partial``). On the card an f32 product is held
 with TF32 off (``torch.backends.cuda.matmul.allow_tf32 = False``), which the
 serving CLI and ``chip_smoke.py`` set.
 """
@@ -24,3 +25,12 @@ class ExactBackend(Backend):
             w = w.data
         cd = ctx.compute_dtype
         return torch.matmul(x.to(cd), w.to(cd)).to(cd)
+
+    def partial_dot(self, ctx, x, w):
+        if isinstance(w, PreparedWeight):
+            w = w.data
+        cd = ctx.compute_dtype
+        return torch.matmul(x.to(cd), w.to(cd)).to(torch.float32)
+
+    def finish_partial(self, ctx, acc, w):
+        return acc.to(ctx.compute_dtype)

@@ -22,6 +22,11 @@ padded to whole 16 bytes, and viewed back in the logical shape, so values
 and shapes are the reference's and the models' 2-D reshapes are views with
 ``stride == (1, K_pad)``.
 
+Under a mesh a row-parallel product runs the fused kernel's split form:
+``partial_dot`` is the int32 dot of the shard (the partial-sum
+instantiation), the engine sums it over the model axis, and
+``finish_partial`` runs the epilogue kernel on the sum.
+
 Each kernel launches on a CUDA tensor and its plain version runs on a CPU
 tensor.
 """
@@ -126,3 +131,19 @@ class KernelBackend(Backend):
         if not (isinstance(w, PreparedWeight) and w.point is not None and af in FUSED_AFS):
             return NotImplemented
         return self._fused(ctx, x, w, af)
+
+    def partial_dot(self, ctx, x, w):
+        """A row-parallel shard's exact int32 dot (prepared weights only):
+        the fused kernel's partial-sum instantiation."""
+        from repro_torch.kernels.cordic_fused import fused_dot_partial
+
+        return fused_dot_partial(x, w.data, w.point)
+
+    def finish_partial(self, ctx, acc, w):
+        """The fused chain's epilogue on the int32 sum over the model axis."""
+        from repro_torch.kernels.cordic_fused import fused_epilogue
+
+        lp_af = ctx.layer_precision("af")
+        out = fused_epilogue(acc, w.point, af_mode="identity", af_depth=int(lp_af.depth),
+                             af_fmt=lp_af.fmt, compute_round=ctx.compute_dtype != torch.float32)
+        return out.to(ctx.compute_dtype)

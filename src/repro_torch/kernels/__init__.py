@@ -25,6 +25,8 @@ from typing import Callable, Dict, List
 # every other kernel
 INSTANTIATIONS = {
     "fused_dot_af": ("narrow", "wgmma", "imad"),
+    "fused_dot_partial": ("narrow", "wgmma", "imad"),
+    "fused_epilogue": ("elementwise",),
     "cordic_mac": ("narrow", "wgmma", "imad"),
     "gqa_decode_attention": ("tc", "split"),
     "mla_decode_attention": ("tc",),
@@ -97,13 +99,14 @@ def entry(kernel: str) -> Callable:
 def wrappers() -> Dict[str, Callable]:
     """Every kernel wrapper, by kernel name."""
     from .cordic_af import af_softmax, multi_af
-    from .cordic_fused import fused_dot_af
+    from .cordic_fused import fused_dot_af, fused_dot_partial, fused_epilogue
     from .cordic_mac import mac_matmul
     from .decode_attention import gqa_decode_attention, mla_decode_attention
     from .flash_attention import flash_attention
     from .mla_flash import mla_flash_attention
 
-    return {"fused_dot_af": fused_dot_af, "cordic_mac": mac_matmul,
+    return {"fused_dot_af": fused_dot_af, "fused_dot_partial": fused_dot_partial,
+            "fused_epilogue": fused_epilogue, "cordic_mac": mac_matmul,
             "gqa_decode_attention": gqa_decode_attention,
             "mla_decode_attention": mla_decode_attention, "af_elementwise": multi_af,
             "af_softmax": af_softmax, "flash_attention": flash_attention,

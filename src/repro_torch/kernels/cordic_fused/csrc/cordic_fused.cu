@@ -50,50 +50,55 @@
 // An int8 path needs the point's x grid inside int8; make_point pairs every
 // int8 bank with such a grid, and a point that is not traps rather than wrap
 // silently.
+//
+// Tensor-parallel serving splits K of a row-parallel product (wo, down)
+// across ranks. The epilogue must then run on the sum of the ranks' int32
+// dots, not on each rank's: a float sum of descaled partials is not bitwise
+// (the int32 -> f32 conversion rounds above 2^24), while int32 sums wrap the
+// same modulo 2^32 in any order. So each path also has a partial-sum
+// instantiation (PARTIAL = true, entry cordic_fused_partial_launch) that
+// stores the int32 accumulator and skips the epilogue, and
+// fused_epilogue_kernel (entry cordic_fused_epilogue_launch) applies the
+// point's descale, the bf16 round and the AF to the reduced int32 sums: an
+// elementwise pass bound by its 8 bytes an element (and, past identity, the
+// AF's int32 work). It replaces no TPU kernel of its own: on the TPU, GSPMD
+// ran the reference's XLA chain under a mesh. Both epilogues come from
+// include/fused_epilogue.cuh, which the fused kernels use too.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "cordic_af.cuh"
+#include "fused_epilogue.cuh"
 #include "int8_wgmma.cuh"
 #include "int_dot.cuh"
 
 namespace {
 
-// params-vector indices (make_point)
-constexpr int P_XFRAC = 1, P_XQMIN = 2, P_XQMAX = 3, P_WFRAC = 4;
+using fused::P_XFRAC;
+using fused::P_XQMAX;
+using fused::P_XQMIN;
 enum Path { NARROW = 0, WGMMA = 1, IMAD = 2 };
 
-// the activation chain of cordic_fused.kernel.af_epilogue past identity. Not
-// inlined: the output-tile loops call it once per accumulator.
-__device__ __noinline__ float af_tail(float h, int mode, int compute_round, const int* tab) {
-  if (compute_round) h = __bfloat162float(__float2bfloat16_rn(h));
-  return af_chain(h, mode, tab);
-}
-
-// descale (prepare) and AF + store (finish) of one int32 dot output, out
-// (M, N) f32
-struct FusedEpilogue {
-  float* __restrict__ out;
-  const int* tab;  // the AF table, in shared memory
-  int N, mode, compute_round;
-  float x_descale, w_descale;
-  __device__ __forceinline__ float prepare(int, int, int acc) const {
-    return (__int2float_rn(acc) * x_descale) * w_descale;
-  }
-  __device__ __forceinline__ void finish(int gm, int gn, float h) const {
-    out[(size_t)gm * N + gn] = mode == 0 ? h : af_tail(h, mode, compute_round, tab);
+// The block's epilogue: the fused one (descale + AF into f32 `out`), or with
+// PARTIAL the int32 accumulator into int32 `out`.
+template <bool PARTIAL>
+struct EpiOf {
+  using type = fused::Epilogue;
+  static __device__ __forceinline__ type make(int* tab, const int* af_tab, const int* point,
+                                              void* out, int N, int mode, int compute_round) {
+    return fused::make_epilogue(tab, af_tab, point, static_cast<float*>(out), N, mode,
+                                compute_round);
   }
 };
-
-// Loads the AF table into shared memory and builds the block's epilogue.
-__device__ __forceinline__ FusedEpilogue fused_epilogue(int* tab, const int* __restrict__ af_tab,
-                                                        const int* __restrict__ point, float* out,
-                                                        int N, int mode, int compute_round) {
-  for (int i = threadIdx.x; i < AF_TAB_LEN; i += blockDim.x) tab[i] = af_tab[i];
-  return FusedEpilogue{out, tab, N, mode, compute_round, pow2f(-point[P_XFRAC]),
-                       pow2f(-point[P_WFRAC])};
-}
+template <>
+struct EpiOf<true> {
+  using type = fused::PartialEpilogue;
+  static __device__ __forceinline__ type make(int*, const int*, const int*, void* out, int N,
+                                              int, int) {
+    return fused::PartialEpilogue{static_cast<int*>(out), N};
+  }
+};
 
 // quantize x onto the FxP grid on its way into a tile
 struct QuantizeX {
@@ -145,55 +150,58 @@ fused_quantize_x_kernel(const float* __restrict__ x, const int* __restrict__ poi
   }
 }
 
-template <int BN>
+template <int BN, bool PARTIAL>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 fused_dot_af_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                           const __grid_constant__ CUtensorMap tb, const int* __restrict__ point,
-                          const int* __restrict__ af_tab, float* __restrict__ out, int M, int N,
+                          const int* __restrict__ af_tab, void* __restrict__ out, int M, int N,
                           int K, int mode, int compute_round) {
   __shared__ int tab[AF_TAB_LEN];
-  const FusedEpilogue epi = fused_epilogue(tab, af_tab, point, out, N, mode, compute_round);
+  const auto epi = EpiOf<PARTIAL>::make(tab, af_tab, point, out, N, mode, compute_round);
   int8_wgmma_tile<BN>(&ta, &tb, epi, M, N, K);
 }
 
 // ----- int8, M <= 16: narrow loop ------------------------------------------
 
-template <int MT>
+template <int MT, bool PARTIAL>
 __global__ void __launch_bounds__(NW_THREADS)
 fused_dot_af_narrow_kernel(const float* __restrict__ x, const int8_t* __restrict__ w, int ldw,
                            const int* __restrict__ point, const int* __restrict__ af_tab,
-                           float* __restrict__ out, unsigned* __restrict__ ws,
+                           void* __restrict__ out, unsigned* __restrict__ ws,
                            int* __restrict__ tile_count, int M, int N, int K, int k_per_split,
                            int mode, int compute_round) {
   __shared__ int tab[AF_TAB_LEN];
-  const FusedEpilogue epi = fused_epilogue(tab, af_tab, point, out, N, mode, compute_round);
+  const auto epi = EpiOf<PARTIAL>::make(tab, af_tab, point, out, N, mode, compute_round);
   int8_narrow_tile<MT>(quantize_x(x, point, K, true), w, ldw, epi, ws, tile_count, M, N, K,
                        k_per_split);
 }
 
-template <int MT>
-struct NarrowLaunch {
-  static void launch(dim3 grid, int smem, cudaStream_t stream, const float* x, const void* w,
-                     int ldw, const int* point, const int* af_tab, float* out, unsigned* ws,
-                     int* tile_count, int M, int N, int K, int k_per_split, int mode,
-                     int compute_round) {
-    fused_dot_af_narrow_kernel<MT><<<grid, NW_THREADS, smem, stream>>>(
-        x, static_cast<const int8_t*>(w), ldw, point, af_tab, out, ws, tile_count, M, N, K,
-        k_per_split, mode, compute_round);
-  }
+template <bool PARTIAL>
+struct Narrow {
+  template <int MT>
+  struct Launch {
+    static void launch(dim3 grid, int smem, cudaStream_t stream, const float* x, const void* w,
+                       int ldw, const int* point, const int* af_tab, void* out, unsigned* ws,
+                       int* tile_count, int M, int N, int K, int k_per_split, int mode,
+                       int compute_round) {
+      fused_dot_af_narrow_kernel<MT, PARTIAL><<<grid, NW_THREADS, smem, stream>>>(
+          x, static_cast<const int8_t*>(w), ldw, point, af_tab, out, ws, tile_count, M, N, K,
+          k_per_split, mode, compute_round);
+    }
+  };
 };
 
 // ----- int16: CUDA-core loop -----------------------------------------------
 
-template <typename WT, int BM, int BN, int BK, int TM, int TN>
+template <typename WT, int BM, int BN, int BK, int TM, int TN, bool PARTIAL>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 fused_dot_af_imad_kernel(const float* __restrict__ x, const WT* __restrict__ w, int ldw,
                          const int* __restrict__ point, const int* __restrict__ af_tab,
-                         float* __restrict__ out, unsigned* __restrict__ ws,
+                         void* __restrict__ out, unsigned* __restrict__ ws,
                          int* __restrict__ tile_count, int M, int N, int K, int k_per_split,
                          int mode, int compute_round) {
   __shared__ int tab[AF_TAB_LEN];
-  const FusedEpilogue epi = fused_epilogue(tab, af_tab, point, out, N, mode, compute_round);
+  const auto epi = EpiOf<PARTIAL>::make(tab, af_tab, point, out, N, mode, compute_round);
   __syncthreads();
   unsigned acc[TM][TN];
   if (!int_dot_tile<WT, BM, BN, BK, TM, TN>(acc, quantize_x(x, point, K, false), w, ldw, ws,
@@ -202,20 +210,74 @@ fused_dot_af_imad_kernel(const float* __restrict__ x, const WT* __restrict__ w, 
   int_dot_store<BM, BN, TM, TN>(acc, epi, M, N);
 }
 
-template <typename WT>
+template <typename WT, bool PARTIAL>
 struct ImadLaunch {
   template <int BM, int BN, int BK, int TM, int TN>
   struct Tile {
     static void launch(dim3 grid, dim3 block, cudaStream_t stream, const float* x, const void* w,
-                       int ldw, const int* point, const int* af_tab, float* out, unsigned* ws,
+                       int ldw, const int* point, const int* af_tab, void* out, unsigned* ws,
                        int* tile_count, int M, int N, int K, int k_per_split, int mode,
                        int compute_round) {
-      fused_dot_af_imad_kernel<WT, BM, BN, BK, TM, TN><<<grid, block, 0, stream>>>(
+      fused_dot_af_imad_kernel<WT, BM, BN, BK, TM, TN, PARTIAL><<<grid, block, 0, stream>>>(
           x, static_cast<const WT*>(w), ldw, point, af_tab, out, ws, tile_count, M, N, K,
           k_per_split, mode, compute_round);
     }
   };
 };
+
+// ----- the epilogue alone, on reduced int32 sums ----------------------------
+
+__global__ void __launch_bounds__(256)
+fused_epilogue_kernel(const int* __restrict__ acc, const int* __restrict__ point,
+                      const int* __restrict__ af_tab, float* __restrict__ out, int M, int N,
+                      int mode, int compute_round) {
+  __shared__ int tab[AF_TAB_LEN];
+  const fused::Epilogue epi =
+      fused::make_epilogue(tab, af_tab, point, out, N, mode, compute_round);
+  __syncthreads();
+  const long long total = (long long)M * N;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int gm = (int)(i / N), gn = (int)(i % N);
+    epi.finish(gm, gn, epi.prepare(gm, gn, acc[i]));
+  }
+}
+
+template <bool PARTIAL>
+int launch_dot(int path, int config, int splits, int k_per_split, const float* x, int8_t* xq,
+               int ldq, const void* w, int w_bytes, int ldw, const int* point,
+               const int* af_tab, void* out, unsigned* ws, int* tile_count, int M, int N, int K,
+               int mode, int compute_round, cudaStream_t s) {
+  if (path == WGMMA) {
+    if (w_bytes != 1) return (int)cudaErrorInvalidValue;
+    const long long quad_blocks = ((long long)M * (ldq / 4) + 255) / 256;
+    const int qblocks = (int)(quad_blocks < 132 * 8 ? quad_blocks : 132 * 8);
+    fused_quantize_x_kernel<<<qblocks, 256, 0, s>>>(x, point, xq, M, K, ldq);
+    const int err = launch_int8_wgmma(
+        config, xq, ldq, w, ldw, M, N, K,
+        [&](auto bn, dim3 grid, int smem, const CUtensorMap& ta, const CUtensorMap& tb) {
+          constexpr int BN = decltype(bn)::value;
+          static unsigned sized = 0;
+          allow_dynamic_smem(fused_dot_af_wgmma_kernel<BN, PARTIAL>, smem, sized);
+          fused_dot_af_wgmma_kernel<BN, PARTIAL><<<grid, WG_THREADS, smem, s>>>(
+              ta, tb, point, af_tab, out, M, N, K, mode, compute_round);
+        });
+    if (err) return err;
+  } else if (path == NARROW) {
+    if (w_bytes != 1) return (int)cudaErrorInvalidValue;
+    const int err = dispatch_narrow<Narrow<PARTIAL>::template Launch>(
+        config, M, N, splits, k_per_split, s, x, w, ldw, point, af_tab, out, ws, tile_count, M,
+        N, K, k_per_split, mode, compute_round);
+    if (err) return err;
+  } else if (path == IMAD && w_bytes == 2) {
+    dispatch_tiles<ImadLaunch<int16_t, PARTIAL>::template Tile>(
+        config, M, N, splits, s, x, w, ldw, point, af_tab, out, ws, tile_count, M, N, K,
+        k_per_split, mode, compute_round);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -230,34 +292,31 @@ extern "C" int cordic_fused_launch(int path, int config, int splits, int k_per_s
                                    int w_bytes, int ldw, const int* point, const int* af_tab,
                                    float* out, unsigned* ws, int* tile_count, int M, int N, int K,
                                    int mode, int compute_round, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (path == WGMMA) {
-    if (w_bytes != 1) return (int)cudaErrorInvalidValue;
-    const long long quad_blocks = ((long long)M * (ldq / 4) + 255) / 256;
-    const int qblocks = (int)(quad_blocks < 132 * 8 ? quad_blocks : 132 * 8);
-    fused_quantize_x_kernel<<<qblocks, 256, 0, s>>>(x, point, xq, M, K, ldq);
-    const int err = launch_int8_wgmma(
-        config, xq, ldq, w, ldw, M, N, K,
-        [&](auto bn, dim3 grid, int smem, const CUtensorMap& ta, const CUtensorMap& tb) {
-          constexpr int BN = decltype(bn)::value;
-          static unsigned sized = 0;
-          allow_dynamic_smem(fused_dot_af_wgmma_kernel<BN>, smem, sized);
-          fused_dot_af_wgmma_kernel<BN><<<grid, WG_THREADS, smem, s>>>(
-              ta, tb, point, af_tab, out, M, N, K, mode, compute_round);
-        });
-    if (err) return err;
-  } else if (path == NARROW) {
-    if (w_bytes != 1) return (int)cudaErrorInvalidValue;
-    const int err = dispatch_narrow<NarrowLaunch>(config, M, N, splits, k_per_split, s, x, w, ldw,
-                                                  point, af_tab, out, ws, tile_count, M, N, K,
-                                                  k_per_split, mode, compute_round);
-    if (err) return err;
-  } else if (path == IMAD && w_bytes == 2) {
-    dispatch_tiles<ImadLaunch<int16_t>::Tile>(config, M, N, splits, s, x, w, ldw, point, af_tab,
-                                              out, ws, tile_count, M, N, K, k_per_split, mode,
-                                              compute_round);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  return launch_dot<false>(path, config, splits, k_per_split, x, xq, ldq, w, w_bytes, ldw, point,
+                           af_tab, out, ws, tile_count, M, N, K, mode, compute_round,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The partial-sum instantiations: the same paths and arguments without the
+// AF; out is the int32 (M, N) dot, wrapped modulo 2^32.
+extern "C" int cordic_fused_partial_launch(int path, int config, int splits, int k_per_split,
+                                           const float* x, int8_t* xq, int ldq, const void* w,
+                                           int w_bytes, int ldw, const int* point, int* out,
+                                           unsigned* ws, int* tile_count, int M, int N, int K,
+                                           void* stream) {
+  return launch_dot<true>(path, config, splits, k_per_split, x, xq, ldq, w, w_bytes, ldw, point,
+                          nullptr, out, ws, tile_count, M, N, K, 0, 0,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// acc: the int32 (M, N) dot (summed over K shards); out f32 (M, N).
+extern "C" int cordic_fused_epilogue_launch(const int* acc, const int* point, const int* af_tab,
+                                            float* out, int M, int N, int mode,
+                                            int compute_round, void* stream) {
+  const long long blocks = ((long long)M * N + 255) / 256;
+  const int grid = (int)(blocks < 132 * 8 ? blocks : 132 * 8);
+  if (grid > 0)
+    fused_epilogue_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        acc, point, af_tab, out, M, N, mode, compute_round);
   return (int)cudaGetLastError();
 }

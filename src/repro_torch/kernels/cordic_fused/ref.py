@@ -1,5 +1,8 @@
 """Plain PyTorch version of the fused dot+AF chain (port of
-``repro.kernels.cordic_fused.ref`` and ``kernel.af_epilogue``).
+``repro.kernels.cordic_fused.ref`` and ``kernel.af_epilogue``), in two
+pieces that compose to it: the int32 dot (:func:`fused_dot_partial_ref`,
+the twin of the kernel's partial-sum instantiation) and the epilogue
+(:func:`fused_epilogue_ref`, the twin of its epilogue kernel).
 
 It runs on CPU and CUDA tensors alike and is bitwise equal to the reference
 and to the Hopper kernel:
@@ -46,14 +49,29 @@ def af_epilogue(h: torch.Tensor, af_mode: str, af_depth: int, af_fmt: fxp.FxPFor
     return fxp.dequantize(fxp.requantize(raw, ifmt, af_fmt), af_fmt)
 
 
+def fused_dot_partial_ref(x, w, point) -> torch.Tensor:
+    """The exact int32 dot of the fused chain, before its epilogue: ``x:
+    (..., K) float`` quantized at the point's x grid, times ``w: (K, N)``
+    signed-digit integers, wrapped modulo 2**32. Sums of such partials over
+    K shards, wrapped the same way, equal the dot over the whole of K."""
+    pt = point.to(torch.int32)
+    scaled = torch.round(x.to(torch.float32) * pow2(pt[P_XFRAC]))
+    xq = fxp.to_int32(torch.clamp(scaled, pt[P_XQMIN].float(), pt[P_XQMAX].float()))
+    return wrap_int32((xq.to(torch.float64) @ w.to(torch.float64)).to(torch.int64))
+
+
+def fused_epilogue_ref(acc, point, *, af_mode: str = "identity", af_depth: int = 8,
+                       af_fmt: fxp.FxPFormat = fxp.FXP8, compute_round: bool = False):
+    """The fused chain's epilogue on an int32 dot ``acc``: descale by the
+    point's exact powers of two, then :func:`af_epilogue`. f32 out."""
+    pt = point.to(torch.int32)
+    h = (acc.to(torch.float32) * pow2(-pt[P_XFRAC])) * pow2(-pt[P_WFRAC])
+    return af_epilogue(h, af_mode, af_depth, af_fmt, compute_round)
+
+
 def fused_dot_af_ref(x, w, point, *, af_mode: str = "identity", af_depth: int = 8,
                      af_fmt: fxp.FxPFormat = fxp.FXP8, compute_round: bool = False):
     """``x: (..., K) float``, ``w: (K, N)`` signed-digit weight integers,
-    ``point: int32[5]``. Returns f32 ``(..., N)``."""
-    pt = point.to(torch.int32)
-    x_frac, w_frac = pt[P_XFRAC], pt[P_WFRAC]
-    scaled = torch.round(x.to(torch.float32) * pow2(x_frac))
-    xq = fxp.to_int32(torch.clamp(scaled, pt[P_XQMIN].float(), pt[P_XQMAX].float()))
-    acc = wrap_int32((xq.to(torch.float64) @ w.to(torch.float64)).to(torch.int64))
-    h = (acc.to(torch.float32) * pow2(-x_frac)) * pow2(-w_frac)
-    return af_epilogue(h, af_mode, af_depth, af_fmt, compute_round)
+    ``point: int32[5]``. Returns f32 ``(..., N)``: the epilogue of the dot."""
+    return fused_epilogue_ref(fused_dot_partial_ref(x, w, point), point, af_mode=af_mode,
+                              af_depth=af_depth, af_fmt=af_fmt, compute_round=compute_round)

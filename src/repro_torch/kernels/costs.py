@@ -131,6 +131,25 @@ def fused_dot_af(m: int, n: int, k: int, w_bytes: int, af: str, af_depth: int,
                       dot_flops=2.0 * m * n * k)
 
 
+def fused_dot_partial(m: int, n: int, k: int, w_bytes: int) -> KernelCost:
+    """Kernel 1's partial-sum instantiation: x f32 (M, K) by the (K, N) bank
+    of ``w_bytes`` a weight, the int32[5] point, out int32 (M, N)."""
+    return KernelCost(m * k * 4 + k * n * w_bytes + m * n * 4 + 20,
+                      (_int_dot_work(m, n, k, w_bytes > 1),), dot_flops=2.0 * m * n * k)
+
+
+def fused_epilogue(m: int, n: int, af: str, af_depth: int, af_fmt) -> KernelCost:
+    """Kernel 1's epilogue alone: int32 sums (M, N) in, f32 (M, N) out, the
+    point; past identity, the CORDIC AF's int32 operations on every output."""
+    from repro_torch.core.activations import internal_depth
+
+    work = ()
+    if af != "identity":
+        work = (Work("int32", af_int_ops(af, internal_depth(af_depth, af_fmt)) * m * n,
+                     "operations (AF int32)"),)
+    return KernelCost(8.0 * m * n + 20, work)
+
+
 def cordic_mac(m: int, n: int, k: int, elem: int) -> KernelCost:
     """Kernel 6: x_q (M, K) and the (K, N) bank of ``elem`` bytes, the f32
     scales (M + N), out f32 (M, N)."""

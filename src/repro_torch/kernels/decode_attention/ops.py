@@ -110,7 +110,7 @@ def gqa_plan(b: int, s: int, h: int, t: int, kv: int) -> GqaPlan:
     return GqaPlan(SPLIT_KEYS, gqa_splits(b, s, h, t, kv))
 
 
-def _launch(q, ck, cv, positions, scale: float):
+def _launch(q, ck, cv, positions, scale: float, plan_dims=None):
     dev = q.device
     for name, t in (("ck", ck), ("cv", cv), ("positions", positions)):
         if t.device != dev:
@@ -131,7 +131,8 @@ def _launch(q, ck, cv, positions, scale: float):
         raise ValueError("gqa_decode_attention: the kernel copies in 16-byte pieces; q, ck "
                          "and cv must be 16-byte aligned")
     out = torch.empty_like(q)
-    path, splits = gqa_plan(b, s, h, t_len, kv)
+    pb, ph, pkv = plan_dims if plan_dims is not None else (b, h, kv)
+    path, splits = gqa_plan(pb, s, ph, t_len, pkv)
     inst = "tc" if path == TENSOR_CORES else "split"
     cost = functools.partial(costs.gqa_decode_attention, b, s, h, t_len, kv, hd)
     if dev.type == "meta":
@@ -150,12 +151,17 @@ def _launch(q, ck, cv, positions, scale: float):
 
 
 @entry("gqa_decode_attention")
-def gqa_decode_attention(q, ck, cv, positions, *, scale: float):
+def gqa_decode_attention(q, ck, cv, positions, *, scale: float, plan_dims=None):
     """Cache-decode GQA attention: q (B, S, H, hd) against slot caches
-    ck/cv (B, T, KV, hd) with per-query positions (B, S)."""
+    ck/cv (B, T, KV, hd) with per-query positions (B, S).
+
+    ``plan_dims`` = (B, H, KV) of the whole batch and model where a rank
+    holds a shard of them (tensor-parallel serving: local heads, local
+    slots): the key splits are counted from them, so a row gets the bits it
+    gets unsharded; by default, from the shapes given."""
     if not (q.is_cuda or q.is_meta):
         return gqa_decode_attention_ref(q, ck, cv, positions, scale=scale)
-    return _launch(q, ck, cv, positions, scale)
+    return _launch(q, ck, cv, positions, scale, plan_dims)
 
 
 # the MLA loop's four warps of a row group each keep 128 output columns in
@@ -190,7 +196,7 @@ def mla_splits(b: int, s: int, h: int, t: int) -> int:
     return _splits(b * -(-h // _MLA_HEADS_PER_BLOCK), -(-t // _MLA_TILE), _MLA_TARGET_BLOCKS)
 
 
-def _mla_launch(q_lat, q_rope, c_kv, k_rope, positions, scale: float):
+def _mla_launch(q_lat, q_rope, c_kv, k_rope, positions, scale: float, plan_dims=None):
     dev = q_lat.device
     for name, t in (("q_rope", q_rope), ("c_kv", c_kv), ("k_rope", k_rope),
                     ("positions", positions)):
@@ -218,7 +224,8 @@ def _mla_launch(q_lat, q_rope, c_kv, k_rope, positions, scale: float):
         raise ValueError("mla_decode_attention: the kernel copies the caches in 16-byte "
                          "pieces; c_kv and k_rope must be 16-byte aligned")
     out = torch.empty_like(q_lat)
-    splits = mla_splits(b, s, h, t_len)
+    pb, ph = plan_dims if plan_dims is not None else (b, h)
+    splits = mla_splits(pb, s, ph, t_len)
     cost = functools.partial(costs.mla_decode_attention, b, s, h, t_len, r, rd)
     if dev.type == "meta":
         kernel_call(mla_decode_attention, "tc", cost, launched=False)
@@ -237,10 +244,13 @@ def _mla_launch(q_lat, q_rope, c_kv, k_rope, positions, scale: float):
 
 
 @entry("mla_decode_attention")
-def mla_decode_attention(q_lat, q_rope, c_kv, k_rope, positions, *, scale: float):
+def mla_decode_attention(q_lat, q_rope, c_kv, k_rope, positions, *, scale: float,
+                         plan_dims=None):
     """Absorbed-form MLA cache attention: q_lat (B, S, H, R) and q_rope
     (B, S, H, r) against the latent cache c_kv (B, T, R) and k_rope (B, T, r)
-    with per-query positions (B, S). Returns the latent output (B, S, H, R) f32."""
+    with per-query positions (B, S). Returns the latent output (B, S, H, R) f32.
+    ``plan_dims`` = (B, H) of the whole batch and model where a rank holds a
+    shard of them: the key splits are counted from them."""
     if not (q_lat.is_cuda or q_lat.is_meta):
         return mla_decode_attention_ref(q_lat, q_rope, c_kv, k_rope, positions, scale=scale)
-    return _mla_launch(q_lat, q_rope, c_kv, k_rope, positions, scale)
+    return _mla_launch(q_lat, q_rope, c_kv, k_rope, positions, scale, plan_dims)

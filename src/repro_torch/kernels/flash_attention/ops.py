@@ -14,7 +14,9 @@ launches the kernel or raises; a meta tensor returns an empty meta result.
 ``flash_attention.launches`` counts launches. Against the plain version the
 output agrees to f32 reduction-order tolerance (:data:`TOLERANCE`): the
 kernel sums scores and P·V in another order, rescales per tile, and its
-split products carry about f32's rounding.
+split products carry about f32's rounding. A (query, head) block never splits
+its keys, so its bits do not depend on how many heads or rows a call holds:
+a tensor-parallel rank's local heads need no plan from the global counts.
 """
 from __future__ import annotations
 

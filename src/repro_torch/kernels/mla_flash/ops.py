@@ -13,7 +13,8 @@ A CPU tensor runs the plain version (``mla_flash_attention_ref``); a CUDA
 tensor launches the kernel or raises; a meta tensor returns an empty meta
 result. ``mla_flash_attention.launches``
 counts launches. Against the plain version the output agrees to f32
-reduction-order tolerance (:data:`TOLERANCE`).
+reduction-order tolerance (:data:`TOLERANCE`). A block never splits its keys,
+so a tensor-parallel rank's local heads need no plan from the global count.
 """
 from __future__ import annotations
 

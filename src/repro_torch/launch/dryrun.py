@@ -32,7 +32,8 @@ attention runs on the kernels too, whatever ``--attn`` says (the
 cache-decode kernels at decode, as the port serves, and flash in prefill
 cells). Kernel mode has no backward, so its train cells skip.
 ``--prepared`` runs ``prepare_params`` on meta for inference cells.
-``--mesh`` takes only ``none`` until the port has tensor parallel.
+``--mesh`` takes only ``none``: a meshed dry run (and real collectives in
+``topcolls``) is ROADMAP Queue 1; meshed serving runs (``serve --mesh``).
 """
 from __future__ import annotations
 
@@ -128,8 +129,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "none", mode: str = "e
              out_dir: Optional[str] = None, tag: str = "", attn: str = "xla",
              microbatches: int = 1, prepared: bool = False) -> Dict:
     if mesh_kind not in MESHES:
-        raise ValueError(f"mesh {mesh_kind!r} needs the port's tensor parallel, which is not "
-                         f"ported yet; --mesh takes {MESHES}")
+        raise ValueError(f"mesh {mesh_kind!r} waits for a meshed dry run (ROADMAP Queue 1: "
+                         f"dryrun --mesh, real collectives in topcolls); --mesh takes {MESHES}")
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     ok, why = shape_applicable(cfg, shape)
@@ -184,7 +185,7 @@ def main(argv=None):
     ap.add_argument("--arch", choices=sorted(ARCHS), default=None)
     ap.add_argument("--shape", choices=[s.name for s in ALL_SHAPES], default=None)
     ap.add_argument("--mesh", default="none",
-                    help=f"{MESHES}: other meshes need the port's tensor parallel")
+                    help=f"{MESHES}: a meshed dry run is ROADMAP Queue 1")
     ap.add_argument("--mode", choices=MODES, default="exact")
     ap.add_argument("--tag", default="", help="artifact suffix for perf experiments")
     ap.add_argument("--attn", choices=["xla", "flash"], default="xla")
@@ -197,8 +198,8 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if args.mesh not in MESHES:
-        ap.error(f"--mesh {args.mesh!r} needs the port's tensor parallel, which is not ported "
-                 f"yet; --mesh takes {MESHES}")
+        ap.error(f"--mesh {args.mesh!r} waits for a meshed dry run (ROADMAP Queue 1); "
+                 f"--mesh takes {MESHES}")
     archs = sorted(ARCHS) if args.arch is None else [args.arch]
     shapes = [s.name for s in ALL_SHAPES] if args.shape is None else [args.shape]
     if not args.all and args.arch is None and args.shape is None:

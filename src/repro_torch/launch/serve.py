@@ -59,7 +59,15 @@ Deadlines become submit-relative. Two live drivers ride the same scheduler::
     # minimal HTTP service on 127.0.0.1: POST /generate {"prompt": [...], "max_new": N}
     ... --http-port 8080
 
-``--mesh`` (tensor-parallel serving) is not ported.
+Tensor-parallel serving: ``--mesh DATA,MODEL`` (or ``auto``: one rank a
+card) with ``--dist-backend gloo|nccl`` (no default: ``gloo`` for ranks that
+share a card or run on the CPU, ``nccl`` for one card a rank) spawns
+DATA x MODEL ranks (``launch.mesh.spawn``) that each run this CLI on their
+shard of the weights (``BatchedServer(mesh=)``, uncaptured); rank 0 prints
+and writes the files, and a trace's header carries the burst's collective
+bytes. Refused with a mesh, as in the reference: the streaming frontend's
+flags; and, waiting for their ROADMAP items, ``--per-call``, ``--mode int8``,
+``--calibrate`` and the scan archs.
 """
 from __future__ import annotations
 
@@ -286,7 +294,44 @@ def _serve_frontend(args, server, reqs):
     return _serve_synthetic(args, server, reqs)
 
 
-def main(argv=None):
+def _mesh_rank(rank: int, world: int, argv, shape):
+    """One rank of ``--mesh``: this CLI on the rank's mesh; only rank 0
+    prints."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.mesh import mesh_from_shape
+
+    mesh = mesh_from_shape(shape)
+    out = contextlib.nullcontext() if rank == 0 else contextlib.redirect_stdout(io.StringIO())
+    with out:
+        return main(argv, mesh=mesh)
+
+
+def _launch_mesh(args, argv):
+    """Spawn the ranks of ``--mesh`` and return rank 0's streams."""
+    from repro_torch.launch.mesh import parse_mesh, spawn
+
+    if args.frontend or args.stdin_requests or args.http_port is not None:
+        raise SystemExit("the streaming frontend is single-device for now: drop --mesh or "
+                         "drop --frontend/--stdin-requests/--http-port")
+    if args.dist_backend is None:
+        raise SystemExit("--mesh needs --dist-backend gloo|nccl: gloo for ranks that share a "
+                         "card or run on the CPU, nccl for one card a rank")
+    cards = torch.cuda.device_count() if args.device.startswith("cuda") else 1
+    shape = parse_mesh(args.mesh, world=cards)
+    world = shape[0] * shape[1]
+    if args.device.startswith("cuda"):
+        resolve_device(args.device)
+        device = "cuda" if args.dist_backend == "nccl" else "cuda:0"
+    else:
+        device = "cpu"
+    results = spawn(_mesh_rank, world, args=(argv, shape), backend=args.dist_backend,
+                    device=device, timeout=3600)
+    return results[0]
+
+
+def main(argv=None, mesh=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", choices=sorted(ARCHS), default="olmo-1b")
     ap.add_argument("--reduced", action="store_true")
@@ -401,9 +446,26 @@ def main(argv=None):
     fe_args.add_argument("--http-port", type=int, default=None,
                          help="serve a minimal HTTP API on 127.0.0.1: POST /generate with a "
                               "JSON request body; Ctrl-C to stop")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL|auto",
+                    help="serve tensor-parallel on DATA x MODEL spawned ranks (auto: one a "
+                         "card); needs --dist-backend")
+    ap.add_argument("--dist-backend", choices=("gloo", "nccl"), default=None,
+                    help="the ranks' torch.distributed backend (with --mesh)")
     args = ap.parse_args(argv)
+    if args.mesh is not None and mesh is None:
+        return _launch_mesh(args, argv)
+    if mesh is not None:
+        for flag, bad in (("--per-call", args.per_call), ("--calibrate", args.calibrate)):
+            if bad:
+                raise SystemExit(f"{flag} with --mesh waits for ROADMAP Queue 1 (kernel 6's "
+                                 "partial-sum variant; the calibration scan on a mesh)")
+    lead = mesh is None or mesh.rank == 0  # the rank that writes files
+    if not lead:
+        args.save_policy = None
 
     device = resolve_device(args.device)
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     # the exact and carmen products are f32; TF32 would round their operands
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch)
@@ -436,7 +498,7 @@ def main(argv=None):
         hifi = None if args.mode == "int8" else FXP16
         bank = build_bank(params, args.mode, default_points(fmt, base_policy=policy,
                                                             hifi_fmt=hifi),
-                          specs=model.specs(), calibration=calibration)
+                          specs=model.specs(), calibration=calibration, mesh=mesh)
         print(f"bank: points={bank.names} shared_leaves={bank.shared_leaves}/"
               f"{bank.unique_leaves} rel_cycles="
               f"{ {n: round(bank.rel_cycles(n), 3) for n in bank.names} }")
@@ -476,13 +538,15 @@ def main(argv=None):
         from repro_torch.obs import ServingObserver
 
         # the JSONL trace is flushed to its sink even if the run raises
-        observer = ServingObserver(trace=want_trace, trace_sink=args.trace_out)
+        observer = ServingObserver(trace=want_trace,
+                                   trace_sink=args.trace_out if lead else None)
     max_len = args.max_len or (args.prompt_len + args.max_new
                                + (args.draft_len if args.speculative else 0) + 2)
     server = BatchedServer(model, ctx, params, slots=args.slots, max_len=max_len,
                            burst=args.burst, device=device, prepare_weights=not args.per_call,
                            controller=controller, bank=bank, speculate=speculate,
-                           observer=observer, resilience=resilience)
+                           observer=observer, resilience=resilience, mesh=mesh,
+                           capture=mesh is None)
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32),
                     args.max_new, temperature=args.temperature,
@@ -504,6 +568,7 @@ def main(argv=None):
     finally:
         if profiler is not None:
             profiler.stop()
+        if profiler is not None and lead:
             os.makedirs(args.profile, exist_ok=True)
             path = os.path.join(args.profile, "torch_profile.json")
             profiler.export_chrome_trace(path)
@@ -533,7 +598,12 @@ def main(argv=None):
         print("telemetry:", json.dumps(server.telemetry.summary()))
     if server.spec_telemetry is not None:
         print("speculative:", json.dumps(server.spec_telemetry.summary()))
-    if observer is not None:
+    if observer is not None and mesh is not None and observer.trace is not None:
+        # the mesh cost block rides on the trace header: the collective bytes
+        # of one greedy decode burst, next to the sharding report (every rank
+        # runs the burst: its collectives span them all)
+        observer.trace.attach("collectives", server.collective_snapshot())
+    if observer is not None and lead:
         for out in (args.metrics_out, args.trace_out, args.chrome_trace):
             if out and os.path.dirname(out):
                 os.makedirs(os.path.dirname(out), exist_ok=True)

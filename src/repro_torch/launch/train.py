@@ -15,9 +15,10 @@ reference's layout, so either package resumes the other's run).
 
 Weights are the port's own random init (``models/params.init``, seed 0),
 in f32 at every size: the port runs its full-width models in f32, as it
-serves them. ``--production-mesh`` needs the port's tensor parallel
-(``sharding/partition.py``, ``launch/mesh.py``), which is not ported yet,
-and raises.
+serves them. ``--production-mesh`` raises: training on a mesh (sharded
+optimizer state, ``checkpoint.restore(shardings=)``) is ROADMAP Queue 1;
+the mesh itself (``launch/mesh.py``) and its rules
+(``sharding/partition.py``) serve already (``launch/serve.py --mesh``).
 """
 from __future__ import annotations
 
@@ -62,13 +63,13 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="not ported yet: needs the port's tensor parallel")
+                    help="raises: training on a mesh is ROADMAP Queue 1")
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
     args = ap.parse_args(argv)
     if args.production_mesh:
-        raise SystemExit("--production-mesh needs the port's tensor parallel "
-                         "(sharding/partition.py, launch/mesh.py), which is not ported yet; "
-                         "the dry run (launch/dryrun.py) costs a cell on one card")
+        raise SystemExit("--production-mesh waits for training on a mesh (ROADMAP Queue 1: "
+                         "sharded optimizer state, checkpoint.restore(shardings=)); the dry "
+                         "run (launch/dryrun.py) costs a cell on one card")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     cfg = reduce_cfg(cfg) if args.reduced else dataclasses.replace(cfg, dtype="float32")

@@ -8,6 +8,16 @@ chain (``"xla"``). The cache-free path (``forward``) runs the flash kernel
 (``"flash"``) or the reference's query-chunked chain (``"xla"``). The MoE's
 router and expert products are plain f32 einsums, as in the reference; its
 gate activation is the engine's standalone multi-AF block.
+
+Under tensor parallelism (``ctx.mesh``) a rank holds its shard of every
+weight: attention runs on its local q and kv heads (the cache-attention
+kernels plan their key splits from the global counts,
+``ctx.attention_plan``), ``wo`` and ``down`` are row-parallel products
+(``k_sharded``), and the MoE keeps the experts the rank holds (EP): the
+router runs whole on every rank (its expert columns all-gathered first), the
+dispatch is the same on every rank, each rank runs its experts' products,
+and the per-choice outputs are exchanged with one exact sum (each choice has
+one non-zero term) before the same ascending-expert combine.
 """
 from __future__ import annotations
 
@@ -22,6 +32,8 @@ from repro_torch.core.engine import EngineContext
 from repro_torch.core.normalization import layernorm, nonparametric_ln, rmsnorm
 from repro_torch.kernels.decode_attention import gqa_decode_attention, gqa_decode_attention_ref
 from repro_torch.kernels.flash_attention import flash_attention
+
+from repro_torch.sharding.collectives import all_gather, all_reduce
 
 from .params import ParamSpec
 
@@ -130,6 +142,7 @@ def attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name, ca
     index mask is the positions' mask) the new cache is None."""
     b, s, _ = x.shape
     hd = cfg.head_dim
+    h_loc, kv_loc = p["wq"].shape[-2], p["wk"].shape[-2]  # this rank's heads
     q = _proj(ctx, x, p["wq"], p.get("bq"), f"{name}.q")
     k = _proj(ctx, x, p["wk"], p.get("bk"), f"{name}.k")
     v = _proj(ctx, x, p["wv"], p.get("bv"), f"{name}.v")
@@ -144,7 +157,7 @@ def attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name, ca
             # the kernel resolves kv head = h // groups itself: K/V unrepeated
             out = flash_attention(q, k, v, causal=causal)
         else:
-            g = cfg.kv_groups
+            g = h_loc // kv_loc
             kr = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
             vr = torch.repeat_interleave(v, g, dim=2) if g > 1 else v
             out = _sdpa_chunked(q, kr, vr, positions, positions, causal)
@@ -155,19 +168,23 @@ def attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name, ca
         cv = cache_row_write(cache["v"], v, idx)
         scale = 1.0 / math.sqrt(hd)
         if ctx.attn_impl == "decode_kernel":
-            out = gqa_decode_attention(q, ck, cv, positions, scale=scale)
+            out = gqa_decode_attention(
+                q, ck, cv, positions, scale=scale,
+                plan_dims=ctx.attention_plan(b, cfg.num_heads, cfg.num_kv_heads))
         else:
             out = gqa_decode_attention_ref(q, ck, cv, positions, scale=scale)
         new_cache = {"k": ck, "v": cv, "index": idx + s}
 
-    out = out.reshape(b, s, cfg.num_heads * hd)
-    wo = p["wo"].reshape(cfg.num_heads * hd, cfg.d_model)
-    return ctx.linear(out, wo, name=f"{name}.o"), new_cache
+    out = out.reshape(b, s, h_loc * hd)
+    wo = p["wo"].reshape(h_loc * hd, cfg.d_model)
+    return ctx.linear(out, wo, name=f"{name}.o",
+                      k_sharded=ctx.model_split(cfg.num_heads) > 1), new_cache
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
-                    device=None):
-    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+                    device=None, kv_heads: Optional[int] = None):
+    """One layer's KV cache; ``kv_heads``: the heads a rank holds (default all)."""
+    kvh, hd = kv_heads or cfg.num_kv_heads, cfg.head_dim
     return {
         "k": torch.zeros((batch, max_len, kvh, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, max_len, kvh, hd), dtype=dtype, device=device),
@@ -186,14 +203,17 @@ def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None):
     return specs
 
 
-def mlp(p, x, cfg: ModelConfig, ctx: EngineContext, *, name):
+def mlp(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, d_ff: Optional[int] = None):
+    """The (gated) MLP; ``d_ff`` is its global width (default ``cfg.d_ff``),
+    which says whether ``down`` is row-parallel under a mesh."""
     # linear_af fuses the dot and the activation epilogue into one kernel pass
     if cfg.glu:
         up = ctx.linear(x, p["up"], name=f"{name}.up")
         h = ctx.linear_af(x, p["gate"], af=cfg.act, name=f"{name}.gate") * up
     else:
         h = ctx.linear_af(x, p["up"], af=cfg.act, name=f"{name}.up")
-    return ctx.linear(h, p["down"], name=f"{name}.down")
+    return ctx.linear(h, p["down"], name=f"{name}.down",
+                      k_sharded=ctx.model_split(d_ff or cfg.d_ff) > 1)
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +278,41 @@ def _dispatch_indices(expert_idx: torch.Tensor, num_experts: int, capacity: int)
             rank.reshape(b, s, k).to(torch.int32))
 
 
+def _choice_outputs(y, top_i, rank, kept, capacity: int, first_expert: Optional[int] = None):
+    """Each token's K weighted expert-slot outputs (B, S, K, D), its choices
+    in ascending expert order, and which of them were kept.
+
+    ``y`` holds the slot outputs (B, E, C, D) of every expert, or, with
+    ``first_expert``, (B, E', C, D) of experts ``first_expert ..
+    first_expert + E' - 1`` (a rank's shard): a choice of another expert
+    then gives zeros, which a sum over the ranks that hold the others fills
+    in exactly."""
+    b, e, c, d = y.shape
+    s, k = top_i.shape[1:]
+    by_expert = torch.argsort(top_i, dim=-1)  # a token's K experts are distinct
+    e_k = torch.gather(top_i, -1, by_expert).to(torch.int64) - (first_expert or 0)
+    r_k = torch.gather(rank, -1, by_expert).to(torch.int64)
+    w_k = torch.gather(kept, -1, by_expert)
+    keep = r_k < capacity
+    slot = e_k.clamp(0, e - 1) * capacity + torch.clamp(r_k, max=capacity - 1)
+    g = torch.gather(y.reshape(b, e * c, d), 1, slot.reshape(b, s * k, 1).expand(-1, -1, d))
+    g = g.reshape(b, s, k, d) * w_k[..., None].to(y.dtype)
+    if first_expert is not None:
+        here = (e_k >= 0) & (e_k < e)
+        g = torch.where(here[..., None], g, torch.zeros_like(g))
+    return g, keep
+
+
+def _sum_choices(g, keep):
+    """Each token's sum of its kept choice outputs, from zero in ascending
+    expert order."""
+    b, s, k, d = g.shape
+    out = torch.zeros((b, s, d), dtype=g.dtype, device=g.device)
+    for j in range(k):
+        out = torch.where(keep[..., j, None], out + g[:, :, j], out)
+    return out
+
+
 def _combine(y, top_i, rank, kept, capacity: int):
     """Each token's weighted sum of its kept expert-slot outputs.
 
@@ -267,20 +322,7 @@ def _combine(y, top_i, rank, kept, capacity: int):
     the sums are the same and, unlike a scatter-add through atomics,
     deterministic on the card.
     """
-    b, e, c, d = y.shape
-    s, k = top_i.shape[1:]
-    by_expert = torch.argsort(top_i, dim=-1)  # a token's K experts are distinct
-    e_k = torch.gather(top_i, -1, by_expert).to(torch.int64)
-    r_k = torch.gather(rank, -1, by_expert).to(torch.int64)
-    w_k = torch.gather(kept, -1, by_expert)
-    keep = r_k < capacity
-    slot = e_k * capacity + torch.clamp(r_k, max=capacity - 1)
-    g = torch.gather(y.reshape(b, e * c, d), 1, slot.reshape(b, s * k, 1).expand(-1, -1, d))
-    g = g.reshape(b, s, k, d) * w_k[..., None].to(y.dtype)
-    out = torch.zeros((b, s, d), dtype=y.dtype, device=y.device)
-    for j in range(k):
-        out = torch.where(keep[..., j, None], out + g[:, :, j], out)
-    return out
+    return _sum_choices(*_choice_outputs(y, top_i, rank, kept, capacity))
 
 
 # cuBLAS picks its kernel by a product's shape, so on the card an f32
@@ -311,14 +353,39 @@ def rows_einsum(eq: str, x, w, lead: int = 2):
     return out[0, :m].reshape(*x.shape[:lead], *out.shape[2:])
 
 
+# cuBLAS also picks a batched product's kernel by its batch count, and a
+# rank of a tensor-parallel mesh holds a shard of the experts (and of MLA's
+# heads): on CUDA the per-expert and per-head products therefore run in
+# groups of BATCH_GROUP along that axis, on every mesh and without one, so
+# a group's bits do not depend on how many experts or heads a rank holds
+# (the dry run's meta tensors keep one product).
+BATCH_GROUP = 8
+
+
+def batch_grouped(fn, x, w, x_axis: int, w_axis: int, out_axis: int):
+    """``fn(x, w)``, on CUDA in groups of ``BATCH_GROUP`` along the batch axis
+    that ``x`` and ``w`` share (``x_axis``, ``w_axis``), concatenated along
+    ``out_axis``; one call where that axis does not divide into groups."""
+    n = w.shape[w_axis]
+    if not x.is_cuda or n % BATCH_GROUP or n == BATCH_GROUP:
+        return fn(x, w)
+    return torch.cat([fn(x.narrow(x_axis, i, BATCH_GROUP), w.narrow(w_axis, i, BATCH_GROUP))
+                      for i in range(0, n, BATCH_GROUP)], dim=out_axis)
+
+
 def expert_einsum(eq: str, hh, w):
     """``torch.einsum(eq, hh, w)`` over an expert dispatch ``hh`` (B, E, C,
-    ...); on CUDA a capacity C below ``STABLE_CAPACITY`` runs one product per
-    capacity slot, each over the B batch rows."""
+    ...) and expert weights ``w`` (E, ...); on CUDA a capacity C below
+    ``STABLE_CAPACITY`` runs one product per capacity slot, each over the B
+    batch rows, and the experts run in groups (:func:`batch_grouped`)."""
     c = hh.shape[2]
-    if not on_card(hh) or c >= STABLE_CAPACITY:
-        return torch.einsum(eq, hh, w)
-    return torch.cat([torch.einsum(eq, hh[:, :, j:j + 1], w) for j in range(c)], dim=2)
+
+    def one(h, ww):
+        if not on_card(h) or c >= STABLE_CAPACITY:
+            return torch.einsum(eq, h, ww)
+        return torch.cat([torch.einsum(eq, h[:, :, j:j + 1], ww) for j in range(c)], dim=2)
+
+    return batch_grouped(one, hh, w, 1, 0, 1)
 
 
 def moe_ffn(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, dropless: bool = False):
@@ -333,8 +400,11 @@ def moe_ffn(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, dropless: bool 
         # a token's top-k experts are distinct, so per-expert load is at most s
         capacity = max(capacity, s)
 
-    router_logits = rows_einsum("bsd,de->bse", x.to(torch.float32),
-                                p["router"].to(torch.float32))
+    ep = ctx.model_split(e) > 1  # experts over the model axis
+    router = p["router"]
+    if ep:  # the whole router on every rank: the same routing everywhere
+        router = all_gather(router, ctx.mesh, "model", dim=1)
+    router_logits = rows_einsum("bsd,de->bse", x.to(torch.float32), router.to(torch.float32))
     probs = torch.softmax(router_logits, dim=-1)
     top_p, top_i = top_k_stable(probs, k)  # (B, S, K)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
@@ -343,6 +413,11 @@ def moe_ffn(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, dropless: bool 
     token_of_choice = (gather_idx // k).to(torch.int64)  # (B, E, C) source token
     x_disp = torch.gather(x, 1, token_of_choice.reshape(b, e * capacity, 1).expand(-1, -1, d))
     x_disp = x_disp.reshape(b, e, capacity, d) * valid[..., None].to(x.dtype)
+    e0 = 0
+    if ep:  # this rank's experts
+        e_loc = p["up"].shape[0]
+        e0 = ctx.mesh.coord("model") * e_loc
+        x_disp = x_disp[:, e0:e0 + e_loc]
 
     cd = cfg.compute_dtype
 
@@ -353,12 +428,19 @@ def moe_ffn(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, dropless: bool 
     gate = expert_mm(x_disp, p["gate"])
     hidden = ctx.activate(gate, cfg.act) * up
     y = expert_einsum("becf,efd->becd", hidden.to(cd), p["down"].to(cd))
+    if not ep and ctx.model_split(m.d_ff_expert) > 1:  # the expert width over model
+        y = all_reduce(y, ctx.mesh)
 
     kept = (rank < capacity).to(torch.float32) * top_p  # (B, S, K); drops -> 0
-    out = _combine(y.to(cd), top_i, rank, kept, capacity).to(x.dtype)
+    if ep:
+        g, keep = _choice_outputs(y.to(cd), top_i, rank, kept, capacity, first_expert=e0)
+        out = _sum_choices(all_reduce(g, ctx.mesh), keep).to(x.dtype)
+    else:
+        out = _combine(y.to(cd), top_i, rank, kept, capacity).to(x.dtype)
 
     if m.num_shared_experts:
-        out = out + mlp(p["shared"], x, cfg, ctx, name=f"{name}.shared")
+        out = out + mlp(p["shared"], x, cfg, ctx, name=f"{name}.shared",
+                        d_ff=m.d_ff_shared * m.num_shared_experts)
 
     if dropless:
         aux = {"lb_loss": torch.zeros((), dtype=torch.float32, device=x.device)}

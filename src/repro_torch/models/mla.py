@@ -12,6 +12,11 @@ in the reference. The cache rows are written in place. The cache path runs
 the MLA cache-decode kernel (``attn_impl="decode_kernel"``) or the plain
 chain; the cache-free path (``forward``) the MLA flash kernel (``"flash"``)
 or the reference's query-chunked chain (``"xla"``).
+
+Under tensor parallelism a rank holds its q heads (``wq_b``, ``wk_b``,
+``wv_b`` and ``wo`` over heads) and the whole latent: the absorption and the
+attention run on the local heads (the decode kernel plans its key splits
+from the global head count) and ``wo`` is a row-parallel product.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ from repro_torch.core.normalization import rmsnorm
 from repro_torch.kernels.decode_attention import mla_decode_attention, mla_decode_attention_ref
 from repro_torch.kernels.mla_flash import mla_flash_attention
 
-from .blocks import Q_CHUNK, cache_row_write, rope, rows_einsum
+from .blocks import Q_CHUNK, batch_grouped, cache_row_write, rope, rows_einsum
 from .params import ParamSpec
 
 
@@ -51,7 +56,7 @@ def _q_proj(p, x, cfg, ctx, name):
     q_lat = ctx.linear(x, p["wq_a"], name=f"{name}.q_a")
     q_lat = rmsnorm(q_lat, p["q_a_norm"])
     q = ctx.linear(q_lat, p["wq_b"].reshape(m.q_lora_rank, -1), name=f"{name}.q_b")
-    return q.reshape(*x.shape[:-1], cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    return q.reshape(*x.shape[:-1], -1, m.qk_nope_head_dim + m.qk_rope_head_dim)
 
 
 def _kv_latent(p, x, cfg, ctx, name):
@@ -76,6 +81,12 @@ def _chunked_block(q_lat, q_rope, c_kv, k_rope, positions, scale):
         for i in range(n)], dim=1)
 
 
+def _head_einsum(eq: str, x, w):
+    """The absorption ``rows_einsum(eq, x, w)`` over x (B, S, H, .) and w
+    (R, H, .), its heads in groups on CUDA (``blocks.batch_grouped``)."""
+    return batch_grouped(lambda a, b: rows_einsum(eq, a, b), x, w, 2, 1, 2)
+
+
 def mla_attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name, cache=None):
     """Returns (out, new_cache); ``cache`` = dict(c_kv, k_rope, index) of one
     layer. The latent rows are written in place; the new index is returned.
@@ -83,7 +94,7 @@ def mla_attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name
     flash kernel's index mask is the positions' mask) the new cache is None."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.num_heads
+    h = p["wo"].shape[0]  # this rank's heads
     nope, rdim, vdim = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
 
     q = _q_proj(p, x, cfg, ctx, name)  # (B, S, H, nope + rope)
@@ -93,8 +104,8 @@ def mla_attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name
     c_kv, k_rope = _kv_latent(p, x, cfg, ctx, name)  # (B, S, R), (B, S, rdim)
     k_rope = rope(k_rope[..., None, :], positions, cfg.rope_theta)[..., 0, :]
 
-    q_lat = rows_einsum("bshn,rhn->bshr", q_nope.to(torch.float32),
-                        p["wk_b"].to(torch.float32))
+    q_lat = _head_einsum("bshn,rhn->bshr", q_nope.to(torch.float32),
+                         p["wk_b"].to(torch.float32))
     q_rope = q_rope.to(torch.float32)
     scale = 1.0 / math.sqrt(nope + rdim)
     if cache is None:
@@ -111,11 +122,14 @@ def mla_attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name
         new_cache = {"c_kv": c_kv, "k_rope": k_rope, "index": idx + s}
         attend = mla_decode_attention if ctx.attn_impl == "decode_kernel" else \
             mla_decode_attention_ref
-        o_lat = attend(q_lat, q_rope, c_kv, k_rope, positions, scale=scale)
+        plan = {"plan_dims": ctx.attention_plan(b, cfg.num_heads)} \
+            if ctx.attn_impl == "decode_kernel" else {}
+        o_lat = attend(q_lat, q_rope, c_kv, k_rope, positions, scale=scale, **plan)
 
-    out = rows_einsum("bshr,rhv->bshv", o_lat, p["wv_b"].to(torch.float32)).to(x.dtype)
+    out = _head_einsum("bshr,rhv->bshv", o_lat, p["wv_b"].to(torch.float32)).to(x.dtype)
     wo = p["wo"].reshape(h * vdim, cfg.d_model)
-    return ctx.linear(out.reshape(b, s, h * vdim), wo, name=f"{name}.o"), new_cache
+    return ctx.linear(out.reshape(b, s, h * vdim), wo, name=f"{name}.o",
+                      k_sharded=ctx.model_split(cfg.num_heads) > 1), new_cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,

@@ -65,9 +65,20 @@ def axes_tree(specs):
 def count_params(specs) -> int:
     return int(sum(math.prod(s.shape) for _, s in spec_leaves(specs)))
 
-def init(specs, generator: torch.Generator, dtype=torch.float32):
-    """Materialize parameters on the generator's device."""
+def init(specs, generator: torch.Generator, dtype=torch.float32, mesh=None):
+    """Materialize parameters on the generator's device. With ``mesh``
+    (tensor parallelism) each leaf is drawn whole, in the same order and from
+    the same generator, and only this rank's shard of it is kept
+    (``sharding.partition.shard_tensor``): the shards of the unsharded init,
+    never the whole tree at once."""
     device = generator.device
+    if mesh is not None:
+        from repro_torch.sharding.partition import param_pspec, shard_tensor
+
+        whole = init
+        return tree_map_specs(
+            lambda s: shard_tensor(whole({"x": s}, generator, dtype)["x"],
+                                   param_pspec(s, mesh), mesh), specs)
 
     def make(s: ParamSpec):
         if s.init == "zeros":
@@ -83,12 +94,31 @@ def init(specs, generator: torch.Generator, dtype=torch.float32):
     return tree_map_specs(make, specs)
 
 
-def load_numpy_params(tree, device, specs=None, dtype=torch.float32):
+def load_numpy_params(tree, device, specs=None, dtype=torch.float32, mesh=None):
     """The reference's raw parameter tree (nested dicts of numpy arrays) as the
     port's tree of tensors on ``device``, path by path. With ``specs`` every
-    spec path must be present with its shape, and no other leaf may be."""
+    spec path must be present with its shape, and no other leaf may be.
+
+    With ``mesh`` (and ``specs``) the sharded form: each numpy leaf is
+    sliced to this rank's shard before it becomes a tensor, so a rank never
+    holds the whole tree on ``device``."""
     def convert(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dtype)
+
+    if mesh is not None:
+        if specs is None:
+            raise ValueError("load_numpy_params(mesh=) needs the specs")
+        from repro_torch.sharding.partition import local_index, param_pspec
+
+        def walk(node, spec):
+            if isinstance(node, dict):
+                return {k: walk(v, spec[k]) for k, v in node.items()}
+            if tuple(np.shape(node)) != tuple(spec.shape):
+                raise ValueError(f"leaf of shape {np.shape(node)} for spec {spec.shape}")
+            return convert(np.asarray(node)[local_index(spec.shape, param_pspec(spec, mesh),
+                                                        mesh)])
+
+        return walk(tree, specs)
 
     def walk(node):
         if isinstance(node, dict):

@@ -15,6 +15,14 @@ model prepends its stub frontend embeddings); ``decode_step`` the cached
 one, on text tokens. The cache is updated in place: ``decode_step`` writes
 each layer's KV rows, index and recurrent state into the cache it was given
 and returns that cache.
+
+Under tensor parallelism (``ctx.mesh``; the attention families) the
+embedding table and the lm_head are vocab-sharded: a token's row is the
+masked local lookup summed over the model axis (one non-zero term: exact),
+and the local logits are all-gathered along the vocab before any argmax or
+sample. A weight stored FSDP-sharded over ``data`` is all-gathered where it
+is used, one layer at a time (:func:`_fsdp`). ``make_cache(mesh=)`` makes
+the rank's cache: its kv heads (an MLA latent is whole on every rank).
 """
 from __future__ import annotations
 
@@ -25,6 +33,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backends.base import PreparedWeight
 from repro_torch.core.engine import EngineContext
+
+from repro_torch.sharding.collectives import all_gather, all_reduce, gather_data
 
 from . import blocks, mamba2, mla
 from .params import ParamSpec, stack_layers
@@ -163,7 +173,8 @@ def _attn_block(p, h, cfg, ctx, positions, cache, name):
 def _dense_layer(p, h, cfg, ctx, positions, cache, name="layer"):
     h, new_cache = _attn_block(p, h, cfg, ctx, positions, cache, f"{name}.attn")
     x = blocks.apply_norm(p["mlp_norm"], h, cfg)
-    h = h + blocks.mlp(p["mlp"], x, cfg, ctx, name=f"{name}.mlp")
+    d_ff = (cfg.moe.d_ff_dense if cfg.moe else 0) or cfg.d_ff  # as decoder_specs sizes it
+    h = h + blocks.mlp(p["mlp"], x, cfg, ctx, name=f"{name}.mlp", d_ff=d_ff)
     return h, new_cache, {}
 
 
@@ -221,15 +232,24 @@ _LAYERS = {"dense": _dense_layer, "dense_prefix": _dense_layer, "moe": _moe_laye
            "pair": _pair_layer, "mamba": _mamba_segment_layer}
 
 
-def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, device=None):
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, device=None,
+               mesh=None):
     """Per-segment caches stacked over layers: k, v (L, B, T, KV, hd), or
     MLA's c_kv (L, B, T, R) and k_rope (L, B, T, r), and the per-row write
     index (L, B) int32; a pair segment holds one such cache per sublayer,
     ``{"dense": ..., "moe": ...}``. A Mamba2 layer's state is its conv
     window (L, B, W-1, C) and SSM state (L, B, H, N, P); a hybrid segment
     holds, per group, its layers' states ``ssm`` (G, per, B, ...) and the
-    shared attention's KV cache ``attn`` (G, B, T, KV, hd)."""
-    init = mla.init_mla_cache if cfg.mla else blocks.init_attn_cache
+    shared attention's KV cache ``attn`` (G, B, T, KV, hd). With ``mesh``
+    (tensor parallelism) a GQA cache holds the rank's kv heads."""
+    if cfg.mla:
+        init = mla.init_mla_cache
+    else:
+        m = mesh.size("model") if mesh is not None else 1
+        kv = cfg.num_kv_heads // m if m > 1 and cfg.num_kv_heads % m == 0 else None
+
+        def init(*a):
+            return blocks.init_attn_cache(*a, kv_heads=kv)
 
     def stack(tree, n):
         if isinstance(tree, dict):
@@ -255,12 +275,56 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, 
     return out
 
 
+def _embed(params, tokens, cfg, ctx):
+    """The token rows of the embedding table. Vocab-sharded under a mesh:
+    the rank's rows where it holds them, zeros elsewhere, summed over the
+    model axis. Where d_model is an FSDP shard (the table not gathered), the
+    data ranks look up every data rank's tokens in their own columns and
+    all-gather the rows' columns: the rows, not the table, cross the data
+    group."""
+    table = params["embed"]
+    sharded_d = table.shape[1] != cfg.d_model
+    if sharded_d:
+        b = tokens.shape[0]
+        tokens = all_gather(tokens, ctx.mesh, "data", dim=0)
+    if ctx.model_split(cfg.vocab_size) == 1:
+        rows = table[tokens]
+    else:
+        v_loc = table.shape[0]
+        local = tokens.to(torch.int64) - ctx.mesh.coord("model") * v_loc
+        here = (local >= 0) & (local < v_loc)
+        rows = table[local.clamp(0, v_loc - 1)]
+        rows = all_reduce(torch.where(here[..., None], rows, torch.zeros_like(rows)), ctx.mesh)
+    if sharded_d:
+        c = ctx.mesh.coord("data")
+        rows = all_gather(rows, ctx.mesh, "data", dim=-1)[c * b:(c + 1) * b]
+    return rows
+
+
 def _lm_head(params, h, cfg, ctx):
     if cfg.tie_embeddings and "lm_head" not in params:
         w = params["embed"].T
     else:
         w = params["lm_head"]
-    return ctx.linear(h, w, name="lm_head").to(torch.float32)
+    logits = ctx.linear(h, w, name="lm_head").to(torch.float32)
+    if ctx.model_split(cfg.vocab_size) > 1:  # the vocab's shards, in order
+        logits = all_gather(logits, ctx.mesh, "model", dim=-1)
+    return logits
+
+
+def _fsdp(tree, ctx, key=None):
+    """Under a mesh, ``tree`` with its FSDP shards all-gathered over the data
+    group (``collectives.gather_data``): layer trees of segment ``key``
+    (their stacked axis indexed away), or, without a key, the leaves outside
+    the stacked segments (the final norm, the lm_head, and the embedding
+    where it is the tied lm_head; its lookup gathers rows, :func:`_embed`)."""
+    if ctx.param_specs is None:
+        return tree
+    if key is not None:
+        return gather_data(tree, ctx.param_specs[key], ctx.mesh, lead=1)
+    top = {k: v for k, v in tree.items()
+           if not k.startswith("seg") and not (k == "embed" and "lm_head" in tree)}
+    return dict(tree, **gather_data(top, {k: ctx.param_specs[k] for k in top}, ctx.mesh))
 
 
 def _run_segments(params, h, cfg, ctx, positions, cache=None, *, remat: bool = False):
@@ -278,13 +342,15 @@ def _run_segments(params, h, cfg, ctx, positions, cache=None, *, remat: bool = F
             run = lambda *a: _hybrid_group(*a, params["shared_attn"])  # noqa: E731
         if cache is None:
             for p in layer_trees(params[key], n):
+                p = _fsdp(p, ctx, key)
                 h, _, aux = remat_call(run, remat, p, h, cfg, ctx, positions, None)
                 if "lb_loss" in aux:
                     lb_loss = lb_loss + aux["lb_loss"]
             continue
         for layer in range(n):
             c = layer_view(cache[key], layer)
-            h, new_c, aux = run(layer_view(params[key], layer), h, cfg, ctx, positions, c)
+            h, new_c, aux = run(_fsdp(layer_view(params[key], layer), ctx, key), h, cfg, ctx,
+                                positions, c)
             _store_index(cache[key], layer, new_c)
     return h, lb_loss
 
@@ -314,7 +380,8 @@ def forward(params, batch, cfg: ModelConfig, ctx: EngineContext, *, remat: bool 
     checkpoints each layer when autograd records (:func:`remat_call`).
     """
     tokens = batch["tokens"]
-    h = params["embed"][tokens].to(cfg.compute_dtype)
+    params = _fsdp(params, ctx)
+    h = _embed(params, tokens, cfg, ctx).to(cfg.compute_dtype)
     if cfg.frontend == "vision":
         h = torch.cat([batch["frontend_embeds"].to(cfg.compute_dtype), h], dim=1)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=tokens.device)
@@ -349,7 +416,8 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, ctx: EngineContext):
     prefill). The cache is updated in place and returned. A vision model
     decodes text tokens only, as the reference serves it.
     """
-    h = params["embed"][tokens].to(cfg.compute_dtype)
+    params = _fsdp(params, ctx)
+    h = _embed(params, tokens, cfg, ctx).to(cfg.compute_dtype)
     index = _cache_index(cache)
     positions = index[:, None] + torch.arange(tokens.shape[1], dtype=torch.int32,
                                               device=tokens.device)[None, :]

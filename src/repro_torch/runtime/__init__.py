@@ -9,7 +9,7 @@ per-burst serving decision.
   K*(depth+1) iterative-PE model) and switch counts;
 * :mod:`.calibrate`: the startup sensitivity scan.
 """
-from .bank import ExecutionPoint, MultiPointBank, build_bank, default_points
+from .bank import ExecutionPoint, MultiPointBank, build_bank, default_points, place_bank
 from .calibrate import calibration_scan
 from .controller import ControllerConfig, ModeController, StepSignals
 from .telemetry import TelemetryRecorder, estimate_point_cycles, teacher_forced_agreement
@@ -19,6 +19,7 @@ __all__ = [
     "MultiPointBank",
     "build_bank",
     "default_points",
+    "place_bank",
     "calibration_scan",
     "ControllerConfig",
     "ModeController",

@@ -13,8 +13,12 @@ In kernel mode a leaf's integers depend on its depth (the signed-digit
 rounding), so points that differ in depth or format hold separate banks:
 olmo-1b's default ladder holds three. On the card each (program, point) is
 its own captured graph (``serve/engine.py``), since a graph replays the
-addresses it was captured with. The reference's ``place_bank`` (mesh
-serving) is not ported yet.
+addresses it was captured with.
+
+Under tensor parallelism a rank holds the shard of every point's tree
+(:func:`place_bank` shards a whole bank, each shared leaf once, so aliasing
+survives; ``build_bank(mesh=)`` slices the raw tree first and prepares only
+the shards, so a rank never holds a whole prepared bank).
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from repro_torch.core.precision_policy import PrecisionPolicy, pin_critical
 
 from .telemetry import calibration_id, estimate_point_cycles
 
-__all__ = ["ExecutionPoint", "MultiPointBank", "build_bank", "default_points"]
+__all__ = ["ExecutionPoint", "MultiPointBank", "build_bank", "default_points", "place_bank"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +85,8 @@ class MultiPointBank:
     shared_leaves: int = 0
     unique_leaves: int = 0
     cycle_model: str = "analytic"
+    # the mesh whose shards the trees hold (None: whole trees)
+    mesh: Any = None
 
     @property
     def names(self) -> Tuple[str, ...]:
@@ -117,6 +123,7 @@ def build_bank(
     specs=None,
     reference: Optional[str] = None,
     calibration: Optional[Dict] = None,
+    mesh=None,
 ) -> MultiPointBank:
     """Materialize the multi-point weight bank (one prepare pass, shared memo)
     on the device of ``params``.
@@ -125,7 +132,9 @@ def build_bank(
     ``reference`` defaults to ``"accurate"`` when present, else the most
     expensive point. ``calibration`` (a ``sim.calibrate`` export) refines the
     per-point cycle estimates; ``bank.cycle_model`` records which model
-    produced them.
+    produced them. With ``mesh`` (tensor parallelism) the cycles are the
+    whole model's, and the trees hold this rank's shards: the raw tree is
+    sliced once, then every point prepares the slices.
     """
     if mode == "exact":
         raise ValueError(
@@ -149,6 +158,12 @@ def build_bank(
     if reference not in cycles:
         raise ValueError(f"reference point {reference!r} not in {sorted(cycles)}")
 
+    if mesh is not None:
+        if specs is None:
+            raise ValueError("build_bank(mesh=) needs the model's param specs")
+        from repro_torch.sharding.partition import shard_params
+
+        params = shard_params(params, specs, mesh)
     memo: Dict = {}
     trees = {
         p.name: prepare_params(params, p.policy, mode, specs=specs, memo=memo)
@@ -167,4 +182,27 @@ def build_bank(
         shared_leaves=len(shared),
         unique_leaves=len(all_ids),
         cycle_model=calibration_id(calibration),
+        mesh=mesh,
     )
+
+
+def place_bank(bank: MultiPointBank, mesh, specs) -> MultiPointBank:
+    """Shard every tree of ``bank`` for this rank of ``mesh`` with the
+    logical-axis rules (``sharding.partition.shard_params``): each leaf
+    once per tensor identity, re-aliased into every point's tree, so pinned
+    and agreeing layers stay one copy. Mutates ``bank.trees`` in place
+    (controllers and speculative decoders hold the bank) and returns the
+    bank. Idempotent for the same mesh; a bank placed on another raises."""
+    if bank.mesh is mesh:
+        return bank
+    if bank.mesh is not None:
+        raise ValueError("the bank already holds another mesh's shards")
+    if specs is None:
+        raise ValueError("place_bank needs the model's param specs (model.specs())")
+    from repro_torch.sharding.partition import shard_params
+
+    memo: Dict = {}
+    for name in bank.names:
+        bank.trees[name] = shard_params(bank.trees[name], specs, mesh, memo)
+    bank.mesh = mesh
+    return bank

@@ -76,7 +76,25 @@ its graphs, with no re-capture and no copy of any bank.
 
 Slots that are free or drained keep decoding every burst, as in the
 reference; their cache index runs on and the KV write clamps at ``max_len``.
-Mesh serving is not yet ported.
+
+**Tensor-parallel serving** (``BatchedServer(mesh=...)``, a
+``launch.mesh.Mesh`` over the process group's ranks; the batched-prefill
+families): SPMD, every rank runs the same host loop over the same requests.
+A rank keeps its shard of every weight (``sharding.partition``: sliced from
+the raw tree, then prepared; a bank's points sharded once per leaf) and
+the model calls the collectives itself (``sharding.collectives``). Slots
+shard over ``data`` (``slot_pspec``): a rank's KV cache and slot state hold
+its data group's slots and its kv heads; weights with an ``embed`` axis are
+stored FSDP-sharded over ``data`` and all-gathered a layer at a time where
+they are used. Every data group runs each prefill (its FSDP gathers span
+the data group, so every data rank runs every program) and the owning one
+scatters the row into its slot; a burst runs on the local slots and
+its tokens, margins and flags are all-gathered over ``data`` before the
+host reads them, so every rank's scheduler stays in lockstep. ``gloo``
+collectives cannot be captured in a CUDA graph, so a meshed server runs
+uncaptured (``capture=True`` with a mesh raises). Refused under a mesh,
+each naming its ROADMAP item: the scan families, per-call weights and the
+int8 mode (kernel 6's partial-sum variant), the streaming frontend.
 """
 from __future__ import annotations
 
@@ -192,14 +210,16 @@ def _admit_state(state, slot, tok, base_key, temp, max_new):
     return state
 
 
-def _finish_prefill(cache, state, row, last, slot, base_key, temp, max_new):
+def _finish_prefill(cache, state, row, last, slot, base_key, temp, max_new, owned=True):
     """Shared prefill tail: sample token 0, scatter the row, admit the slot.
-    Returns ``(tok (1, 1), margin (1,))``; cache and state change in place."""
+    Returns ``(tok (1, 1), margin (1,))``; cache and state change in place.
+    ``owned=False`` (a data rank that does not hold the slot) only samples."""
     tok = _sample_slots(last, base_key.reshape(1, 2),
                         torch.zeros((1,), dtype=torch.int32, device=last.device),
                         temp.reshape(1))
-    scatter_rows(cache, row, slot)
-    _admit_state(state, slot, tok, base_key, temp, max_new)
+    if owned:
+        scatter_rows(cache, row, slot)
+        _admit_state(state, slot, tok, base_key, temp, max_new)
     return tok, top2_margin(last)
 
 
@@ -269,13 +289,14 @@ def make_bucketed_prefill(model: ModelApi, ctx: EngineContext, max_len: int):
     by decode. One program per bucket shape.
     """
 
-    def prefill(tree, cache, state, tokens, plen, slot, base_key, temp, max_new):
-        row = model.make_cache(1, max_len, dtype=torch.float32, device=tokens.device)
+    def prefill(tree, cache, state, tokens, plen, slot, base_key, temp, max_new, owned=True):
+        row = model.make_cache(1, max_len, dtype=torch.float32, device=tokens.device,
+                               mesh=ctx.mesh)
         logits, row = model.decode_step(tree, tokens, row, ctx)
         plen = plen.reshape(1)
         last = logits.index_select(1, (plen - 1).to(torch.int64))[:, 0, :].to(torch.float32)
         with_cache_positions(row, plen)
-        return _finish_prefill(cache, state, row, last, slot, base_key, temp, max_new)
+        return _finish_prefill(cache, state, row, last, slot, base_key, temp, max_new, owned)
 
     return prefill
 
@@ -416,6 +437,13 @@ class BatchedServer:
     ``capture=False`` runs the same programs eagerly on the card, every
     launch issued from the host (the uncaptured yardstick).
 
+    ``mesh`` (a ``launch.mesh.Mesh``) serves tensor-parallel, SPMD: every
+    rank constructs the server with the same arguments and runs the same
+    requests (the module's docstring). ``params`` (or the bank) may be the
+    whole tree: a rank keeps its shard. ``self.shardings`` holds the
+    placement (``sharding.partition.ServingShardings``);
+    :meth:`collective_snapshot` the collective bytes of one greedy burst.
+
     ``controller`` (a ``runtime.ModeController``, or a
     ``resilience.DegradationPolicy`` around one) serves runtime-adaptive
     precision from its bank; ``params`` may then stay raw (they are not
@@ -441,7 +469,7 @@ class BatchedServer:
     def __init__(self, model: ModelApi, ctx: EngineContext, params, slots: int = 4,
                  max_len: int = 256, burst: int = 8, device=None, prepare_weights: bool = True,
                  capture: bool = True, controller=None, bank=None, speculate=None,
-                 observer=None, resilience=None, injector=None):
+                 observer=None, resilience=None, injector=None, mesh=None):
         if burst < 1:
             raise ValueError(f"burst must be >= 1, got {burst}")
         self.model, self.ctx = model, ctx
@@ -450,6 +478,24 @@ class BatchedServer:
         self.controller, self.speculate = controller, speculate
         self.observer, self.resilience, self.injector = observer, resilience, injector
         self._bank = bank if bank is not None or controller is None else controller.bank
+        self.mesh, self.shardings = mesh, None
+        self._local_slots, self._data_shards = slots, 1
+        self._slot_ctx = ctx  # the bursts' and speculative rounds' context
+        if mesh is not None:
+            _check_mesh(model.cfg, ctx, mesh, self.device, capture,
+                        prepare_weights or self._bank is not None)
+            specs = model.specs()
+            if slots % mesh.size("data") == 0:
+                self._data_shards = mesh.size("data")
+                self._local_slots = slots // self._data_shards
+            if self._bank is not None:
+                from repro_torch.runtime.bank import place_bank
+
+                place_bank(self._bank, mesh, specs)
+            else:
+                from repro_torch.sharding.partition import shard_params
+
+                params = shard_params(params, specs, mesh)
         params = _to_device(params, self.device)
         self.telemetry = None
         if controller is not None:
@@ -472,15 +518,26 @@ class BatchedServer:
                     f"{model.cfg.family!r} family carries recurrent "
                     "state that cannot roll back past rejected drafts"
                 )
-        self.cache = model.make_cache(slots, max_len, dtype=torch.float32, device=self.device)
-        self._state = _init_slot_state(slots, self.device)
+        self.cache = model.make_cache(self._local_slots, max_len, dtype=torch.float32,
+                                      device=self.device, mesh=mesh)
+        self._state = _init_slot_state(self._local_slots, self.device)
+        if mesh is not None:
+            self.shardings = _serving_shardings(self, mesh)
+            # the model reads the mesh and, for its FSDP gathers, the served
+            # tree's specs; a prefill's single row is the same on every data
+            # rank, while the bursts and speculative rounds run on the local
+            # slots
+            self.ctx = ctx = dataclasses.replace(ctx, mesh=mesh,
+                                                 param_specs=self.shardings.params)
+            self._slot_ctx = dataclasses.replace(ctx, batch_shards=self._data_shards)
         self.programs = GraphRunner(self.device, capture)
         self.spec = self.spec_telemetry = None
         if speculate is not None:
             from repro_torch.spec import SpeculativeDecoder
 
-            self.spec = SpeculativeDecoder(model, ctx, self._bank, speculate,
-                                           programs=self.programs)
+            self.spec = SpeculativeDecoder(model, self._slot_ctx, self._bank, speculate,
+                                           programs=self.programs, mesh=mesh,
+                                           data_shards=self._data_shards)
             self.spec_telemetry = self.spec.telemetry
         # host views of each slot's committed KV rows and, for the
         # speculative rounds, its pending token and generated count (uploaded)
@@ -492,7 +549,8 @@ class BatchedServer:
         # the fault flag's logit limit is fixed per server: a constant of
         # the burst programs (and of their graphs)
         limit = resilience.logit_limit if resilience is not None else None
-        self._bursts = {s: make_decode_burst(model, ctx, burst, sampled=s, logit_limit=limit)
+        self._bursts = {s: make_decode_burst(model, self._slot_ctx, burst, sampled=s,
+                                             logit_limit=limit)
                         for s in (False, True)}
         staged = self.programs.staged
         # the prefill's host inputs; each bucket has its own prompt buffer
@@ -639,7 +697,8 @@ class BatchedServer:
         plen = len(prompt)
         args = self._args
         seed = req.seed if req.seed is not None else req.rid
-        for name, value in (("plen", plen), ("slot", slot), ("key", threefry.prng_key(seed)),
+        owned, local = self._slot_home(slot)
+        for name, value in (("plen", plen), ("slot", local), ("key", threefry.prng_key(seed)),
                             ("temp", req.temperature), ("max_new", req.max_new)):
             args[name].fill(value)
         tree, point = self._serving_tree(), self._serving_point()
@@ -652,7 +711,7 @@ class BatchedServer:
         if obs is not None:
             obs.prefill_begin(req.rid, bucket, point)
         if self.batched_prefill:
-            out = self._bucketed_prefill(prompt, tree, point)
+            out = self._bucketed_prefill(prompt, tree, point, owned)
         else:
             out = self._scan_prefill(prompt, tree, point)
         self.prefill_calls += 1
@@ -668,7 +727,15 @@ class BatchedServer:
             self.telemetry.record_prefill(point, plen)
         self.prefill_seconds += time.perf_counter() - t0
 
-    def _bucketed_prefill(self, prompt: np.ndarray, tree, point) -> torch.Tensor:
+    def _slot_home(self, slot: int) -> Tuple[bool, int]:
+        """(whether this rank holds global slot ``slot``, its local index)."""
+        if self._data_shards == 1:
+            return True, slot
+        owner, local = divmod(slot, self._local_slots)
+        return owner == self.mesh.coord("data"), local
+
+    def _bucketed_prefill(self, prompt: np.ndarray, tree, point,
+                          owned: bool = True) -> torch.Tensor:
         plen = len(prompt)
         bucket = bucket_length(plen, self.max_len)
         if bucket not in self._prompts:
@@ -681,7 +748,7 @@ class BatchedServer:
         def program(cache, state):
             a = {name: s.device_buf for name, s in args.items()}
             tok, margin = self._prefill(tree, cache, state, tokens.device_buf, a["plen"],
-                                        a["slot"], a["key"], a["temp"], a["max_new"])
+                                        a["slot"], a["key"], a["temp"], a["max_new"], owned)
             return torch.stack([tok.reshape(1).to(torch.float32), margin])
 
         return self.programs.run(program_name(f"prefill {bucket}", point), program, self.cache,
@@ -898,7 +965,8 @@ class BatchedServer:
 
         def program(cache, state):
             toks, margins, faults = burst_fn(tree, cache, state)
-            return torch.stack([toks.to(torch.float32), margins, faults.to(torch.float32)])
+            out = torch.stack([toks.to(torch.float32), margins, faults.to(torch.float32)])
+            return self._gather_slots(out, dim=1)
 
         out = self.programs.run(name, program, self.cache, self._state).numpy()
         self.decode_steps += self.burst
@@ -929,6 +997,38 @@ class BatchedServer:
         return {"point": point, "emitted": emitted, "steps": self.burst,
                 "min_margin": min(burst_margins) if burst_margins else None,
                 "faulted": faulted, "fault_reason": "decode_nonfinite"}
+
+    def _gather_slots(self, out: torch.Tensor, dim: int) -> torch.Tensor:
+        """Per-slot outputs of the local slots -> of every slot, in global
+        slot order (an all-gather over ``data``; the input where the slots
+        are not split)."""
+        if self._data_shards == 1:
+            return out
+        from repro_torch.sharding.collectives import all_gather
+
+        return all_gather(out, self.mesh, "data", dim=dim)
+
+    @torch.no_grad()
+    def collective_snapshot(self) -> Optional[Dict]:
+        """Collective traffic of one greedy decode burst at the serving tree,
+        the mesh-serving cost block a trace header carries
+        (``{"collective_bytes", "collective_by_kind"}``, result bytes by the
+        reference's kinds); None without a mesh. The burst runs on copies of
+        the cache and slot state, so serving state is untouched; every rank
+        must call it (the burst's collectives span them all)."""
+        if self.mesh is None:
+            return None
+        from repro_torch.sharding import collectives
+
+        cache = _clone(self.cache)
+        state = _clone(self._state)
+        collectives.reset_counts()
+        out = self._bursts[False](self._serving_tree(), cache, state)
+        self._gather_slots(torch.stack([out[0].to(torch.float32), out[1],
+                                        out[2].to(torch.float32)]), dim=1)
+        snap = collectives.counts()
+        collectives.reset_counts()
+        return snap
 
     @torch.no_grad()
     def _spec_round(self, slot_of: Dict[int, int]) -> Dict:
@@ -1261,6 +1361,8 @@ class BatchedServer:
             }
         if self._frontend_meta is not None:
             meta["frontend"] = dict(self._frontend_meta)
+        if self.shardings is not None:
+            meta["sharding"] = self.shardings.snapshot()
         engine = self._engine_cost_meta()
         if engine is not None:
             meta["engine"] = engine
@@ -1312,6 +1414,69 @@ class BatchedServer:
                 "counters": dict(self._fault_counts),
             },
         }
+
+
+def _check_mesh(cfg, ctx, mesh, device, capture: bool, prepared: bool) -> None:
+    """Refuse, naming its ROADMAP item, what mesh serving does not cover."""
+    if cfg.family not in _BATCHED_PREFILL_FAMILIES:
+        raise NotImplementedError(
+            f"mesh serving covers the batched-prefill families {_BATCHED_PREFILL_FAMILIES}; "
+            f"the {cfg.family!r} family's scan prefill waits for ROADMAP Queue 1 "
+            "(the scan families on a mesh)")
+    if not prepared:
+        raise NotImplementedError(
+            "mesh serving needs prepared weights: per-call weights re-round at every dot "
+            "through kernel 6, whose partial-sum variant is ROADMAP Queue 1")
+    if ctx.mode == "int8":
+        raise NotImplementedError(
+            "the int8 mode under a mesh needs kernel 6's partial-sum variant and a global "
+            "per-token max (ROADMAP Queue 1)")
+    if capture and device.type == "cuda":
+        raise ValueError(
+            "capture=True with a mesh: gloo collectives cannot be captured in a CUDA graph; "
+            "pass capture=False (captured NCCL collectives need a machine with more than "
+            "one card, ROADMAP Queue 1)")
+    m = mesh.size("model")
+    if not cfg.mla and m > 1 and (cfg.num_heads % m == 0) != (cfg.num_kv_heads % m == 0):
+        raise NotImplementedError(
+            f"{cfg.num_heads} q heads and {cfg.num_kv_heads} kv heads split differently over "
+            f"a model axis of {m}: a rank would need kv heads it does not hold (ROADMAP "
+            "Queue 1: replicated kv heads)")
+
+
+def _serving_shardings(server, mesh):
+    """The placement the server keeps: the reference's rules
+    (``serving_shardings`` on the whole cache's shapes), but an MLA latent
+    cache whole on every rank of the model axis (the port's MLA runs its
+    local heads against the whole latent)."""
+    from repro_torch.sharding import partition
+
+    cfg = server.model.cfg
+    tree = server._bank.tree(server._bank.names[0]) if server._bank is not None else \
+        server.params
+    full_cache = server.model.make_cache(server.slots, server.max_len, device="meta")
+    full_state = _init_slot_state(server.slots, "meta")
+    sh = partition.serving_shardings(mesh, params=tree, cache=full_cache, state=full_state,
+                                     specs=server.model.specs(), cfg=cfg,
+                                     max_len=server.max_len)
+
+    def cache_entry(spec):
+        if isinstance(spec, dict):
+            return {k: cache_entry(v) for k, v in spec.items()}
+        if cfg.mla:
+            spec = tuple(None if e == "model" else e for e in spec)
+            while spec and spec[-1] is None:
+                spec = spec[:-1]
+        return spec
+
+    sh.cache = cache_entry(sh.cache)
+    return sh
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
 
 
 def _to_device(tree, device):

@@ -17,6 +17,11 @@ buffers before the draft program, which writes the tokens and counts into
 the slot state: the reference's post-round resync of ``tok``/``count``
 arrives with the next round's uploads, never as a transfer of its own. The
 drafts live in device buffers made before any capture.
+
+Under a mesh (the server's ``mesh=``) the rounds run on the rank's local
+slots: the host inputs are the local slots' entries of the server's host
+arrays, and the verify's output is all-gathered over ``data`` before the
+transfer, so every rank commits the same tokens.
 """
 from __future__ import annotations
 
@@ -45,7 +50,8 @@ class SpeculativeDecoder:
     """
 
     def __init__(self, model: ModelApi, ctx: EngineContext, bank: MultiPointBank,
-                 cfg: Optional[SpecConfig] = None, *, programs=None):
+                 cfg: Optional[SpecConfig] = None, *, programs=None, mesh=None,
+                 data_shards: int = 1):
         self.cfg = cfg or SpecConfig()
         self.bank = bank
         self.verify_point = self.cfg.verify_point or bank.reference
@@ -63,6 +69,7 @@ class SpeculativeDecoder:
                 "top of the verify pass — pick a cheaper draft point"
             )
         self.model = model
+        self.mesh, self.data_shards = mesh, data_shards
         # each in two variants, by whether any slot samples (False: all greedy)
         self.draft_loops = {s: make_draft_loop(model, ctx, self.cfg.draft_len, sampled=s)
                             for s in (False, True)}
@@ -102,6 +109,14 @@ class SpeculativeDecoder:
             "probs": torch.zeros((b, k, self.model.cfg.vocab_size), dtype=torch.float32,
                                  device=dev)}
 
+    def _local_rows(self, slots: int) -> slice:
+        """The server's host-array rows of this rank's slots."""
+        if self.data_shards == 1:
+            return slice(None)
+        n = slots // self.data_shards
+        c = self.mesh.coord("data")
+        return slice(c * n, (c + 1) * n)
+
     @torch.no_grad()
     def round(self, tokens, cache, state, counts, start, *,
               draft_point: Optional[str] = None, sampled: bool = True):
@@ -124,9 +139,10 @@ class SpeculativeDecoder:
         if self._inputs is None:
             self._setup(state)
         inp, k = self._inputs, self.cfg.draft_len
-        inp["tok"].fill(np.asarray(tokens, np.int32)[:, None])
-        inp["count"].fill(np.asarray(counts, np.int32))
-        inp["start"].fill(np.asarray(start, np.int32))
+        local = self._local_rows(len(tokens))
+        inp["tok"].fill(np.asarray(tokens, np.int32)[local, None])
+        inp["count"].fill(np.asarray(counts, np.int32)[local])
+        inp["start"].fill(np.asarray(start, np.int32)[local])
         inp["round"].fill(self._round)
         self._round += 1
         buf = {name: s.device_buf for name, s in inp.items()}
@@ -147,10 +163,15 @@ class SpeculativeDecoder:
             emitted, accepted, margins, draft_fault, verify_fault = verify_step(
                 verify_tree, slots["tok"], d["tokens"], d["probs"], cache, buf["start"],
                 slots["key"], slots["count"], slots["temp"], buf["round"])
-            return torch.cat([emitted.to(torch.float32), margins,
-                              torch.stack([accepted.to(torch.float32),
-                                           draft_fault.to(torch.float32),
-                                           verify_fault.to(torch.float32)], dim=1)], dim=1)
+            out = torch.cat([emitted.to(torch.float32), margins,
+                             torch.stack([accepted.to(torch.float32),
+                                          draft_fault.to(torch.float32),
+                                          verify_fault.to(torch.float32)], dim=1)], dim=1)
+            if self.data_shards > 1:  # every slot's row, in global slot order
+                from repro_torch.sharding.collectives import all_gather
+
+                out = all_gather(out, self.mesh, "data", dim=0)
+            return out
 
         st = {"slots": state, "drafts": self._drafts}
         variant = "sampled" if sampled else "greedy"

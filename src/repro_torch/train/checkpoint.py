@@ -20,7 +20,8 @@ restores in the other.
   memory at once and writes them in a thread, overlapping the next step.
 
 ``restore`` places the leaves on ``device`` (default: each like-leaf's
-device). Restoring against shardings waits for the port's tensor parallel.
+device). Restoring against shardings waits for training on a mesh (ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 

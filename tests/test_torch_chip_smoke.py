@@ -319,10 +319,10 @@ def test_scan_forward_launches(smoke, counted, name):
 
 
 def test_scan_configs_keep_stock_widths_and_name_their_cuts(smoke):
-    """The scan archs' card configs: stock widths, f32, zamba2 cut to 18 of
-    its 81 layers (two groups of nine), with the parameter reckoning the
-    phases report (mamba2 857.2 M, zamba2 1.84 B of a stock 6.75 B, seamless
-    1.63 B)."""
+    """The scan archs' card configs: stock widths, f32, mamba2 cut to 24 of
+    its 48 layers, zamba2 to 18 of its 81 (two groups of nine), with the
+    parameter reckoning the phases report (mamba2 505.9 M of a stock
+    857.4 M, zamba2 1.84 B of a stock 6.75 B, seamless 1.63 B)."""
     from repro_torch.configs import get_config
 
     for name, layers in smoke.SCAN_ARCH_LAYERS.items():
@@ -330,7 +330,8 @@ def test_scan_configs_keep_stock_widths_and_name_their_cuts(smoke):
         assert dataclass_widths(cfg) == dataclass_widths(stock)
         assert cfg.dtype == "float32" and cfg.num_layers == (layers or stock.num_layers)
     got = {n: smoke.weight_reckoning(smoke.scan_config(n)) for n in smoke.SCAN_ARCH_LAYERS}
-    assert round(got["mamba2-780m"]["params_b"], 4) == 0.8574
+    assert round(got["mamba2-780m"]["params_b"], 4) == 0.5059
+    assert round(got["mamba2-780m"]["params_b_at_stock_depth"], 4) == 0.8574
     assert round(got["zamba2-7b"]["params_b"], 2) == 1.84
     assert round(got["zamba2-7b"]["params_b_at_stock_depth"], 2) == 6.75
     assert round(got["zamba2-7b"]["f32_weights_gb"], 2) == 7.35

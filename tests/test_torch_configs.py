@@ -80,3 +80,17 @@ def test_registry_holds_only_ported_archs():
         assert get_config(name) is ARCHS[name]
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("mamba3-1b")
+
+
+def test_paper_workloads_match_reference():
+    """The paper's own workloads: the fig3 MLP and the fig4 VGG-16 schedule,
+    its 16 layers with their MAC counts."""
+    from repro.configs import carmen_mlp as ref_mlp, carmen_vgg16 as ref_vgg
+    from repro_torch.configs import carmen_mlp, carmen_vgg16
+
+    assert dataclasses.asdict(carmen_mlp.CONFIG) == dataclasses.asdict(ref_mlp.CONFIG)
+    assert len(carmen_vgg16.VGG16_LAYERS) == len(ref_vgg.VGG16_LAYERS) == 16
+    for port, ref in zip(carmen_vgg16.VGG16_LAYERS, ref_vgg.VGG16_LAYERS):
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert port.macs == ref.macs
+    assert carmen_vgg16.CONFIG is carmen_vgg16.VGG16_LAYERS

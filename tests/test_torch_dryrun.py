@@ -166,7 +166,7 @@ def test_cell_records_with_the_reference_keys(cells):
     assert train["status"] == "skip" and "no backward" in train["reason"]
     with open(out / (dryrun.stem(ok) + ".json")) as f:
         assert json.load(f) == ok
-    with pytest.raises(ValueError, match="tensor parallel"):
+    with pytest.raises(ValueError, match="ROADMAP"):
         dryrun.run_cell("olmo-1b", "decode_32k", mesh_kind="single")
     with pytest.raises(SystemExit):
         dryrun.main(["--arch", "olmo-1b", "--mesh", "single"])

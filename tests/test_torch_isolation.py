@@ -54,7 +54,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.launch.train", "repro_torch.kernels.costs",
             "repro_torch.launch.cost_analysis", "repro_torch.launch.dryrun",
             "repro_torch.launch.roofline", "repro_torch.launch.topcolls",
-            "repro_torch.launch.reanalyze"} <= set(mods)
+            "repro_torch.launch.reanalyze", "repro_torch.sharding",
+            "repro_torch.sharding.partition", "repro_torch.sharding.collectives",
+            "repro_torch.launch.mesh", "repro_torch.configs.carmen_mlp",
+            "repro_torch.configs.carmen_vgg16"} <= set(mods)
     code = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"

@@ -461,5 +461,5 @@ def test_train_cli_resumes_and_refuses_the_mesh(tmp_path, capsys):
     again = train_cli.main(args + ["--steps", "6", "--resume"])
     out = capsys.readouterr().out
     assert "resumed from step 4" in out and len(again) == 2 and "done: 2 steps" in out
-    with pytest.raises(SystemExit, match="tensor parallel"):
+    with pytest.raises(SystemExit, match="ROADMAP"):
         train_cli.main(["--reduced", "--device", "cpu", "--production-mesh"])

@@ -106,7 +106,8 @@ then:
    captured finish: one transfer a prefill), the exact launch gates counting
    those replays: mamba2-780m (24 of 48 layers, also sampled), zamba2-7b (18 of 81
    layers: two groups of nine Mamba2 layers and the shared attention block,
-   GQA at head_dim 112) and seamless-m4t-large-v2 (24 + 24 layers); their
+   GQA at head_dim 112) and seamless-m4t-large-v2 (12 of 24 decoder layers and
+   its 24 encoder layers); their
    ``forward`` on the serving weights (mamba2 and zamba2 at (1, 512), two SSD
    chunks; seamless on 512 stub frames and 256 tokens, its encoder's flash
    launches non-causal); then each reduced card vs CPU, served (zamba2 at
@@ -270,8 +271,11 @@ ARCH_HEADS = ((40, 8), (32, 4))
 # zamba2-7b cut from 81 to 18 layers, two groups of nine Mamba2
 # layers with the shared block applied twice (1.84 B params, 7.35 GB of f32;
 # all 81 would be 6.75 B and 27.0 GB, which fits one card: the cut is for the
-# smoke's time only); seamless-m4t-large-v2 at all 24 + 24 layers
-SCAN_ARCH_LAYERS = {"mamba2-780m": 24, "zamba2-7b": 18, "seamless-m4t-large-v2": None}
+# smoke's time only); seamless-m4t-large-v2 cut from 24 to 12 decoder
+# layers, its 24 encoder layers kept (for the smoke's time, once the tp
+# group grew by kernel 6's split form and the scan archs: its 24-layer run
+# took 68.5 s of a 1058 s clean-export run)
+SCAN_ARCH_LAYERS = {"mamba2-780m": 24, "zamba2-7b": 18, "seamless-m4t-large-v2": 12}
 # every fused dot (K, N) of their main paths and the activations each runs:
 # mamba2's in_proj, out_proj and lm_head; zamba2's in_proj and out_proj, its
 # shared block's q/k/v/o, GLU up and gate (swish) and down, and its lm_head;
@@ -1618,7 +1622,8 @@ def by_instantiation(per_kernel: dict, rows: int, s: int, times: int = 1,
 
     dot = "imad" if w_bytes > 1 else "narrow" if rows <= NARROW_MAX_M else "wgmma"
     inst = {"fused_dot_af": dot, "cordic_mac": dot, "fused_dot_partial": dot,
-            "fused_epilogue": "elementwise", "mla_decode_attention": "tc",
+            "fused_epilogue": "elementwise", "cordic_mac_partial": dot,
+            "cordic_mac_epilogue": "elementwise", "mla_decode_attention": "tc",
             "gqa_decode_attention": "tc" if s >= TC_MIN_S else "split",
             "af_elementwise": "elementwise", "af_softmax": "cluster", "flash_attention": "tc",
             "mla_flash_attention": "tc"}
@@ -4860,6 +4865,18 @@ TP_DEEPSEEK_EXPERTS = 64
 # and down (4096 of K, 2048), at decode, the 16-row bucket and M 512
 TP_KERNEL_SHAPES = ((1024, 2048), (4096, 2048))
 TP_KERNEL_MS = (SLOTS, 16, BUCKET)
+# the (1, 2) phases of kernel 6's split form and of the scan archs, each
+# against its own mesh=None run: full-width olmo-1b in the int8 mode (its
+# first two prompts: the mode's multi-AF block is ~11,500 torch kernels a
+# forward, uncaptured), olmo-1b per call at PER_CALL_LAYERS, and the scan
+# archs at stock widths cut in depth (mamba2-780m to 4 of 48 layers,
+# zamba2-7b to one group of 9 Mamba2 layers and the shared block,
+# seamless-m4t-large-v2 to 4 + 4 of 24 + 24 layers) and to the first two
+# prompts (3 and 17 tokens: every prompt token is a single-token step with
+# three gloo collectives a Mamba2 layer); 8 new tokens each
+TP_NEW_PROMPTS = PROMPT_LENS[:2]
+TP_NEW_MAX_NEW = 8
+TP_SCAN_LAYERS = {"mamba2-780m": 4, "zamba2-7b": 9, "seamless-m4t-large-v2": 4}
 
 
 def check_tp_kernels(device):
@@ -4870,7 +4887,8 @@ def check_tp_kernels(device):
     the fused kernel over the whole of K. The epilogue also runs every AF
     with bf16 rounding on and off, on full-range int32 sums. Times the card
     kernels, the plain versions, the bounds (``costs.py``) and
-    ``torch._int_mm`` on the shard (the partial's library yardstick)."""
+    ``torch._int_mm`` on the shard (the partial's library yardstick). Then
+    kernel 6's split form the same way (:func:`check_mac_split`)."""
     import torch
 
     from repro_torch.core import FXP8, FXP16
@@ -4938,7 +4956,75 @@ def check_tp_kernels(device):
         rows.append(dict(M=SLOTS, N=2048, fmt=str(fmt), af="all 7", compute_round="both",
                          full_range_int32=True, bitwise_equal=True))
     torch.cuda.synchronize()
-    return rows, max_err
+    return rows + check_mac_split(device), max_err
+
+
+def check_mac_split(device):
+    """Kernel 6's split form (``mac_matmul_partial`` then ``mac_epilogue``)
+    against its plain twins, bitwise, at olmo-1b's local row-parallel shapes
+    (``TP_KERNEL_SHAPES``) at M 4, 16 (narrow) and 512 (wgmma), and FxP16
+    int16 operands whose int32 sums wrap (imad); and the split identity: the
+    epilogue (with and without ReLU) of the int32 sum of two K halves'
+    partials equals ``mac_matmul`` over the whole of K. Times both kernels,
+    their plain versions, their bounds (``costs.py``) and, at M > 16,
+    ``torch._int_mm`` on the shard (the same int32 product)."""
+    import torch
+
+    from repro_torch.kernels import costs
+    from repro_torch.kernels.cordic_mac import (mac_epilogue, mac_epilogue_ref, mac_matmul,
+                                                mac_matmul_partial, mac_matmul_partial_ref)
+    from repro_torch.kernels.int_dot import plan, to_k_major
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    rows = []
+    cases = [("fxp8", k, n, m) for k, n in TP_KERNEL_SHAPES for m in TP_KERNEL_MS]
+    cases += [("fxp16", k, n, SLOTS) for k, n in TP_KERNEL_SHAPES]
+    for case, k, n, m in cases:
+        if case == "fxp8":
+            x_q = torch.randint(-127, 128, (m, 2 * k), generator=gen, device=device).to(torch.int8)
+            whole = torch.randint(-127, 128, (2 * k, n), generator=gen, device=device)
+            whole = to_k_major(whole.to(torch.int8))
+        else:  # near full range: each half's sums and their total pass 2^31
+            x_q = torch.randint(30000, 32768, (m, 2 * k), generator=gen,
+                                device=device).to(torch.int16)
+            whole = to_k_major(torch.randint(24000, 32768, (2 * k, n), generator=gen,
+                                             device=device).to(torch.int16))
+        halves = [to_k_major(whole[i * k:(i + 1) * k]) for i in range(2)]
+        xs = [x_q[:, i * k:(i + 1) * k].contiguous() for i in range(2)]
+        x_scale = torch.rand((m, 1), generator=gen, device=device) * 1e-3
+        w_scale = (torch.rand((1, n), generator=gen, device=device) - 0.5) * 1e-3
+        parts = [mac_matmul_partial(xs[i], halves[i]) for i in range(2)]
+        for i in range(2):
+            if not torch.equal(parts[i], mac_matmul_partial_ref(xs[i], halves[i])):
+                raise AssertionError(f"mac_matmul_partial != plain at {case} M={m} K={k} N={n}")
+        acc = parts[0] + parts[1]  # int32 adds wrap as the cross-rank sum does
+        for relu in (False, True):
+            got = mac_epilogue(acc, x_scale, w_scale, fuse_relu=relu)
+            if not torch.equal(got, mac_epilogue_ref(acc, x_scale, w_scale, fuse_relu=relu)):
+                raise AssertionError(f"mac_epilogue != plain at {case} M={m} N={n} relu={relu}")
+            if not torch.equal(got, mac_matmul(x_q, whole, x_scale, w_scale, fuse_relu=relu)):
+                raise AssertionError(f"split sum != cordic_mac over the whole of K at {case} "
+                                     f"M={m} K={2 * k} N={n} relu={relu}")
+        w, x0, elem = halves[0], xs[0], x_q.element_size()
+        iters = 60 if m <= 32 else 20
+        ms = graph_ms(lambda: mac_matmul_partial(x0, w), iters)
+        plain_ms = timed_ms(lambda: mac_matmul_partial_ref(x0, w), 5, 1)
+        b_ms, b_by = costs.cordic_mac_partial(m, n, k, elem).bound()
+        lib = int_mm_ms(x0, [w], iters)["k_major"]
+        e_ms = graph_ms(lambda: mac_epilogue(acc, x_scale, w_scale), iters)
+        e_plain = timed_ms(lambda: mac_epilogue_ref(acc, x_scale, w_scale), 5, 1)
+        e_b, e_by = costs.cordic_mac_epilogue(m, n).bound()
+        path = path_name(plan(m, n, k, elem, elem))
+        rows.append(dict(kernel="cordic_mac_partial", M=m, K=k, N=n, fmt=case, path=path,
+                         bitwise_equal=True, split_equals_whole=True, max_abs_err=0.0, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, int_mm_ms=lib,
+                         epilogue_ms=e_ms, epilogue_plain_ms=e_plain, epilogue_bound_ms=e_b,
+                         epilogue_bound_by=e_by))
+        log(f"tp mac partial {case} M={m} K={k} N={n} [{path}]: {ms:.4f} ms (plain "
+            f"{plain_ms:.3f}, int_mm {lib}, bound {b_ms:.4f} {b_by}); epilogue {e_ms:.4f} ms "
+            f"(plain {e_plain:.3f}, bound {e_b:.4f})")
+    torch.cuda.synchronize()
+    return rows
 
 
 def check_tp_attention(device):
@@ -4952,6 +5038,7 @@ def check_tp_attention(device):
     whether they still would with splits planned from the local shapes is
     recorded. Times the local calls, their plain versions and bounds."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import costs
@@ -4980,6 +5067,11 @@ def check_tp_attention(device):
         call = lambda: gqa_decode_attention(lq, lk, lv, lp, scale=scale,  # noqa: E731
                                             plan_dims=plan)
         b_ms, b_by = costs.gqa_decode_attention(lb, 1, 8, t, 8, hd).bound()
+        # the library's call on the same share: SDPA over the rank's heads
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (lq, lk, lv))
+        mask = (torch.arange(t, device=device)[None, None, :] <= lp[:, :, None])[:, None]
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                 scale=scale), 60)
         rows.append(dict(kernel="gqa_decode_attention", share=label, B=lb, H=8, KV=8, T=t,
                          splits_global=gqa_plan(b, 1, h, t, h).splits,
                          splits_local=gqa_plan(lb, 1, 8, t, 8).splits,
@@ -4987,8 +5079,8 @@ def check_tp_attention(device):
                          ms=graph_ms(call, 60),
                          plain_ms=timed_ms(lambda: gqa_decode_attention_ref(
                              lq, lk, lv, lp, scale=scale), 5, 1),
-                         bound_ms=b_ms, bound_by=b_by))
-        log(f"tp attention GQA {label}: {rows[-1]['ms']:.4f} ms, splits "
+                         sdpa_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"tp attention GQA {label}: {rows[-1]['ms']:.4f} ms (sdpa {lib_ms:.4f}), splits "
             f"{rows[-1]['splits_global']} (local plan {rows[-1]['splits_local']})")
     cfg = get_config("deepseek-v3-671b")
     m, h = cfg.mla, cfg.num_heads
@@ -5009,17 +5101,34 @@ def check_tp_attention(device):
     call = lambda: mla_decode_attention(lql, lqr, ckv, kr, pos, scale=scale,  # noqa: E731
                                         plan_dims=(b, h))
     b_ms, b_by = costs.mla_decode_attention(b, 1, h // 2, t, r, rd).bound()
+    # SDPA on the concatenation form of the rank's heads (as check_mla's yardstick)
+    q_cat = torch.cat([lql, lqr], -1).transpose(1, 2).contiguous()
+    k_cat, v = torch.cat([ckv, kr], -1)[:, None], ckv[:, None]
+    mask = (torch.arange(t, device=device)[None, None, :] <= pos[:, :, None])[:, None]
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        q_cat, k_cat, v, attn_mask=mask, scale=scale, enable_gqa=True), 60)
     rows.append(dict(kernel="mla_decode_attention", share=f"heads {h // 2}-{h - 1} of {h}",
                      B=b, H=h // 2, T=t, splits_global=mla_splits(b, 1, h, t),
                      splits_local=mla_splits(b, 1, h // 2, t), bitwise_whole_rows=True,
                      bitwise_without_plan=unplanned, ms=graph_ms(call, 60),
                      plain_ms=timed_ms(lambda: mla_decode_attention_ref(
                          lql, lqr, ckv, kr, pos, scale=scale), 5, 1),
-                     bound_ms=b_ms, bound_by=b_by))
-    log(f"tp attention MLA {rows[-1]['share']}: {rows[-1]['ms']:.4f} ms, splits "
+                     sdpa_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+    log(f"tp attention MLA {rows[-1]['share']}: {rows[-1]['ms']:.4f} ms (sdpa {lib_ms:.4f}), "
+        f"splits "
         f"{rows[-1]['splits_global']} (local plan {rows[-1]['splits_local']})")
     torch.cuda.synchronize()
     return rows
+
+
+def tp_scan_cfg(name: str):
+    """A scan arch at stock widths, f32, its depth cut to ``TP_SCAN_LAYERS``
+    (seamless's encoder too, which the served decoder never runs)."""
+    cfg = tp_cfg(name, TP_SCAN_LAYERS[name])
+    if cfg.encdec is not None:
+        cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(
+            cfg.encdec, encoder_layers=TP_SCAN_LAYERS[name]))
+    return cfg
 
 
 def tp_cfg(name: str, layers=None, experts=None):
@@ -5034,32 +5143,58 @@ def tp_cfg(name: str, layers=None, experts=None):
     return cfg
 
 
-def tp_launches_per_forward(cfg, model_split: int) -> dict:
-    """``launches_per_forward`` on a model axis of ``model_split``: every
-    row-parallel dot (attention ``o``, the dense and shared MLPs' ``down``)
-    is one partial-sum and one epilogue launch in place of a fused one (the
-    archs the smoke meshes split every head and MLP width at 2)."""
-    want = launches_per_forward(cfg)
-    if model_split == 1:
-        return want
+def row_parallel_dots(cfg) -> int:
+    """The row-parallel dots of one decode forward of ``cfg`` on a model axis
+    that splits every head count and MLP width (the archs the smoke meshes
+    at 2): attention ``o`` and the dense and shared MLPs' ``down`` a layer
+    (a MoE layer's routed experts are EP, not row-parallel), a Mamba2
+    layer's ``out_proj``, zamba2's shared block's ``o`` and ``down`` a
+    group, a seamless decoder layer's self and cross ``o`` and ``down``."""
+    if cfg.family == "ssm":
+        return cfg.num_layers
+    if cfg.family == "hybrid":
+        return cfg.num_layers + 2 * hybrid_groups(cfg)
+    if cfg.family == "audio":
+        return 3 * cfg.num_layers
     moe = moe_layers(cfg)
     rows = 2 * (cfg.num_layers - moe)
     if moe:
         rows += (1 + bool(cfg.moe.num_shared_experts)) * moe
-    want["fused_dot_af"] -= rows
-    want["fused_dot_partial"] = rows
-    want["fused_epilogue"] = rows
+    return rows
+
+
+def tp_launches_per_forward(cfg, model_split: int, mode: str = "kernel",
+                            per_call: bool = False) -> dict:
+    """``launches_per_forward`` on a model axis of ``model_split``: every
+    row-parallel dot (:func:`row_parallel_dots`) is one partial-sum and one
+    epilogue launch in place of a whole one: kernel 1's in prepared kernel
+    mode, kernel 6's in the int8 mode and per call."""
+    want = launches_per_forward(cfg, per_call, mode)
+    if model_split == 1:
+        return want
+    rows = row_parallel_dots(cfg)
+    dot = "cordic_mac" if mode == "int8" or per_call else "fused_dot_af"
+    split = ("cordic_mac_partial", "cordic_mac_epilogue") if dot == "cordic_mac" else (
+        "fused_dot_partial", "fused_epilogue")
+    want[dot] -= rows
+    for name in split:
+        want[name] = rows
     return want
 
 
-def tp_instantiations(cfg, server, reqs, model_split: int) -> dict:
+def tp_instantiations(cfg, server, reqs, model_split: int, mode: str = "kernel",
+                      per_call: bool = False) -> dict:
     """Launches by instantiation of one rank's uncaptured meshed run: one
-    forward a request over its bucket, and the decode steps over the rank's
-    local slots."""
+    forward a request over its bucket (the scan archs: one single-row
+    forward a prompt token, on every rank), and the decode steps over the
+    rank's local slots."""
     from repro_torch.serve.kvcache import bucket_length
 
-    per_forward = tp_launches_per_forward(cfg, model_split)
+    per_forward = tp_launches_per_forward(cfg, model_split, mode, per_call)
     want = by_instantiation(per_forward, server._local_slots, 1, server.decode_steps)
+    if scan_prefill(cfg):
+        return add_counts(want, by_instantiation(per_forward, 1, 1,
+                                                 sum(len(r.prompt) for r in reqs)))
     for r in reqs:
         b = bucket_length(len(r.prompt), server.max_len)
         add_counts(want, by_instantiation(per_forward, b, b))
@@ -5073,11 +5208,13 @@ def digest(t) -> str:
     return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
 
 
-def tp_serve(cfg, mesh, device, forward_batch=None, max_new=None, snapshot=True, lens=None):
+def tp_serve(cfg, mesh, device, forward_batch=None, max_new=None, snapshot=True, lens=None,
+             mode="kernel", per_call=False):
     """Serve ``cfg`` on ``mesh`` (None: one device) uncaptured on the card,
     the smoke's prompts (or ``lens``) and ``max_new`` (default
-    ``TP_MAX_NEW``) new tokens,
-    from the seeded weights (this rank's shards of them); with
+    ``TP_MAX_NEW``) new tokens, in ``mode`` (prepared, or ``per_call``),
+    from the seeded weights (this rank's shards of them; in the int8 mode
+    the whole tree, which the server prepares whole and then shards); with
     ``forward_batch`` (B, S) also a cache-free ``forward`` under
     ``attn_impl="flash"``. Returns the streams, margins, run record,
     launches and, meshed, the run's collective bytes and (``snapshot``) one
@@ -5092,9 +5229,11 @@ def tp_serve(cfg, mesh, device, forward_batch=None, max_new=None, snapshot=True,
 
     model = get_model(cfg)
     torch.cuda.reset_peak_memory_stats()
-    params = model.init(torch.Generator(device=device).manual_seed(SEED), mesh=mesh)
-    server = BatchedServer(model, kernel_ctx(), params, slots=SLOTS, max_len=MAX_LEN,
-                           burst=BURST, device=device, capture=False, mesh=mesh)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED),
+                        mesh=None if mode == "int8" else mesh)
+    server = BatchedServer(model, kernel_ctx() if mode == "kernel" else mode_ctx(mode), params,
+                           slots=SLOTS, max_len=MAX_LEN, burst=BURST, device=device,
+                           capture=False, mesh=mesh, prepare_weights=not per_call)
     del params
     setup_peak = torch.cuda.max_memory_allocated() / 2**30
     reqs = requests(cfg, lens=lens, max_new=max_new or TP_MAX_NEW)
@@ -5104,12 +5243,13 @@ def tp_serve(cfg, mesh, device, forward_batch=None, max_new=None, snapshot=True,
     counts = wrapper_counts()
     rep = dict(streams={int(k): v for k, v in out.items()}, margins=margins(reqs), run=run,
                setup_peak_gib=setup_peak, launches=kernel_totals(nonzero(counts)),
-               by_instantiation=nonzero(counts), decode_steps=server.decode_steps)
+               by_instantiation=nonzero(counts), decode_steps=server.decode_steps,
+               prefill_steps=server.prefill_steps)
     m = mesh.size("model") if mesh is not None else 1
-    want = tp_instantiations(cfg, server, reqs, m)
+    want = tp_instantiations(cfg, server, reqs, m, mode, per_call)
     if nonzero(counts) != nonzero(want):
-        raise AssertionError(f"{cfg.name} mesh {mesh}: launches {nonzero(counts)} != "
-                             f"{nonzero(want)}")
+        raise AssertionError(f"{cfg.name} {mode}{' per call' if per_call else ''} mesh {mesh}: "
+                             f"launches {nonzero(counts)} != {nonzero(want)}")
     if mesh is not None:
         rep["collectives_run"] = collectives.counts()
         rep["sharding"] = server.shardings.snapshot()
@@ -5126,7 +5266,7 @@ def tp_serve(cfg, mesh, device, forward_batch=None, max_new=None, snapshot=True,
         fw = kernel_totals(nonzero(wrapper_counts()))
         want_fw = dict(forward_launches(cfg, "flash"))
         if m > 1:
-            rows = tp_launches_per_forward(cfg, m)["fused_dot_partial"]
+            rows = row_parallel_dots(cfg)
             want_fw.update(fused_dot_af=want_fw["fused_dot_af"] - rows,
                            fused_dot_partial=rows, fused_epilogue=rows)
         if fw != want_fw:
@@ -5150,7 +5290,8 @@ def tp_rank(rank, world, shape, jobs):
     mesh = mesh_from_shape(shape)
     device = torch.device("cuda", torch.cuda.current_device())
     return [tp_serve(job["cfg"], mesh, device, job.get("forward"), job.get("max_new"),
-                     job.get("snapshot", True), job.get("lens")) for job in jobs]
+                     job.get("snapshot", True), job.get("lens"), job.get("mode", "kernel"),
+                     job.get("per_call", False)) for job in jobs]
 
 
 def tp_meshed(shape, runs, backend="gloo") -> dict:
@@ -5195,8 +5336,12 @@ def tp_phases(device) -> dict:
     fused, row dots partial-sum + epilogue): on a (1, 2) mesh of two gloo
     ranks sharing the card, full-width olmo-1b (16 layers, also a flash
     forward's logits bitwise), llama4's dense/MoE pair and deepseek-v3 (MLA,
-    4 layers) with their routed experts cut (``TP_*_EXPERTS``), all three
-    in one spawn; olmo-1b at 4 layers on (2, 1), its FSDP gathers cut to
+    4 layers) with their routed experts cut (``TP_*_EXPERTS``), and, cut to
+    ``TP_NEW_PROMPTS`` and ``TP_NEW_MAX_NEW`` tokens, full-width olmo-1b in
+    the int8 mode and per call at ``PER_CALL_LAYERS`` (row dots: kernel 6's
+    partial-sum + epilogue) and the scan archs at ``TP_SCAN_LAYERS`` (their
+    single-token prefill steps on every rank), all in one spawn; olmo-1b at
+    4 layers on (2, 1), its FSDP gathers cut to
     ``TP_FSDP_PROMPTS`` and ``TP_FSDP_MAX_NEW`` tokens, and on (1, 1) under
     NCCL (world size 1). Two ranks time-share the card and gloo moves every
     collective through the host: the tok/s are a smoke reading, not a
@@ -5212,7 +5357,19 @@ def tp_phases(device) -> dict:
         log(f"tp {label} mesh=None")
         runs.append((label, tp_serve(cfg, None, device, forward_batch=forward),
                      dict(cfg=cfg, forward=forward)))
-    log("tp (1,2): olmo-1b, llama4-maverick, deepseek-v3")
+    # kernel 6's split form (the int8 mode, per call) and the scan archs
+    cut = dict(max_new=TP_NEW_MAX_NEW, lens=TP_NEW_PROMPTS)
+    for label, cfg, kw in (
+            ("olmo-1b int8 (1,2)", olmo(), dict(mode="int8")),
+            (f"olmo-1b per-call {PER_CALL_LAYERS} layers (1,2)", olmo(PER_CALL_LAYERS),
+             dict(per_call=True)),
+            *((f"{name} {TP_SCAN_LAYERS[name]} layers (1,2)", tp_scan_cfg(name), {})
+              for name in TP_SCAN_LAYERS)):
+        log(f"tp {label} mesh=None")
+        runs.append((label, tp_serve(cfg, None, device, **cut, **kw),
+                     dict(cfg=cfg, **cut, **kw)))
+    log("tp (1,2): olmo-1b, llama4-maverick, deepseek-v3, olmo-1b int8 and per call, "
+        "mamba2, zamba2, seamless")
     out.update(tp_meshed((1, 2), runs))
     for label in ("llama4-maverick-400b-a17b (1,2)", "deepseek-v3-671b (1,2)"):
         out[label]["weights"] = weight_reckoning(runs[[r[0] for r in runs].index(label)][2]["cfg"])
@@ -5512,9 +5669,15 @@ def main(argv=()) -> int:
         rep_fl, rep_mf = flash_rows[0], mla_flash_rows[0]  # the forward phases' shapes
         # kernel 1's split form at olmo-1b's down shard on a model axis of 2, decode
         rep_tp = next(r for r in tp_rows if (r.get("M"), r.get("K"), r.get("N"), r["fmt"]) ==
-                      (SLOTS, 4096, 2048, "Q1.6"))
+                      (SLOTS, 4096, 2048, "Q1.6") and "kernel" not in r)
         rep_epi = dict(ms=rep_tp["epilogue_ms"], plain_ms=rep_tp["epilogue_plain_ms"],
                        bound_ms=rep_tp["epilogue_bound_ms"], bound_by=rep_tp["epilogue_bound_by"])
+        # kernel 6's at the same shard at M 512 (wgmma), where torch._int_mm
+        # computes the same int32 product
+        rep_mp = next(r for r in tp_rows if (r.get("kernel"), r["M"], r.get("K"), r["fmt"]) ==
+                      ("cordic_mac_partial", BUCKET, 4096, "fxp8"))
+        rep_me = dict(ms=rep_mp["epilogue_ms"], plain_ms=rep_mp["epilogue_plain_ms"],
+                      bound_ms=rep_mp["epilogue_bound_ms"], bound_by=rep_mp["epilogue_bound_by"])
         kernels = []
         for name, file, replaces, err, rep, lib in (
                 ("fused_dot_af", "cordic_fused/csrc/cordic_fused.cu", "cordic_fused/kernel.py:104",
@@ -5536,7 +5699,11 @@ def main(argv=()) -> int:
                 ("fused_dot_partial", "cordic_fused/csrc/cordic_fused.cu",
                  "cordic_fused/kernel.py:104", tp_err, rep_tp, rep_tp["int_mm_ms"]),
                 ("fused_epilogue", "cordic_fused/csrc/cordic_fused.cu",
-                 "cordic_fused/kernel.py:77", tp_err, rep_epi, None)):
+                 "cordic_fused/kernel.py:77", tp_err, rep_epi, None),
+                ("cordic_mac_partial", "cordic_mac/csrc/cordic_mac.cu", "cordic_mac/kernel.py:36",
+                 0.0, rep_mp, rep_mp["int_mm_ms"]),
+                ("cordic_mac_epilogue", "cordic_mac/csrc/cordic_mac.cu",
+                 "cordic_mac/kernel.py:53", 0.0, rep_me, None)):
             total, by_path = launches(name)
             if not total:
                 raise AssertionError(f"{name}: no launch on any driven path")

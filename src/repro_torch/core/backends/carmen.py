@@ -121,14 +121,19 @@ class CarmenBackend(Backend):
             out = carmen_dot(x2, w, lp.depth, lp.fmt, unit_fmt(lp.fmt))
         return out.reshape(shape).to(ctx.compute_dtype)
 
-    def partial_dot(self, ctx, x, w):
+    def partial_dot(self, ctx, x, w, *, name: str = ""):
         """A row-parallel shard's f32 product of fake-quantized activations
-        and the prepared grid (prepared weights only)."""
-        x_fmt = w.get("x_fmt")
-        x_fmt = FxPFormat(*x_fmt) if x_fmt else ctx.layer_precision("").fmt
+        and the grid: the prepared grid, or per call the shard's own rounding
+        (elementwise, so it is the shard of the whole weight's)."""
         x2 = x.reshape(-1, x.shape[-1])
-        out = torch.matmul(quantize_activations(x2, x_fmt), w.data)
-        return out.reshape(*x.shape[:-1], w.shape[-1])
+        if isinstance(w, PreparedWeight):
+            x_fmt = w.get("x_fmt")
+            x_fmt = FxPFormat(*x_fmt) if x_fmt else ctx.layer_precision(name).fmt
+            out = torch.matmul(quantize_activations(x2, x_fmt), w.data)
+        else:
+            lp = ctx.layer_precision(name)
+            out = _carmen_product(x2, w, lp.depth, lp.fmt, unit_fmt(lp.fmt))
+        return out.reshape(*x.shape[:-1], w.shape[-1]), None
 
-    def finish_partial(self, ctx, acc, w):
+    def finish_partial(self, ctx, acc, w, carry):
         return acc.to(ctx.compute_dtype)

@@ -26,11 +26,11 @@ class ExactBackend(Backend):
         cd = ctx.compute_dtype
         return torch.matmul(x.to(cd), w.to(cd)).to(cd)
 
-    def partial_dot(self, ctx, x, w):
+    def partial_dot(self, ctx, x, w, *, name: str = ""):
         if isinstance(w, PreparedWeight):
             w = w.data
         cd = ctx.compute_dtype
-        return torch.matmul(x.to(cd), w.to(cd)).to(torch.float32)
+        return torch.matmul(x.to(cd), w.to(cd)).to(torch.float32), None
 
-    def finish_partial(self, ctx, acc, w):
+    def finish_partial(self, ctx, acc, w, carry):
         return acc.to(ctx.compute_dtype)

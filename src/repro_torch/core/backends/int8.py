@@ -14,14 +14,23 @@ runs its plain version. Under autograd (QAT) it runs through
 through the integer operands, only through the two scales, that is through
 the ``max(|.|)`` of ``x`` (per token) and of ``w`` (per output channel).
 Banks are K-major, as every integer bank: ``(L, K, N)`` stacked banks with
-``(L, 1, N)`` scales, viewed in the weight's logical shape. ``torch.round``
+``(L, 1, N)`` scales, viewed in the weight's logical shape.
+
+Under a mesh a row-parallel product (``EngineContext.linear(k_sharded=
+True)``) quantizes with the scales of the whole K: the per-token activation
+max is all-reduced (MAX) over the model axis before the scale, and so is,
+per call, the per-channel max of the K-sharded weight; a prepared bank
+carries the scales of the unsharded weight (the server prepares the whole
+tree, then shards it). The shard's int32 dot is the MAC-array kernel's
+partial-sum instantiation, the engine sums it over the model axis, and its
+epilogue kernel applies the two scales: bitwise the unsharded dot. ``torch.round``
 is half-to-even like ``jnp.round`` and ``>>`` on int32 is arithmetic as in
 JAX; float -> integer casts saturate and send NaN to 0 (``fxp.to_int32``).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,13 +68,16 @@ def _drop_bits(wq: torch.Tensor, eff_bits: int) -> torch.Tensor:
 
 
 def quantize_weight(w, *, per_channel: bool = True, stacked_axes: int = 0, eff_bits: int = 8,
-                    in_axes: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                    in_axes: Optional[int] = None,
+                    reduce_max: Optional[Callable] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-time weight-bank quantization: int8 qvalues + f32 scales.
 
     ``per_channel`` reduces over the ``in_axes`` contraction axes after the
     ``stacked_axes`` leading ones (keepdims; default: all but the last axis).
     ``eff_bits < 8`` zeroes trailing bits of the grid (reduced CORDIC depth,
-    baked in). The qvalues come back in ``w``'s layout."""
+    baked in). ``reduce_max`` maps the local max to the max over every
+    shard of the contraction (a row-parallel shard's all-reduce). The
+    qvalues come back in ``w``'s layout."""
     wf = torch.as_tensor(w, dtype=torch.float32)
     if in_axes is None:
         in_axes = wf.ndim - stacked_axes - 1
@@ -74,6 +86,8 @@ def quantize_weight(w, *, per_channel: bool = True, stacked_axes: int = 0, eff_b
                           keepdim=True)
     else:
         amax = torch.amax(wf.abs()).reshape((1,) * wf.ndim)
+    if reduce_max is not None:
+        amax = reduce_max(amax)
     scale = _scale(amax)
     wq = _to_int8(torch.clamp(torch.round(wf / scale), -127, 127))
     if eff_bits < 8:
@@ -81,13 +95,17 @@ def quantize_weight(w, *, per_channel: bool = True, stacked_axes: int = 0, eff_b
     return wq, scale.to(torch.float32)
 
 
-def quantize_tokens(x) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_tokens(x, reduce_max: Optional[Callable] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(M, K)`` float activations -> int8 ``(M, K)`` and their per-token
     f32 scales ``(M, 1)``: the dynamic half of :func:`int8_dot`. On a CUDA
     device the rows are 16-byte aligned, as the MAC-array kernel takes them
-    (padded storage when K is not)."""
+    (padded storage when K is not). ``reduce_max``: as in
+    :func:`quantize_weight`, for a shard of K."""
     xf = torch.as_tensor(x).to(torch.float32)
     amax = torch.amax(xf.abs(), dim=-1, keepdim=True)
+    if reduce_max is not None:
+        amax = reduce_max(amax)
     x_scale = _scale(amax)
     xq = _to_int8(torch.clamp(torch.round(xf / x_scale), -127, 127))
     if on_card(xq) and not has_aligned_rows(xq):
@@ -159,3 +177,35 @@ class Int8Backend(Backend):
             lp = ctx.layer_precision(name)
             out = int8_dot(x, w, effective_bits=effective_bits(lp))
         return out.to(ctx.compute_dtype)
+
+    def partial_dot(self, ctx, x, w, *, name: str = ""):
+        """A row-parallel shard's exact int32 dot (the MAC-array kernel's
+        partial-sum instantiation), quantized with the whole K's maxima;
+        the carry is the two scales."""
+        from repro_torch.kernels.cordic_mac import mac_matmul_partial
+        from repro_torch.sharding.collectives import all_reduce
+
+        def reduce_max(amax):
+            return all_reduce(amax, ctx.mesh, op="max")
+
+        xq, x_scale = quantize_tokens(x.reshape(-1, x.shape[-1]), reduce_max)
+        if isinstance(w, PreparedWeight):
+            wq, w_scale = w.data, w.scale
+        else:
+            wq, w_scale = quantize_weight(w, reduce_max=reduce_max)
+            eff = effective_bits(ctx.layer_precision(name))
+            if eff < 8:
+                wq = _drop_bits(wq, eff)
+            if on_card(wq):
+                wq = to_k_major(wq)
+        acc = mac_matmul_partial(xq, wq)
+        return acc.reshape(*x.shape[:-1], w.shape[-1]), (x_scale, w_scale.reshape(1, -1))
+
+    def finish_partial(self, ctx, acc, w, carry):
+        """``(float(acc) * x_scale) * w_scale`` on the int32 sum (the
+        MAC-array kernel's epilogue kernel), as :func:`int8_dot` computes it."""
+        from repro_torch.kernels.cordic_mac import mac_epilogue
+
+        x_scale, w_scale = carry
+        out = mac_epilogue(acc.reshape(-1, acc.shape[-1]), x_scale, w_scale)
+        return out.reshape(acc.shape).to(ctx.compute_dtype)

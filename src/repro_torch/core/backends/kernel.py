@@ -22,10 +22,13 @@ padded to whole 16 bytes, and viewed back in the logical shape, so values
 and shapes are the reference's and the models' 2-D reshapes are views with
 ``stride == (1, K_pad)``.
 
-Under a mesh a row-parallel product runs the fused kernel's split form:
+Under a mesh a row-parallel product runs the split form of its kernel:
 ``partial_dot`` is the int32 dot of the shard (the partial-sum
-instantiation), the engine sums it over the model axis, and
-``finish_partial`` runs the epilogue kernel on the sum.
+instantiation of the fused kernel, or per call of the MAC-array kernel), the
+engine sums it over the model axis, and ``finish_partial`` runs that
+kernel's epilogue kernel on the sum. Per call, the shard's rounding is the
+shard of the whole weight's (it is elementwise) and the scales are the
+formats' constants, so the sum is bitwise the unsharded call's.
 
 Each kernel launches on a CUDA tensor and its plain version runs on a CPU
 tensor.
@@ -132,18 +135,39 @@ class KernelBackend(Backend):
             return NotImplemented
         return self._fused(ctx, x, w, af)
 
-    def partial_dot(self, ctx, x, w):
-        """A row-parallel shard's exact int32 dot (prepared weights only):
-        the fused kernel's partial-sum instantiation."""
-        from repro_torch.kernels.cordic_fused import fused_dot_partial
+    def partial_dot(self, ctx, x, w, *, name: str = ""):
+        """A row-parallel shard's exact int32 dot: the fused kernel's
+        partial-sum instantiation on a prepared bank; per call, the MAC-array
+        kernel's on the shard rounded here."""
+        if isinstance(w, PreparedWeight):
+            from repro_torch.kernels.cordic_fused import fused_dot_partial
 
-        return fused_dot_partial(x, w.data, w.point)
+            return fused_dot_partial(x, w.data, w.point), None
+        from repro_torch.kernels.cordic_mac import (mac_matmul_partial, quantize_activations,
+                                                    quantize_weights)
 
-    def finish_partial(self, ctx, acc, w):
-        """The fused chain's epilogue on the int32 sum over the model axis."""
-        from repro_torch.kernels.cordic_fused import fused_epilogue
+        lp = ctx.layer_precision(name)
+        x_q, xs = quantize_activations(x.reshape(-1, x.shape[-1]), lp.fmt)
+        w_q, ws = quantize_weights(w, int(lp.depth), unit_fmt(lp.fmt))
+        acc = mac_matmul_partial(x_q, w_q)
+        return acc.reshape(*x.shape[:-1], w.shape[-1]), (xs, ws)
 
-        lp_af = ctx.layer_precision("af")
-        out = fused_epilogue(acc, w.point, af_mode="identity", af_depth=int(lp_af.depth),
-                             af_fmt=lp_af.fmt, compute_round=ctx.compute_dtype != torch.float32)
-        return out.to(ctx.compute_dtype)
+    def finish_partial(self, ctx, acc, w, carry):
+        """The split kernel's epilogue on the int32 sum over the model axis."""
+        if isinstance(w, PreparedWeight):
+            from repro_torch.kernels.cordic_fused import fused_epilogue
+
+            lp_af = ctx.layer_precision("af")
+            out = fused_epilogue(acc, w.point, af_mode="identity", af_depth=int(lp_af.depth),
+                                 af_fmt=lp_af.fmt,
+                                 compute_round=ctx.compute_dtype != torch.float32)
+            return out.to(ctx.compute_dtype)
+        from repro_torch.kernels.cordic_mac import mac_epilogue
+
+        xs, ws = carry
+        acc2 = acc.reshape(-1, acc.shape[-1])
+        m, n = acc2.shape
+        x_scale = torch.full((m, 1), xs, dtype=torch.float32, device=acc.device)
+        w_scale = torch.full((1, n), ws, dtype=torch.float32, device=acc.device)
+        out = mac_epilogue(acc2, x_scale, w_scale)
+        return out.reshape(acc.shape).to(ctx.compute_dtype)

@@ -13,7 +13,8 @@ over ``model``: q/k/v over heads, up/gate over the MLP width, the lm_head
 over the vocab) is the plain call on the shard, whose output columns are
 the rank's; a row-parallel one (K over ``model``: ``wo``, ``down``) is
 ``linear(..., k_sharded=True)``: the backend's partial product, its sum over
-the model axis, then the backend's finish (:meth:`EngineContext.linear`).
+the model axis, then the backend's finish (:meth:`EngineContext.linear`), in
+every mode, prepared or per call.
 """
 from __future__ import annotations
 
@@ -87,21 +88,19 @@ class EngineContext:
         """``x @ w (+ b)``. ``k_sharded``: ``w`` is this rank's shard of the
         contraction (a row-parallel product): the backend's partial product
         is summed over the ``model`` axis before its finish, and the bias
-        added once, after the sum. In kernel mode the partial is the exact
-        int32 dot, so the sum and the result are bitwise the unsharded ones;
-        in ``exact`` and ``carmen`` it is an f32 product, whose sum differs
-        from the unsharded product by reduction-order ulps."""
+        added once, after the sum. In kernel and int8 mode (prepared or per
+        call) the partial is the exact int32 dot, so the sum and the result
+        are bitwise the unsharded ones (int8 quantizes with scales from the
+        whole K: its per-token activation max is reduced over the model
+        axis first, and so, per call, its per-channel weight max); in
+        ``exact`` and ``carmen`` it is an f32 product, whose sum differs from
+        the unsharded product by reduction-order ulps."""
         if k_sharded and self.mesh is not None:
             from repro_torch.sharding.collectives import all_reduce
 
             backend = resolve(w, self.mode)
-            partial = getattr(backend, "partial_dot", None)
-            if partial is None or (backend.name != "exact" and not isinstance(w, PreparedWeight)):
-                raise NotImplementedError(
-                    f"a row-parallel {backend.name!r} product under a mesh needs its "
-                    "partial-sum form: per-call weights and the int8 mode wait for kernel 6's "
-                    "partial-sum variant (ROADMAP Queue 1)")
-            out = backend.finish_partial(self, all_reduce(partial(self, x, w), self.mesh), w)
+            partial, carry = backend.partial_dot(self, x, w, name=name)
+            out = backend.finish_partial(self, all_reduce(partial, self.mesh), w, carry)
         else:
             out = self.dot(x, w, name=name)
         if b is not None:

@@ -28,6 +28,8 @@ INSTANTIATIONS = {
     "fused_dot_partial": ("narrow", "wgmma", "imad"),
     "fused_epilogue": ("elementwise",),
     "cordic_mac": ("narrow", "wgmma", "imad"),
+    "cordic_mac_partial": ("narrow", "wgmma", "imad"),
+    "cordic_mac_epilogue": ("elementwise",),
     "gqa_decode_attention": ("tc", "split"),
     "mla_decode_attention": ("tc",),
     "af_elementwise": ("elementwise",),
@@ -100,13 +102,14 @@ def wrappers() -> Dict[str, Callable]:
     """Every kernel wrapper, by kernel name."""
     from .cordic_af import af_softmax, multi_af
     from .cordic_fused import fused_dot_af, fused_dot_partial, fused_epilogue
-    from .cordic_mac import mac_matmul
+    from .cordic_mac import mac_epilogue, mac_matmul, mac_matmul_partial
     from .decode_attention import gqa_decode_attention, mla_decode_attention
     from .flash_attention import flash_attention
     from .mla_flash import mla_flash_attention
 
     return {"fused_dot_af": fused_dot_af, "fused_dot_partial": fused_dot_partial,
             "fused_epilogue": fused_epilogue, "cordic_mac": mac_matmul,
+            "cordic_mac_partial": mac_matmul_partial, "cordic_mac_epilogue": mac_epilogue,
             "gqa_decode_attention": gqa_decode_attention,
             "mla_decode_attention": mla_decode_attention, "af_elementwise": multi_af,
             "af_softmax": af_softmax, "flash_attention": flash_attention,

@@ -24,6 +24,12 @@ on a CUDA tensor it launches the kernel or raises; on a meta tensor it takes
 the plan and returns an empty meta result. ``mac_matmul.launches``
 counts launches, ``mac_matmul.instantiations`` them by path.
 
+For tensor-parallel row products (the int8 mode and per-call weights under a
+mesh) the matmul runs in two launches around a cross-rank int32 sum:
+:func:`mac_matmul_partial` (the partial-sum instantiations of the same three
+paths: the int32 dot, no scales) and :func:`mac_epilogue` (the scale
+multiply and ReLU on the reduced sums), counted on their own wrappers.
+
 :func:`mac_matmul_scaled_grad` is ``mac_matmul`` under autograd, with the
 reference's gradient (``repro.core.backends.int8.int8_dot`` computes
 ``acc.astype(f32) * x_scale * w_scale``): the integer operands carry none,
@@ -46,7 +52,7 @@ from repro_torch.core.fxp import FXP8, FXP8_UNIT, FxPFormat
 from .. import _build, costs, entry, kernel_call
 from ..int_dot import (PATH_NAMES, has_aligned_rows, is_k_major, plan, ptr, splitk_scratch,
                        to_k_major)
-from .ref import mac_matmul_ref
+from .ref import mac_epilogue_ref, mac_matmul_partial_ref, mac_matmul_ref
 
 _INT_TYPES = (torch.int8, torch.int16)
 
@@ -72,34 +78,51 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.cordic_mac_launch.argtypes = [i, i, i, i, p, i, i, p, i, i, p, p, p, p, p, i, i, i, i, p]
     lib.cordic_mac_launch.restype = i
+    lib.cordic_mac_partial_launch.argtypes = [i, i, i, i, p, i, i, p, i, i, p, p, p, i, i, i, p]
+    lib.cordic_mac_partial_launch.restype = i
+    lib.cordic_mac_epilogue_launch.argtypes = [p, p, p, p, i, i, i, p]
+    lib.cordic_mac_epilogue_launch.restype = i
     return lib
 
 
-def _launch(x_q, w_q, x_scale, w_scale, fuse_relu: bool):
+def _check_banks(x_q, w_q, who: str):
     dev = x_q.device
-    for name, t in (("w_q", w_q), ("x_scale", x_scale), ("w_scale", w_scale)):
-        if t.device != dev:
-            raise ValueError(f"mac_matmul: x_q on {dev}, {name} on {t.device}")
+    if w_q.device != dev:
+        raise ValueError(f"{who}: x_q on {dev}, w_q on {w_q.device}")
     for name, t in (("x_q", x_q), ("w_q", w_q)):
         if t.dtype not in _INT_TYPES or t.ndim != 2:
-            raise ValueError(f"mac_matmul: {name} must be 2-D int8/int16, got "
+            raise ValueError(f"{who}: {name} must be 2-D int8/int16, got "
                              f"{t.dtype} {tuple(t.shape)}")
     if not has_aligned_rows(x_q):
-        raise ValueError(f"mac_matmul: x_q must be (M, K) with K contiguous and 16-byte-aligned "
+        raise ValueError(f"{who}: x_q must be (M, K) with K contiguous and 16-byte-aligned "
                          f"rows, got stride {tuple(x_q.stride())}")
     if not is_k_major(w_q):
-        raise ValueError(f"mac_matmul: w_q must be a K-major bank (stride (1, K_pad), K_pad * "
+        raise ValueError(f"{who}: w_q must be a K-major bank (stride (1, K_pad), K_pad * "
                          f"{w_q.element_size()} bytes a multiple of 16, 16-byte aligned), got "
                          f"stride {tuple(w_q.stride())}")
-    m, k = x_q.shape
-    n = w_q.shape[1]
+
+
+def _check_scales(x_scale, w_scale, m: int, n: int, dev, who: str):
+    """The scales as contiguous f32 (M,) and (N,) vectors on ``dev``."""
+    for name, t in (("x_scale", x_scale), ("w_scale", w_scale)):
+        if t.device != dev:
+            raise ValueError(f"{who}: operands on {dev}, {name} on {t.device}")
     xs = x_scale.reshape(-1).contiguous()
     wsc = w_scale.reshape(-1).contiguous()
     if xs.dtype != torch.float32 or wsc.dtype != torch.float32 or xs.numel() != m \
             or wsc.numel() != n:
-        raise ValueError(f"mac_matmul: scales must be f32 ({m}, 1) and (1, {n}), got "
+        raise ValueError(f"{who}: scales must be f32 ({m}, 1) and (1, {n}), got "
                          f"{x_scale.dtype} {tuple(x_scale.shape)} and {w_scale.dtype} "
                          f"{tuple(w_scale.shape)}")
+    return xs, wsc
+
+
+def _launch(x_q, w_q, x_scale, w_scale, fuse_relu: bool):
+    _check_banks(x_q, w_q, "mac_matmul")
+    dev = x_q.device
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    xs, wsc = _check_scales(x_scale, w_scale, m, n, dev, "mac_matmul")
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0 or n == 0:
         return out
@@ -134,6 +157,79 @@ def mac_matmul(x_q, w_q, x_scale, w_scale, *, fuse_relu: bool = False) -> torch.
     if not (x_q.is_cuda or x_q.is_meta):
         return mac_matmul_ref(x_q, w_q, x_scale, w_scale, fuse_relu=fuse_relu)
     return _launch(x_q, w_q, x_scale, w_scale, fuse_relu)
+
+
+def _launch_partial(x_q, w_q):
+    _check_banks(x_q, w_q, "mac_matmul_partial")
+    dev = x_q.device
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    if m == 0 or n == 0:
+        return out
+    p = plan(m, n, k, x_q.element_size(), w_q.element_size())
+    cost = functools.partial(costs.cordic_mac_partial, m, n, k, x_q.element_size())
+    if dev.type == "meta":
+        kernel_call(mac_matmul_partial, PATH_NAMES[p.path], cost, launched=False)
+        return out
+    ws, counts = splitk_scratch(m, n, p, dev)
+    with torch.cuda.device(dev):
+        status = _lib().cordic_mac_partial_launch(
+            p.path, p.config, p.splits, p.k_per_split, x_q.data_ptr(), x_q.element_size(),
+            x_q.stride(0), w_q.data_ptr(), w_q.element_size(), w_q.stride(1), out.data_ptr(),
+            ptr(ws), ptr(counts), m, n, k, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "cordic_mac_partial_launch")
+    kernel_call(mac_matmul_partial, PATH_NAMES[p.path], cost, launched=True)
+    return out
+
+
+@entry("cordic_mac_partial")
+def mac_matmul_partial(x_q, w_q) -> torch.Tensor:
+    """The int32 dot of :func:`mac_matmul` without its epilogue: ``x_q (M,
+    K)`` by ``w_q (K, N)`` integers -> int32 ``(M, N)``, wrapped modulo
+    2**32. A row-parallel product sums these over its K shards (an int32
+    sum, exact in any order) and runs :func:`mac_epilogue` on the sum. Same
+    operands, layout rules and paths (``int_dot.plan``) as ``mac_matmul``."""
+    if x_q.ndim != 2 or w_q.ndim != 2 or x_q.shape[1] != w_q.shape[0]:
+        raise ValueError(f"mac_matmul_partial: shapes {tuple(x_q.shape)} x {tuple(w_q.shape)}")
+    if not (x_q.is_cuda or x_q.is_meta):
+        return mac_matmul_partial_ref(x_q, w_q)
+    return _launch_partial(x_q, w_q)
+
+
+def _launch_epilogue(acc, x_scale, w_scale, fuse_relu: bool):
+    dev = acc.device
+    if acc.dtype != torch.int32 or acc.ndim != 2:
+        raise ValueError(f"mac_epilogue: acc must be 2-D int32, got {acc.dtype} "
+                         f"{tuple(acc.shape)}")
+    m, n = acc.shape
+    xs, wsc = _check_scales(x_scale, w_scale, m, n, dev, "mac_epilogue")
+    acc = acc.contiguous()
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    cost = functools.partial(costs.cordic_mac_epilogue, m, n)
+    if dev.type == "meta":
+        kernel_call(mac_epilogue, "elementwise", cost, launched=False)
+        return out
+    if m == 0 or n == 0:
+        return out
+    with torch.cuda.device(dev):
+        status = _lib().cordic_mac_epilogue_launch(
+            acc.data_ptr(), xs.data_ptr(), wsc.data_ptr(), out.data_ptr(), m, n, int(fuse_relu),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "cordic_mac_epilogue_launch")
+    kernel_call(mac_epilogue, "elementwise", cost, launched=True)
+    return out
+
+
+@entry("cordic_mac_epilogue")
+def mac_epilogue(acc, x_scale, w_scale, *, fuse_relu: bool = False) -> torch.Tensor:
+    """The epilogue of :func:`mac_matmul` on int32 dot sums ``acc (M, N)``:
+    ``(float(acc) * x_scale) * w_scale`` (+ReLU), f32 out, with ``x_scale:
+    (M, 1)`` and ``w_scale: (1, N)`` f32. ``mac_epilogue(mac_matmul_partial(
+    x_q, w_q), xs, ws)`` is bitwise ``mac_matmul(x_q, w_q, xs, ws)``."""
+    if not (acc.is_cuda or acc.is_meta):
+        return mac_epilogue_ref(acc, x_scale, w_scale, fuse_relu=fuse_relu)
+    return _launch_epilogue(acc, x_scale, w_scale, fuse_relu)
 
 
 class MacMatmulScaledGrad(torch.autograd.Function):

@@ -157,6 +157,19 @@ def cordic_mac(m: int, n: int, k: int, elem: int) -> KernelCost:
                       (_int_dot_work(m, n, k, elem > 1),), dot_flops=2.0 * m * n * k)
 
 
+def cordic_mac_partial(m: int, n: int, k: int, elem: int) -> KernelCost:
+    """Kernel 6's partial-sum instantiation: x_q (M, K) and the (K, N) bank
+    of ``elem`` bytes, out int32 (M, N)."""
+    return KernelCost(m * k * elem + k * n * elem + m * n * 4,
+                      (_int_dot_work(m, n, k, elem > 1),), dot_flops=2.0 * m * n * k)
+
+
+def cordic_mac_epilogue(m: int, n: int) -> KernelCost:
+    """Kernel 6's epilogue alone: int32 sums (M, N) and the f32 scales
+    (M + N) in, f32 (M, N) out."""
+    return KernelCost(8.0 * m * n + (m + n) * 4, ())
+
+
 def af_elementwise(numel: int, mode: str, depth: int, fmt) -> KernelCost:
     """Kernel 4: f32 in and out, the AF's int32 operations on every element
     at the internal depth of the I/O-format ``depth``."""

@@ -65,9 +65,12 @@ share a card or run on the CPU, ``nccl`` for one card a rank) spawns
 DATA x MODEL ranks (``launch.mesh.spawn``) that each run this CLI on their
 shard of the weights (``BatchedServer(mesh=)``, uncaptured); rank 0 prints
 and writes the files, and a trace's header carries the burst's collective
-bytes. Refused with a mesh, as in the reference: the streaming frontend's
-flags; and, waiting for their ROADMAP items, ``--per-call``, ``--mode int8``,
-``--calibrate`` and the scan archs.
+bytes. Every arch, every ``--mode``, ``--per-call``, ``--calibrate`` and the
+``--adaptive``/``--speculative`` banks serve on a mesh. ``--calibrate``
+resolves the policy as the reference's CLI does: from the whole weights,
+before placement (every rank runs the same unmeshed scan), so the policy is
+the one without ``--mesh``. Refused with a mesh, as in the reference: the
+streaming frontend's flags.
 """
 from __future__ import annotations
 
@@ -454,11 +457,6 @@ def main(argv=None, mesh=None):
     args = ap.parse_args(argv)
     if args.mesh is not None and mesh is None:
         return _launch_mesh(args, argv)
-    if mesh is not None:
-        for flag, bad in (("--per-call", args.per_call), ("--calibrate", args.calibrate)):
-            if bad:
-                raise SystemExit(f"{flag} with --mesh waits for ROADMAP Queue 1 (kernel 6's "
-                                 "partial-sum variant; the calibration scan on a mesh)")
     lead = mesh is None or mesh.rank == 0  # the rank that writes files
     if not lead:
         args.save_policy = None

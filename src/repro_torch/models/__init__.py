@@ -22,10 +22,19 @@ class ModelApi:
             return encdec.encdec_specs(self.cfg)
         return transformer.decoder_specs(self.cfg)
 
+    def serving_specs(self):
+        """The specs the port places a served tree by on a mesh
+        (``sharding.partition.serving_specs``: the reference's, but for the
+        leaves the port keeps whole on every model rank)."""
+        from repro_torch.sharding.partition import serving_specs
+
+        return serving_specs(self.specs())
+
     def init(self, generator: torch.Generator, dtype=torch.float32, mesh=None):
         """Random parameters on the generator's device (``mesh``: this
         rank's shards of them)."""
-        return P.init(self.specs(), generator, dtype, mesh)
+        return P.init(self.serving_specs() if mesh is not None else self.specs(), generator,
+                      dtype, mesh)
 
     def abstract_params(self, dtype=torch.float32):
         """Meta tensors of every parameter's shape (the dry run's stand-in)."""
@@ -40,7 +49,9 @@ class ModelApi:
     def load_numpy(self, tree, device, mesh=None):
         """The reference's raw parameter tree (numpy leaves) on ``device``
         (``mesh``: this rank's shards of it)."""
-        return P.load_numpy_params(tree, device, specs=self.specs(), mesh=mesh)
+        return P.load_numpy_params(tree, device, mesh=mesh,
+                                   specs=self.serving_specs() if mesh is not None
+                                   else self.specs())
 
     def forward(self, prms, batch, ctx: EngineContext, *, remat: bool = False):
         """Cache-free forward: ``batch["tokens"]`` (B, S) -> (logits, aux)."""
@@ -57,10 +68,7 @@ class ModelApi:
                    mesh=None):
         """The decode cache; ``mesh``: a rank's under tensor parallelism."""
         if self.cfg.family == "audio":
-            if mesh is not None:
-                raise NotImplementedError("the encoder-decoder family has no mesh serving yet "
-                                          "(ROADMAP Queue 1: the scan families on a mesh)")
-            return encdec.make_cache(self.cfg, batch, max_len, dtype, device)
+            return encdec.make_cache(self.cfg, batch, max_len, dtype, device, mesh)
         return transformer.make_cache(self.cfg, batch, max_len, dtype, device, mesh)
 
 

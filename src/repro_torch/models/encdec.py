@@ -14,6 +14,14 @@ cross K/V cache per layer; ``make_cache`` zeroes both, and the server never
 fills the cross cache (``prefill_cross_kv`` is the reference's, unused by
 its server): decoding attends to the zero cross K/V, as the reference does.
 The self-attention cache is updated in place.
+
+Under tensor parallelism (``ctx.mesh``) the dense families' rules apply:
+self- and cross-attention run on the rank's q and kv heads (``wo`` a
+row-parallel product), the ReLU MLP's ``up`` is column- and ``down``
+row-parallel, the embedding and the lm_head are vocab-sharded
+(``transformer._embed``, ``transformer._lm_head``), a weight stored
+FSDP-sharded over ``data`` is all-gathered a layer at a time, and
+``make_cache(mesh=)`` holds the rank's kv heads of both caches.
 """
 from __future__ import annotations
 
@@ -23,9 +31,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import EngineContext
 from repro_torch.core.pooling import aad_pool_1d
 
+from repro_torch.sharding.collectives import gather_data
+
 from . import blocks
 from .params import ParamSpec, stack_layers
-from .transformer import layer_trees, layer_view, remat_call
+from .transformer import _embed, _fsdp, _lm_head, layer_trees, layer_view, remat_call
 
 
 def _enc_layer_specs(cfg: ModelConfig):
@@ -64,16 +74,35 @@ def _cross_attention(p, x, enc_k, enc_v, cfg, ctx, name):
     """Queries from decoder states against encoder K/V (B, T, KV, hd),
     non-causal."""
     b, s, _ = x.shape
-    g, hd = cfg.kv_groups, cfg.head_dim
+    hd = cfg.head_dim
+    h_loc = p["wq"].shape[-2]  # this rank's heads
+    g = h_loc // enc_k.shape[2]
     q = blocks._proj(ctx, x, p["wq"], p.get("bq"), f"{name}.q")  # (B,S,H,hd)
     ek = torch.repeat_interleave(enc_k, g, dim=2) if g > 1 else enc_k
     ev = torch.repeat_interleave(enc_v, g, dim=2) if g > 1 else enc_v
     t = enc_k.shape[1]
     out = blocks._sdpa_chunked(q, ek, ev, torch.arange(s, device=x.device),
                                torch.arange(t, device=x.device), causal=False)
-    out = out.reshape(b, s, cfg.num_heads * hd)
-    wo = p["wo"].reshape(cfg.num_heads * hd, cfg.d_model)
-    return ctx.linear(out, wo, name=f"{name}.o")
+    out = out.reshape(b, s, h_loc * hd)
+    wo = p["wo"].reshape(h_loc * hd, cfg.d_model)
+    return ctx.linear(out, wo, name=f"{name}.o", k_sharded=ctx.model_split(cfg.num_heads) > 1)
+
+
+def _gather_top(params, ctx):
+    """``params`` with the FSDP shards of the leaves outside the layer stacks
+    all-gathered (``transformer._fsdp``; the stacks are gathered a layer at
+    a time by :func:`_layers`)."""
+    stacks = ("enc_layers", "dec_layers")
+    top = _fsdp({k: v for k, v in params.items() if k not in stacks}, ctx)
+    return dict(params, **top)
+
+
+def _layers(params, key: str, n: int, ctx):
+    """The ``n`` stacked layers of ``params[key]`` as trees of views, each
+    with its FSDP shards all-gathered under a mesh."""
+    for p in layer_trees(params[key], n):
+        yield p if ctx.param_specs is None else gather_data(p, ctx.param_specs[key], ctx.mesh,
+                                                             lead=1)
 
 
 def _project_enc_kv(p, enc_out, cfg, ctx, name):
@@ -96,7 +125,7 @@ def encode(params, frames, cfg: ModelConfig, ctx: EngineContext, *, remat: bool 
         x = blocks.apply_norm(p["mlp_norm"], h, cfg)
         return h + blocks.mlp(p["mlp"], x, cfg, ctx, name="enc.mlp")
 
-    for p in layer_trees(params["enc_layers"], cfg.encdec.encoder_layers):
+    for p in _layers(params, "enc_layers", cfg.encdec.encoder_layers, ctx):
         h = remat_call(layer, remat, p, h)
     return blocks.apply_norm(params["enc_norm"], h, cfg)
 
@@ -106,9 +135,10 @@ def forward(params, batch, cfg: ModelConfig, ctx: EngineContext, *, remat: bool 
     ``batch["tokens"]`` (B, S) decoder tokens -> (logits (B, S, V) f32, {}).
     ``remat`` checkpoints each encoder and decoder layer when autograd
     records."""
+    params = _gather_top(params, ctx)
     enc_out = encode(params, batch["frontend_embeds"], cfg, ctx, remat=remat)
     tokens = batch["tokens"]
-    h = params["embed"][tokens].to(cfg.compute_dtype)
+    h = _embed(params, tokens, cfg, ctx).to(cfg.compute_dtype)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
 
     def layer(p, h, enc_out):
@@ -122,18 +152,22 @@ def forward(params, batch, cfg: ModelConfig, ctx: EngineContext, *, remat: bool 
         x = blocks.apply_norm(p["mlp_norm"], h, cfg)
         return h + blocks.mlp(p["mlp"], x, cfg, ctx, name="dec.mlp")
 
-    for p in layer_trees(params["dec_layers"], cfg.num_layers):
+    for p in _layers(params, "dec_layers", cfg.num_layers, ctx):
         h = remat_call(layer, remat, p, h, enc_out)
     h = blocks.apply_norm(params["final_norm"], h, cfg)
-    logits = ctx.linear(h, params["lm_head"], name="lm_head").to(torch.float32)
-    return logits, {}
+    return _lm_head(params, h, cfg, ctx), {}
 
 
-def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, device=None):
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, device=None,
+               mesh=None):
     """Self-attention caches per decoder layer (k, v (L, B, T, KV, hd), index
     (L, B) int32) and a cross K/V cache per layer (L, B, T/2, KV, hd): the
-    stub's encoder length tracks the decoder budget. All zeros."""
+    stub's encoder length tracks the decoder budget. All zeros. With
+    ``mesh`` both hold the rank's kv heads."""
     kvh, hd, n = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    m = mesh.size("model") if mesh is not None else 1
+    if m > 1 and kvh % m == 0:
+        kvh //= m
 
     def zeros(shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
@@ -166,13 +200,13 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, ctx: EngineContext):
     """Decoder tokens (B, S) against the cached self and cross attention ->
     (logits (B, S, V) f32, cache); the self-attention rows and index are
     written into ``cache`` in place."""
-    h = params["embed"][tokens].to(cfg.compute_dtype)
+    params = _gather_top(params, ctx)
+    h = _embed(params, tokens, cfg, ctx).to(cfg.compute_dtype)
     index = cache["self"]["index"][0]  # (B,)
     positions = index[:, None] + torch.arange(tokens.shape[1], dtype=torch.int32,
                                               device=tokens.device)[None, :]
     self_c, cross_c = cache["self"], cache["cross"]
-    for i in range(cfg.num_layers):
-        p = layer_view(params["dec_layers"], i)
+    for i, p in enumerate(_layers(params, "dec_layers", cfg.num_layers, ctx)):
         x = blocks.apply_norm(p["self_norm"], h, cfg)
         out, nc = blocks.attention(p["self_attn"], x, cfg, ctx, positions=positions,
                                    name="dec.self", cache=layer_view(self_c, i))
@@ -184,5 +218,4 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, ctx: EngineContext):
         x = blocks.apply_norm(p["mlp_norm"], h, cfg)
         h = h + blocks.mlp(p["mlp"], x, cfg, ctx, name="dec.mlp")
     h = blocks.apply_norm(params["final_norm"], h, cfg)
-    logits = ctx.linear(h, params["lm_head"], name="lm_head").to(torch.float32)
-    return logits, cache
+    return _lm_head(params, h, cfg, ctx), cache

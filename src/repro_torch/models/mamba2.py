@@ -13,14 +13,32 @@ reference's, so the two differ by reduction-order ulps. ``silu`` is the
 float op ``x * sigmoid(x)`` and ``softplus`` JAX's ``logaddexp(x, 0)``
 (``torch.nn.functional.softplus`` returns ``x`` itself above 20). The decode
 step updates the ``conv`` and ``ssm`` state in place.
+
+Under tensor parallelism (``ctx.mesh``) a rank runs the SSM on its heads.
+The reference's placement cuts ``in_proj``'s concatenated ``(z, x, B, C,
+dt)`` columns into contiguous blocks that do not line up with a rank's
+heads, so the rank all-gathers ``in_proj``'s column-parallel output over the
+model axis (each column exact), runs the depthwise conv on every channel
+with the whole ``conv_w``/``conv_b`` (the port keeps them whole on every
+rank: ``sharding.partition.serving_specs``), and takes its heads' ``x`` and
+``dt`` and the whole ``B`` and ``C``; ``A_log``, ``D``, ``dt_bias`` and the
+SSM state hold its heads. The gated RMSNorm runs over the whole ``d_inner``
+(one block a row, the ``norm`` weight whole on every rank): ``y`` is
+all-gathered over the model axis first, and the rank's K shard of the
+normed row goes into ``out_proj``, a row-parallel product. The conv window
+cache is whole on every rank. On CUDA a rank's recurrent readout pads its
+heads to the whole count with zeros (:func:`_readout`), so a head's bits do
+not depend on how many heads a rank holds.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch._device import on_card
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import EngineContext
 from repro_torch.core.normalization import rmsnorm
+from repro_torch.sharding.collectives import all_gather
 
 from .params import ParamSpec
 
@@ -32,12 +50,18 @@ def _dims(cfg: ModelConfig):
     return d_inner, n_heads
 
 
+def _proj_width(cfg: ModelConfig) -> int:
+    """``in_proj``'s output width: z, x, B, C, dt."""
+    d_inner, n_heads = _dims(cfg)
+    return 2 * d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.state_dim + n_heads
+
+
 def mamba2_specs(cfg: ModelConfig):
     s = cfg.ssm
     d = cfg.d_model
     d_inner, n_heads = _dims(cfg)
     conv_dim = d_inner + 2 * s.n_groups * s.state_dim
-    proj_out = 2 * d_inner + 2 * s.n_groups * s.state_dim + n_heads  # z, x, B, C, dt
+    proj_out = _proj_width(cfg)
     return {
         "in_proj": ParamSpec((d, proj_out), ("embed", "ssm_inner")),
         "conv_w": ParamSpec((s.conv_width, conv_dim), ("conv", "ssm_inner")),
@@ -139,6 +163,21 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int):
     return y, carry
 
 
+def _readout(cmh, ssm, n_heads: int):
+    """The recurrent step's readout ``y = C h``: (B, H, N) by (B, H, N, P)
+    -> (B, H, P). cuBLAS picks a batched product's kernel by its batch
+    count, so on CUDA a rank that holds H of ``n_heads`` heads pads them to
+    ``n_heads`` with zeros: the product has the unsharded shape and a head
+    the unsharded bits."""
+    h = cmh.shape[1]
+    if not on_card(cmh) or h == n_heads:
+        return torch.einsum("bhn,bhnp->bhp", cmh, ssm)
+    pad = n_heads - h
+    c = torch.cat([cmh, cmh.new_zeros((cmh.shape[0], pad, cmh.shape[2]))], dim=1)
+    s = torch.cat([ssm, ssm.new_zeros((ssm.shape[0], pad) + tuple(ssm.shape[2:]))], dim=1)
+    return torch.einsum("bhn,bhnp->bhp", c, s)[:, :h]
+
+
 def mamba2_forward(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, state=None):
     """Full-sequence (``state=None``) or single-step decode (``state`` carried).
 
@@ -149,8 +188,12 @@ def mamba2_forward(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, state=No
     s = cfg.ssm
     d_inner, n_heads = _dims(cfg)
     bsz, l, _ = x.shape
+    h_loc = p["A_log"].shape[0]  # this rank's heads
+    h0 = ctx.mesh.coord("model") * h_loc if h_loc < n_heads else 0
 
     zxbcdt = ctx.linear(x, p["in_proj"], name=f"{name}.in_proj")
+    if zxbcdt.shape[-1] != _proj_width(cfg):
+        zxbcdt = all_gather(zxbcdt, ctx.mesh, "model", dim=-1)  # the column shards, in order
     z, xs, b_mat, c_mat, dt = _split_proj(cfg, zxbcdt)
     conv_in = torch.cat([xs, b_mat, c_mat], dim=-1)
 
@@ -163,15 +206,20 @@ def mamba2_forward(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, state=No
         state["conv"].copy_(window[:, 1:, :])  # window is a fresh tensor: no overlap
 
     conv_out = silu(conv_out)
-    xs = conv_out[..., :d_inner]
+    xs = conv_out[..., h0 * s.head_dim: (h0 + h_loc) * s.head_dim]  # the rank's heads
     b_mat = conv_out[..., d_inner: d_inner + s.n_groups * s.state_dim]
     c_mat = conv_out[..., d_inner + s.n_groups * s.state_dim:]
+    dt = dt[..., h0: h0 + h_loc]
 
     a = -torch.exp(p["A_log"].to(torch.float32))  # (H,)
     dt = softplus(dt.to(torch.float32) + p["dt_bias"][None, None, :])  # (B,L,H)
-    xh = xs.reshape(bsz, l, n_heads, s.head_dim)
+    xh = xs.reshape(bsz, l, h_loc, s.head_dim)
     bm = b_mat.reshape(bsz, l, s.n_groups, s.state_dim).to(torch.float32)
     cm = c_mat.reshape(bsz, l, s.n_groups, s.state_dim).to(torch.float32)
+    if h_loc < n_heads and s.n_groups > 1:  # the rank's heads' groups, one a head
+        rep = n_heads // s.n_groups
+        bm = torch.repeat_interleave(bm, rep, dim=2)[:, :, h0: h0 + h_loc]
+        cm = torch.repeat_interleave(cm, rep, dim=2)[:, :, h0: h0 + h_loc]
 
     if state is None:
         chunk = min(s.chunk_size, l)
@@ -181,7 +229,7 @@ def mamba2_forward(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, state=No
         new_state = {"conv": tail, "ssm": final_state}
     else:
         # recurrent step: h' = h * exp(dt A) + dt * B x ; y = C h' + D x
-        rep = n_heads // s.n_groups
+        rep = h_loc // bm.shape[2]
         bmh = torch.repeat_interleave(bm[:, 0], rep, dim=1)  # (B,H,N)
         cmh = torch.repeat_interleave(cm[:, 0], rep, dim=1)
         dt0 = dt[:, 0]  # (B,H)
@@ -189,22 +237,34 @@ def mamba2_forward(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, state=No
         xdt = xh[:, 0].to(torch.float32) * dt0[..., None]  # (B,H,P)
         upd = torch.einsum("bhn,bhp->bhnp", bmh, xdt)
         ssm = state["ssm"].to(torch.float32) * decay[..., None, None] + upd
-        y = torch.einsum("bhn,bhnp->bhp", cmh, ssm)[:, None]  # (B,1,H,P)
+        y = _readout(cmh, ssm, n_heads)[:, None]  # (B,1,H,P)
         state["ssm"].copy_(ssm)
         new_state = state
 
     y = y + p["D"][None, None, :, None] * xh.to(torch.float32)
-    y = y.reshape(bsz, l, d_inner).to(x.dtype)
+    y = y.reshape(bsz, l, h_loc * s.head_dim).to(x.dtype)
+    if h_loc < n_heads:
+        y = all_gather(y, ctx.mesh, "model", dim=-1)  # the whole d_inner, for the norm
     y = rmsnorm(y * silu(z.to(torch.float32)).to(x.dtype), p["norm"])
-    return ctx.linear(y, p["out_proj"], name=f"{name}.out_proj"), new_state
+    k_loc = p["out_proj"].shape[0]  # out_proj's K shard: row-parallel
+    if k_loc < d_inner:
+        k0 = ctx.mesh.coord("model") * k_loc
+        y = y[..., k0: k0 + k_loc]
+    return (ctx.linear(y, p["out_proj"], name=f"{name}.out_proj", k_sharded=k_loc < d_inner),
+            new_state)
 
 
-def init_mamba_state(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None):
+def init_mamba_state(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None,
+                     mesh=None):
+    """One layer's state; ``mesh``: a rank's (the SSM state holds its heads
+    where the model axis divides them, the conv window every channel)."""
     s = cfg.ssm
     d_inner, n_heads = _dims(cfg)
     conv_dim = d_inner + 2 * s.n_groups * s.state_dim
+    m = mesh.size("model") if mesh is not None else 1
+    heads = n_heads // m if m > 1 and n_heads % m == 0 else n_heads
     return {
         "conv": torch.zeros((batch, s.conv_width - 1, conv_dim), dtype=dtype, device=device),
-        "ssm": torch.zeros((batch, n_heads, s.state_dim, s.head_dim), dtype=dtype,
+        "ssm": torch.zeros((batch, heads, s.state_dim, s.head_dim), dtype=dtype,
                            device=device),
     }

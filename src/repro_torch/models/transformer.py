@@ -16,13 +16,15 @@ one, on text tokens. The cache is updated in place: ``decode_step`` writes
 each layer's KV rows, index and recurrent state into the cache it was given
 and returns that cache.
 
-Under tensor parallelism (``ctx.mesh``; the attention families) the
-embedding table and the lm_head are vocab-sharded: a token's row is the
+Under tensor parallelism (``ctx.mesh``; every family: the Mamba2 mixer's
+own split is in ``mamba2``) the embedding table and the lm_head are
+vocab-sharded: a token's row is the
 masked local lookup summed over the model axis (one non-zero term: exact),
 and the local logits are all-gathered along the vocab before any argmax or
 sample. A weight stored FSDP-sharded over ``data`` is all-gathered where it
 is used, one layer at a time (:func:`_fsdp`). ``make_cache(mesh=)`` makes
-the rank's cache: its kv heads (an MLA latent is whole on every rank).
+the rank's cache: its kv heads (an MLA latent is whole on every rank) and
+its SSM heads.
 """
 from __future__ import annotations
 
@@ -241,7 +243,9 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, 
     window (L, B, W-1, C) and SSM state (L, B, H, N, P); a hybrid segment
     holds, per group, its layers' states ``ssm`` (G, per, B, ...) and the
     shared attention's KV cache ``attn`` (G, B, T, KV, hd). With ``mesh``
-    (tensor parallelism) a GQA cache holds the rank's kv heads."""
+    (tensor parallelism) a GQA cache holds the rank's kv heads and an SSM
+    state the rank's heads (``mamba2.init_mamba_state``); a conv window
+    holds every channel."""
     if cfg.mla:
         init = mla.init_mla_cache
     else:
@@ -257,7 +261,7 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, 
         return tree.unsqueeze(0).repeat((n,) + (1,) * tree.ndim)
 
     def mamba_c():
-        return mamba2.init_mamba_state(cfg, batch, dtype, device)
+        return mamba2.init_mamba_state(cfg, batch, dtype, device, mesh)
 
     out = {}
     for i, (kind, n) in enumerate(_segments(cfg)):
@@ -268,7 +272,7 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, 
             one = mamba_c()
         elif kind == "hybrid":
             one = {"ssm": stack(mamba_c(), cfg.hybrid.attn_every),
-                   "attn": blocks.init_attn_cache(cfg, batch, max_len, dtype, device)}
+                   "attn": init(cfg, batch, max_len, dtype, device)}
         else:
             one = init(cfg, batch, max_len, dtype, device)
         out[f"seg{i}_{kind}"] = stack(one, n)

@@ -133,8 +133,11 @@ def build_bank(
     expensive point. ``calibration`` (a ``sim.calibrate`` export) refines the
     per-point cycle estimates; ``bank.cycle_model`` records which model
     produced them. With ``mesh`` (tensor parallelism) the cycles are the
-    whole model's, and the trees hold this rank's shards: the raw tree is
-    sliced once, then every point prepares the slices.
+    whole model's, and the trees hold this rank's shards
+    (``partition.serving_specs``): the raw tree is sliced once, then every
+    point prepares the slices; in the int8 mode, whose per-channel weight
+    scales span the whole K, every point prepares the whole tree and its
+    leaves are then sliced (once per leaf, so shared leaves stay shared).
     """
     if mode == "exact":
         raise ValueError(
@@ -158,17 +161,25 @@ def build_bank(
     if reference not in cycles:
         raise ValueError(f"reference point {reference!r} not in {sorted(cycles)}")
 
+    whole_first = mesh is not None and mode == "int8"
     if mesh is not None:
         if specs is None:
             raise ValueError("build_bank(mesh=) needs the model's param specs")
-        from repro_torch.sharding.partition import shard_params
+        from repro_torch.sharding.partition import require_whole, serving_specs, shard_params
 
-        params = shard_params(params, specs, mesh)
+        place = serving_specs(specs)
+        if whole_first:
+            require_whole(params, place, "an int8 bank on a mesh: its weight scales span K")
+        else:
+            params = shard_params(params, place, mesh)
     memo: Dict = {}
     trees = {
         p.name: prepare_params(params, p.policy, mode, specs=specs, memo=memo)
         for p in points
     }
+    if whole_first:
+        placed: Dict = {}
+        trees = {name: shard_params(tree, place, mesh, placed) for name, tree in trees.items()}
 
     id_sets = [_leaf_ids(t) for t in trees.values()]
     all_ids = set().union(*id_sets)
@@ -199,10 +210,10 @@ def place_bank(bank: MultiPointBank, mesh, specs) -> MultiPointBank:
         raise ValueError("the bank already holds another mesh's shards")
     if specs is None:
         raise ValueError("place_bank needs the model's param specs (model.specs())")
-    from repro_torch.sharding.partition import shard_params
+    from repro_torch.sharding.partition import serving_specs, shard_params
 
     memo: Dict = {}
     for name in bank.names:
-        bank.trees[name] = shard_params(bank.trees[name], specs, mesh, memo)
+        bank.trees[name] = shard_params(bank.trees[name], serving_specs(specs), mesh, memo)
     bank.mesh = mesh
     return bank

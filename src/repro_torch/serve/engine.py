@@ -78,23 +78,27 @@ Slots that are free or drained keep decoding every burst, as in the
 reference; their cache index runs on and the KV write clamps at ``max_len``.
 
 **Tensor-parallel serving** (``BatchedServer(mesh=...)``, a
-``launch.mesh.Mesh`` over the process group's ranks; the batched-prefill
-families): SPMD, every rank runs the same host loop over the same requests.
-A rank keeps its shard of every weight (``sharding.partition``: sliced from
-the raw tree, then prepared; a bank's points sharded once per leaf) and
-the model calls the collectives itself (``sharding.collectives``). Slots
-shard over ``data`` (``slot_pspec``): a rank's KV cache and slot state hold
-its data group's slots and its kv heads; weights with an ``embed`` axis are
-stored FSDP-sharded over ``data`` and all-gathered a layer at a time where
-they are used. Every data group runs each prefill (its FSDP gathers span
-the data group, so every data rank runs every program) and the owning one
-scatters the row into its slot; a burst runs on the local slots and
-its tokens, margins and flags are all-gathered over ``data`` before the
-host reads them, so every rank's scheduler stays in lockstep. ``gloo``
-collectives cannot be captured in a CUDA graph, so a meshed server runs
-uncaptured (``capture=True`` with a mesh raises). Refused under a mesh,
-each naming its ROADMAP item: the scan families, per-call weights and the
-int8 mode (kernel 6's partial-sum variant), the streaming frontend.
+``launch.mesh.Mesh`` over the process group's ranks; every family, every
+engine mode, prepared or per-call weights): SPMD, every rank runs the same
+host loop over the same requests. A rank keeps its shard of every weight
+(``sharding.partition``: sliced from the raw tree, then prepared; in the
+int8 mode prepared whole, then sliced, so a row shard keeps the whole K's
+per-channel scales; a bank's points sharded once per leaf; a Mamba2 mixer's
+conv and norm whole, ``partition.serving_specs``) and the model calls the
+collectives itself (``sharding.collectives``). Slots shard over ``data``
+(``slot_pspec``): a rank's cache and slot state hold its data group's slots,
+its kv heads and its SSM heads; weights with an ``embed`` axis are stored
+FSDP-sharded over ``data`` and all-gathered a layer at a time where they
+are used. Every data group runs each prefill (its FSDP gathers span the
+data group, so every data rank runs every program; the scan prefill's
+single-token step too, once per prompt token) and the owning one scatters
+the row into its slot; a burst runs on the local slots and its tokens,
+margins and flags are all-gathered over ``data`` before the host reads
+them, so every rank's scheduler stays in lockstep. ``gloo`` collectives
+cannot be captured in a CUDA graph, so a meshed server runs uncaptured
+(``capture=True`` with a mesh raises). Refused under a mesh, each naming its
+ROADMAP item: q and kv heads that split differently over the model axis,
+and the streaming frontend.
 """
 from __future__ import annotations
 
@@ -318,9 +322,10 @@ def make_scan_prefill(model: ModelApi, ctx: EngineContext):
     ``prompt[0, i]`` (``prompt`` (1, max_len) int32) into ``row``; writes its
     logits to ``last`` and advances ``i``. Run once per prompt token.
 
-    ``finish(cache, state, row, scan, slot, base_key, temp, max_new) -> (tok
-    (1, 1), margin (1,))``: sample token 0 from ``last``, scatter the row into
-    slot ``slot``, admit the slot (:func:`_finish_prefill`); then zero the
+    ``finish(cache, state, row, scan, slot, base_key, temp, max_new, owned)
+    -> (tok (1, 1), margin (1,))``: sample token 0 from ``last``, scatter the
+    row into slot ``slot`` and admit the slot where this rank holds it
+    (``owned``; :func:`_finish_prefill`); then zero the
     row, ``last`` and ``i`` for the next prefill, as the reference starts
     each from a fresh cache (the hybrid attention index and the
     encoder-decoder's cross K/V too).
@@ -332,8 +337,9 @@ def make_scan_prefill(model: ModelApi, ctx: EngineContext):
         scan["last"].copy_(logits[:, -1, :])
         scan["i"].add_(1)
 
-    def finish(cache, state, row, scan, slot, base_key, temp, max_new):
-        out = _finish_prefill(cache, state, row, scan["last"], slot, base_key, temp, max_new)
+    def finish(cache, state, row, scan, slot, base_key, temp, max_new, owned=True):
+        out = _finish_prefill(cache, state, row, scan["last"], slot, base_key, temp, max_new,
+                              owned)
         _zero(row)
         _zero(scan)
         return out
@@ -481,10 +487,13 @@ class BatchedServer:
         self.mesh, self.shardings = mesh, None
         self._local_slots, self._data_shards = slots, 1
         self._slot_ctx = ctx  # the bursts' and speculative rounds' context
+        # the int8 mode's per-channel weight scales span the whole K: its
+        # tree is prepared whole, then sharded
+        whole_first = (ctx.mode == "int8" and prepare_weights and self._bank is None
+                       and speculate is None)
         if mesh is not None:
-            _check_mesh(model.cfg, ctx, mesh, self.device, capture,
-                        prepare_weights or self._bank is not None)
-            specs = model.specs()
+            _check_mesh(model.cfg, mesh, self.device, capture)
+            specs = model.serving_specs()
             if slots % mesh.size("data") == 0:
                 self._data_shards = mesh.size("data")
                 self._local_slots = slots // self._data_shards
@@ -492,6 +501,10 @@ class BatchedServer:
                 from repro_torch.runtime.bank import place_bank
 
                 place_bank(self._bank, mesh, specs)
+            elif whole_first:
+                from repro_torch.sharding.partition import require_whole
+
+                require_whole(params, specs, "the int8 mode on a mesh: its weight scales span K")
             else:
                 from repro_torch.sharding.partition import shard_params
 
@@ -504,6 +517,10 @@ class BatchedServer:
             self.telemetry = TelemetryRecorder.for_bank(controller.bank)
         elif prepare_weights and speculate is None:
             params = prepare_params(params, ctx.policy, ctx.mode, specs=model.specs())
+            if mesh is not None and whole_first:
+                from repro_torch.sharding.partition import shard_params
+
+                params = shard_params(params, specs, mesh)
         self.params = params
         self.batched_prefill = prefills_batched(model.cfg)
         if speculate is not None:
@@ -564,7 +581,8 @@ class BatchedServer:
             # the scan prefill's static row cache, counter, last logits and
             # prompt buffer, made here, before any capture
             self._scan_step, self._scan_finish = make_scan_prefill(model, ctx)
-            self._row = model.make_cache(1, max_len, dtype=torch.float32, device=self.device)
+            self._row = model.make_cache(1, max_len, dtype=torch.float32, device=self.device,
+                                         mesh=mesh)
             self._scan = {"i": torch.zeros((1,), dtype=torch.int64, device=self.device),
                           "last": torch.zeros((1, model.cfg.vocab_size), dtype=torch.float32,
                                               device=self.device)}
@@ -713,7 +731,7 @@ class BatchedServer:
         if self.batched_prefill:
             out = self._bucketed_prefill(prompt, tree, point, owned)
         else:
-            out = self._scan_prefill(prompt, tree, point)
+            out = self._scan_prefill(prompt, tree, point, owned)
         self.prefill_calls += 1
         self.host_transfers += 1
         req.generated, req.margins = [], []
@@ -754,7 +772,7 @@ class BatchedServer:
         return self.programs.run(program_name(f"prefill {bucket}", point), program, self.cache,
                                  self._state, inputs=[tokens, *args.values()])
 
-    def _scan_prefill(self, prompt: np.ndarray, tree, point) -> torch.Tensor:
+    def _scan_prefill(self, prompt: np.ndarray, tree, point, owned: bool = True) -> torch.Tensor:
         tokens, args = self._scan_prompt, self._args
         padded = np.zeros((1, self.max_len), np.int32)
         padded[0, :len(prompt)] = prompt
@@ -767,16 +785,16 @@ class BatchedServer:
             self.programs.run(program_name("prefill step", point), step, self._row, self._scan,
                               inputs=[tokens] if j == 0 else ())
             self.prefill_steps += 1
-        return self._run_scan_finish()
+        return self._run_scan_finish(owned)
 
-    def _run_scan_finish(self) -> torch.Tensor:
+    def _run_scan_finish(self, owned: bool = True) -> torch.Tensor:
         args = self._args
 
         def finish(cache, state):
             a = {name: s.device_buf for name, s in args.items()}
             tok, margin = self._scan_finish(cache["slots"], state["slots"], cache["row"],
                                             state["scan"], a["slot"], a["key"], a["temp"],
-                                            a["max_new"])
+                                            a["max_new"], owned)
             return torch.stack([tok.reshape(1).to(torch.float32), margin])
 
         # the row and the scan state go in with the slot cache and state, so
@@ -1416,21 +1434,8 @@ class BatchedServer:
         }
 
 
-def _check_mesh(cfg, ctx, mesh, device, capture: bool, prepared: bool) -> None:
+def _check_mesh(cfg, mesh, device, capture: bool) -> None:
     """Refuse, naming its ROADMAP item, what mesh serving does not cover."""
-    if cfg.family not in _BATCHED_PREFILL_FAMILIES:
-        raise NotImplementedError(
-            f"mesh serving covers the batched-prefill families {_BATCHED_PREFILL_FAMILIES}; "
-            f"the {cfg.family!r} family's scan prefill waits for ROADMAP Queue 1 "
-            "(the scan families on a mesh)")
-    if not prepared:
-        raise NotImplementedError(
-            "mesh serving needs prepared weights: per-call weights re-round at every dot "
-            "through kernel 6, whose partial-sum variant is ROADMAP Queue 1")
-    if ctx.mode == "int8":
-        raise NotImplementedError(
-            "the int8 mode under a mesh needs kernel 6's partial-sum variant and a global "
-            "per-token max (ROADMAP Queue 1)")
     if capture and device.type == "cuda":
         raise ValueError(
             "capture=True with a mesh: gloo collectives cannot be captured in a CUDA graph; "
@@ -1446,18 +1451,23 @@ def _check_mesh(cfg, ctx, mesh, device, capture: bool, prepared: bool) -> None:
 
 def _serving_shardings(server, mesh):
     """The placement the server keeps: the reference's rules
-    (``serving_shardings`` on the whole cache's shapes), but an MLA latent
-    cache whole on every rank of the model axis (the port's MLA runs its
-    local heads against the whole latent)."""
+    (``serving_shardings`` on the whole cache's shapes) over the port's
+    serving specs (``partition.serving_specs``), but an MLA latent cache
+    whole on every rank of the model axis (the port's MLA runs its local
+    heads against the whole latent). The scan families' caches are
+    described as the port stores them, from their shapes: a dim is over
+    ``data`` where a rank holds fewer slots, over ``model`` where it holds
+    fewer heads (the SSM state's and the attention caches' heads; a conv
+    window is whole on every rank)."""
     from repro_torch.sharding import partition
 
-    cfg = server.model.cfg
+    cfg, model = server.model.cfg, server.model
     tree = server._bank.tree(server._bank.names[0]) if server._bank is not None else \
         server.params
-    full_cache = server.model.make_cache(server.slots, server.max_len, device="meta")
+    full_cache = model.make_cache(server.slots, server.max_len, device="meta")
     full_state = _init_slot_state(server.slots, "meta")
     sh = partition.serving_shardings(mesh, params=tree, cache=full_cache, state=full_state,
-                                     specs=server.model.specs(), cfg=cfg,
+                                     specs=model.serving_specs(), cfg=cfg,
                                      max_len=server.max_len)
 
     def cache_entry(spec):
@@ -1469,7 +1479,25 @@ def _serving_shardings(server, mesh):
                 spec = spec[:-1]
         return spec
 
-    sh.cache = cache_entry(sh.cache)
+    def stored(whole, heads, local):
+        if isinstance(whole, dict):
+            return {k: stored(whole[k], heads[k], local[k]) for k in whole}
+        spec = [None] * whole.ndim
+        for i, (a, b, c) in enumerate(zip(whole.shape, heads.shape, local.shape)):
+            if c < b:
+                spec[i] = "data"
+            elif b < a:
+                spec[i] = "model"
+        while spec and spec[-1] is None:
+            spec.pop()
+        return tuple(spec)
+
+    if server.batched_prefill:
+        sh.cache = cache_entry(sh.cache)
+    else:
+        heads = model.make_cache(server.slots, server.max_len, device="meta", mesh=mesh)
+        local = model.make_cache(server._local_slots, server.max_len, device="meta", mesh=mesh)
+        sh.cache = stored(full_cache, heads, local)
     return sh
 
 

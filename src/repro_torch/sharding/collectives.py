@@ -3,12 +3,14 @@
 to GSPMD).
 
 * :func:`all_reduce`: a sum over one mesh axis, of int32 (the row-parallel
-  partial dots of kernel mode, which wrap modulo 2**32 in any order, so the
-  sum is exact) or of f32 (the row-parallel partial products of the exact
-  and carmen modes, which differ from an unsplit product by reduction-order
-  ulps, as the reference's GSPMD partial sums do). A sum in which every
-  element has one non-zero term (a masked embedding gather, the MoE's
-  per-choice outputs) is exact too: x + 0 == x.
+  partial dots of the kernel and int8 modes, which wrap modulo 2**32 in any
+  order, so the sum is exact) or of f32 (the row-parallel partial products
+  of the exact and carmen modes, which differ from an unsplit product by
+  reduction-order ulps, as the reference's GSPMD partial sums do). A sum in
+  which every element has one non-zero term (a masked embedding gather, the
+  MoE's per-choice outputs) is exact too: x + 0 == x. With ``op="max"`` the
+  maximum (the int8 mode's per-token and per-channel maxima of a K shard):
+  exact.
 * :func:`all_gather`: shards concatenated along a dim in coordinate order
   (the vocab-sharded logits, the router's expert columns, and, over
   ``data``, a burst's per-slot tokens and margins).
@@ -61,15 +63,19 @@ def _staged(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def all_reduce(t: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
-    """The sum of ``t`` over the ranks of ``mesh``'s ``axis`` (a new tensor
-    on ``t``'s device; ``t`` itself where the axis has extent 1)."""
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(t: torch.Tensor, mesh, axis: str = "model", op: str = "sum") -> torch.Tensor:
+    """The sum (``op="max"``: the maximum) of ``t`` over the ranks of
+    ``mesh``'s ``axis`` (a new tensor on ``t``'s device; ``t`` itself where
+    the axis has extent 1)."""
     group = mesh.group(axis) if mesh is not None else None
     if group is None:
         return t
     staged = _staged(t, group)
     buf = t.detach().to("cpu") if staged else t.detach().clone()
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(buf, op=_OPS[op], group=group)
     _count("all-reduce", buf)
     return buf.to(t.device) if staged else buf
 
@@ -109,7 +115,8 @@ def gather_data(tree, specs, mesh, lead: int = 0):
     entry all-gathered over the data group along that dim. A prepared
     integer bank is K-major again after the gather (its contraction axes: all
     but the last for ``wo``, the first otherwise, as ``prepare_params`` lays
-    them out)."""
+    them out). An int8 bank's per-channel scale is gathered with it where its
+    channel axis is the sharded one."""
     from repro_torch.core.backends.base import PreparedWeight
 
     if mesh is None or mesh.size("data") == 1:
@@ -129,7 +136,12 @@ def gather_data(tree, specs, mesh, lead: int = 0):
             k_axes = full.ndim - 1 if key == "wo" else 1
             k = math.prod(full.shape[:k_axes])
             full = to_k_major(full.reshape(k, -1)).reshape(full.shape)
-        return PreparedWeight(full, leaf.backend, leaf.point, leaf.scale, leaf.meta)
+        scale = leaf.scale
+        if scale is not None:
+            ds = _data_dim(spec.scale[lead:])
+            if ds is not None:
+                scale = all_gather(scale, mesh, "data", ds)
+        return PreparedWeight(full, leaf.backend, leaf.point, scale, leaf.meta)
 
     def walk(node, spec, key):
         if isinstance(node, dict):

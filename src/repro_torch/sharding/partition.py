@@ -38,6 +38,7 @@ __all__ = [
     "sharding_report", "prepared_shardings", "slot_pspec", "slot_shardings",
     "cache_shardings", "serving_shardings", "serving_sharding_report", "batch_pspec",
     "use_2d_ep", "axis_sizes", "local_index", "local_shape", "shard_tensor", "shard_params",
+    "serving_specs", "require_whole",
 ]
 
 # logical axis -> ordered candidate mesh-axis groups (first that divides wins)
@@ -330,6 +331,33 @@ def use_2d_ep(num_experts: int, mesh) -> bool:
 # ---------------------------------------------------------------------------
 
 
+# a Mamba2 mixer's leaves that the port keeps whole on every model rank
+_MIXER_WHOLE = ("conv_w", "conv_b", "norm")
+
+
+def _unshard(spec: ParamSpec, axis: str) -> ParamSpec:
+    return dataclasses.replace(spec, axes=tuple(None if a == axis else a for a in spec.axes))
+
+
+def serving_specs(specs):
+    """The specs the port places a served tree by on a mesh: the
+    reference's, except that a Mamba2 mixer's depthwise conv (``conv_w``,
+    ``conv_b``) and gated norm weight (``norm``) are whole on every rank of
+    the model axis (their ``ssm_inner`` axis unsharded). The reference's
+    rules cut the conv channels into contiguous blocks that do not line up
+    with a rank's heads, and the norm runs over the whole ``d_inner``; the
+    port's mixer runs both on the whole row (``models/mamba2.py``). Every
+    other leaf keeps the reference's spec."""
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        mixer = "conv_w" in node and "in_proj" in node
+        return {k: _unshard(v, "ssm_inner") if mixer and k in _MIXER_WHOLE else walk(v)
+                for k, v in node.items()}
+
+    return walk(specs)
+
+
 def _axes(entry) -> tuple:
     return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
 
@@ -386,6 +414,22 @@ def _global_shapes(tree, specs):
     if isinstance(tree, dict) and "lm_head" in tree and "lm_head" not in shapes:
         shapes = dict(shapes, lm_head=tuple(specs["embed"].shape[::-1]))
     return shapes
+
+
+def require_whole(tree, specs, why: str) -> None:
+    """Raise unless every leaf of the raw ``tree`` has its spec's global
+    shape (``why`` says what needs the whole tree)."""
+    shapes = _global_shapes(tree, specs)
+
+    def walk(p, shape, keys):
+        if isinstance(p, dict):
+            for k in p:
+                walk(p[k], shape[k], keys + (k,))
+        elif tuple(p.shape) != tuple(shape):
+            raise ValueError(f"{why}: pass the whole tree, not this rank's shards "
+                             f"({'/'.join(keys)} is {tuple(p.shape)}, not {tuple(shape)})")
+
+    walk(tree, shapes, ())
 
 
 def shard_params(tree, specs, mesh, memo: Optional[Dict[int, object]] = None):

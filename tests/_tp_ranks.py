@@ -37,12 +37,21 @@ def _flat_ids(tree) -> list:
     return [id(tree)] if isinstance(tree, PreparedWeight) else []
 
 
+def _leaf_shapes(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _leaf_shapes(sub, f"{prefix}{key}/").items()}
+    return {prefix[:-1]: tuple(tree.shape)}
+
+
 def serve(job: dict, mesh=None) -> dict:
     """One job: ``arch`` (reduced), ``mode``, ``params`` (the reference's raw
     numpy tree), optional ``temperature``, ``max_new``, ``max_len``,
-    ``bank`` ("pinned" or "spec": a carmen FxP16 ladder pinned at accurate,
-    or greedy speculation with draft_len 3), ``fxp16``. Returns the streams,
-    margins and, on a mesh, the placement and collective record."""
+    ``bank`` ("pinned" or "spec": a ``mode`` FxP16 ladder pinned at
+    accurate, or greedy speculation with draft_len 3), ``fxp16``,
+    ``per_call`` (serve the raw weights), ``repeat`` (serve the requests
+    again on a second server: its streams are ``again``). Returns the
+    streams, margins and, on a mesh, the placement and collective record."""
     model = get_model(reduced(get_config(job["arch"])))
     params = model.load_numpy(job["params"], "cpu")
     ctx = ctx_of(job["mode"], job.get("fxp16", False))
@@ -60,17 +69,29 @@ def serve(job: dict, mesh=None) -> dict:
             from repro_torch.spec import SpecConfig
 
             kw.update(bank=bank, speculate=SpecConfig(draft_len=3))
-    server = BatchedServer(model, ctx, params, slots=4, max_len=job.get("max_len", 32),
-                           burst=4, device="cpu", mesh=mesh, **kw)
-    reqs = requests(model.cfg.vocab_size, max_new=job.get("max_new", 6),
-                    temperature=job.get("temperature", 0.0))
-    out = {"streams": server.run(reqs), "margins": [r.margins for r in reqs]}
+    def make():
+        return BatchedServer(model, ctx, params, slots=4, max_len=job.get("max_len", 32),
+                             burst=4, device="cpu", mesh=mesh,
+                             prepare_weights=not job.get("per_call"), **kw)
+
+    def reqs():
+        return requests(model.cfg.vocab_size, max_new=job.get("max_new", 6),
+                        temperature=job.get("temperature", 0.0))
+
+    server, run = make(), reqs()
+    out = {"streams": server.run(run), "margins": [r.margins for r in run],
+           "prefill_steps": server.prefill_steps}
+    if job.get("repeat"):
+        out["again"] = make().run(reqs())
     if server.spec_telemetry is not None:
         out["rounds"] = server.spec_telemetry.summary()["rounds"]
     if mesh is not None and job.get("record"):
         out["collectives"] = server.collective_snapshot()
         out["report"] = json.loads(json.dumps(server.shardings.snapshot()))
-        out["cache_shapes"] = {k: tuple(v.shape) for k, v in server.cache["seg0_dense"].items()}
+        out["cache_leaves"] = _leaf_shapes(server.cache)
+        if "seg0_dense" in server.cache:
+            out["cache_shapes"] = {k: tuple(v.shape)
+                                   for k, v in server.cache["seg0_dense"].items()}
         out["state_shapes"] = {k: tuple(v.shape) for k, v in server._state.items()}
         out["local_slots"] = server._local_slots
     if bank is not None and mesh is not None:
@@ -105,6 +126,7 @@ def count_plain_launches(smoke, sizes: dict):
     from repro_torch import kernels
     from repro_torch.kernels.cordic_af import ops as af_ops
     from repro_torch.kernels.cordic_fused import ops as fused_ops
+    from repro_torch.kernels.cordic_mac import ops as mac_ops
     from repro_torch.kernels.decode_attention import ops as attn_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.int_dot import PATH_NAMES, plan
@@ -140,6 +162,10 @@ def count_plain_launches(smoke, sizes: dict):
     counted(fused_ops, "fused_dot_partial_ref", fused_ops.fused_dot_partial,
             lambda x, w, p: dot_path(x, w))
     counted(fused_ops, "fused_epilogue_ref", fused_ops.fused_epilogue, lambda *a: "elementwise")
+    counted(mac_ops, "mac_matmul_ref", mac_ops.mac_matmul, lambda x, w, *a: dot_path(x, w))
+    counted(mac_ops, "mac_matmul_partial_ref", mac_ops.mac_matmul_partial,
+            lambda x, w: dot_path(x, w))
+    counted(mac_ops, "mac_epilogue_ref", mac_ops.mac_epilogue, lambda *a: "elementwise")
     counted(attn_ops, "gqa_decode_attention_ref", attn_ops.gqa_decode_attention,
             lambda q, *a: "tc" if q.shape[1] >= attn_ops.TC_MIN_S else "split")
     counted(attn_ops, "mla_decode_attention_ref", attn_ops.mla_decode_attention,
@@ -164,5 +190,6 @@ def smoke_rank(rank: int, world: int, root: str, sizes: dict, job: dict):
     import chip_smoke
 
     count_plain_launches(chip_smoke, sizes)
+    kw = {k: job[k] for k in ("lens", "mode", "per_call") if k in job}
     return chip_smoke.tp_serve(job["cfg"], mesh_from_shape(job["mesh"]), "cpu",
-                               job.get("forward"), job.get("max_new"))
+                               job.get("forward"), job.get("max_new"), **kw)

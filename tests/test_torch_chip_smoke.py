@@ -320,9 +320,10 @@ def test_scan_forward_launches(smoke, counted, name):
 
 def test_scan_configs_keep_stock_widths_and_name_their_cuts(smoke):
     """The scan archs' card configs: stock widths, f32, mamba2 cut to 24 of
-    its 48 layers, zamba2 to 18 of its 81 (two groups of nine), with the
-    parameter reckoning the phases report (mamba2 505.9 M of a stock
-    857.4 M, zamba2 1.84 B of a stock 6.75 B, seamless 1.63 B)."""
+    its 48 layers, zamba2 to 18 of its 81 (two groups of nine), seamless to
+    12 of its 24 decoder layers, with the parameter reckoning the phases
+    report (mamba2 505.9 M of a stock 857.4 M, zamba2 1.84 B of a stock
+    6.75 B, seamless 1.33 B of a stock 1.63 B)."""
     from repro_torch.configs import get_config
 
     for name, layers in smoke.SCAN_ARCH_LAYERS.items():
@@ -335,7 +336,8 @@ def test_scan_configs_keep_stock_widths_and_name_their_cuts(smoke):
     assert round(got["zamba2-7b"]["params_b"], 2) == 1.84
     assert round(got["zamba2-7b"]["params_b_at_stock_depth"], 2) == 6.75
     assert round(got["zamba2-7b"]["f32_weights_gb"], 2) == 7.35
-    assert round(got["seamless-m4t-large-v2"]["params_b"], 2) == 1.63
+    assert round(got["seamless-m4t-large-v2"]["params_b"], 2) == 1.33
+    assert round(got["seamless-m4t-large-v2"]["params_b_at_stock_depth"], 2) == 1.63
     assert smoke.scan_config("zamba2-7b").num_layers % 9 == 0
 
 

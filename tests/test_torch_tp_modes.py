@@ -11,8 +11,8 @@ spawned ``gloo`` ranks (one torch thread each) and on a 1x1 mesh.
 * Placement keeps the bank's aliasing; fault isolation and the trace (its
   ``sharding`` meta and ``collectives`` header) work on a 1x1 mesh; the CLI's
   ``--mesh 1,2`` streams equal its streams without it.
-* What the slice leaves out raises, naming its ROADMAP item, and a rank that
-  fails never hangs the others: the spawn helper kills them.
+* What mesh serving leaves out raises, naming its ROADMAP item, and a rank
+  that fails never hangs the others: the spawn helper kills them.
 """
 import json
 
@@ -178,27 +178,26 @@ def test_cli_mesh_streams_equal_streams_without(capfd):
     out = capfd.readouterr().out  # the spawned ranks print to the same stdout
     assert out.count("served 4 requests") == 2  # rank 1 prints nothing
     for bad, msg in ((["--mesh", "1,2"], "--dist-backend"),
-                     (["--mesh", "1,2", "--dist-backend", "gloo", "--frontend"], "frontend"),
-                     (["--mesh", "1,2", "--dist-backend", "gloo", "--per-call"], "ROADMAP")):
+                     (["--mesh", "1,2", "--dist-backend", "gloo", "--frontend"], "frontend")):
         with pytest.raises((SystemExit, RuntimeError), match=msg):
             cli.main(argv + bad)
 
 
 def test_refusals_name_their_roadmap_item(olmo):
-    mamba = get_model(reduced(get_config("mamba2-780m")))
+    """What mesh serving still refuses: capture with a mesh on the card, q
+    and kv heads that split differently over the model axis, and the
+    streaming frontend. (The scan families, per-call weights and the int8
+    mode serve on a mesh since kernel 6's split form:
+    ``test_torch_tp_scan.py``, ``test_torch_tp_int8.py``.)"""
+    import dataclasses
+
     mesh = Mesh({"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedServer(mamba, _tp_ranks.ctx_of("kernel"),
-                      mamba.init(torch.Generator().manual_seed(0)), device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _server(olmo[1], mesh, prepare_weights=False)
     model = get_model(reduced(get_config("olmo-1b")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedServer(model, _tp_ranks.ctx_of("int8"), model.load_numpy(olmo[1], "cpu"),
-                      device="cpu", mesh=mesh)
     with pytest.raises(ValueError, match="capture"):
-        _check_mesh(model.cfg, _tp_ranks.ctx_of("kernel"), mesh, torch.device("cuda"),
-                    True, True)
+        _check_mesh(model.cfg, mesh, torch.device("cuda"), True)
+    one_kv = dataclasses.replace(model.cfg, num_kv_heads=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: replicated kv heads"):
+        _check_mesh(one_kv, mesh, torch.device("cpu"), False)
     from repro_torch.serve.frontend import ContinuousScheduler
 
     srv = _server(olmo[1], ONE)

@@ -56,3 +56,35 @@ def test_tp_phase_rehearses_on_the_cpu(smoke):
                             "fused_epilogue"] > 0
     finally:
         undo()
+
+
+def test_tp_split_and_scan_phases_rehearse_on_the_cpu(smoke):
+    """The tp group's kernel-6 and scan phases (``chip_smoke.tp_phases``'
+    olmo-1b int8 and per call, mamba2, zamba2, seamless) on reduced configs
+    at (1,2), cut as the smoke cuts them (``TP_NEW_PROMPTS``,
+    ``TP_NEW_MAX_NEW``), the plain versions counting: every rank's streams
+    and f32 margins equal the one-device run's, and each run's launches by
+    instantiation pass the phase's own exact check (kernel 6's row dots
+    partial-sum + epilogue; the scan prefill's single-row steps)."""
+    import _tp_ranks
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import spawn
+
+    sizes = dict(MAX_LEN=64, BUCKET=32)
+    undo = _tp_ranks.count_plain_launches(smoke, sizes)
+    try:
+        cut = dict(lens=smoke.TP_NEW_PROMPTS, max_new=smoke.TP_NEW_MAX_NEW)
+        olmo = reduced(get_config("olmo-1b"))
+        mac = ("cordic_mac_partial", "cordic_mac_epilogue")
+        runs = [(olmo, dict(mode="int8"), mac), (olmo, dict(per_call=True), mac)]
+        runs += [(reduced(get_config(name)), {}, ("fused_dot_partial", "fused_epilogue"))
+                 for name in smoke.TP_SCAN_LAYERS]
+        for cfg, kw, split in runs:
+            base = smoke.tp_serve(cfg, None, "cpu", None, cut["max_new"], lens=cut["lens"], **kw)
+            job = dict(cfg=cfg, mesh=(1, 2), **cut, **kw)
+            for rep in spawn(_tp_ranks.smoke_rank, 2, args=(str(ROOT), sizes, job), timeout=240):
+                assert rep["streams"] == base["streams"], (cfg.name, kw)
+                assert rep["margins"] == base["margins"], (cfg.name, kw)
+                assert rep["launches"][split[0]] == rep["launches"][split[1]] > 0
+    finally:
+        undo()

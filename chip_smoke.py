@@ -4494,9 +4494,9 @@ def train_config():
     return olmo()
 
 
-def train_step_fn(cfg, mode: str, steps: int, remat: bool = True):
+def train_step_fn(cfg, mode: str, steps: int, remat: bool = True, mesh=None):
     """The train CLI's step for ``--mode mode --steps steps`` at full width
-    (warm-up 10, cosine over ``steps``, remat on)."""
+    (warm-up 10, cosine over ``steps``, remat on), on ``mesh`` if given."""
     from repro_torch.launch.train import engine_ctx
     from repro_torch.models import get_model
     from repro_torch.train import optimizer as opt
@@ -4504,7 +4504,8 @@ def train_step_fn(cfg, mode: str, steps: int, remat: bool = True):
 
     tcfg = TrainConfig(optimizer=opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=10, total_steps=steps),
                        remat=remat)
-    return make_train_step(get_model(cfg), engine_ctx(mode), tcfg)
+    ctx = dataclasses.replace(engine_ctx(mode), mesh=mesh)
+    return make_train_step(get_model(cfg), ctx, tcfg)
 
 
 def train_steps(step_fn, params, state, pipe, start: int, stop: int, on_step=None):
@@ -4718,22 +4719,13 @@ def train_phases(device) -> dict:
     for mode in ("carmen", "int8"):
         torch.cuda.reset_peak_memory_stats()
         recorded = []
-        launch = mac_ops._launch
-
-        def recording(*args, **kw):
-            out = launch(*args, **kw)
-            if len(recorded) < TRAIN_RECORD_CALLS:
-                recorded.append(([a.clone() if torch.is_tensor(a) else a for a in args],
-                                 out.clone()))
-            return out
-
         zero_launches()
-        mac_ops._launch = recording
+        undo = recording(mac_ops, "_launch", recorded, TRAIN_RECORD_CALLS)
         try:
             *_, losses, ms = train_steps(train_step_fn(cfg, mode, TRAIN_MODE_STEPS), *fresh(),
                                          pipe, 0, TRAIN_MODE_STEPS)
         finally:
-            mac_ops._launch = launch
+            undo()
         counts = nonzero(wrapper_counts())
         values = [float(v) for v in losses]
         if not all(math.isfinite(v) for v in values):
@@ -4744,14 +4736,14 @@ def train_phases(device) -> dict:
             rep["launches_by_instantiation"] = check_instantiations("int8 training", counts,
                                                                     want_counts)
             rep["launches"] = kernel_totals(counts)
-            for (x_q, w_q, x_scale, w_scale, relu), out in recorded:
+            for (x_q, w_q, x_scale, w_scale, relu), _, out in recorded:
                 if not torch.equal(out, mac_matmul_ref(x_q, w_q, x_scale, w_scale,
                                                        fuse_relu=relu)):
                     raise AssertionError("int8 training: a MAC-array launch differs from its "
                                          f"plain version at {tuple(x_q.shape)} x "
                                          f"{tuple(w_q.shape)}")
             rep["bitwise_plain_calls"] = [[list(a[0].shape), list(a[1].shape)]
-                                          for a, _ in recorded]
+                                          for a, _, _ in recorded]
         elif counts:
             raise AssertionError(f"carmen training launched port kernels: {counts}")
         report[mode] = rep
@@ -5393,6 +5385,327 @@ def tp_phases(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# train_tp: training on a (data, model) mesh of two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# steps a run: the first from the seeded weights, the second from where
+# mesh=None's first ended, each against the same step on mesh=None. Runs
+# from their own first steps parted by 3.0e-4 in int8's second loss on the
+# card: their first steps' parameters differ by reduction-order ulps
+# (<= 9.2e-7, at channel maxima and in the embedding), which the int8
+# forward's rounding amplifies; at the same parameters the meshed second
+# loss is mesh=None's bitwise (benchmarks/int8_mesh_probe.py)
+TP_TRAIN_STEPS = 2
+# (2, 1) FSDP-gathers every weight over gloo and sums every gradient there
+# (~0.9 GB a layer and the 0.4 GB tied embedding each way a step): olmo-1b
+# cut to 2 of its 16 layers; (1, 2) runs all 16
+TP_TRAIN_FSDP_LAYERS = 2
+TP_TRAIN_RUNS = (("olmo-1b exact (1,2)", (1, 2), "exact", None),
+                 ("olmo-1b int8 (1,2)", (1, 2), "int8", None),
+                 (f"olmo-1b {TP_TRAIN_FSDP_LAYERS} layers exact (2,1)", (2, 1), "exact",
+                  TP_TRAIN_FSDP_LAYERS))
+# the meshed step against mesh=None: tests/test_torch_train.py's tolerances
+# in the exact and int8 modes
+TP_TRAIN_TOL = dict(loss=1e-5, grad=1e-5)
+# the wrappers' launch functions whose first calls are held bitwise against
+# their plain versions (the CPU rehearsal names the plain versions here)
+TP_TRAIN_RECORD = {"partial": "_launch_partial", "epilogue": "_launch_epilogue"}
+
+
+def tp_int8_train_launches(cfg, steps: int, remat: bool = True) -> dict:
+    """Kernel 6's launches on a rank of a model axis that splits every head
+    count and MLP width, in ``steps`` int8 train steps: the column-parallel
+    dots (q k v gate up a layer, the lm_head) as ``int8_train_launches``
+    counts them (forward, again under remat, and a backward launch for all
+    but the gate's); the row-parallel ones (o and down) as a partial-sum and
+    an epilogue launch, forward and again under remat, and none backward
+    (the epilogue's backward takes the scales' gradient from the int32 sum
+    it saved)."""
+    cols = 5 * cfg.num_layers
+    rows = 2 * cfg.num_layers * (2 if remat else 1)
+    whole = (cols + 1) + (cols if remat else 0) + (cols - cfg.num_layers + 1)
+    return {"cordic_mac/wgmma": whole * steps, "cordic_mac_partial/wgmma": rows * steps,
+            "cordic_mac_epilogue/elementwise": rows * steps}
+
+
+def recording(module, name: str, calls: list, n: int):
+    """Wrap ``module.name`` so that its first ``n`` calls are kept (inputs
+    cloned, output cloned); returns the undo."""
+    import torch
+
+    fn = getattr(module, name)
+
+    def run(*args, **kw):
+        out = fn(*args, **kw)
+        if len(calls) < n:
+            calls.append(([a.clone() if torch.is_tensor(a) else a for a in args], dict(kw),
+                          out.clone()))
+        return out
+
+    setattr(module, name, run)
+    return lambda: setattr(module, name, fn)
+
+
+def leaf_max(t, spec, mesh):
+    """max |t| over the whole leaf of which ``t`` is this rank's shard."""
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.partition import sharded_axes
+
+    out = t.abs().amax().reshape(1)
+    for axis in sharded_axes(spec, mesh):
+        out = collectives.amax(out, (0,), mesh, axis)
+    return float(out)
+
+
+def close_to_mesh_none(label, sh, got, want, met, base, tol, lr):
+    """A meshed step's loss, gradient norm, parameter and moment shards
+    (``got``: params, m, v, leaf lists) against mesh=None's (``want``, this
+    rank's slices of them; ``base``: loss and gradient norm), to the CPU
+    test's criteria: loss within ``tol["loss"]`` relative, the norm within
+    ten times the gradient tolerance; ``m`` (the clipped gradient times
+    1 - b1) within the gradient tolerance of its leaf's largest, ``v``
+    within twice that; a parameter within ``2 lr`` and within 1e-6 where
+    the gradient is settled. Returns the worst of each, relative."""
+    from repro_torch.train import optimizer as opt
+
+    if abs(float(met["loss"]) - base["loss"]) > tol["loss"] * abs(base["loss"]) or \
+            abs(float(met["grad_norm"]) - base["grad_norm"]) > \
+            10 * tol["grad"] * base["grad_norm"]:
+        raise AssertionError(f"{label}: loss {float(met['loss'])!r}, grad norm "
+                             f"{float(met['grad_norm'])!r} against mesh=None's "
+                             f"{base['loss']!r}, {base['grad_norm']!r}")
+    cfg = opt.AdamWConfig()
+    clip = (1 - cfg.b1) * min(1.0, cfg.grad_clip / (base["grad_norm"] + 1e-9))
+    worst = dict(m=0.0, v=0.0, params=0.0)
+    for i, spec in enumerate(sh_specs(sh)):
+        (p, m, v), (p0, m0, v0) = [(x[0][i], x[1][i], x[2][i]) for x in (got, want)]
+        m_scale = max(leaf_max(m0, spec, sh.mesh), 1e-30)
+        v_scale = max(leaf_max(v0, spec, sh.mesh), 1e-30)
+        dm = float((m - m0).abs().max()) / m_scale
+        dv = float((v - v0).abs().max()) / v_scale
+        dp = (p - p0).abs()
+        g0 = m0.abs() / clip
+        settled = g0 > max(1e-6, 10 * tol["grad"] * m_scale / clip)
+        d_settled = float(dp[settled].max()) if bool(settled.any()) else 0.0
+        if dm > tol["grad"] or dv > 2 * tol["grad"] or float(dp.max()) > 2 * lr + 1e-6 \
+                or d_settled > 1e-6:
+            raise AssertionError(f"{label}: leaf {i}: m {dm}, v {dv} (of the leaf's largest), "
+                                 f"parameters {float(dp.max())} ({d_settled} where settled)")
+        worst = dict(m=max(worst["m"], dm), v=max(worst["v"], dv),
+                     params=max(worst["params"], float(dp.max())))
+    return worst
+
+
+def sh_specs(sh) -> list:
+    """The partition specs of a placement's leaves, in flatten order."""
+    def walk(node):
+        if isinstance(node, dict):
+            return [s for k in sorted(node) for s in walk(node[k])]
+        return [node]
+
+    return walk(sh.specs)
+
+
+def train_tp_run(rank, world, mesh, device, label, mode, layers, ckpt_dir):
+    """One ``TP_TRAIN_RUNS`` run on a rank: ``TP_TRAIN_STEPS`` steps of
+    olmo-1b (``layers``, full width, remat on) on mesh=None, one rank at a
+    time (each keeps its slices of the first step's parameters and moments),
+    then on ``mesh``, the first step held against mesh=None's
+    (:func:`close_to_mesh_none`) and the second, from mesh=None's first
+    step's shards, by its loss and gradient norm; in the int8 mode every
+    launch of kernel 6 counted (``tp_int8_train_launches``) and its first
+    split-form calls bitwise their plain versions; with ``ckpt_dir`` the meshed parameters
+    saved with ``shardings=`` and restored on mesh=None bitwise."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import kernel_totals
+    from repro_torch.kernels.cordic_mac import ops as mac_ops, ref as mac_ref
+    from repro_torch.models import get_model
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.partition import shard_params, train_shardings
+    from repro_torch.train import checkpoint, optimizer as opt
+    from repro_torch.train._tree import tree_leaves, tree_unflatten
+
+    cfg = olmo(layers)
+    model = get_model(cfg)
+    pipe = TokenPipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, device=device)
+    specs = model.serving_specs()
+    sh = train_shardings(specs, mesh)
+    tol = TP_TRAIN_TOL
+
+    def shards(tree):
+        """This rank's shards of a whole tree's leaves, in flatten order."""
+        return tree_leaves(shard_params(tree, specs, mesh))
+
+    def init(m=None):
+        params = model.init(torch.Generator(device=device).manual_seed(SEED), torch.float32,
+                            mesh=m)
+        return params, opt.init_state(params)
+
+    # mesh=None, one rank after the other (a full-width run holds ~36-48 GiB)
+    base = []
+    for r in range(world):
+        if r == rank:
+            step_fn = train_step_fn(cfg, mode, TP_TRAIN_STEPS)
+            params, state = init()
+            for i in range(TP_TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, met = step_fn(params, state, pipe.batch(i))
+                torch.cuda.synchronize()
+                base.append(dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                                 lr=float(met["lr"]), ms=(time.perf_counter() - t0) * 1e3))
+                if i == 0:
+                    want = (shards(params), shards(state.m), shards(state.v))
+            del params, state, step_fn
+            free_card()
+        dist.barrier()
+
+    # the mesh
+    calls = {k: [] for k in TP_TRAIN_RECORD}
+    undo = [recording(mac_ops, name, calls[k], TRAIN_RECORD_CALLS)
+            for k, name in TP_TRAIN_RECORD.items()] if mode == "int8" else []
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = train_step_fn(cfg, mode, TP_TRAIN_STEPS, mesh=mesh)
+    params, state = init(mesh)
+    zero_launches()
+    rep = dict(steps=[], mesh=list(mesh.shape.values()), mode=mode, layers=cfg.num_layers)
+    try:
+        for i in range(TP_TRAIN_STEPS):
+            collectives.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, met = step_fn(params, state, pipe.batch(i))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            step = dict(ms=ms, loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                        mesh_none=base[i], collectives=collectives.counts())
+            if i == 0:
+                got = (tree_leaves(params), tree_leaves(state.m), tree_leaves(state.v))
+                step["worst"] = close_to_mesh_none(f"{label} step 0", sh, got, want, met,
+                                                   base[0], tol, base[0]["lr"])
+                # the next step starts where mesh=None's first step ended, so
+                # that it is the same step as mesh=None's second
+                params = tree_unflatten(params, want[0])
+                state = opt.AdamWState(state.step, tree_unflatten(state.m, want[1]),
+                                       tree_unflatten(state.v, want[2]))
+                del got, want
+            elif abs(step["loss"] - base[i]["loss"]) > tol["loss"] * abs(base[i]["loss"]) or \
+                    abs(step["grad_norm"] - base[i]["grad_norm"]) > \
+                    10 * tol["grad"] * base[i]["grad_norm"]:
+                raise AssertionError(f"{label} step {i}: loss {step['loss']!r}, grad norm "
+                                     f"{step['grad_norm']!r} against mesh=None's "
+                                     f"{base[i]['loss']!r}, {base[i]['grad_norm']!r}")
+            rep["steps"].append(step)
+            if rank == 0:
+                log(f"train_tp {label} step {i}: {ms:.1f} ms (mesh=None {base[i]['ms']:.1f}), "
+                    f"loss {step['loss']:.6f}")
+    finally:
+        for u in undo:
+            u()
+    counts = nonzero(wrapper_counts())
+    rep.update(peak_gib=peak_gib(), launches=kernel_totals(counts), by_instantiation=counts,
+               ms_per_step=sum(s["ms"] for s in rep["steps"][1:]) / max(TP_TRAIN_STEPS - 1, 1),
+               mesh_none_ms_per_step=sum(b["ms"] for b in base[1:]) / max(TP_TRAIN_STEPS - 1, 1))
+    if mode == "int8":
+        want_counts = tp_int8_train_launches(cfg, TP_TRAIN_STEPS)
+        rep["launches_by_instantiation"] = check_instantiations(label, counts, want_counts)
+        plain = {"partial": lambda a, kw: mac_ref.mac_matmul_partial_ref(*a[:2]),
+                 "epilogue": lambda a, kw: mac_ref.mac_epilogue_ref(
+                     *a[:3], fuse_relu=a[3] if len(a) > 3 else kw.get("fuse_relu", False))}
+        for kind, recorded in calls.items():
+            if not recorded:
+                raise AssertionError(f"{label}: no {kind} launch recorded")
+            for args, kw, out in recorded:
+                if not torch.equal(out, plain[kind](args, kw)):
+                    raise AssertionError(f"{label}: a {kind} launch differs from its plain "
+                                         f"version at {[tuple(a.shape) for a in args[:2]]}")
+        rep["bitwise_plain_calls"] = {k: [list(a[0].shape) for a, _, _ in v]
+                                      for k, v in calls.items()}
+    elif counts:
+        raise AssertionError(f"{label}: the exact mode launched port kernels: {counts}")
+    del calls
+    if ckpt_dir is not None:  # written on the mesh, restored on mesh=None
+        t0 = time.perf_counter()
+        checkpoint.save(ckpt_dir, TP_TRAIN_STEPS, params, shardings=sh)
+        rep["checkpoint_save_s"] = time.perf_counter() - t0
+        mine = [t.to("cpu") for t in tree_leaves(params)]
+        del params, state
+        free_card()
+        whole = checkpoint.restore(ckpt_dir, TP_TRAIN_STEPS, model.abstract_params(),
+                                   device="cpu")
+        if not all(torch.equal(a, b) for a, b in zip(shards(whole), mine)):
+            raise AssertionError(f"{label}: the checkpoint restored on mesh=None differs from "
+                                 "the meshed parameters")
+        rep["checkpoint_restores_bitwise"] = True
+        del whole, mine
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free_card()
+    return rep
+
+
+def train_tp_rank(rank, world, runs, ckpt_dir, device=None):
+    """One spawned rank of the train_tp phase: each run on its mesh, on
+    ``device`` (default: the rank's card)."""
+    import torch
+
+    from repro_torch.launch.mesh import mesh_from_shape
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    meshes, out = {}, {}
+    for label, shape, mode, layers in runs:
+        if shape not in meshes:
+            meshes[shape] = mesh_from_shape(shape)
+        out[label] = train_tp_run(rank, world, meshes[shape], device, label, mode, layers,
+                                  ckpt_dir if mode == "exact" and shape == (1, 2) else None)
+    return out
+
+
+def train_tp_phases(device) -> dict:
+    """Training on a mesh of two gloo ranks sharing the card
+    (``TP_TRAIN_RUNS``, one spawn): full-width olmo-1b (16 layers, f32,
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ``, remat on) on (1, 2) in the exact and
+    int8 modes and at ``TP_TRAIN_FSDP_LAYERS`` layers on (2, 1), each
+    ``TP_TRAIN_STEPS`` steps against mesh=None's on the card
+    (:func:`train_tp_run`); the exact (1, 2) run's parameters checkpointed
+    with ``shardings=`` and restored on mesh=None bitwise. Reports each
+    rank's ms a step, peak GiB and collective bytes a step. Two ranks
+    time-share the card and gloo moves every collective through the host:
+    a smoke reading, not a tensor-parallel speed."""
+    import torch
+
+    from repro_torch.launch.mesh import spawn
+
+    t0 = time.perf_counter()
+    per_rank = spawn(train_tp_rank, 2,
+                     args=(TP_TRAIN_RUNS, str(ROOT / "build" / "train_tp_ckpt")),
+                     backend="gloo", device="cuda:0", timeout=900)
+    wall = time.perf_counter() - t0
+    out = {}
+    for label, *_ in TP_TRAIN_RUNS:
+        reps = [ranks[label] for ranks in per_rank]
+        out[label] = dict(rank0=reps[0], launches=reps[0]["launches"],
+                          rank_peak_gib=[r["peak_gib"] for r in reps],
+                          rank_ms_per_step=[r["ms_per_step"] for r in reps],
+                          rank_launches=[r["by_instantiation"] for r in reps])
+    out["record"] = dict(kind=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi(),
+                         spawn_wall_s=wall)
+    log("train_tp: " + ", ".join(
+        f"{label} {rep['rank0']['ms_per_step']:.1f} ms/step (mesh=None "
+        f"{rep['rank0']['mesh_none_ms_per_step']:.1f}) {max(rep['rank_peak_gib']):.1f} GiB"
+        for label, rep in out.items() if label != "record"))
+    return out
+
+
 def phase(name: str, fn, *args, **kw):
     """Run one phase of ``main``: ``fn(*args, **kw)``. On an exception it
     prints one stdout line ``{"failed_phase": name, "error": "<type>:
@@ -5534,7 +5847,7 @@ def main(argv=()) -> int:
     if want("modes"):
         for key, rep in phase("modes olmo-1b", modes_phases, device).items():
             (parity if "card vs cpu" in key else serving)[f"olmo-1b {key}"] = rep
-    tp = tp_rows = None
+    tp = tp_rows = train_tp = None
     if want("tp"):
         # kernel 1's split form, then tensor-parallel serving on ranks that
         # share the card
@@ -5549,6 +5862,10 @@ def main(argv=()) -> int:
             if key != "record":
                 serving[f"{key} tp"] = rep
         emit({"tp": tp["record"]})
+        free_card()
+        # training on a mesh: kernel 6's split form under autograd
+        train_tp = phase("train_tp", train_tp_phases, device)
+        emit({"train_tp": train_tp})
         free_card()
     sim = training = None
     if want("sim"):
@@ -5641,7 +5958,7 @@ def main(argv=()) -> int:
         (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
             device=device_line, phases=sorted(groups), kernel_checks=checks, serving=serving,
             analysis=analysis, forward=forward, card_vs_cpu=parity, sim=sim, train=training,
-            tp=tp),
+            tp=tp, train_tp=train_tp),
             indent=1))
         log(f"chip_smoke: groups {sorted(groups)} done")
         return 0
@@ -5650,6 +5967,8 @@ def main(argv=()) -> int:
     paths["olmo-1b calibration"] = calibration
     paths["olmo-1b sim (adaptive CLI)"] = sim
     paths["olmo-1b train int8"] = training["int8"]
+    paths.update({f"{label} train_tp": rep for label, rep in train_tp.items()
+                  if label != "record"})
 
     def launches(name):
         by_path = {label: rep["launches"][name] for label, rep in paths.items()
@@ -5718,8 +6037,8 @@ def main(argv=()) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=device_line, kernel_checks=checks, softmax_path=paths["softmax activate"],
         serving=serving, analysis=analysis, forward=forward, calibration=calibration,
-        replay_order=order, card_vs_cpu=parity, sim=sim, train=training, tp=tp, kernels=kernels),
-        indent=1))
+        replay_order=order, card_vs_cpu=parity, sim=sim, train=training, tp=tp,
+        train_tp=train_tp, kernels=kernels), indent=1))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

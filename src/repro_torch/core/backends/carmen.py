@@ -124,7 +124,9 @@ class CarmenBackend(Backend):
     def partial_dot(self, ctx, x, w, *, name: str = ""):
         """A row-parallel shard's f32 product of fake-quantized activations
         and the grid: the prepared grid, or per call the shard's own rounding
-        (elementwise, so it is the shard of the whole weight's)."""
+        (elementwise, so it is the shard of the whole weight's) through the
+        straight-through product, whose backward is the shard's share of the
+        unsharded product's."""
         x2 = x.reshape(-1, x.shape[-1])
         if isinstance(w, PreparedWeight):
             x_fmt = w.get("x_fmt")
@@ -132,7 +134,7 @@ class CarmenBackend(Backend):
             out = torch.matmul(quantize_activations(x2, x_fmt), w.data)
         else:
             lp = ctx.layer_precision(name)
-            out = _carmen_product(x2, w, lp.depth, lp.fmt, unit_fmt(lp.fmt))
+            out = carmen_dot(x2, w, lp.depth, lp.fmt, unit_fmt(lp.fmt))
         return out.reshape(*x.shape[:-1], w.shape[-1]), None
 
     def finish_partial(self, ctx, acc, w, carry):

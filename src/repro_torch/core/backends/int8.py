@@ -18,12 +18,16 @@ Banks are K-major, as every integer bank: ``(L, K, N)`` stacked banks with
 
 Under a mesh a row-parallel product (``EngineContext.linear(k_sharded=
 True)``) quantizes with the scales of the whole K: the per-token activation
-max is all-reduced (MAX) over the model axis before the scale, and so is,
-per call, the per-channel max of the K-sharded weight; a prepared bank
+max is the maximum over the model axis (``collectives.amax``, whose gradient
+splits among tied maxima across the shards as ``jnp.max`` over the whole
+K does) before the scale, and so is, per call, the per-channel max of the
+K-sharded weight; a prepared bank
 carries the scales of the unsharded weight (the server prepares the whole
 tree, then shards it). The shard's int32 dot is the MAC-array kernel's
 partial-sum instantiation, the engine sums it over the model axis, and its
-epilogue kernel applies the two scales: bitwise the unsharded dot. ``torch.round``
+epilogue kernel applies the two scales: bitwise the unsharded dot. The
+epilogue is ``mac_epilogue_scaled_grad``, whose backward (under autograd)
+takes the scales' gradient from the summed ``acc`` it saved. ``torch.round``
 is half-to-even like ``jnp.round`` and ``>>`` on int32 is arithmetic as in
 JAX; float -> integer casts saturate and send NaN to 0 (``fxp.to_int32``).
 """
@@ -67,46 +71,41 @@ def _drop_bits(wq: torch.Tensor, eff_bits: int) -> torch.Tensor:
     return ((wq.to(torch.int32) >> drop) << drop).to(torch.int8)
 
 
+def _amax(t: torch.Tensor, dims) -> torch.Tensor:
+    return torch.amax(t, dim=tuple(dims), keepdim=True)
+
+
 def quantize_weight(w, *, per_channel: bool = True, stacked_axes: int = 0, eff_bits: int = 8,
                     in_axes: Optional[int] = None,
-                    reduce_max: Optional[Callable] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                    amax: Callable = _amax) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-time weight-bank quantization: int8 qvalues + f32 scales.
 
     ``per_channel`` reduces over the ``in_axes`` contraction axes after the
     ``stacked_axes`` leading ones (keepdims; default: all but the last axis).
     ``eff_bits < 8`` zeroes trailing bits of the grid (reduced CORDIC depth,
-    baked in). ``reduce_max`` maps the local max to the max over every
-    shard of the contraction (a row-parallel shard's all-reduce). The
-    qvalues come back in ``w``'s layout."""
+    baked in). ``amax(t, dims)`` is the keepdims maximum of ``|w|`` over
+    ``dims``: on a row-parallel shard, the maximum over every shard of the
+    contraction (``collectives.amax``). The qvalues come back in ``w``'s
+    layout."""
     wf = torch.as_tensor(w, dtype=torch.float32)
     if in_axes is None:
         in_axes = wf.ndim - stacked_axes - 1
-    if per_channel:
-        amax = torch.amax(wf.abs(), dim=tuple(range(stacked_axes, stacked_axes + in_axes)),
-                          keepdim=True)
-    else:
-        amax = torch.amax(wf.abs()).reshape((1,) * wf.ndim)
-    if reduce_max is not None:
-        amax = reduce_max(amax)
-    scale = _scale(amax)
+    dims = range(stacked_axes, stacked_axes + in_axes) if per_channel else range(wf.ndim)
+    scale = _scale(amax(wf.abs(), dims))
     wq = _to_int8(torch.clamp(torch.round(wf / scale), -127, 127))
     if eff_bits < 8:
         wq = _drop_bits(wq, eff_bits)
     return wq, scale.to(torch.float32)
 
 
-def quantize_tokens(x, reduce_max: Optional[Callable] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_tokens(x, amax: Callable = _amax) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(M, K)`` float activations -> int8 ``(M, K)`` and their per-token
     f32 scales ``(M, 1)``: the dynamic half of :func:`int8_dot`. On a CUDA
     device the rows are 16-byte aligned, as the MAC-array kernel takes them
-    (padded storage when K is not). ``reduce_max``: as in
-    :func:`quantize_weight`, for a shard of K."""
+    (padded storage when K is not). ``amax``: as in :func:`quantize_weight`,
+    for a shard of K."""
     xf = torch.as_tensor(x).to(torch.float32)
-    amax = torch.amax(xf.abs(), dim=-1, keepdim=True)
-    if reduce_max is not None:
-        amax = reduce_max(amax)
-    x_scale = _scale(amax)
+    x_scale = _scale(amax(xf.abs(), (-1,)))
     xq = _to_int8(torch.clamp(torch.round(xf / x_scale), -127, 127))
     if on_card(xq) and not has_aligned_rows(xq):
         xq = to_k_major(xq.T).T  # (M, K_pad) storage viewed as (M, K)
@@ -183,16 +182,16 @@ class Int8Backend(Backend):
         partial-sum instantiation), quantized with the whole K's maxima;
         the carry is the two scales."""
         from repro_torch.kernels.cordic_mac import mac_matmul_partial
-        from repro_torch.sharding.collectives import all_reduce
+        from repro_torch.sharding import collectives
 
-        def reduce_max(amax):
-            return all_reduce(amax, ctx.mesh, op="max")
+        def amax(t, dims):
+            return collectives.amax(t, dims, ctx.mesh)
 
-        xq, x_scale = quantize_tokens(x.reshape(-1, x.shape[-1]), reduce_max)
+        xq, x_scale = quantize_tokens(x.reshape(-1, x.shape[-1]), amax)
         if isinstance(w, PreparedWeight):
             wq, w_scale = w.data, w.scale
         else:
-            wq, w_scale = quantize_weight(w, reduce_max=reduce_max)
+            wq, w_scale = quantize_weight(w, amax=amax)
             eff = effective_bits(ctx.layer_precision(name))
             if eff < 8:
                 wq = _drop_bits(wq, eff)
@@ -203,9 +202,11 @@ class Int8Backend(Backend):
 
     def finish_partial(self, ctx, acc, w, carry):
         """``(float(acc) * x_scale) * w_scale`` on the int32 sum (the
-        MAC-array kernel's epilogue kernel), as :func:`int8_dot` computes it."""
-        from repro_torch.kernels.cordic_mac import mac_epilogue
+        MAC-array kernel's epilogue kernel), as :func:`int8_dot` computes it,
+        differentiable in the two scales (``mac_epilogue_scaled_grad``), as
+        the unsharded dot is."""
+        from repro_torch.kernels.cordic_mac import mac_epilogue_scaled_grad
 
         x_scale, w_scale = carry
-        out = mac_epilogue(acc.reshape(-1, acc.shape[-1]), x_scale, w_scale)
+        out = mac_epilogue_scaled_grad(acc.reshape(-1, acc.shape[-1]), x_scale, w_scale)
         return out.reshape(acc.shape).to(ctx.compute_dtype)

@@ -14,7 +14,12 @@ over the vocab) is the plain call on the shard, whose output columns are
 the rank's; a row-parallel one (K over ``model``: ``wo``, ``down``) is
 ``linear(..., k_sharded=True)``: the backend's partial product, its sum over
 the model axis, then the backend's finish (:meth:`EngineContext.linear`), in
-every mode, prepared or per call.
+every mode, prepared or per call. Under autograd (training on a mesh) the
+sum passes the gradient through unchanged (``collectives.all_reduce`` over
+``model``), and the partial product and finish carry the unsharded
+product's gradient: exact's f32 product, carmen's straight-through product
+on the shard, int8's epilogue in the two scales (from the whole K's maxima,
+``collectives.amax``).
 """
 from __future__ import annotations
 

@@ -37,6 +37,10 @@ the scales the VJP of that product, ``Σ_n g·acc·w_scale`` to ``x_scale``
 and ``Σ_m g·acc·x_scale`` to ``w_scale``. Its backward takes ``float(acc)``
 from a second launch of the kernel at unit scales (counted like any other);
 on CPU tensors both launches are the plain version.
+:func:`mac_epilogue_scaled_grad` is the int8 mode's split-form epilogue
+(its row-parallel products on a mesh, served or trained):
+the same gradient, from the summed int32 ``acc`` it saved, so its backward
+launches nothing.
 """
 from __future__ import annotations
 
@@ -258,6 +262,37 @@ class MacMatmulScaledGrad(torch.autograd.Function):
 def mac_matmul_scaled_grad(x_q, w_q, x_scale, w_scale):
     """:func:`mac_matmul`, differentiable in ``x_scale`` and ``w_scale``."""
     return MacMatmulScaledGrad.apply(x_q, w_q, x_scale, w_scale)
+
+
+class MacEpilogueScaledGrad(torch.autograd.Function):
+    """``mac_epilogue`` forward on an int32 sum ``acc``; the backward of
+    ``(acc * x_scale) * w_scale`` to the two scales, from the ``acc`` it
+    saved: the split form of :class:`MacMatmulScaledGrad`, whose ``acc``
+    the backward cannot launch again (on a mesh it is the sum of every
+    rank's partial dot)."""
+
+    @staticmethod
+    def forward(ctx, acc, x_scale, w_scale):
+        ctx.save_for_backward(acc, x_scale, w_scale)
+        return mac_epilogue(acc, x_scale, w_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        acc, x_scale, w_scale = ctx.saved_tensors
+        acc = acc.to(torch.float32)
+        d_x_scale = d_w_scale = None
+        if ctx.needs_input_grad[1]:
+            d_x_scale = torch.sum(g * w_scale.reshape(1, -1) * acc, dim=1,
+                                  keepdim=True).reshape(x_scale.shape)
+        if ctx.needs_input_grad[2]:
+            d_w_scale = torch.sum(g * (acc * x_scale.reshape(-1, 1)), dim=0,
+                                  keepdim=True).reshape(w_scale.shape)
+        return None, d_x_scale, d_w_scale
+
+
+def mac_epilogue_scaled_grad(acc, x_scale, w_scale):
+    """:func:`mac_epilogue`, differentiable in ``x_scale`` and ``w_scale``."""
+    return MacEpilogueScaledGrad.apply(acc, x_scale, w_scale)
 
 
 def cordic_mac(x, w, *, depth: int, x_fmt: FxPFormat = FXP8, w_fmt: FxPFormat = FXP8_UNIT,

@@ -17,7 +17,11 @@ kernels plan their key splits from the global counts,
 router runs whole on every rank (its expert columns all-gathered first), the
 dispatch is the same on every rank, each rank runs its experts' products,
 and the per-choice outputs are exchanged with one exact sum (each choice has
-one non-zero term) before the same ascending-expert combine.
+one non-zero term) before the same ascending-expert combine. Under autograd
+the activations that enter a rank's heads, MLP columns or experts pass
+``collectives.enter_model`` (their gradient is summed over the model axis),
+and where the batch rows are split over data ranks (``ctx.batch_shards``,
+training) the MoE's load-balancing loss takes the global batch's statistics.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from repro_torch.core.normalization import layernorm, nonparametric_ln, rmsnorm
 from repro_torch.kernels.decode_attention import gqa_decode_attention, gqa_decode_attention_ref
 from repro_torch.kernels.flash_attention import flash_attention
 
-from repro_torch.sharding.collectives import all_gather, all_reduce
+from repro_torch.sharding.collectives import all_gather, all_reduce, enter_model
 
 from .params import ParamSpec
 
@@ -143,12 +147,14 @@ def attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name, ca
     b, s, _ = x.shape
     hd = cfg.head_dim
     h_loc, kv_loc = p["wq"].shape[-2], p["wk"].shape[-2]  # this rank's heads
-    q = _proj(ctx, x, p["wq"], p.get("bq"), f"{name}.q")
-    k = _proj(ctx, x, p["wk"], p.get("bk"), f"{name}.k")
-    v = _proj(ctx, x, p["wv"], p.get("bv"), f"{name}.v")
-    if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"])
-        k = rmsnorm(k, p["k_norm"])
+    q_split, kv_split = h_loc < cfg.num_heads, kv_loc < cfg.num_kv_heads
+    xs = enter_model(x, ctx.mesh) if q_split or kv_split else x
+    q = _proj(ctx, xs if q_split else x, p["wq"], p.get("bq"), f"{name}.q")
+    k = _proj(ctx, xs if kv_split else x, p["wk"], p.get("bk"), f"{name}.k")
+    v = _proj(ctx, xs if kv_split else x, p["wv"], p.get("bv"), f"{name}.v")
+    if cfg.qk_norm:  # whole on every rank, acting on the rank's heads
+        q = rmsnorm(q, enter_model(p["q_norm"], ctx.mesh) if q_split else p["q_norm"])
+        k = rmsnorm(k, enter_model(p["k_norm"], ctx.mesh) if kv_split else p["k_norm"])
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
@@ -207,13 +213,15 @@ def mlp(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, d_ff: Optional[int]
     """The (gated) MLP; ``d_ff`` is its global width (default ``cfg.d_ff``),
     which says whether ``down`` is row-parallel under a mesh."""
     # linear_af fuses the dot and the activation epilogue into one kernel pass
+    row_parallel = ctx.model_split(d_ff or cfg.d_ff) > 1
+    if row_parallel:  # up and gate are the rank's columns
+        x = enter_model(x, ctx.mesh)
     if cfg.glu:
         up = ctx.linear(x, p["up"], name=f"{name}.up")
         h = ctx.linear_af(x, p["gate"], af=cfg.act, name=f"{name}.gate") * up
     else:
         h = ctx.linear_af(x, p["up"], af=cfg.act, name=f"{name}.up")
-    return ctx.linear(h, p["down"], name=f"{name}.down",
-                      k_sharded=ctx.model_split(d_ff or cfg.d_ff) > 1)
+    return ctx.linear(h, p["down"], name=f"{name}.down", k_sharded=row_parallel)
 
 
 # ---------------------------------------------------------------------------
@@ -411,7 +419,10 @@ def moe_ffn(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, dropless: bool 
 
     gather_idx, valid, rank = _dispatch_indices(top_i, e, capacity)
     token_of_choice = (gather_idx // k).to(torch.int64)  # (B, E, C) source token
-    x_disp = torch.gather(x, 1, token_of_choice.reshape(b, e * capacity, 1).expand(-1, -1, d))
+    # the experts' input enters the rank's experts (or expert columns)
+    split = ep or ctx.model_split(m.d_ff_expert) > 1
+    xe = enter_model(x, ctx.mesh) if split else x
+    x_disp = torch.gather(xe, 1, token_of_choice.reshape(b, e * capacity, 1).expand(-1, -1, d))
     x_disp = x_disp.reshape(b, e, capacity, d) * valid[..., None].to(x.dtype)
     e0 = 0
     if ep:  # this rank's experts
@@ -432,8 +443,9 @@ def moe_ffn(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, dropless: bool 
         y = all_reduce(y, ctx.mesh)
 
     kept = (rank < capacity).to(torch.float32) * top_p  # (B, S, K); drops -> 0
-    if ep:
-        g, keep = _choice_outputs(y.to(cd), top_i, rank, kept, capacity, first_expert=e0)
+    if ep:  # the routing weights of the rank's experts' choices
+        g, keep = _choice_outputs(y.to(cd), top_i, rank, enter_model(kept, ctx.mesh), capacity,
+                                  first_expert=e0)
         out = _sum_choices(all_reduce(g, ctx.mesh), keep).to(x.dtype)
     else:
         out = _combine(y.to(cd), top_i, rank, kept, capacity).to(x.dtype)
@@ -445,11 +457,16 @@ def moe_ffn(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, dropless: bool 
     if dropless:
         aux = {"lb_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
     else:
-        me = torch.mean(probs, dim=(0, 1))
         # the routed count of each expert (a scatter-add, where bincount has
         # no meta kernel for the dry run)
         flat = top_i.reshape(-1).to(torch.int64)
         counts = torch.zeros((e,), dtype=torch.int64, device=x.device).scatter_add_(
-            0, flat, torch.ones_like(flat)).to(torch.float32)
-        aux = {"lb_loss": e * torch.sum(me * counts / (b * s * k))}
+            0, flat, torch.ones_like(flat))
+        shards = ctx.batch_shards
+        if shards > 1:  # the global batch's statistics, summed over the data ranks' rows
+            me = all_reduce(torch.sum(probs, dim=(0, 1)), ctx.mesh, "data") / (shards * b * s)
+            counts = all_reduce(counts, ctx.mesh, "data")
+        else:
+            me = torch.mean(probs, dim=(0, 1))
+        aux = {"lb_loss": e * torch.sum(me * counts.to(torch.float32) / (shards * b * s * k))}
     return out, aux

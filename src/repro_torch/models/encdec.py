@@ -31,7 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import EngineContext
 from repro_torch.core.pooling import aad_pool_1d
 
-from repro_torch.sharding.collectives import gather_data
+from repro_torch.sharding.collectives import enter_model, gather_data
 
 from . import blocks
 from .params import ParamSpec, stack_layers
@@ -77,6 +77,8 @@ def _cross_attention(p, x, enc_k, enc_v, cfg, ctx, name):
     hd = cfg.head_dim
     h_loc = p["wq"].shape[-2]  # this rank's heads
     g = h_loc // enc_k.shape[2]
+    if h_loc < cfg.num_heads:  # the decoder states enter the rank's heads
+        x = enter_model(x, ctx.mesh)
     q = blocks._proj(ctx, x, p["wq"], p.get("bq"), f"{name}.q")  # (B,S,H,hd)
     ek = torch.repeat_interleave(enc_k, g, dim=2) if g > 1 else enc_k
     ev = torch.repeat_interleave(enc_v, g, dim=2) if g > 1 else enc_v
@@ -106,6 +108,8 @@ def _layers(params, key: str, n: int, ctx):
 
 
 def _project_enc_kv(p, enc_out, cfg, ctx, name):
+    if p["wk"].shape[-2] < cfg.num_kv_heads:  # the encoder states enter the rank's kv heads
+        enc_out = enter_model(enc_out, ctx.mesh)
     k = blocks._proj(ctx, enc_out, p["wk"], p.get("bk"), f"{name}.k")
     v = blocks._proj(ctx, enc_out, p["wv"], p.get("bv"), f"{name}.v")
     return k, v

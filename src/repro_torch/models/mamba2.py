@@ -28,7 +28,11 @@ all-gathered over the model axis first, and the rank's K shard of the
 normed row goes into ``out_proj``, a row-parallel product. The conv window
 cache is whole on every rank. On CUDA a rank's recurrent readout pads its
 heads to the whole count with zeros (:func:`_readout`), so a head's bits do
-not depend on how many heads a rank holds.
+not depend on how many heads a rank holds. Under autograd the activations
+that enter a rank's share (``x`` its ``in_proj`` columns, the conv output
+and ``dt`` its heads, the normed ``y`` its ``out_proj`` rows) pass
+``collectives.enter_model``, and the gathers' backward slices the rank's
+part.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from repro_torch._device import on_card
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import EngineContext
 from repro_torch.core.normalization import rmsnorm
-from repro_torch.sharding.collectives import all_gather
+from repro_torch.sharding.collectives import all_gather, enter_model
 
 from .params import ParamSpec
 
@@ -191,8 +195,11 @@ def mamba2_forward(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, state=No
     h_loc = p["A_log"].shape[0]  # this rank's heads
     h0 = ctx.mesh.coord("model") * h_loc if h_loc < n_heads else 0
 
+    cols_split = p["in_proj"].shape[-1] != _proj_width(cfg)
+    if cols_split:  # the rank's in_proj columns
+        x = enter_model(x, ctx.mesh)
     zxbcdt = ctx.linear(x, p["in_proj"], name=f"{name}.in_proj")
-    if zxbcdt.shape[-1] != _proj_width(cfg):
+    if cols_split:
         zxbcdt = all_gather(zxbcdt, ctx.mesh, "model", dim=-1)  # the column shards, in order
     z, xs, b_mat, c_mat, dt = _split_proj(cfg, zxbcdt)
     conv_in = torch.cat([xs, b_mat, c_mat], dim=-1)
@@ -206,6 +213,8 @@ def mamba2_forward(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, state=No
         state["conv"].copy_(window[:, 1:, :])  # window is a fresh tensor: no overlap
 
     conv_out = silu(conv_out)
+    if h_loc < n_heads:  # the whole conv output and dt enter the rank's heads
+        conv_out, dt = enter_model(conv_out, ctx.mesh), enter_model(dt, ctx.mesh)
     xs = conv_out[..., h0 * s.head_dim: (h0 + h_loc) * s.head_dim]  # the rank's heads
     b_mat = conv_out[..., d_inner: d_inner + s.n_groups * s.state_dim]
     c_mat = conv_out[..., d_inner + s.n_groups * s.state_dim:]
@@ -249,7 +258,7 @@ def mamba2_forward(p, x, cfg: ModelConfig, ctx: EngineContext, *, name, state=No
     k_loc = p["out_proj"].shape[0]  # out_proj's K shard: row-parallel
     if k_loc < d_inner:
         k0 = ctx.mesh.coord("model") * k_loc
-        y = y[..., k0: k0 + k_loc]
+        y = enter_model(y, ctx.mesh)[..., k0: k0 + k_loc]
     return (ctx.linear(y, p["out_proj"], name=f"{name}.out_proj", k_sharded=k_loc < d_inner),
             new_state)
 

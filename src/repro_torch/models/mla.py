@@ -16,7 +16,9 @@ or the reference's query-chunked chain (``"xla"``).
 Under tensor parallelism a rank holds its q heads (``wq_b``, ``wk_b``,
 ``wv_b`` and ``wo`` over heads) and the whole latent: the absorption and the
 attention run on the local heads (the decode kernel plans its key splits
-from the global head count) and ``wo`` is a row-parallel product.
+from the global head count) and ``wo`` is a row-parallel product. Under
+autograd the whole query latent, ``c_kv`` and rope key pass
+``collectives.enter_model`` where they enter the rank's heads.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ from repro_torch.core.engine import EngineContext
 from repro_torch.core.normalization import rmsnorm
 from repro_torch.kernels.decode_attention import mla_decode_attention, mla_decode_attention_ref
 from repro_torch.kernels.mla_flash import mla_flash_attention
+
+from repro_torch.sharding.collectives import enter_model
 
 from .blocks import Q_CHUNK, batch_grouped, cache_row_write, rope, rows_einsum
 from .params import ParamSpec
@@ -51,10 +55,12 @@ def mla_specs(cfg: ModelConfig):
     }
 
 
-def _q_proj(p, x, cfg, ctx, name):
+def _q_proj(p, x, cfg, ctx, name, heads_split: bool = False):
     m = cfg.mla
     q_lat = ctx.linear(x, p["wq_a"], name=f"{name}.q_a")
     q_lat = rmsnorm(q_lat, p["q_a_norm"])
+    if heads_split:  # the whole latent enters the rank's heads
+        q_lat = enter_model(q_lat, ctx.mesh)
     q = ctx.linear(q_lat, p["wq_b"].reshape(m.q_lora_rank, -1), name=f"{name}.q_b")
     return q.reshape(*x.shape[:-1], -1, m.qk_nope_head_dim + m.qk_rope_head_dim)
 
@@ -96,13 +102,16 @@ def mla_attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name
     b, s, _ = x.shape
     h = p["wo"].shape[0]  # this rank's heads
     nope, rdim, vdim = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    split = h < cfg.num_heads
 
-    q = _q_proj(p, x, cfg, ctx, name)  # (B, S, H, nope + rope)
+    q = _q_proj(p, x, cfg, ctx, name, split)  # (B, S, H, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
 
     c_kv, k_rope = _kv_latent(p, x, cfg, ctx, name)  # (B, S, R), (B, S, rdim)
     k_rope = rope(k_rope[..., None, :], positions, cfg.rope_theta)[..., 0, :]
+    if split:  # the whole latent and rope key enter the rank's heads
+        c_kv, k_rope = enter_model(c_kv, ctx.mesh), enter_model(k_rope, ctx.mesh)
 
     q_lat = _head_einsum("bshn,rhn->bshr", q_nope.to(torch.float32),
                          p["wk_b"].to(torch.float32))

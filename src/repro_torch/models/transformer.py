@@ -36,7 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backends.base import PreparedWeight
 from repro_torch.core.engine import EngineContext
 
-from repro_torch.sharding.collectives import all_gather, all_reduce, gather_data
+from repro_torch.sharding.collectives import all_gather, all_reduce, enter_model, gather_data
 
 from . import blocks, mamba2, mla
 from .params import ParamSpec, stack_layers
@@ -310,8 +310,11 @@ def _lm_head(params, h, cfg, ctx):
         w = params["embed"].T
     else:
         w = params["lm_head"]
+    split = ctx.model_split(cfg.vocab_size) > 1
+    if split:  # the rank's vocab columns
+        h = enter_model(h, ctx.mesh)
     logits = ctx.linear(h, w, name="lm_head").to(torch.float32)
-    if ctx.model_split(cfg.vocab_size) > 1:  # the vocab's shards, in order
+    if split:  # the vocab's shards, in order
         logits = all_gather(logits, ctx.mesh, "model", dim=-1)
     return logits
 

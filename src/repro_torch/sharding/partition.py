@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 from repro_torch.core.backends.base import PreparedWeight
 from repro_torch.models.params import ParamSpec, tree_map_specs
@@ -38,7 +38,8 @@ __all__ = [
     "sharding_report", "prepared_shardings", "slot_pspec", "slot_shardings",
     "cache_shardings", "serving_shardings", "serving_sharding_report", "batch_pspec",
     "use_2d_ep", "axis_sizes", "local_index", "local_shape", "shard_tensor", "shard_params",
-    "serving_specs", "require_whole",
+    "serving_specs", "require_whole", "TreeShardings", "train_shardings", "sharded_axes",
+    "gather_tensor", "require_local",
 ]
 
 # logical axis -> ordered candidate mesh-axis groups (first that divides wins)
@@ -482,3 +483,81 @@ def shard_params(tree, specs, mesh, memo: Optional[Dict[int, object]] = None):
         return memo[id(p)]
 
     return walk(tree, sh, shapes, ())
+
+
+# ---------------------------------------------------------------------------
+# Training on a mesh: the raw f32 tree, its optimizer state and checkpoints
+# are placed by the same specs (ZeRO: the moments are sharded like their
+# parameters).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeShardings:
+    """A tree's placement on ``mesh``: ``specs`` has the tree's structure
+    (dicts, and ``AdamWState`` for an optimizer state) with a partition spec
+    where the tree has a leaf (the reference's tree of ``NamedSharding``)."""
+
+    specs: Any
+    mesh: Any
+
+
+def train_shardings(specs, mesh) -> TreeShardings:
+    """The placement of a raw training tree on ``mesh``: ``param_shardings``
+    of ``specs`` (pass ``ModelApi.serving_specs()``: the port keeps a Mamba2
+    mixer's conv and norm whole on every model rank). Refused where a spec
+    shards one dim over more than one axis (the multi-pod mesh's ``(pod,
+    data)``): the port's FSDP gather and its gradient take ``data`` alone."""
+    sh, _ = param_shardings(specs, mesh)
+
+    def check(node, keys):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                check(v, keys + (k,))
+            return
+        for e in node:
+            if len(_axes(e)) > 1:
+                raise NotImplementedError(
+                    f"{'/'.join(keys)} shards one dim over {_axes(e)}: training on a mesh "
+                    "FSDP-gathers over the data axis alone (a multi-pod mesh is ROADMAP "
+                    "Queue 1)")
+
+    check(sh, ())
+    return TreeShardings(sh, mesh)
+
+
+def sharded_axes(spec: tuple, mesh) -> tuple:
+    """The mesh axes of extent > 1 that ``spec`` shards some dim over, in the
+    mesh's axis order (a leaf's sums run over exactly these)."""
+    used = {a for e in spec for a in _axes(e)}
+    return tuple(a for a in mesh.axis_names if a in used and int(mesh.shape[a]) > 1)
+
+
+def gather_tensor(t, spec: tuple, mesh):
+    """The whole leaf of which ``t`` is this rank's shard under ``spec``
+    (the inverse of :func:`shard_tensor`): all-gathered along each dim over
+    its entry's axes, the last axis first, so the blocks come back in the
+    row-major order :func:`local_index` cuts them in."""
+    from .collectives import all_gather
+
+    for i, e in enumerate(spec):
+        for a in reversed(_axes(e)):
+            t = all_gather(t, mesh, a, dim=i)
+    return t
+
+
+def require_local(tree, specs, sh: TreeShardings, why: str) -> None:
+    """Raise unless every leaf of the raw ``tree`` is this rank's shard under
+    ``sh`` of a leaf of ``specs``'s global shape."""
+    shapes = _global_shapes(tree, specs)
+
+    def walk(p, shape, spec, keys):
+        if isinstance(p, dict):
+            for k in p:
+                walk(p[k], shape[k], spec[k], keys + (k,))
+        elif tuple(p.shape) != local_shape(shape, spec, sh.mesh):
+            raise ValueError(f"{why}: pass this rank's shards ({'/'.join(keys)} is "
+                             f"{tuple(p.shape)}, its shard of {tuple(shape)} under {spec} is "
+                             f"{local_shape(shape, spec, sh.mesh)})")
+
+    walk(tree, shapes, sh.specs, ())

@@ -4,7 +4,7 @@ optimizer sums and the checkpoint's leaf files follow this order, so a
 checkpoint either package writes restores in the other."""
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
 
 def tree_leaves(tree) -> List[Any]:
@@ -26,6 +26,18 @@ def leaves_like(like, tree) -> List[Any]:
         return [x for k in sorted(like)
                 for x in leaves_like(like[k], None if tree is None else tree.get(k))]
     return [tree]
+
+
+def leaves_with_specs(tree, specs) -> List[Tuple[Any, Any]]:
+    """``(leaf, spec)`` of every leaf of ``tree`` in flatten order, ``specs``
+    a tree of its structure with a partition spec (a tuple) at each leaf
+    (``partition.TreeShardings.specs``); a ``None`` leaf (a missing
+    gradient) comes with its spec."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree) for pair in leaves_with_specs(tree[k], specs[k])]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [pair for sub, sp in zip(tree, specs) for pair in leaves_with_specs(sub, sp)]
+    return [(tree, specs)]
 
 
 def tree_unflatten(like, leaves) -> Any:

@@ -20,8 +20,16 @@ restores in the other.
   memory at once and writes them in a thread, overlapping the next step.
 
 ``restore`` places the leaves on ``device`` (default: each like-leaf's
-device). Restoring against shardings waits for training on a mesh (ROADMAP
-Queue 1).
+device).
+
+**On a mesh** (``shardings``: the tree's ``partition.TreeShardings``, each
+leaf this rank's shard): ``save`` gathers every leaf whole over the axes its
+spec shards, only rank 0 writes, and the ranks meet at a barrier before it
+returns (``background=True`` still gathers and snapshots at once), so the
+layout is the reference's whatever the mesh. ``restore(..., shardings=)``
+loads the whole leaves and keeps this rank's shard of each: the reference's
+elastic reshard, so a checkpoint written on any mesh (or on none) restores
+on any other.
 """
 from __future__ import annotations
 
@@ -33,8 +41,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ._tree import tree_leaves, tree_unflatten
+from repro_torch.sharding.partition import gather_tensor, local_shape, shard_tensor
+
+from ._tree import leaves_with_specs, tree_leaves, tree_unflatten
 
 __all__ = ["latest_step", "restore", "save"]
 
@@ -58,11 +69,25 @@ def _treedef(tree) -> str:
     return "*"
 
 
-def save(ckpt_dir: str, step: int, tree, *, background: bool = False):
+def _pairs(tree, shardings):
+    if shardings is None:
+        return [(x, None) for x in tree_leaves(tree)]
+    return leaves_with_specs(tree, shardings.specs)
+
+
+def save(ckpt_dir: str, step: int, tree, *, background: bool = False, shardings=None):
     """Write ``tree`` as step ``step``; returns the writer thread when
-    ``background`` (join it before reading the checkpoint), else None."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    host = [_host(x) for x in tree_leaves(tree)]  # snapshot (device -> host)
+    ``background`` (join it before reading the checkpoint), else None.
+    ``shardings``: ``tree`` holds this rank's shards on that placement's
+    mesh; every rank must call, rank 0 writes."""
+    mesh = shardings.mesh if shardings is not None else None
+    lead = mesh is None or mesh.rank == 0
+    host = []
+    for x, spec in _pairs(tree, shardings):  # snapshot (device -> host), a leaf at a time
+        whole = x if spec is None else gather_tensor(x, spec, mesh)
+        if lead:
+            host.append(_host(whole))
+        del whole
     treedef_str = _treedef(tree)
 
     def _write():
@@ -88,12 +113,15 @@ def save(ckpt_dir: str, step: int, tree, *, background: bool = False):
             shutil.rmtree(final)
         os.rename(tmp, final)
 
-    if background:
-        t = threading.Thread(target=_write, daemon=False)
-        t.start()
-        return t
-    _write()
-    return None
+    thread = None
+    if lead and background:
+        thread = threading.Thread(target=_write, daemon=False)
+        thread.start()
+    elif lead:
+        _write()
+    if mesh is not None and mesh.device_mesh is not None:
+        dist.barrier()
+    return thread
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -108,19 +136,28 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like_tree, *, device=None):
+def restore(ckpt_dir: str, step: int, like_tree, *, device=None, shardings=None):
     """The tree saved as ``step``, shaped like ``like_tree``, each leaf on
-    ``device`` (default: the like-leaf's device) with the saved dtype."""
+    ``device`` (default: the like-leaf's device) with the saved dtype. With
+    ``shardings`` (``like_tree``'s placement; its leaves are this rank's
+    shards) each leaf is this rank's shard of the saved whole one."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    flat_like = tree_leaves(like_tree)
-    if manifest["num_leaves"] != len(flat_like):
+    pairs = _pairs(like_tree, shardings)
+    if manifest["num_leaves"] != len(pairs):
         raise ValueError(f"{path}: {manifest['num_leaves']} leaves saved, the tree has "
-                         f"{len(flat_like)}: the tree structure changed")
+                         f"{len(pairs)}: the tree structure changed")
     leaves = []
-    for i, like in enumerate(flat_like):
-        arr = np.load(os.path.join(path, f"leaf_{i:05d}.npy"))
+    for i, (like, spec) in enumerate(pairs):
+        arr = torch.from_numpy(np.array(np.load(os.path.join(path, f"leaf_{i:05d}.npy")),
+                                        order="C"))
+        if spec is not None:
+            want = local_shape(arr.shape, spec, shardings.mesh)
+            if tuple(like.shape) != want:
+                raise ValueError(f"{path}: leaf {i} is {tuple(arr.shape)}, whose shard under "
+                                 f"{spec} is {want}, not the tree's {tuple(like.shape)}")
+            arr = shard_tensor(arr, spec, shardings.mesh)
         dev = device if device is not None else getattr(like, "device", "cpu")
-        leaves.append(torch.from_numpy(np.array(arr, order="C")).to(dev))
+        leaves.append(arr.to(dev))
     return tree_unflatten(like_tree, leaves)

@@ -9,6 +9,14 @@ the carmen and int8 modes' multi-AF gate does; JAX gives zeros there) is
 updated as with a zero gradient: its moments decay, and weight decay still
 moves it. ``abstract_state`` gives the state as meta tensors, which the dry
 run traces.
+
+**ZeRO on a mesh** (the reference's state sharding): ``m`` and ``v`` are
+built on the rank's parameter shards, so they take the parameters' specs
+(:func:`state_shardings`); the step is whole on every rank. With
+``shardings`` (the parameters' ``partition.TreeShardings``) the global norm
+sums each leaf's local sum of squares over exactly the mesh axes its spec
+shards, so a leaf every rank holds whole counts once, and the clip and the
+update then run on the shards.
 """
 from __future__ import annotations
 
@@ -18,10 +26,13 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ._tree import leaves_like, tree_leaves, tree_map, tree_unflatten
+from repro_torch.sharding.collectives import all_reduce
+from repro_torch.sharding.partition import TreeShardings, local_shape, sharded_axes
+
+from ._tree import leaves_like, leaves_with_specs, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["AdamWConfig", "AdamWState", "abstract_state", "apply_updates", "global_norm",
-           "init_state"]
+           "init_state", "state_shardings"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,22 +55,37 @@ class AdamWState(NamedTuple):
 
 
 def init_state(params) -> AdamWState:
+    """Zero moments shaped like ``params`` (on a mesh: the rank's shards)."""
     z = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
     device = tree_leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device), m=z,
                       v=tree_map(torch.clone, z))
 
 
+def state_shardings(shardings):
+    """The optimizer state's placement from its parameters' (a
+    ``partition.TreeShardings``): ``m`` and ``v`` sharded like the
+    parameters, the step whole on every rank."""
+    return TreeShardings(AdamWState((), shardings.specs, shardings.specs), shardings.mesh)
 
-def abstract_state(params) -> AdamWState:
+
+def abstract_state(params, shardings=None) -> AdamWState:
     """Meta tensors of the state's shapes and dtypes (the dry run's
-    stand-in); ``m`` and ``v`` are trees of their own, as on the card."""
+    stand-in); ``m`` and ``v`` are trees of their own, as on the card.
+    ``params`` are whole; with ``shardings`` (theirs) the moments are one
+    rank's shards."""
+    def shape(p, spec):
+        return p.shape if shardings is None else local_shape(p.shape, spec, shardings.mesh)
+
     def zeros():
-        return tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta"),
-                        params)
+        pairs = leaves_with_specs(params, shardings.specs) if shardings is not None else \
+            [(p, None) for p in tree_leaves(params)]
+        return tree_unflatten(params, [torch.empty(shape(p, spec), dtype=torch.float32,
+                                                   device="meta") for p, spec in pairs])
 
     return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"), m=zeros(),
                       v=zeros())
+
 
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
     """A host constant as an f32 tensor on ``like``'s device: a divisor (or
@@ -79,25 +105,39 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shardings=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf (``None`` leaves count 0),
-    summed leaf by leaf in flatten order."""
-    total = None
-    for g in tree_leaves(tree):
+    summed leaf by leaf in flatten order. With ``shardings`` (the tree's
+    ``partition.TreeShardings``) ``tree`` holds this rank's shards: the
+    leaves are summed in flatten order within each set of mesh axes their
+    specs shard, each set's sum is summed over those axes, and the sets are
+    added in the order they first appear."""
+    pairs = leaves_with_specs(tree, shardings.specs) if shardings is not None else \
+        [(g, None) for g in tree_leaves(tree)]
+    sums = {}
+    for g, spec in pairs:
         if g is None:
             continue
         sq = torch.sum(torch.square(g.to(torch.float32)))
-        total = sq if total is None else total + sq
-    if total is None:
+        axes = () if spec is None else sharded_axes(spec, shardings.mesh)
+        sums[axes] = sq if axes not in sums else sums[axes] + sq
+    if not sums:
         raise ValueError("global_norm of a tree without gradients")
+    total = None
+    for axes, sq in sums.items():
+        for axis in axes:
+            sq = all_reduce(sq, shardings.mesh, axis)
+        total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
-def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig):
+def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig, shardings=None):
     """Returns ``(new_params, new_state, metrics)``; ``grads`` has the
-    params' tree shape, with ``None`` where a leaf received no gradient."""
+    params' tree shape, with ``None`` where a leaf received no gradient.
+    ``shardings``: the params' placement on a mesh (``params``, ``grads``
+    and the moments are this rank's shards), read by the global norm."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     scale = torch.clamp(_f32(cfg.grad_clip, gnorm) / (gnorm + 1e-9), max=1.0)
     lr = _schedule(cfg, step)
     stepf = step.to(torch.float32)

@@ -1,8 +1,10 @@
-"""The serving jobs of the tensor-parallel tests: each builds a
-``BatchedServer`` of the port, on a mesh or without one, and serves the
-reference's request fixture. The spawned ranks (``launch.mesh.spawn``)
-import this module by name, so it imports no JAX; the tests run the same
-jobs in-process for the port's ``mesh=None`` side."""
+"""The jobs of the tensor-parallel tests: serving jobs build a
+``BatchedServer`` of the port, on a mesh or without one, and serve the
+reference's request fixture; training jobs (``train_jobs``) run train
+steps, remat pairs, checkpoints and restarts on a mesh and return what
+they make gathered whole. The spawned ranks (``launch.mesh.spawn``) import
+this module by name, so it imports no JAX; the tests run the same jobs
+in-process for the port's ``mesh=None`` side."""
 import json
 
 import numpy as np
@@ -181,6 +183,23 @@ def count_plain_launches(smoke, sizes: dict):
     return undo
 
 
+def reduced_olmo(layers=None):
+    """``chip_smoke.olmo`` for the CPU rehearsals: reduced olmo-1b."""
+    return reduced(get_config("olmo-1b"), layers=layers or 2)
+
+
+def smoke_train_rank(rank: int, world: int, root: str, sizes: dict, runs, ckpt_dir: str):
+    """A spawned rank of the rehearsed train_tp phase
+    (``chip_smoke.train_tp_rank`` on the CPU, plain versions counting)."""
+    import sys
+
+    sys.path.insert(0, root)
+    import chip_smoke
+
+    count_plain_launches(chip_smoke, sizes)
+    return chip_smoke.train_tp_rank(rank, world, runs, ckpt_dir, device="cpu")
+
+
 def smoke_rank(rank: int, world: int, root: str, sizes: dict, job: dict):
     """A spawned rank of the rehearsed tp phase (``chip_smoke.tp_serve`` on
     the CPU, plain versions counting)."""
@@ -193,3 +212,262 @@ def smoke_rank(rank: int, world: int, root: str, sizes: dict, job: dict):
     kw = {k: job[k] for k in ("lens", "mode", "per_call") if k in job}
     return chip_smoke.tp_serve(job["cfg"], mesh_from_shape(job["mesh"]), "cpu",
                                job.get("forward"), job.get("max_new"), **kw)
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh (tests/test_torch_tp_train.py)
+# ---------------------------------------------------------------------------
+
+OCFG = dict(lr=1e-3, warmup_steps=2, total_steps=10)  # test_torch_train.OCFG
+
+
+def train_parts(job: dict, mesh=None):
+    """The model, the rank's parameters (the job's numpy tree, sharded on a
+    mesh), the engine context and the train config of a training job:
+    ``arch`` (reduced), ``mode``, ``params``, optional ``remat``,
+    ``microbatches``."""
+    import dataclasses
+
+    from repro_torch.launch.train import engine_ctx
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import TrainConfig
+
+    model = get_model(reduced(get_config(job["arch"])))
+    params = model.load_numpy(job["params"], "cpu", mesh=mesh)
+    ctx = dataclasses.replace(engine_ctx(job["mode"]), mesh=mesh)
+    tcfg = TrainConfig(optimizer=opt.AdamWConfig(**OCFG), remat=job.get("remat", False),
+                       microbatches=job.get("microbatches", 1))
+    return model, params, ctx, tcfg
+
+
+def _numpy(t):
+    return None if t is None else t.detach().numpy().copy()
+
+
+def whole(tree, shardings):
+    """A tree (of this rank's shards on ``shardings``' mesh) as whole numpy
+    leaves in flatten order, None for a missing gradient. Every rank of the
+    mesh must call it."""
+    from repro_torch.sharding.partition import gather_tensor
+    from repro_torch.train._tree import leaves_with_specs, tree_leaves
+
+    if shardings is None:
+        return [_numpy(t) for t in tree_leaves(tree)]
+    return [None if t is None else _numpy(gather_tensor(t, spec, shardings.mesh))
+            for t, spec in leaves_with_specs(tree, shardings.specs)]
+
+
+def _batch(job, step: int = 0):
+    return {k: torch.from_numpy(v) for k, v in job["batches"][step].items()}
+
+
+def _drop_entries():
+    """Every model module's ``enter_model`` made the plain identity (its
+    gradient no longer summed over the model axis); returns the undo."""
+    from repro_torch.models import blocks, encdec, mamba2, mla, transformer
+
+    mods = (blocks, encdec, mamba2, mla, transformer)
+    saved = [m.enter_model for m in mods]
+    for m in mods:
+        m.enter_model = lambda t, mesh: t
+
+    def undo():
+        for m, f in zip(mods, saved):
+            m.enter_model = f
+
+    return undo
+
+
+def train_step(job: dict, mesh=None) -> dict:
+    """One train step of a job on its first global batch (``batches[0]``,
+    numpy ``tokens``, ``targets``): the loss, the gradient norm and,
+    gathered whole, the gradients (``make_grad_fn``), the updated parameters
+    and the moments (``apply_updates`` on those gradients: the train step).
+    ``drop_entries``: without the model's entry ops."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train._tree import leaves_like
+    from repro_torch.train.train_loop import make_grad_fn
+
+    undo = _drop_entries() if job.get("drop_entries") else None
+    try:
+        model, params, ctx, tcfg = train_parts(job, mesh)
+        grads_of, sh = make_grad_fn(model, ctx, tcfg)
+        loss, _, grads = grads_of(params, _batch(job))
+        new, state, met = opt.apply_updates(params, grads, opt.init_state(params),
+                                            tcfg.optimizer, sh)
+    finally:
+        if undo is not None:
+            undo()
+    out = {"loss": _numpy(loss), "grad_norm": _numpy(met["grad_norm"]),
+           "params": whole(new, sh),
+           "state": whole(state, opt.state_shardings(sh) if sh is not None else None)}
+    out["grads"] = whole(grads, sh) if sh is not None else \
+        [_numpy(g) for g in leaves_like(params, grads)]
+    return out
+
+
+def steps(job: dict, mesh, start: int, stop: int, params=None, state=None):
+    """Train steps ``start..stop-1`` of a job through ``make_train_step``
+    (from the job's weights and fresh moments unless given): the params,
+    the state, the losses, the placement."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import make_train_step
+
+    model, fresh, ctx, tcfg = train_parts(job, mesh)
+    params = fresh if params is None else params
+    state = opt.init_state(params) if state is None else state
+    step_fn = make_train_step(model, ctx, tcfg)
+    losses = []
+    for i in range(start, stop):
+        params, state, met = step_fn(params, state, _batch(job, i))
+        losses.append(_numpy(met["loss"]))
+    sh = None
+    if mesh is not None:
+        from repro_torch.sharding.partition import train_shardings
+
+        sh = train_shardings(model.serving_specs(), mesh)
+    return params, state, losses, sh
+
+
+def run_steps(job: dict, mesh) -> dict:
+    """``job["steps"]`` train steps on ``mesh`` (``None``: unmeshed), each
+    from the run's own state: the losses and the parameters gathered whole."""
+    params, _, losses, sh = steps(job, mesh, 0, job["steps"])
+    return {"losses": losses, "params": whole(params, sh)}
+
+
+def remat_pair(job: dict, mesh) -> dict:
+    """One train step with remat off and on, on ``mesh``: whether the loss,
+    the gradient norm, the parameters and the moments are bitwise equal."""
+    import dataclasses
+
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import make_train_step
+
+    outs = []
+    for remat in (False, True):
+        model, params, ctx, tcfg = train_parts(job, mesh)
+        tcfg = dataclasses.replace(tcfg, remat=remat)
+        outs.append(make_train_step(model, ctx, tcfg)(params, opt.init_state(params),
+                                                     _batch(job)))
+    (p0, s0, m0), (p1, s1, m1) = outs
+    from repro_torch.train._tree import tree_leaves
+
+    same = [torch.equal(a, b) for a, b in zip(tree_leaves((p0, s0)), tree_leaves((p1, s1)))]
+    return {"loss": torch.equal(m0["loss"], m1["loss"]),
+            "grad_norm": torch.equal(m0["grad_norm"], m1["grad_norm"]), "trees": all(same)}
+
+
+def save_after(job: dict, mesh) -> dict:
+    """``job["steps"]`` train steps on ``mesh``, then the params and moments
+    saved with ``shardings=`` under ``job["dir"]`` (``/opt`` for the
+    moments); returns them gathered whole."""
+    from repro_torch.train import checkpoint, optimizer as opt
+
+    n = job["steps"]
+    params, state, _, sh = steps(job, mesh, 0, n)
+    checkpoint.save(job["dir"], n, params, shardings=sh)
+    checkpoint.save(job["dir"] + "/opt", n, state, background=True,
+                    shardings=opt.state_shardings(sh))
+    return {"params": whole(params, sh), "state": whole(state, opt.state_shardings(sh))}
+
+
+def restore_on(job: dict, mesh) -> dict:
+    """The checkpoint of ``job["dir"]`` at step ``job["steps"]`` restored
+    with ``shardings=`` on ``mesh``; returns it gathered whole."""
+    from repro_torch.train import checkpoint, optimizer as opt
+
+    model, like, _, _ = train_parts(job, mesh)
+    from repro_torch.sharding.partition import train_shardings
+
+    sh = train_shardings(model.serving_specs(), mesh)
+    n = job["steps"]
+    params = checkpoint.restore(job["dir"], n, like, shardings=sh)
+    state = checkpoint.restore(job["dir"] + "/opt", n, opt.init_state(like),
+                               shardings=opt.state_shardings(sh))
+    return {"params": whole(params, sh), "state": whole(state, opt.state_shardings(sh)),
+            "step": int(state.step)}
+
+
+def restart(job: dict, mesh) -> dict:
+    """``job["steps"]`` steps, a checkpoint, ``job["more"]`` steps on; then a
+    fresh trainer restored from the checkpoint with ``shardings=`` runs the
+    same steps: whether its losses and parameters are bitwise the
+    uninterrupted run's."""
+    from repro_torch.train import checkpoint, optimizer as opt
+    from repro_torch.train._tree import tree_leaves
+
+    n, more = job["steps"], job["more"]
+    params, state, _, sh = steps(job, mesh, 0, n)
+    checkpoint.save(job["dir"], n, params, shardings=sh)
+    checkpoint.save(job["dir"] + "/opt", n, state, shardings=opt.state_shardings(sh))
+    direct, _, losses, _ = steps(job, mesh, n, n + more, params, state)
+    _, like, _, _ = train_parts(job, mesh)
+    p = checkpoint.restore(job["dir"], n, like, shardings=sh)
+    s = checkpoint.restore(job["dir"] + "/opt", n, opt.init_state(like),
+                           shardings=opt.state_shardings(sh))
+    again, _, losses2, _ = steps(job, mesh, n, n + more, p, s)
+    return {"losses": [float(v) for v in losses],
+            "losses_bitwise": all(np.array_equal(a, b) for a, b in zip(losses, losses2)),
+            "params_bitwise": all(torch.equal(a, b) for a, b in
+                                  zip(tree_leaves(direct), tree_leaves(again)))}
+
+
+def lb_loss(job: dict, mesh) -> dict:
+    """The MoE's load-balancing loss of a cache-free forward over this data
+    rank's rows of the job's global batch, on ``mesh`` as the train step
+    runs it (``batch_shards``) and over the rank's rows alone."""
+    import dataclasses
+
+    from repro_torch.sharding.partition import train_shardings
+    from repro_torch.train.train_loop import _rows
+
+    model, params, ctx, _ = train_parts(job, mesh)
+    sh = train_shardings(model.serving_specs(), mesh)
+    ctx = dataclasses.replace(ctx, param_specs=sh.specs)
+    batch = {k: _rows(v, 1, 0, mesh) for k, v in _batch(job).items()}
+    with torch.no_grad():
+        _, aux = model.forward(params, batch, dataclasses.replace(
+            ctx, batch_shards=mesh.size("data")))
+        _, local = model.forward(params, batch, ctx)
+    return {"global": _numpy(aux["lb_loss"]), "local": _numpy(local["lb_loss"])}
+
+
+def int8_ties(job: dict, mesh) -> dict:
+    """The int8 mode's row-parallel dot of ``x`` (M, K) by ``w`` (K, N), K
+    split over the model axis, and its gradients, gathered whole."""
+    from repro_torch.core import EngineContext, FXP8, PrecisionPolicy
+    from repro_torch.sharding.partition import gather_tensor
+
+    ctx = EngineContext(mode="int8", policy=PrecisionPolicy.accurate(FXP8),
+                        compute_dtype=torch.float32, mesh=mesh)
+    x, w = job["x"], job["w"]
+    k = x.shape[1] // mesh.size("model")
+    k0 = mesh.coord("model") * k
+    xs = torch.tensor(x[:, k0:k0 + k], requires_grad=True)
+    ws = torch.tensor(w[k0:k0 + k], requires_grad=True)
+    out = ctx.linear(xs, ws, k_sharded=True)
+    (out * torch.from_numpy(job["g"])).sum().backward()
+    return {"out": _numpy(out), "dx": _numpy(gather_tensor(xs.grad, (None, "model"), mesh)),
+            "dw": _numpy(gather_tensor(ws.grad, ("model",), mesh))}
+
+
+TRAIN_KINDS = {"step": train_step, "steps": run_steps, "remat": remat_pair, "save": save_after,
+               "restore": restore_on, "restart": restart, "lb_loss": lb_loss,
+               "int8_ties": int8_ties}
+
+
+def train_jobs(rank: int, world: int, jobs):
+    """A spawned rank: each training job (``kind``, ``mesh``: its shape over
+    this spawn's ranks) in order; returns their results."""
+    meshes = {}
+    out = []
+    for job in jobs:
+        shape = tuple(job["mesh"])
+        if shape not in meshes:
+            meshes[shape] = mesh_from_shape(shape)
+        rep = TRAIN_KINDS[job["kind"]](job, meshes[shape])
+        if rank:  # the whole trees come back from rank 0 alone
+            rep = {k: v for k, v in rep.items() if k not in ("grads", "params", "state")}
+        out.append(rep)
+    return out

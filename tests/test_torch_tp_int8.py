@@ -117,11 +117,14 @@ def test_split_int8_dot_equals_the_reference(split, weights, eff_bits):
     whole_q, whole_s = quantize_weight(wt, eff_bits=eff_bits)
     parts, scales = [], set()
     for a, b in _cuts(K, SPLITS[split]):
-        xq, x_scale = quantize_tokens(xt[:, a:b], lambda m: torch.maximum(m, x_max))
+        xq, x_scale = quantize_tokens(
+            xt[:, a:b], lambda t, d: torch.maximum(torch.amax(t, dim=tuple(d), keepdim=True), x_max))
         if weights == "prepared":
             wq, w_scale = whole_q[a:b], whole_s
         else:
-            wq, w_scale = quantize_weight(wt[a:b], reduce_max=lambda m: torch.maximum(m, w_max))
+            wq, w_scale = quantize_weight(
+                wt[a:b],
+                amax=lambda t, d: torch.maximum(torch.amax(t, dim=tuple(d), keepdim=True), w_max))
             if eff_bits < 8:
                 wq = _drop_bits(wq, eff_bits)
         scales.add((x_scale.numpy().tobytes(), w_scale.numpy().tobytes()))

@@ -5,6 +5,7 @@ that the phase's own exact launch check runs here."""
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -88,3 +89,35 @@ def test_tp_split_and_scan_phases_rehearse_on_the_cpu(smoke):
                 assert rep["launches"][split[0]] == rep["launches"][split[1]] > 0
     finally:
         undo()
+
+
+def test_train_tp_phase_rehearses_on_the_cpu(smoke, tmp_path):
+    """``chip_smoke.train_tp_rank`` on reduced olmo-1b (2 layers, batch 4 x
+    16), spawned gloo ranks, the plain versions counting the launches their
+    wrappers would make and standing in for the recorded launch functions:
+    every run's steps pass the phase's own gates against mesh=None (one
+    rank at a time), the int8 run's kernel-6 launches by instantiation pass
+    its exact check, its recorded split-form calls equal the plain
+    versions, and the exact (1, 2) run's checkpoint restores on mesh=None
+    bitwise."""
+    import _tp_ranks
+    from repro_torch.launch.mesh import spawn
+
+    sizes = dict(olmo=_tp_ranks.reduced_olmo, TRAIN_SEQ=16, TRAIN_BATCH=4,
+                 TP_TRAIN_RECORD={"partial": "mac_matmul_partial_ref",
+                                  "epilogue": "mac_epilogue_ref"})
+    reps = spawn(_tp_ranks.smoke_train_rank, 2,
+                 args=(str(ROOT), sizes, smoke.TP_TRAIN_RUNS, str(tmp_path / "ckpt")),
+                 timeout=300)
+    for label, shape, mode, _ in smoke.TP_TRAIN_RUNS:
+        for rep in (ranks[label] for ranks in reps):
+            assert len(rep["steps"]) == smoke.TP_TRAIN_STEPS
+            assert all(np.isfinite(s["loss"]) for s in rep["steps"]), label
+            if mode == "int8":
+                assert set(rep["launches"]) == {"cordic_mac", "cordic_mac_partial",
+                                                "cordic_mac_epilogue"}
+                assert all(rep["bitwise_plain_calls"].values())
+            else:
+                assert rep["launches"] == {}
+            assert rep.get("checkpoint_restores_bitwise", False) == (
+                mode == "exact" and shape == (1, 2))

@@ -175,7 +175,12 @@ then:
    summed over two K halves, the fused kernel over the whole of K, at
    olmo-1b's local row-parallel shapes; the GQA and MLA cache kernels on a
    rank's half of the heads (and slots), their key splits planned from the
-   whole counts, bitwise the whole call's rows;
+   whole counts, bitwise the whole call's rows; kernels 2 and 7 on a
+   rank's q heads against the whole kv heads (replicated kv heads: yi-9b at
+   a model axis of 8, qwen3-8b at 16), read in place, bitwise the whole
+   call's rows and within 2e-5 of their plain versions
+   (``check_kv_replicated``); one meshed dry-run cell (rank 0 of the 16x16
+   mesh in a fake process group, ``dryrun_mesh_cell``, a subprocess);
    then tensor-parallel serving on spawned ranks that share the card
    (gloo; the server uncaptured): full-width olmo-1b on a (1, 2) mesh, its
    streams, f32 top-2 margins and a flash forward's logits bitwise the
@@ -198,8 +203,10 @@ present and no other). Every phase runs through ``phase``: a failure
 prints ``{"failed_phase": ..., "error": ...}`` on stdout, the traceback on
 stderr, and the run exits non-zero.
 
-It imports nothing of JAX. It exits non-zero on any failure, and when no CUDA
-device is present. A full JSON report goes to ``chiprun_out/chip_smoke.json``.
+It imports nothing of JAX. It exits non-zero on any failure: its first phase,
+``setup``, imports the port from ``src/`` beside the script and fails when
+that is missing or no CUDA device is present, printing ``failed_phase`` as
+any phase does. A full JSON report goes to ``chiprun_out/chip_smoke.json``.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -208,6 +215,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -491,8 +499,13 @@ def profile_names(label, rows, ran: dict) -> dict:
     none that did not run shows at all. The profiler may drop records (it
     listed 27 of 29 fused launches of a deepseek forward at times), so no
     count is read from it; a dropped record can fail neither check unless
-    every record of a kernel is dropped. Returns the calls seen, by
-    instantiation."""
+    every record of a kernel is dropped. A profile with no device kernel at
+    all (the profiler recorded no device activity in the window) fails
+    naming itself as empty. Returns the calls seen, by instantiation."""
+    if not rows and any(ran.values()):
+        raise AssertionError(f"{label}: the profile came back empty: no device kernel at all "
+                             f"in its window (torch.profiler recorded no device activity), "
+                             f"while the wrappers launched {nonzero(ran)}")
     seen = {key: sum(n for _, k, n in rows if name in k) for key, name in GLOBALS.items()}
     missing = [key for key, n in ran.items() if n and not seen[key]]
     stray = [key for key, n in seen.items() if n and not ran.get(key)]
@@ -5113,6 +5126,148 @@ def check_tp_attention(device):
     return rows
 
 
+# replicated kv heads: (arch, model axis, rank) at stock head counts; the
+# rank's q heads read one kv head of the whole K/V (yi-9b at 8: q heads
+# 20-23 on kv head 2; qwen3-8b at 16: q heads 6-7 on kv head 1)
+KV_REPLICATED = (("yi-9b", 8, 5), ("qwen3-8b", 16, 3))
+# (B, S, start): decode, then the prefill buckets 16, 64 and 512 from row 0
+KV_REPLICATED_GQA = ((SLOTS, 1, None), (1, 16, 0), (1, 64, 0), (1, BUCKET, 0))
+
+
+def check_kv_replicated(device):
+    """Kernels 2 and 7 on a mesh rank's q heads against the whole kv heads
+    (``head_offset``, ``groups``: read in place, never sliced), at stock
+    head counts, hd 128 and T 512 (``KV_REPLICATED``): GQA at decode B4 S1
+    (split keys, planned from the global B, H, KV) and at the prefill
+    buckets 16, 64 and 512 from row 0 (tensor cores); flash at B1 S512,
+    causal. Each rank call's rows must equal the whole unmeshed call's rows
+    for those heads bit for bit, and its plain version to ``TOLERANCE``.
+    Times each rank call, its plain version and SDPA over the rank's heads
+    (K/V repeated to them outside the timing), beside its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import costs
+    from repro_torch.kernels.decode_attention import (TOLERANCE, gqa_decode_attention,
+                                                      gqa_decode_attention_ref)
+    from repro_torch.kernels.decode_attention.ops import gqa_plan
+    from repro_torch.kernels.decode_attention.ref import kv_rows
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    rows, t, hd = [], MAX_LEN, 128
+    for arch, m, rank in KV_REPLICATED:
+        cfg = get_config(arch)
+        h, kv = cfg.num_heads, cfg.num_kv_heads
+        h_loc, groups = h // m, h // kv
+        h0 = rank * h_loc
+        share = dict(head_offset=h0, groups=groups)
+        kv_read = (h0 + h_loc - 1) // groups - h0 // groups + 1
+        label = f"{arch} rank {rank} of {m}: q heads {h0}-{h0 + h_loc - 1} of {h}"
+        for b, s, start in KV_REPLICATED_GQA:
+            q, ck, cv, pos = attention_case(b, s, t, h, kv, hd, gen, device, start)
+            scale = 1.0 / math.sqrt(hd)
+            whole = gqa_decode_attention(q, ck, cv, pos, scale=scale)[:, :, h0:h0 + h_loc]
+            lq = q[:, :, h0:h0 + h_loc].contiguous()
+            call = lambda: gqa_decode_attention(  # noqa: E731
+                lq, ck, cv, pos, scale=scale, plan_dims=(b, h, kv), **share)
+            got = call()
+            if not torch.equal(got, whole):
+                raise AssertionError(f"GQA on {label} at B{b} S{s} != the whole call's rows")
+            want = gqa_decode_attention_ref(lq, ck, cv, pos, scale=scale, **share)
+            err = (got - want).abs().max().item()
+            if not err <= TOLERANCE:
+                raise AssertionError(f"GQA on {label} at B{b} S{s}: max|diff| {err} against "
+                                     f"its plain version > {TOLERANCE}")
+            qt = lq.transpose(1, 2).contiguous()
+            kt, vt = (kv_rows(c, h_loc, **share).transpose(1, 2).contiguous() for c in (ck, cv))
+            mask = (torch.arange(t, device=device)[None, None, :] <= pos[:, :, None])[:, None]
+            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=scale), 60)
+            b_ms, b_by, b3_ms = attention_bounds(lq, kv_read, t, pos)
+            path, splits = gqa_plan(b, s, h, t, kv)
+            rows.append(dict(kernel="gqa_decode_attention", share=label, B=b, S=s, T=t,
+                             H=h_loc, KV=kv, kv_read=kv_read, hd=hd, path=path, splits=splits,
+                             positions="decode" if s == 1 else "from row 0",
+                             bitwise_whole_rows=True, tolerance=TOLERANCE, max_abs_err=err,
+                             ms=graph_ms(call, 60),
+                             plain_ms=timed_ms(lambda: gqa_decode_attention_ref(
+                                 lq, ck, cv, pos, scale=scale, **share), 5, 1),
+                             sdpa_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bound_tf32_ms=b3_ms))
+            log(f"kv replicated GQA {label} B{b} S{s} [{path}, {splits} splits]: "
+                f"{rows[-1]['ms']:.4f} ms (plain {rows[-1]['plain_ms']:.3f}, sdpa "
+                f"{lib_ms:.4f}, bound {b_ms:.4f} {b_by}) err {err:.2e}")
+        s = BUCKET
+        q, k, v = (torch.randn((1, s, n, hd), generator=gen, device=device)
+                   for n in (h, kv, kv))
+        lq = q[:, :, h0:h0 + h_loc].contiguous()
+        whole = flash_attention(q, k, v, causal=True)[:, :, h0:h0 + h_loc]
+        call = lambda: flash_attention(lq, k, v, causal=True, **share)  # noqa: E731
+        got = call()
+        if not torch.equal(got, whole):
+            raise AssertionError(f"flash on {label} != the whole call's rows")
+        want = flash_attention_ref(lq, k, v, causal=True, **share)
+        err = (got - want).abs().max().item()
+        if not err <= TOLERANCE:
+            raise AssertionError(f"flash on {label}: max|diff| {err} against its plain "
+                                 f"version > {TOLERANCE}")
+        qt = lq.transpose(1, 2).contiguous()
+        kt, vt = (kv_rows(c, h_loc, **share).transpose(1, 2).contiguous() for c in (k, v))
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                          60)
+        cost = costs.flash_attention(1, s, h_loc, kv_read, hd, 4, True)
+        b_ms, b_by = cost.bound()
+        rows.append(dict(kernel="flash_attention", share=label, B=1, S=s, H=h_loc, KV=kv,
+                         kv_read=kv_read, hd=hd, causal=True, bitwise_whole_rows=True,
+                         tolerance=TOLERANCE, max_abs_err=err, ms=graph_ms(call, 60),
+                         plain_ms=timed_ms(lambda: flash_attention_ref(
+                             lq, k, v, causal=True, **share), 5, 1),
+                         sdpa_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                         bound_tf32_ms=cost.bound_tf32_ms()))
+        log(f"kv replicated flash {label} S{s}: {rows[-1]['ms']:.4f} ms (plain "
+            f"{rows[-1]['plain_ms']:.3f}, sdpa {lib_ms:.4f}, bound {b_ms:.4f} {b_by}) "
+            f"err {err:.2e}")
+    torch.cuda.synchronize()
+    return rows
+
+
+# the meshed dry run's cell on the card machine: rank 0 of the 16x16 mesh in
+# a fake process group, on meta tensors (no card work)
+DRYRUN_MESH_CELL = ("olmo-1b", "decode_32k", "kernel")
+
+
+def dryrun_mesh_cell() -> dict:
+    """One meshed dry-run cell (``launch.dryrun --mesh single``, kernel mode,
+    prepared) in a subprocess of its own, as the CLI runs it: its record
+    must be ``ok``, with the reference's keys and collectives by kind."""
+    arch, shape, mode = DRYRUN_MESH_CELL
+    out = ROOT / "chiprun_out" / "dryrun_mesh"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+         "--mesh", "single", "--mode", mode, "--prepared", "--out", str(out)],
+        capture_output=True, text=True, env=env, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise RuntimeError(f"dryrun --mesh single exited {proc.returncode}: "
+                           f"{proc.stderr[-1500:]}{proc.stdout[-500:]}")
+    rec = json.loads((out / f"{arch}__{shape}__single__{mode}__prepared.json").read_text())
+    missing = [k for k in ("flops_dev", "hbm_bytes_dev", "coll_bytes_dev", "coll_by_kind",
+                           "memory", "fits_one_card") if k not in rec]
+    if rec.get("status") != "ok" or missing or not rec["coll_by_kind"]:
+        raise AssertionError(f"dryrun --mesh single: status {rec.get('status')}, missing "
+                             f"{missing}, collectives {rec.get('coll_by_kind')}: "
+                             f"{rec.get('error')}")
+    log(f"dryrun mesh single {arch} {shape}: {wall:.1f} s, flops {rec['flops_dev']:.3e}, "
+        f"coll {rec['coll_by_kind']}")
+    return {k: rec[k] for k in ("arch", "shape", "mesh", "mesh_shape", "rank", "mode",
+                                "status", "trace_s", "flops_dev", "hbm_bytes_dev",
+                                "coll_bytes_dev", "coll_by_kind", "memory", "fits_one_card")
+            } | {"wall_s": wall}
+
+
 def tp_scan_cfg(name: str):
     """A scan arch at stock widths, f32, its depth cut to ``TP_SCAN_LAYERS``
     (seamless's encoder too, which the served decoder never runs)."""
@@ -5749,14 +5904,18 @@ def main(argv=()) -> int:
     def want(group: str) -> bool:
         return groups is None or group in groups
 
-    if not torch.cuda.is_available():
-        log("chip_smoke: no CUDA device available")
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.kernels import _build
-    from repro_torch.models import get_model
+    def setup():
+        """The port's modules from ``src/`` beside this script, and a card."""
+        sys.path.insert(0, str(ROOT / "src"))
+        from repro_torch.configs import get_config, reduced
+        from repro_torch.kernels import _build
+        from repro_torch.models import get_model
 
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available")
+        return get_config, reduced, _build, get_model
+
+    get_config, reduced, _build, get_model = phase("setup", setup)
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5847,16 +6006,21 @@ def main(argv=()) -> int:
     if want("modes"):
         for key, rep in phase("modes olmo-1b", modes_phases, device).items():
             (parity if "card vs cpu" in key else serving)[f"olmo-1b {key}"] = rep
-    tp = tp_rows = train_tp = None
+    tp = tp_rows = train_tp = dryrun_mesh = None
     if want("tp"):
         # kernel 1's split form, then tensor-parallel serving on ranks that
         # share the card
         tp_rows, tp_err = phase("check_tp_kernels", check_tp_kernels, device)
         checks["fused_split"] = tp_rows
         checks["attention_local_heads"] = phase("check_tp_attention", check_tp_attention, device)
+        checks["attention_kv_replicated"] = phase("check_kv_replicated", check_kv_replicated,
+                                                  device)
         emit({"kernel_checks": {"fused_split": tp_rows,
-                                "attention_local_heads": checks["attention_local_heads"]}})
+                                "attention_local_heads": checks["attention_local_heads"],
+                                "attention_kv_replicated": checks["attention_kv_replicated"]}})
         free_card()
+        dryrun_mesh = phase("dryrun mesh single", dryrun_mesh_cell)
+        emit({"dryrun_mesh": dryrun_mesh})
         tp = phase("tp", tp_phases, device)
         for key, rep in tp.items():
             if key != "record":
@@ -5958,7 +6122,7 @@ def main(argv=()) -> int:
         (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
             device=device_line, phases=sorted(groups), kernel_checks=checks, serving=serving,
             analysis=analysis, forward=forward, card_vs_cpu=parity, sim=sim, train=training,
-            tp=tp, train_tp=train_tp),
+            tp=tp, train_tp=train_tp, dryrun_mesh=dryrun_mesh),
             indent=1))
         log(f"chip_smoke: groups {sorted(groups)} done")
         return 0
@@ -6038,7 +6202,7 @@ def main(argv=()) -> int:
         device=device_line, kernel_checks=checks, softmax_path=paths["softmax activate"],
         serving=serving, analysis=analysis, forward=forward, calibration=calibration,
         replay_order=order, card_vs_cpu=parity, sim=sim, train=training, tp=tp,
-        train_tp=train_tp, kernels=kernels), indent=1))
+        train_tp=train_tp, dryrun_mesh=dryrun_mesh, kernels=kernels), indent=1))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,9 +5,14 @@
 // batch row b, head h and query row s:
 //   scores_t = (q . k_t) * scale        for t <= pos[b, s], else -1e30
 //   out      = softmax(scores) . V
-// over the whole cache (B, T, KV, hd) in f32. The kv head is h / groups,
-// resolved by index: keys and values are never repeated. A row with
-// pos < 0 sees every key masked: its softmax is uniform over all T keys.
+// over the whole cache (B, T, KV, hd) in f32. The kv head is
+// (h0 + h) / groups, resolved by index: keys and values are never repeated.
+// h0 and groups are 0 and H / KV for a whole call; a tensor-parallel rank
+// whose q heads are split over the model axis while the kv heads are not
+// (replicated kv heads) passes its first q head's global index and the
+// global group count, and reads its kv heads in place in the whole cache.
+// A row with pos < 0 sees every key masked: its softmax is uniform over all
+// T keys.
 //
 // Two paths, chosen by the host (decode_attention/ops.py: gqa_plan):
 //
@@ -48,13 +53,13 @@ template <int HD>
 __global__ void __launch_bounds__(tile::Config<float, HD>::NT)
 gqa_decode_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const int* __restrict__ pos,
-                     float* __restrict__ out, int S, int H, int T, int KV, int groups,
-                     float scale, tile::Order order) {
+                     float* __restrict__ out, int S, int H, int T, int KV, int h0,
+                     int groups, float scale, tile::Order order) {
   int bh, rank;
   order.item(blockIdx.x, bh, rank);
   const int b = bh / H, h = bh % H;
   const size_t q_off = ((size_t)b * S * H + h) * HD;
-  const size_t kv_off = ((size_t)b * T * KV + h / groups) * HD;
+  const size_t kv_off = ((size_t)b * T * KV + (h0 + h) / groups) * HD;
   tile::attend<float, HD>(q + q_off, k + kv_off, v + kv_off, out + q_off,
                                  (size_t)H * HD, (size_t)KV * HD, rank, order.nqb, S, T,
                                  tile::Positions{pos + (size_t)b * S}, scale);
@@ -74,14 +79,16 @@ constexpr size_t split_smem_bytes() {
   return ((size_t)4 * TK * (HD + 4) + (size_t)RB * HD) * sizeof(float);
 }
 
-// grid (row_blocks * splits, KV, B); rows r = s * groups + i of kv head kvh
-// are query s of head kvh * groups + i
+// grid (row_blocks * splits, kv heads read, B): blockIdx.y is the kv head
+// h0 / groups + y; its q heads among the call's H are [lo, lo + gk) (all
+// `groups` of them in a whole call, fewer at the ends of a rank's share),
+// and rows r = s * gk + i are query s of head lo + i
 template <int HD>
 __global__ void __launch_bounds__(NT)
 gqa_decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const int* __restrict__ pos,
                         float* __restrict__ out, float* __restrict__ ws, int S, int H, int T,
-                        int KV, int groups, int splits, float scale) {
+                        int KV, int h0, int groups, int splits, float scale) {
   // output dims per lane: lane l owns dims l, l + 32, ...; the last group is
   // partial unless HD is a multiple of 32 (HD = 112: 4 groups, the last of 16)
   constexpr int DPL = (HD + 31) / 32;
@@ -95,17 +102,19 @@ gqa_decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k
   __shared__ int t_end_s;
 
   const int split = blockIdx.x % splits, rb = blockIdx.x / splits;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int R = S * groups, r0 = rb * RB, nr = min(RB, R - r0);
+  const int kvh = h0 / groups + blockIdx.y, b = blockIdx.z;
+  const int lo = max(kvh * groups, h0) - h0, gk = min((kvh + 1) * groups, h0 + H) - h0 - lo;
+  const int R = S * gk, r0 = rb * RB, nr = min(RB, R - r0);
+  if (nr <= 0) return;  // a kv head with fewer q heads than the grid's widest
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   for (int i = tid; i < nr * (HD / 4); i += NT) {
     const int r = i / (HD / 4), d = (i % (HD / 4)) * 4;
-    const int s = (r0 + r) / groups, hh = kvh * groups + (r0 + r) % groups;
+    const int s = (r0 + r) / gk, hh = lo + (r0 + r) % gk;
     *reinterpret_cast<float4*>(qs + r * HD + d) =
         *reinterpret_cast<const float4*>(q + ((size_t)(b * S + s) * H + hh) * HD + d);
   }
-  if (tid < nr) qpos[tid] = pos[b * S + (r0 + tid) / groups];
+  if (tid < nr) qpos[tid] = pos[b * S + (r0 + tid) / gk];
   __syncthreads();
   if (tid == 0) {
     int mx = qpos[0];
@@ -201,7 +210,7 @@ gqa_decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k
   for (int i = 0; i < RPW; ++i) {
     const int r = warp + i * NWARPS;
     if (r >= nr) break;
-    const int s = (r0 + r) / groups, hh = kvh * groups + (r0 + r) % groups;
+    const int s = (r0 + r) / gk, hh = lo + (r0 + r) % gk;
     const size_t row = (size_t)(b * S + s) * H + hh;
     if (splits == 1) {
 #pragma unroll
@@ -222,9 +231,8 @@ gqa_decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k
 
 template <int HD>
 int launch(const float* q, const float* k, const float* v, const int* pos, float* out, float* ws,
-           int B, int S, int H, int T, int KV, int splits, int tc, float scale,
-           cudaStream_t stream) {
-  const int groups = H / KV;
+           int B, int S, int H, int T, int KV, int h0, int groups, int splits, int tc,
+           float scale, cudaStream_t stream) {
   if (tc) {
     using C = tile::Config<float, HD>;
     static int sms = 0, resident = 0;  // set once, with the shared-memory opt-in
@@ -235,7 +243,7 @@ int launch(const float* q, const float* k, const float* v, const int* pos, float
     }
     const tile::Order order = tile::order(sms, resident, B * H, S);
     gqa_decode_tc_kernel<HD><<<order.nqb * order.n_bh, C::NT, C::SMEM, stream>>>(
-        q, k, v, pos, out, S, H, T, KV, groups, scale, order);
+        q, k, v, pos, out, S, H, T, KV, h0, groups, scale, order);
     return (int)cudaGetLastError();
   }
   constexpr size_t smem = split_smem_bytes<HD>();
@@ -244,10 +252,13 @@ int launch(const float* q, const float* k, const float* v, const int* pos, float
     if (const int e = tile::opt_in(gqa_decode_split_kernel<HD>, smem)) return e;
     opted = true;
   }
-  const int row_blocks = (S * groups + RB - 1) / RB;
-  dim3 grid(row_blocks * splits, KV, B);
+  // the widest kv head's rows set the row blocks; the kv heads read are
+  // those of q heads h0 .. h0 + H - 1
+  const int row_blocks = (S * min(groups, H) + RB - 1) / RB;
+  const int n_kv = (h0 + H - 1) / groups - h0 / groups + 1;
+  dim3 grid(row_blocks * splits, n_kv, B);
   gqa_decode_split_kernel<HD><<<grid, NT, smem, stream>>>(q, k, v, pos, out, ws, S, H, T, KV,
-                                                          groups, splits, scale);
+                                                          h0, groups, splits, scale);
   if (splits > 1) attn::merge_splits(ws, out, (long long)B * S * H, HD, splits, stream);
   return (int)cudaGetLastError();
 }
@@ -255,21 +266,32 @@ int launch(const float* q, const float* k, const float* v, const int* pos, float
 }  // namespace
 
 // q (B, S, H, hd), k and v (B, T, KV, hd), out (B, S, H, hd), pos (B, S),
-// contiguous and 16-byte aligned (the wrapper checks). tc != 0 takes the
+// contiguous and 16-byte aligned (the wrapper checks). q head h reads kv
+// head (h0 + h) / groups: h0 = 0 and groups = H / KV for a whole call, a
+// rank's first global q head and the global group count for a rank's share
+// of the q heads against the whole kv heads. tc != 0 takes the
 // tensor-core path (S >= 16 in gqa_plan); otherwise the split-key path, with
 // ws holding B*S*H*splits*(hd + 4) floats when splits > 1: each split's hd
 // outputs, its max and its sum, padded to 16 bytes.
 extern "C" int gqa_decode_launch(const float* q, const float* k, const float* v, const int* pos,
                                  float* out, float* ws, int B, int S, int H, int T, int KV,
-                                 int hd, int splits, int tc, float scale, void* stream) {
+                                 int hd, int h0, int groups, int splits, int tc, float scale,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || S <= 0 || T <= 0 || KV <= 0 || H % KV || splits < 1)
+  if (B <= 0 || S <= 0 || H <= 0 || T <= 0 || KV <= 0 || h0 < 0 || groups < 1 ||
+      (h0 + H - 1) / groups >= KV || splits < 1)
     return (int)cudaErrorInvalidValue;
   switch (hd) {
-    case 32: return launch<32>(q, k, v, pos, out, ws, B, S, H, T, KV, splits, tc, scale, s);
-    case 64: return launch<64>(q, k, v, pos, out, ws, B, S, H, T, KV, splits, tc, scale, s);
-    case 112: return launch<112>(q, k, v, pos, out, ws, B, S, H, T, KV, splits, tc, scale, s);
-    case 128: return launch<128>(q, k, v, pos, out, ws, B, S, H, T, KV, splits, tc, scale, s);
+    case 32:
+      return launch<32>(q, k, v, pos, out, ws, B, S, H, T, KV, h0, groups, splits, tc, scale, s);
+    case 64:
+      return launch<64>(q, k, v, pos, out, ws, B, S, H, T, KV, h0, groups, splits, tc, scale, s);
+    case 112:
+      return launch<112>(q, k, v, pos, out, ws, B, S, H, T, KV, h0, groups, splits, tc, scale,
+                         s);
+    case 128:
+      return launch<128>(q, k, v, pos, out, ws, B, S, H, T, KV, h0, groups, splits, tc, scale,
+                         s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -50,8 +50,8 @@ TOLERANCE = 2e-5
 def _lib():
     lib = _build.library("decode_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gqa_decode_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float,
-                                      p]
+    lib.gqa_decode_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
+                                      ctypes.c_float, p]
     lib.gqa_decode_launch.restype = i
     f = ctypes.c_float
     lib.mla_decode_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p]
@@ -110,16 +110,32 @@ def gqa_plan(b: int, s: int, h: int, t: int, kv: int) -> GqaPlan:
     return GqaPlan(SPLIT_KEYS, gqa_splits(b, s, h, t, kv))
 
 
-def _launch(q, ck, cv, positions, scale: float, plan_dims=None):
+def head_map(h: int, kv: int, head_offset: int = 0, groups=None, name: str = "attention"):
+    """``(groups, kv heads read)`` of a call whose ``h`` q heads, from global
+    q head ``head_offset`` on, read kv head (head_offset + i) // groups of
+    ``kv``; ``groups`` None: a whole call (h % kv == 0, groups = h // kv)."""
+    if groups is None:
+        if head_offset or h % kv:
+            raise ValueError(f"{name}: {h} q heads over {kv} kv heads need groups=")
+        return h // kv, kv
+    if head_offset < 0 or groups < 1 or (head_offset + h - 1) // groups >= kv:
+        raise ValueError(f"{name}: q heads {head_offset}..{head_offset + h - 1} at {groups} a "
+                         f"kv head read past {kv} kv heads")
+    return groups, (head_offset + h - 1) // groups - head_offset // groups + 1
+
+
+def _launch(q, ck, cv, positions, scale: float, plan_dims=None, head_offset: int = 0,
+            groups=None):
     dev = q.device
     for name, t in (("ck", ck), ("cv", cv), ("positions", positions)):
         if t.device != dev:
             raise ValueError(f"gqa_decode_attention: q on {dev}, {name} on {t.device}")
     b, s, h, hd = q.shape
     _, t_len, kv, hd2 = ck.shape
-    if cv.shape != ck.shape or hd2 != hd or ck.shape[0] != b or h % kv or s == 0 or t_len == 0:
+    if cv.shape != ck.shape or hd2 != hd or ck.shape[0] != b or s == 0 or t_len == 0:
         raise ValueError(f"gqa_decode_attention: q {tuple(q.shape)}, ck {tuple(ck.shape)}, "
                          f"cv {tuple(cv.shape)}")
+    groups, kv_read = head_map(h, kv, head_offset, groups, "gqa_decode_attention")
     if hd not in HEAD_DIMS:
         raise ValueError(f"gqa_decode_attention: head_dim {hd} not in {HEAD_DIMS}")
     if q.dtype != torch.float32 or ck.dtype != torch.float32 or cv.dtype != torch.float32:
@@ -131,10 +147,11 @@ def _launch(q, ck, cv, positions, scale: float, plan_dims=None):
         raise ValueError("gqa_decode_attention: the kernel copies in 16-byte pieces; q, ck "
                          "and cv must be 16-byte aligned")
     out = torch.empty_like(q)
-    pb, ph, pkv = plan_dims if plan_dims is not None else (b, h, kv)
+    # by default the plan counts the whole call's q heads (kv * groups)
+    pb, ph, pkv = plan_dims if plan_dims is not None else (b, kv * groups, kv)
     path, splits = gqa_plan(pb, s, ph, t_len, pkv)
     inst = "tc" if path == TENSOR_CORES else "split"
-    cost = functools.partial(costs.gqa_decode_attention, b, s, h, t_len, kv, hd)
+    cost = functools.partial(costs.gqa_decode_attention, b, s, h, t_len, kv_read, hd)
     if dev.type == "meta":
         kernel_call(gqa_decode_attention, inst, cost, launched=False)
         return out
@@ -143,25 +160,32 @@ def _launch(q, ck, cv, positions, scale: float, plan_dims=None):
     with torch.cuda.device(dev):
         status = _lib().gqa_decode_launch(
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            ws.data_ptr() if ws is not None else None, b, s, h, t_len, kv, hd, splits,
-            int(path == TENSOR_CORES), float(scale), torch.cuda.current_stream(dev).cuda_stream)
+            ws.data_ptr() if ws is not None else None, b, s, h, t_len, kv, hd, head_offset,
+            groups, splits, int(path == TENSOR_CORES), float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "gqa_decode_launch")
     kernel_call(gqa_decode_attention, inst, cost, launched=True)
     return out
 
 
 @entry("gqa_decode_attention")
-def gqa_decode_attention(q, ck, cv, positions, *, scale: float, plan_dims=None):
+def gqa_decode_attention(q, ck, cv, positions, *, scale: float, plan_dims=None,
+                         head_offset: int = 0, groups=None):
     """Cache-decode GQA attention: q (B, S, H, hd) against slot caches
     ck/cv (B, T, KV, hd) with per-query positions (B, S).
 
     ``plan_dims`` = (B, H, KV) of the whole batch and model where a rank
     holds a shard of them (tensor-parallel serving: local heads, local
     slots): the key splits are counted from them, so a row gets the bits it
-    gets unsharded; by default, from the shapes given."""
+    gets unsharded; by default, from the shapes given. ``head_offset`` and
+    ``groups``: q head i is global head ``head_offset + i`` and reads kv
+    head (head_offset + i) // groups of the caches (a rank's share of the q
+    heads against the whole kv heads, read in place); by default H % KV == 0
+    and groups = H // KV."""
     if not (q.is_cuda or q.is_meta):
-        return gqa_decode_attention_ref(q, ck, cv, positions, scale=scale)
-    return _launch(q, ck, cv, positions, scale, plan_dims)
+        return gqa_decode_attention_ref(q, ck, cv, positions, scale=scale,
+                                        head_offset=head_offset, groups=groups)
+    return _launch(q, ck, cv, positions, scale, plan_dims, head_offset, groups)
 
 
 # the MLA loop's four warps of a row group each keep 128 output columns in

@@ -12,17 +12,18 @@ import math
 
 import torch
 
+from ..decode_attention.ref import kv_rows
+
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True):
-    """q (B, Sq, H, D); k, v (B, Sk, KV, D) with H % KV == 0. Returns
-    (B, Sq, H, D) in q's dtype."""
+def flash_attention_ref(q, k, v, *, causal: bool = True, head_offset: int = 0, groups=None):
+    """q (B, Sq, H, D); k, v (B, Sk, KV, D); q head i reads kv head
+    (head_offset + i) // groups (by default H % KV == 0 and groups =
+    H // KV). Returns (B, Sq, H, D) in q's dtype."""
     sq, h, d = q.shape[1:]
-    sk, kv = k.shape[1:3]
-    g = h // kv
-    kr = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
-    vr = torch.repeat_interleave(v, g, dim=2) if g > 1 else v
+    sk = k.shape[1]
+    kr, vr = kv_rows(k, h, head_offset, groups), kv_rows(v, h, head_offset, groups)
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kr.to(torch.float32))
     s = s / math.sqrt(d)
     if causal:

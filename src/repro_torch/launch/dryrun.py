@@ -1,9 +1,12 @@
 """Dry run: one (arch x shape) cell's step on meta tensors, costed, for one
-card (port of ``repro.launch.dryrun``).
+card or for rank 0 of the 16x16 production mesh (port of
+``repro.launch.dryrun``).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape decode_32k \\
         --mode kernel --prepared
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mode kernel
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh single --mode kernel \\
+        --prepared
 
 The reference lowers and compiles each cell on a fake 512-device mesh and
 reads the compiled HLO. The port runs each cell's step eagerly on meta
@@ -32,34 +35,54 @@ attention runs on the kernels too, whatever ``--attn`` says (the
 cache-decode kernels at decode, as the port serves, and flash in prefill
 cells). Kernel mode has no backward, so its train cells skip.
 ``--prepared`` runs ``prepare_params`` on meta for inference cells.
-``--mesh`` takes only ``none``: a meshed dry run (and real collectives in
-``topcolls``) is ROADMAP Queue 1; meshed serving runs (``serve --mesh``).
+
+``--mesh single`` runs the cell as rank 0 of the 256 ranks of the 16x16
+(data, model) production mesh (``launch.mesh.make_production_mesh``) in a
+``"fake"`` process group, which the cell's process starts for the cell and
+tears down after it (a process that already has a process group is
+refused): every collective runs on meta tensors, moves nothing, and the
+analyzer counts its result bytes by the reference's kinds. The rank holds
+its ``partition.shard_params`` shards (in the int8 mode prepared whole,
+then sharded, as the server places them) and its cache (the slots of its
+data group, its kv heads, or every kv head where they do not divide the
+model axis); the batch is split over ``data`` where it divides and whole on
+every data rank where it does not (``long_500k``'s one row). Train cells run
+the meshed train step with ZeRO moments, inference cells the meshed
+``forward`` and ``decode_step``. The record's numbers are rank 0's, and
+``fits_one_card`` says whether its shard fits one card. ``--mesh multi``
+(the 2x16x16 multi-pod mesh) is ROADMAP Queue 1 item 3.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import time
 import traceback
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ALL_SHAPES, ARCHS, SHAPES, get_config, shape_applicable
 from repro_torch.core import FXP8, EngineContext, PrecisionPolicy, prepare_params
 from repro_torch.data.pipeline import input_specs
 from repro_torch.launch import cost_analysis
+from repro_torch.launch.mesh import make_production_mesh, mesh_from_shape
 from repro_torch.models import get_model
+from repro_torch.sharding import partition
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_loop import TrainConfig, make_train_step
 
 ARTIFACTS = os.path.join(os.path.dirname(__file__), "..", "..", "..", "artifacts",
                          "dryrun_torch")
 MODES = ("exact", "carmen", "int8", "kernel")
-MESHES = ("none",)
+MESHES = ("none", "single")
 CARD_BYTES = 80 * 2**30  # one H100's device memory
+PRODUCTION_SHAPE = (16, 16)  # --mesh single: (data, model)
 
 
 def engine_ctx(mode: str, attn: str = "xla", decode: bool = False) -> EngineContext:
@@ -74,21 +97,75 @@ def engine_ctx(mode: str, attn: str = "xla", decode: bool = False) -> EngineCont
                          compute_dtype=torch.float32)
 
 
+@contextlib.contextmanager
+def fake_mesh(shape=PRODUCTION_SHAPE):
+    """Rank 0 of a (data, model) mesh of ``shape`` in a ``"fake"`` process
+    group started for the block and destroyed after it: its collectives run
+    on meta tensors and move nothing. Refused in a process that already has
+    a process group."""
+    if dist.is_initialized():
+        raise RuntimeError("a meshed dry run starts a fake process group of its own: run it in "
+                           "a process without one")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", rank=0, world_size=math.prod(shape), store=FakeStore())
+    try:
+        yield (make_production_mesh() if tuple(shape) == PRODUCTION_SHAPE
+               else mesh_from_shape(shape))
+    finally:
+        dist.destroy_process_group()
+
+
+def _place(model, params, ctx, mode: str, prepared: bool, mesh):
+    """A rank's inference weights as the server places them: its shards of
+    the raw tree, then prepared; in the int8 mode prepared whole, then
+    sharded (its per-channel scales span K)."""
+    specs = model.serving_specs()
+    if prepared and mode == "int8":
+        params = prepare_params(params, ctx.policy, mode, specs=model.specs())
+        return partition.shard_params(params, specs, mesh)
+    params = partition.shard_params(params, specs, mesh)
+    if prepared and mode != "exact":
+        params = prepare_params(params, ctx.policy, mode, specs=model.specs())
+    return params
+
+
 def build_cell(arch: str, shape_name: str, mode: str = "exact", attn: str = "xla",
-               microbatches: int = 1, prepared: bool = False):
-    """``(step_fn, args)`` of a cell, every tensor on the meta device."""
-    cfg = dataclasses.replace(get_config(arch), dtype="float32")
-    shape = SHAPES[shape_name]
+               microbatches: int = 1, prepared: bool = False, mesh=None, cfg=None, shape=None):
+    """``(step_fn, args)`` of a cell, every tensor on the meta device; with
+    ``mesh`` (a mesh in a fake process group, :func:`fake_mesh`) this
+    rank's step, shards and rows. ``cfg`` and ``shape`` stand in for the
+    arch's full-width f32 config and the named shape."""
+    cfg = cfg or dataclasses.replace(get_config(arch), dtype="float32")
+    shape = shape or SHAPES[shape_name]
     model = get_model(cfg)
     ctx = engine_ctx(mode, attn, decode=shape.is_decode)
     params = model.abstract_params(torch.float32)
-    if prepared and mode != "exact" and shape.kind != "train":
-        params = prepare_params(params, ctx.policy, mode, specs=model.specs())
     batch = input_specs(cfg, shape)
+    rows = shape.global_batch
 
     if shape.kind == "train":
+        if mesh is None:
+            state = opt.abstract_state(params)
+        else:  # ZeRO: the moments are sharded like the parameters
+            specs = model.serving_specs()
+            state = opt.abstract_state(params, partition.train_shardings(specs, mesh))
+            params = partition.shard_params(params, specs, mesh)
+            ctx = dataclasses.replace(ctx, mesh=mesh)
         step = make_train_step(model, ctx, TrainConfig(remat=True, microbatches=microbatches))
-        return step, (params, opt.abstract_state(params), batch)
+        return step, (params, state, batch)
+
+    if mesh is None:
+        if prepared and mode != "exact":
+            params = prepare_params(params, ctx.policy, mode, specs=model.specs())
+    else:  # the batch rows over data where they divide
+        shards = mesh.size("data") if rows % mesh.size("data") == 0 else 1
+        rows //= shards
+        c = mesh.coord("data") if shards > 1 else 0
+        batch = {k: v[c * rows:(c + 1) * rows] for k, v in batch.items()}
+        params = _place(model, params, ctx, mode, prepared, mesh)
+        ctx = dataclasses.replace(ctx, mesh=mesh, batch_shards=shards, param_specs=(
+            partition.prepared_shardings(params, model.serving_specs(), mesh)))
 
     if shape.kind == "prefill":
         def prefill(params, batch):
@@ -97,7 +174,7 @@ def build_cell(arch: str, shape_name: str, mode: str = "exact", attn: str = "xla
         return prefill, (params, batch)
 
     # decode: one token against a seq_len cache
-    cache = model.make_cache(shape.global_batch, shape.seq_len, torch.float32, device="meta")
+    cache = model.make_cache(rows, shape.seq_len, torch.float32, device="meta", mesh=mesh)
 
     def decode(params, tokens, cache):
         return model.decode_step(params, tokens, cache, ctx)
@@ -125,12 +202,16 @@ def record_costs(rec: Dict, costs: cost_analysis.Costs) -> Dict:
     return rec
 
 
+def _refuse_mesh(mesh_kind: str) -> str:
+    return (f"mesh {mesh_kind!r}: the multi-pod mesh's FSDP over (pod, data) is ROADMAP "
+            f"Queue 1 item 3; --mesh takes {MESHES}")
+
+
 def run_cell(arch: str, shape_name: str, mesh_kind: str = "none", mode: str = "exact",
              out_dir: Optional[str] = None, tag: str = "", attn: str = "xla",
              microbatches: int = 1, prepared: bool = False) -> Dict:
     if mesh_kind not in MESHES:
-        raise ValueError(f"mesh {mesh_kind!r} waits for a meshed dry run (ROADMAP Queue 1: "
-                         f"dryrun --mesh, real collectives in topcolls); --mesh takes {MESHES}")
+        raise ValueError(_refuse_mesh(mesh_kind))
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     ok, why = shape_applicable(cfg, shape)
@@ -144,12 +225,15 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "none", mode: str = "e
         rec.update(status="skip", reason=why)
         return _emit(rec, out_dir)
 
+    if mesh_kind == "single":
+        rec.update(mesh_shape=dict(zip(("data", "model"), PRODUCTION_SHAPE)), rank=0)
     t0 = time.time()
     try:
-        step, args = build_cell(arch, shape_name, mode, attn=attn, microbatches=microbatches,
-                                prepared=prepared)
-        an, _ = cost_analysis.analyze(step, *args)
-        del step, args
+        with fake_mesh() if mesh_kind == "single" else contextlib.nullcontext() as mesh:
+            step, args = build_cell(arch, shape_name, mode, attn=attn,
+                                    microbatches=microbatches, prepared=prepared, mesh=mesh)
+            an, _ = cost_analysis.analyze(step, *args)
+            del step, args
         t_run = time.time() - t0
         costs = an.costs()
         out_dir = out_dir or ARTIFACTS
@@ -162,9 +246,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "none", mode: str = "e
         record_costs(rec, costs)
         cost_analysis.save_trace(os.path.join(ops_dir, stem(rec) + ".jsonl.gz"), an.records,
                                  header=dict(cell=stem(rec), memory=mem))
-        print(f"[ok] {arch} x {shape_name} ({mode}{'/' + tag if tag else ''}): {t_run:.0f}s "
-              f"flops {costs.dot_flops:.3e} hbm {costs.hbm_bytes / 1e9:.2f} GB "
-              f"fits one card: {rec['fits_one_card']}")
+        print(f"[ok] {arch} x {shape_name} x {mesh_kind} ({mode}{'/' + tag if tag else ''}): "
+              f"{t_run:.0f}s flops {costs.dot_flops:.3e} hbm {costs.hbm_bytes / 1e9:.2f} GB "
+              f"coll {costs.collective_bytes / 1e9:.3f} GB fits one card: "
+              f"{rec['fits_one_card']}")
     except Exception as e:  # noqa: BLE001 — record the failure, keep the sweep going
         rec.update(status="fail", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-2000:])
@@ -185,7 +270,8 @@ def main(argv=None):
     ap.add_argument("--arch", choices=sorted(ARCHS), default=None)
     ap.add_argument("--shape", choices=[s.name for s in ALL_SHAPES], default=None)
     ap.add_argument("--mesh", default="none",
-                    help=f"{MESHES}: a meshed dry run is ROADMAP Queue 1")
+                    help=f"{MESHES}: none, one card; single, rank 0 of the 16x16 (data, model) "
+                         "production mesh")
     ap.add_argument("--mode", choices=MODES, default="exact")
     ap.add_argument("--tag", default="", help="artifact suffix for perf experiments")
     ap.add_argument("--attn", choices=["xla", "flash"], default="xla")
@@ -198,8 +284,7 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if args.mesh not in MESHES:
-        ap.error(f"--mesh {args.mesh!r} waits for a meshed dry run (ROADMAP Queue 1); "
-                 f"--mesh takes {MESHES}")
+        ap.error(_refuse_mesh(args.mesh))
     archs = sorted(ARCHS) if args.arch is None else [args.arch]
     shapes = [s.name for s in ALL_SHAPES] if args.shape is None else [args.shape]
     if not args.all and args.arch is None and args.shape is None:

@@ -18,7 +18,14 @@ exposes remat and padding. :func:`measured_share` is MODEL_FLOPS over a
 measured step time and the peak of the mode's dot kind: the share of the
 card's dot rate the step turns into useful work.
 
+A meshed dry run's records (``--mesh single``) are rank 0's of the 256
+ranks of the 16x16 mesh: their terms are that rank's, and ``flops_global``
+counts every rank as rank 0. ``--rank-table`` renders them as one row an
+arch, a cell a shape (every mode's): rank 0's FLOPs, HBM bytes, collective
+bytes by kind, arguments plus peak GiB, and whether its shard fits one card.
+
 Usage: python -m repro_torch.launch.roofline [--dir artifacts/dryrun_torch] [--mode kernel]
+       python -m repro_torch.launch.roofline --rank-table --mesh single [--dir ...]
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ from repro_torch.models import get_model
 # kernel on the int8 tensor cores (FxP8 banks), the exact and carmen modes'
 # f32 products on the CUDA cores (TF32 off)
 DOT_KIND = {"kernel": "int8", "int8": "int8", "exact": "f32", "carmen": "f32"}
-CHIPS = {"none": 1}
+CHIPS = {"none": 1, "single": 256}
 
 
 def routed_expert_params(cfg) -> int:
@@ -159,6 +166,38 @@ def render(recs: List[Dict]) -> str:
     return hdr + "\n".join(rows) + "\n"
 
 
+def _rank_cell(r: Dict) -> str:
+    """One shape's cell of :func:`render_rank_table`."""
+    if r["status"] == "skip":
+        return "skip"
+    if r["status"] != "ok":
+        return f"FAIL: {r.get('error', '')[:30]}"
+    kinds = r["coll_by_kind"]
+    coll = " + ".join(f"{k[4:] if k.startswith('all-') else k} {v / 1e9:.3g}"
+                      for k, v in sorted(kinds.items())) or "0"
+    mem = r["memory"]
+    gib = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]) / 2**30
+    fits = "fits" if r["fits_one_card"] else "no"
+    return (f"{r['flops_dev'] / 1e12:.4g} TF, {r['hbm_bytes_dev'] / 1e9:.4g} GB, "
+            f"coll {coll} GB, {gib:.4g} GiB {fits}")
+
+
+def render_rank_table(recs: List[Dict]) -> str:
+    """The meshed dry run's rank-0 table: one row an arch, one column a
+    shape, each mode's cell in it (``_rank_cell``: FLOPs, HBM bytes,
+    collective bytes by kind (reduce = all-reduce, gather = all-gather),
+    arguments plus peak GiB, fits one card)."""
+    shapes = list(SHAPES)
+    cells: Dict = {}
+    for r in recs:
+        cells.setdefault(r["arch"], {}).setdefault(r["shape"], []).append(
+            f"{r['mode']}: {_rank_cell(r)}")
+    hdr = "| arch | " + " | ".join(shapes) + " |\n" + "|---|" + "---|" * len(shapes) + "\n"
+    rows = [f"| {arch} | " + " | ".join("; ".join(c.get(s, ["—"])) for s in shapes) + " |"
+            for arch, c in sorted(cells.items())]
+    return hdr + "\n".join(rows) + "\n"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     default_dir = os.path.join(os.path.dirname(__file__), "..", "..", "..", "artifacts",
@@ -168,9 +207,16 @@ def main(argv=None):
     ap.add_argument("--mode", default="exact")
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--rank-table", action="store_true",
+                    help="the meshed records' rank-0 table, every mode (render_rank_table)")
     args = ap.parse_args(argv)
-    recs = load_records(args.dir, args.mesh, args.mode, args.tag)
-    md = render(recs)
+    if args.rank_table:
+        recs = [r for mode in ("exact", "carmen", "int8", "kernel")
+                for tag in ("", "prepared")
+                for r in load_records(args.dir, args.mesh or "single", mode, tag)]
+        md = render_rank_table(recs)
+    else:
+        md = render(load_records(args.dir, args.mesh, args.mode, args.tag))
     print(md)
     if args.out:
         with open(args.out, "w") as f:

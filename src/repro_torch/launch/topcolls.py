@@ -5,7 +5,9 @@
         artifacts/dryrun_torch/ops/<cell>.jsonl.gz [N]
 
 Eager torch dispatches every loop iteration's ops, so each collective in
-the trace is one that ran: no trip weighting is needed.
+the trace is one that ran: no trip weighting is needed. A meshed cell's
+trace (``dryrun --mesh single``) holds rank 0's collectives, by the
+reference's kinds, as result bytes.
 """
 import sys
 

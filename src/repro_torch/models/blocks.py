@@ -10,8 +10,9 @@ router and expert products are plain f32 einsums, as in the reference; its
 gate activation is the engine's standalone multi-AF block.
 
 Under tensor parallelism (``ctx.mesh``) a rank holds its shard of every
-weight: attention runs on its local q and kv heads (the cache-attention
-kernels plan their key splits from the global counts,
+weight: attention runs on its local q and kv heads, or, where the kv heads
+do not split over the model axis, on its q heads against every kv head
+(the cache-attention kernels plan their key splits from the global counts,
 ``ctx.attention_plan``), ``wo`` and ``down`` are row-parallel products
 (``k_sharded``), and the MoE keeps the experts the rank holds (EP): the
 router runs whole on every rank (its expert columns all-gathered first), the
@@ -35,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import EngineContext
 from repro_torch.core.normalization import layernorm, nonparametric_ln, rmsnorm
 from repro_torch.kernels.decode_attention import gqa_decode_attention, gqa_decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import kv_rows
 from repro_torch.kernels.flash_attention import flash_attention
 
 from repro_torch.sharding.collectives import all_gather, all_reduce, enter_model
@@ -143,7 +145,14 @@ def attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name, ca
     """Returns (out, new_cache); ``cache`` = dict(k, v, index) of one layer.
     The k/v rows are written in place; the new index is returned. Without a
     cache (``forward``: ``positions`` is ``arange(S)``, so the flash kernel's
-    index mask is the positions' mask) the new cache is None."""
+    index mask is the positions' mask) the new cache is None.
+
+    Where the model axis splits the q heads but not the kv heads (replicated
+    kv heads: the rules' divisibility fallback keeps ``wk``/``wv`` whole), a
+    rank computes K and V for every kv head and its q heads read kv head
+    (global q head) // (H / KV) of them, in place (``head_offset``,
+    ``groups``); under autograd K and V enter the rank's heads through
+    ``enter_model``."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     h_loc, kv_loc = p["wq"].shape[-2], p["wk"].shape[-2]  # this rank's heads
@@ -157,16 +166,19 @@ def attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name, ca
         k = rmsnorm(k, enter_model(p["k_norm"], ctx.mesh) if kv_split else p["k_norm"])
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    heads = {}  # the rank's q heads on the whole kv heads
+    if q_split and not kv_split:
+        k, v = enter_model(k, ctx.mesh), enter_model(v, ctx.mesh)
+        heads = dict(head_offset=ctx.mesh.coord("model") * h_loc,
+                     groups=cfg.num_heads // cfg.num_kv_heads)
 
     if cache is None:
         if ctx.attn_impl == "flash":
-            # the kernel resolves kv head = h // groups itself: K/V unrepeated
-            out = flash_attention(q, k, v, causal=causal)
+            # the kernel resolves each q head's kv head itself: K/V unrepeated
+            out = flash_attention(q, k, v, causal=causal, **heads)
         else:
-            g = h_loc // kv_loc
-            kr = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
-            vr = torch.repeat_interleave(v, g, dim=2) if g > 1 else v
-            out = _sdpa_chunked(q, kr, vr, positions, positions, causal)
+            out = _sdpa_chunked(q, kv_rows(k, h_loc, **heads), kv_rows(v, h_loc, **heads),
+                                positions, positions, causal)
         new_cache = None
     else:
         idx = cache["index"]
@@ -176,9 +188,9 @@ def attention(p, x, cfg: ModelConfig, ctx: EngineContext, *, positions, name, ca
         if ctx.attn_impl == "decode_kernel":
             out = gqa_decode_attention(
                 q, ck, cv, positions, scale=scale,
-                plan_dims=ctx.attention_plan(b, cfg.num_heads, cfg.num_kv_heads))
+                plan_dims=ctx.attention_plan(b, cfg.num_heads, cfg.num_kv_heads), **heads)
         else:
-            out = gqa_decode_attention_ref(q, ck, cv, positions, scale=scale)
+            out = gqa_decode_attention_ref(q, ck, cv, positions, scale=scale, **heads)
         new_cache = {"k": ck, "v": cv, "index": idx + s}
 
     out = out.reshape(b, s, h_loc * hd)

@@ -96,9 +96,10 @@ the row into its slot; a burst runs on the local slots and its tokens,
 margins and flags are all-gathered over ``data`` before the host reads
 them, so every rank's scheduler stays in lockstep. ``gloo`` collectives
 cannot be captured in a CUDA graph, so a meshed server runs uncaptured
-(``capture=True`` with a mesh raises). Refused under a mesh, each naming its
-ROADMAP item: q and kv heads that split differently over the model axis,
-and the streaming frontend.
+(``capture=True`` with a mesh raises). Where the model axis splits the q
+heads but not the kv heads, every rank holds the whole kv heads (their
+weights and cache rows) and its q heads read them in place. Refused under a
+mesh, naming its ROADMAP item: the streaming frontend.
 """
 from __future__ import annotations
 
@@ -1436,17 +1437,12 @@ class BatchedServer:
 
 def _check_mesh(cfg, mesh, device, capture: bool) -> None:
     """Refuse, naming its ROADMAP item, what mesh serving does not cover."""
+    del cfg, mesh
     if capture and device.type == "cuda":
         raise ValueError(
             "capture=True with a mesh: gloo collectives cannot be captured in a CUDA graph; "
             "pass capture=False (captured NCCL collectives need a machine with more than "
             "one card, ROADMAP Queue 1)")
-    m = mesh.size("model")
-    if not cfg.mla and m > 1 and (cfg.num_heads % m == 0) != (cfg.num_kv_heads % m == 0):
-        raise NotImplementedError(
-            f"{cfg.num_heads} q heads and {cfg.num_kv_heads} kv heads split differently over "
-            f"a model axis of {m}: a rank would need kv heads it does not hold (ROADMAP "
-            "Queue 1: replicated kv heads)")
 
 
 def _serving_shardings(server, mesh):
@@ -1454,11 +1450,16 @@ def _serving_shardings(server, mesh):
     (``serving_shardings`` on the whole cache's shapes) over the port's
     serving specs (``partition.serving_specs``), but an MLA latent cache
     whole on every rank of the model axis (the port's MLA runs its local
-    heads against the whole latent). The scan families' caches are
-    described as the port stores them, from their shapes: a dim is over
-    ``data`` where a rank holds fewer slots, over ``model`` where it holds
-    fewer heads (the SSM state's and the attention caches' heads; a conv
-    window is whole on every rank)."""
+    heads against the whole latent), and so a GQA cache whose kv heads do
+    not divide the model axis: the reference's rules put its head_dim over
+    ``model`` there (the earliest other dim that divides); the port keeps
+    the whole kv heads on every model rank, with the slots over ``data``, a
+    port choice that moves no bits (each rank's q heads read their kv heads
+    in place) and saves a gather of the cache rows a step. The scan
+    families' caches are described as the port stores them, from their
+    shapes: a dim is over ``data`` where a rank holds fewer slots, over
+    ``model`` where it holds fewer heads (the SSM state's and the attention
+    caches' heads; a conv window is whole on every rank)."""
     from repro_torch.sharding import partition
 
     cfg, model = server.model.cfg, server.model
@@ -1470,10 +1471,12 @@ def _serving_shardings(server, mesh):
                                      specs=model.serving_specs(), cfg=cfg,
                                      max_len=server.max_len)
 
+    whole_kv = cfg.mla or cfg.num_kv_heads % mesh.size("model") != 0
+
     def cache_entry(spec):
         if isinstance(spec, dict):
             return {k: cache_entry(v) for k, v in spec.items()}
-        if cfg.mla:
+        if whole_kv:
             spec = tuple(None if e == "model" else e for e in spec)
             while spec and spec[-1] is None:
                 spec = spec[:-1]

@@ -232,16 +232,16 @@ def gather_data(tree, specs, mesh, lead: int = 0):
     ``lead`` stacked axes indexed away) with every leaf whose partition spec
     (``specs``, the ``partition.prepared_shardings`` tree) has a ``data``
     entry all-gathered over the data group along that dim. A prepared
-    integer bank is K-major again after the gather (its contraction axes: all
-    but the last for ``wo``, the first otherwise, as ``prepare_params`` lays
-    them out). An int8 bank's per-channel scale is gathered with it where its
-    channel axis is the sharded one."""
+    integer bank is K-major again after the gather, its contraction and
+    stacked axes those of the rank's shard (:func:`_k_major_axes`). An int8
+    bank's per-channel scale is gathered with it where its channel axis is
+    the sharded one."""
     from repro_torch.core.backends.base import PreparedWeight
 
     if mesh is None or mesh.size("data") == 1:
         return tree
 
-    def one(leaf, spec, key):
+    def one(leaf, spec):
         data = leaf.data if isinstance(leaf, PreparedWeight) else leaf
         d = _data_dim((spec.data if isinstance(spec, PreparedWeight) else spec)[lead:])
         if d is None:
@@ -249,12 +249,12 @@ def gather_data(tree, specs, mesh, lead: int = 0):
         full = all_gather(data, mesh, "data", d)
         if not isinstance(leaf, PreparedWeight):
             return full
-        if not full.dtype.is_floating_point:
+        if not full.dtype.is_floating_point:  # laid out as the rank's shard is
             from repro_torch.kernels.int_dot import to_k_major
 
-            k_axes = full.ndim - 1 if key == "wo" else 1
-            k = math.prod(full.shape[:k_axes])
-            full = to_k_major(full.reshape(k, -1)).reshape(full.shape)
+            stacked, end = _k_major_axes(data)
+            k = math.prod(full.shape[stacked:end])
+            full = to_k_major(full.reshape(*full.shape[:stacked], k, -1)).reshape(full.shape)
         scale = leaf.scale
         if scale is not None:
             ds = _data_dim(spec.scale[lead:])
@@ -262,9 +262,24 @@ def gather_data(tree, specs, mesh, lead: int = 0):
                 scale = all_gather(scale, mesh, "data", ds)
         return PreparedWeight(full, leaf.backend, leaf.point, scale, leaf.meta)
 
-    def walk(node, spec, key):
+    def walk(node, spec):
         if isinstance(node, dict):
-            return {k: walk(v, spec[k], k) for k, v in node.items()}
-        return one(node, spec, key)
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        return one(node, spec)
 
-    return walk(tree, specs, None)
+    return walk(tree, specs)
+
+
+def _k_major_axes(t: torch.Tensor):
+    """``(first, end)``: the contraction axes ``first .. end - 1`` of a
+    K-major integer bank (as ``prepare_params`` and
+    ``partition.shard_params`` lay one out), the run of axes that ends at
+    its stride-1 axis, each axis's stride the span of the next. The axes
+    before them are stacked (a hybrid group's Mamba2 layers), a size-1 axis
+    among them too."""
+    st, sh = t.stride(), t.shape
+    last = max(i for i in range(t.ndim - 1) if st[i] == 1 and sh[i] > 1)
+    first = last
+    while first > 0 and sh[first - 1] > 1 and st[first - 1] == st[first] * sh[first]:
+        first -= 1
+    return first, last + 1

@@ -5,6 +5,7 @@ steps, remat pairs, checkpoints and restarts on a mesh and return what
 they make gathered whole. The spawned ranks (``launch.mesh.spawn``) import
 this module by name, so it imports no JAX; the tests run the same jobs
 in-process for the port's ``mesh=None`` side."""
+import dataclasses
 import json
 
 import numpy as np
@@ -23,6 +24,14 @@ def requests(vocab: int, n: int = 4, *, max_new: int = 6, temperature: float = 0
     rng = np.random.default_rng(0)
     return [Request(i, rng.integers(0, vocab, 3 + i).astype(np.int32), max_new,
                     temperature=temperature, seed=10 + i) for i in range(n)]
+
+
+def config_of(job: dict):
+    """The job's reduced ``arch``, with ``kv_heads`` kv heads if given."""
+    cfg = reduced(get_config(job["arch"]))
+    if "kv_heads" in job:
+        cfg = dataclasses.replace(cfg, num_kv_heads=job["kv_heads"])
+    return cfg
 
 
 def ctx_of(mode: str, fxp16: bool = False) -> EngineContext:
@@ -52,9 +61,10 @@ def serve(job: dict, mesh=None) -> dict:
     ``bank`` ("pinned" or "spec": a ``mode`` FxP16 ladder pinned at
     accurate, or greedy speculation with draft_len 3), ``fxp16``,
     ``per_call`` (serve the raw weights), ``repeat`` (serve the requests
-    again on a second server: its streams are ``again``). Returns the
-    streams, margins and, on a mesh, the placement and collective record."""
-    model = get_model(reduced(get_config(job["arch"])))
+    again on a second server: its streams are ``again``), ``kv_heads``
+    (``config_of``). Returns the streams, margins and, on a mesh, the
+    placement and collective record."""
+    model = get_model(config_of(job))
     params = model.load_numpy(job["params"], "cpu")
     ctx = ctx_of(job["mode"], job.get("fxp16", False))
     kw = {}
@@ -225,14 +235,12 @@ def train_parts(job: dict, mesh=None):
     """The model, the rank's parameters (the job's numpy tree, sharded on a
     mesh), the engine context and the train config of a training job:
     ``arch`` (reduced), ``mode``, ``params``, optional ``remat``,
-    ``microbatches``."""
-    import dataclasses
-
+    ``microbatches``, ``kv_heads``."""
     from repro_torch.launch.train import engine_ctx
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_loop import TrainConfig
 
-    model = get_model(reduced(get_config(job["arch"])))
+    model = get_model(config_of(job))
     params = model.load_numpy(job["params"], "cpu", mesh=mesh)
     ctx = dataclasses.replace(engine_ctx(job["mode"]), mesh=mesh)
     tcfg = TrainConfig(optimizer=opt.AdamWConfig(**OCFG), remat=job.get("remat", False),
@@ -261,15 +269,18 @@ def _batch(job, step: int = 0):
     return {k: torch.from_numpy(v) for k, v in job["batches"][step].items()}
 
 
-def _drop_entries():
+def _drop_entries(which: str = "all"):
     """Every model module's ``enter_model`` made the plain identity (its
-    gradient no longer summed over the model axis); returns the undo."""
+    gradient no longer summed over the model axis), or, ``which="kv"``,
+    only where whole K and V (4-d) enter a rank's q heads in
+    ``blocks.attention``; returns the undo."""
     from repro_torch.models import blocks, encdec, mamba2, mla, transformer
 
-    mods = (blocks, encdec, mamba2, mla, transformer)
+    mods = (blocks, encdec, mamba2, mla, transformer) if which == "all" else (blocks,)
     saved = [m.enter_model for m in mods]
-    for m in mods:
-        m.enter_model = lambda t, mesh: t
+    for m, f in zip(mods, saved):
+        m.enter_model = ((lambda t, mesh: t) if which == "all" else
+                         (lambda t, mesh, f=f: t if t.ndim == 4 else f(t, mesh)))
 
     def undo():
         for m, f in zip(mods, saved):
@@ -283,12 +294,14 @@ def train_step(job: dict, mesh=None) -> dict:
     numpy ``tokens``, ``targets``): the loss, the gradient norm and,
     gathered whole, the gradients (``make_grad_fn``), the updated parameters
     and the moments (``apply_updates`` on those gradients: the train step).
-    ``drop_entries``: without the model's entry ops."""
+    ``drop_entries``: without the model's entry ops (``"kv"``: without
+    K's and V's)."""
     from repro_torch.train import optimizer as opt
     from repro_torch.train._tree import leaves_like
     from repro_torch.train.train_loop import make_grad_fn
 
-    undo = _drop_entries() if job.get("drop_entries") else None
+    drop = job.get("drop_entries")
+    undo = _drop_entries("kv" if drop == "kv" else "all") if drop else None
     try:
         model, params, ctx, tcfg = train_parts(job, mesh)
         grads_of, sh = make_grad_fn(model, ctx, tcfg)
@@ -452,9 +465,31 @@ def int8_ties(job: dict, mesh) -> dict:
             "dw": _numpy(gather_tensor(ws.grad, ("model",), mesh))}
 
 
+def forward(job: dict, mesh=None) -> dict:
+    """The cache-free ``forward`` logits of the job's ``tokens`` (numpy) in
+    its ``mode`` (prepared outside exact) with ``attn`` (``"flash"`` or
+    ``"xla"``), on ``mesh``'s shards of the job's weights."""
+    from repro_torch.core import prepare_params
+    from repro_torch.sharding.partition import prepared_shardings, shard_params
+
+    model = get_model(config_of(job))
+    params = model.load_numpy(job["params"], "cpu")
+    ctx = dataclasses.replace(ctx_of(job["mode"]), attn_impl=job["attn"])
+    if mesh is not None:
+        params = shard_params(params, model.serving_specs(), mesh)
+    if job["mode"] != "exact":
+        params = prepare_params(params, ctx.policy, job["mode"], specs=model.specs())
+    if mesh is not None:
+        ctx = dataclasses.replace(ctx, mesh=mesh, param_specs=prepared_shardings(
+            params, model.serving_specs(), mesh))
+    with torch.no_grad():
+        logits, _ = model.forward(params, {"tokens": torch.from_numpy(job["tokens"])}, ctx)
+    return {"logits": _numpy(logits)}
+
+
 TRAIN_KINDS = {"step": train_step, "steps": run_steps, "remat": remat_pair, "save": save_after,
                "restore": restore_on, "restart": restart, "lb_loss": lb_loss,
-               "int8_ties": int8_ties}
+               "int8_ties": int8_ties, "serve": serve, "forward": forward}
 
 
 def train_jobs(rank: int, world: int, jobs):

@@ -42,10 +42,14 @@ def test_failed_phase_prints_where_and_reraises(smoke, capsys):
 
 
 def test_main_refuses_without_a_card(smoke, capsys):
+    """Without a card the first phase fails: one ``failed_phase`` line on
+    stdout, no result, and the error raised (a non-zero exit)."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
-    assert smoke.main() != 0
-    assert capsys.readouterr().out == ""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        smoke.main()
+    line = json.loads(capsys.readouterr().out.strip())
+    assert line == {"failed_phase": "setup", "error": "RuntimeError: no CUDA device available"}
 
 
 def test_arch_configs_keep_stock_widths_and_name_their_cuts(smoke):

@@ -10,8 +10,9 @@ inputs they trace, against the reference, on the CPU.
   ``chip_smoke.launches_per_forward`` says, by instantiation, for every arch
   at reduced widths.
 * One full-width cell runs and is recorded; the skip rules, the refused
-  mesh, the roofline's terms and render, ``measured_share``, ``reanalyze``
-  and ``topcolls`` on its trace.
+  multi-pod mesh (the meshed dry run: ``test_torch_dryrun_mesh.py``), the
+  roofline's terms and render, ``measured_share``, ``reanalyze`` and
+  ``topcolls`` on its trace.
 """
 import json
 import sys
@@ -167,9 +168,9 @@ def test_cell_records_with_the_reference_keys(cells):
     with open(out / (dryrun.stem(ok) + ".json")) as f:
         assert json.load(f) == ok
     with pytest.raises(ValueError, match="ROADMAP"):
-        dryrun.run_cell("olmo-1b", "decode_32k", mesh_kind="single")
+        dryrun.run_cell("olmo-1b", "decode_32k", mesh_kind="multi")
     with pytest.raises(SystemExit):
-        dryrun.main(["--arch", "olmo-1b", "--mesh", "single"])
+        dryrun.main(["--arch", "olmo-1b", "--mesh", "multi"])
 
 
 def test_roofline_terms_render_and_measured_share(cells):

@@ -184,11 +184,13 @@ def test_cli_mesh_streams_equal_streams_without(capfd):
 
 
 def test_refusals_name_their_roadmap_item(olmo):
-    """What mesh serving still refuses: capture with a mesh on the card, q
-    and kv heads that split differently over the model axis, and the
-    streaming frontend. (The scan families, per-call weights and the int8
-    mode serve on a mesh since kernel 6's split form:
-    ``test_torch_tp_scan.py``, ``test_torch_tp_int8.py``.)"""
+    """What mesh serving still refuses: capture with a mesh on the card and
+    the streaming frontend. (The scan families, per-call weights and the
+    int8 mode serve on a mesh since kernel 6's split form:
+    ``test_torch_tp_scan.py``, ``test_torch_tp_int8.py``; q and kv heads
+    that split differently over the model axis, the whole kv heads on every
+    rank, since replicated kv heads were ported:
+    ``test_torch_tp_kv_replicated.py``.)"""
     import dataclasses
 
     mesh = Mesh({"data": 1, "model": 2})
@@ -196,8 +198,7 @@ def test_refusals_name_their_roadmap_item(olmo):
     with pytest.raises(ValueError, match="capture"):
         _check_mesh(model.cfg, mesh, torch.device("cuda"), True)
     one_kv = dataclasses.replace(model.cfg, num_kv_heads=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: replicated kv heads"):
-        _check_mesh(one_kv, mesh, torch.device("cpu"), False)
+    assert _check_mesh(one_kv, mesh, torch.device("cpu"), False) is None
     from repro_torch.serve.frontend import ContinuousScheduler
 
     srv = _server(olmo[1], ONE)

@@ -14,14 +14,16 @@ ranks at the reduced configs and shapes of ``test_torch_train.py``.
   (``q_norm``/``k_norm``: whole weights acting on a rank's heads),
   qwen2.5-14b (q/k/v biases), llama4-maverick (a dense/MoE pair),
   internvl2-2b (the vision stub's embeddings, split by rows over
-  ``data``), yi-9b and seamless-m4t-large-v2 (encoder-decoder; against
-  ``mesh=None`` only). seamless's gradients are held to 2e-2 of a leaf's
-  largest: its decoder MLP is a ReLU, and a pre-activation within f32 ulps
-  of 0, moved by the mesh's sums, flips its unit's gradient (measured: one
-  of 1024 units of the first decoder layer, 1.2e-2). Its reference step is
-  not compared: the reference's pipeline makes its stub frames with
+  ``data``), yi-9b and seamless-m4t-large-v2 (encoder-decoder).
+  seamless's gradients are held to 2e-2 of a leaf's largest: its decoder
+  MLP is a ReLU, and a pre-activation within f32 ulps of 0, moved by the
+  mesh's sums, flips its unit's gradient (measured: one of 1024 units of
+  the first decoder layer, 1.2e-2); against the reference's step, the
+  same bar as the others. Its steps, meshed and not, take the
+  reference's stub frames (numpy): the reference's pipeline makes them with
   ``erfinv`` ulps apart from the port's, and the adaptive pooling's choice
-  turns those into other encoder inputs (0.038 at 0.02 frames).
+  turns those into other encoder inputs (0.038 at 0.02 frames), so on each
+  side's own frames the two steps could not be compared.
 
 Two spawns, each running all of its jobs: 2 ranks for (1, 2) and (2, 1),
 4 ranks for (2, 2).
@@ -44,13 +46,22 @@ OTHERS = ("zamba2-7b", "qwen3-8b", "qwen2.5-14b", "llama4-maverick-400b-a17b", "
           "yi-9b", "seamless-m4t-large-v2")
 # seamless's ReLU MLP: a flipped unit (module docstring)
 TOL = {"seamless-m4t-large-v2": dict(loss=1e-5, grad=2e-2)}
-# seamless's stub frames differ from the reference's (module docstring)
-WITH_REFERENCE = tuple(n for n in OTHERS if n != "seamless-m4t-large-v2")
+# the families whose steps take the reference's stub frames (module docstring)
+REFERENCE_FRAMES = ("seamless-m4t-large-v2",)
 
 
 @pytest.fixture(scope="module")
 def archs():
     return {a: Arch(a) for a in ("mamba2-780m",) + OTHERS}
+
+
+def _family_job(arch, name, **kw):
+    """An exact step's job; seamless's batch is the reference's (numpy)."""
+    job = _job(arch, name, "exact", **kw)
+    if name in REFERENCE_FRAMES:
+        jb, _ = arch.batches()
+        job["batches"] = [{k: np.array(v) for k, v in jb.items()}]
+    return job
 
 
 @pytest.fixture(scope="module")
@@ -64,7 +75,7 @@ def runs(archs):
                  _job(archs["mamba2-780m"], "mamba2-780m", mode, kind="step", mesh=shape)))
     for name in OTHERS:
         four.append(((name, "exact", (2, 2)),
-                     _job(archs[name], name, "exact", kind="step", mesh=(2, 2))))
+                     _family_job(archs[name], name, kind="step", mesh=(2, 2))))
     out = {}
     for world, jobs in ((2, two), (4, four)):
         per_rank = spawn(_tp_ranks.train_jobs, world, args=([j for _, j in jobs],), timeout=600)
@@ -101,13 +112,13 @@ def test_mamba2_meshed_step_matches_mesh_none_and_reference(archs, runs, mode):
 def test_family_meshed_step_matches_mesh_none(archs, runs, name):
     """One exact step on (2, 2) against the port's ``mesh=None`` step."""
     arch = archs[name]
-    base = _tp_ranks.train_step(_job(arch, name, "exact"))
+    base = _tp_ranks.train_step(_family_job(arch, name))
     full = _check_ranks(runs[(name, "exact", (2, 2))])
     tol = TOL.get(name, dict(loss=1e-5, grad=GRAD_TOL["exact"]))
     _close(full, base, tol, OCFG["lr"] / OCFG["warmup_steps"], moments=base["state"])
 
 
-@pytest.mark.parametrize("name", WITH_REFERENCE)
+@pytest.mark.parametrize("name", OTHERS)
 def test_family_meshed_step_matches_reference(archs, runs, name):
     """The same exact step on (2, 2) against the reference's unmeshed step:
     the parity that counts, since the reference's step is mesh-agnostic."""
